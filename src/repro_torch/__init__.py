@@ -1,0 +1,9 @@
+"""KLARAPTOR on PyTorch and CUDA for an NVIDIA H100.
+
+The port of the JAX package ``repro`` (which stays the reference), with the
+same layout: ``core`` (rational programs, fitting, the Hopper device model
+and performance model, generated drivers, the tuner), ``search`` (probe
+selection under a budget) and ``kernels`` (hand-written CUDA kernels, their
+plain PyTorch versions, and the tuned ops).  It imports neither ``jax`` nor
+``repro``.
+"""

@@ -1,0 +1,174 @@
+"""KLARAPTOR facade: build drivers (compile time) and evaluate them.
+
+``Klaraptor.build_driver`` runs the three compile-time steps of Section IV
+(collect -> fit -> codegen) for one kernel spec against a device oracle and
+returns a ready, registered ``DriverProgram``.
+
+``exhaustive_search`` is the paper's comparison baseline (Table I "Best
+Config." column): time *every* feasible configuration at the actual data
+size in one batched oracle pass and take the argmin.  ``selection_ratio``
+scores a driver the way Fig. 1 does: best_time / chosen_time (>= 0.85 is
+"good").
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .codegen import generate_driver_source
+from .collect import CollectedData, collect
+from .device_model import CudaEventTimer, DeviceModel, HardwareParams
+from .driver import DriverProgram, register_driver
+from .fitting import FitResult, fit_auto
+from .kernel_spec import CandidateTable, KernelSpec
+from .perf_model import LOW_LEVEL_METRICS
+from .rational import RationalFunction
+
+__all__ = ["BuildResult", "Klaraptor", "exhaustive_search",
+           "fitresult_from_json", "selection_ratio"]
+
+Dims = Mapping[str, int]
+
+
+@dataclass
+class BuildResult:
+    driver: DriverProgram
+    fits: dict[str, FitResult]
+    collected: CollectedData
+    build_wall_seconds: float
+    probe_device_seconds: float
+
+    def fit_report(self) -> str:
+        lines = [f"driver build for {self.driver.kernel}:"]
+        for m, f in self.fits.items():
+            lines.append(
+                f"  {m}: deg(num)={f.num_bounds} deg(den)={f.den_bounds} "
+                f"params={f.n_params} rel_err={f.rel_error:.3f} "
+                f"cv_err={f.cv_error:.3f}")
+        lines.append(
+            f"  probes={self.collected.n_probe_executions} "
+            f"device_s={self.probe_device_seconds:.4f} "
+            f"wall_s={self.build_wall_seconds:.2f}")
+        return "\n".join(lines)
+
+
+def fitresult_from_json(raw: Mapping) -> dict[str, FitResult]:
+    """Fits in the JSON form the JAX package stores them in (its driver
+    cache's ``fits`` field) as the port's ``FitResult``s."""
+    return {m: FitResult(
+        function=RationalFunction.from_json(f["function"]),
+        rel_error=f["rel_error"],
+        cv_error=f["cv_error"],
+        num_bounds=tuple(f["num_bounds"]),
+        den_bounds=tuple(f["den_bounds"]),
+        n_params=f["n_params"],
+        condition_number=f["condition_number"],
+    ) for m, f in raw.items()}
+
+
+class Klaraptor:
+    """The tool: compile-time driver construction + runtime selection.
+
+    With no oracle it times the port's kernels on the card
+    (``CudaEventTimer``) and raises if there is none; on the CPU a caller
+    passes an oracle (``HopperModel``) and ``device="cpu"`` explicitly.
+    """
+
+    def __init__(self, oracle: DeviceModel | None = None, *,
+                 device: str | torch.device = "cuda",
+                 hw: HardwareParams | None = None):
+        self.hw = hw or (oracle.hw if oracle is not None
+                         else HardwareParams.from_device(device))
+        self.oracle = oracle if oracle is not None else \
+            CudaEventTimer(self.hw, device=device)
+
+    def build_driver(
+        self,
+        spec: KernelSpec,
+        probe_data: Sequence[Dims] | None = None,
+        repeats: int = 3,
+        max_configs_per_size: int = 32,
+        seed: int = 0,
+        register: bool = True,
+        max_num_degree: int = 2,
+        max_den_degree: int = 2,
+        strategy=None,
+        budget=None,
+    ) -> BuildResult:
+        """Collect -> fit -> codegen one driver.
+
+        There is no artifact cache yet: every call probes the oracle anew.
+        """
+        t0 = time.perf_counter()
+        data = collect(spec, self.oracle, probe_data=probe_data, hw=self.hw,
+                       repeats=repeats,
+                       max_configs_per_size=max_configs_per_size, seed=seed,
+                       strategy=strategy, budget=budget)
+        fits: dict[str, FitResult] = {}
+        for metric in LOW_LEVEL_METRICS:
+            vars_ = spec.metric_fit_vars(metric)
+            X, y = data.matrix(metric, vars_)
+            fits[metric] = fit_auto(X, y, vars_,
+                                    max_num_degree=max_num_degree,
+                                    max_den_degree=max_den_degree)
+        source = generate_driver_source(
+            spec, {m: f.function for m, f in fits.items()}, self.hw)
+        driver = DriverProgram.from_source(spec.name, source, self.hw)
+        if register:
+            register_driver(driver)
+        return BuildResult(
+            driver=driver,
+            fits=fits,
+            collected=data,
+            build_wall_seconds=time.perf_counter() - t0,
+            probe_device_seconds=data.probe_device_seconds,
+        )
+
+
+def exhaustive_search(
+    spec: KernelSpec,
+    device: DeviceModel,
+    D: Dims,
+    hw: HardwareParams,
+) -> tuple[dict[str, int], float, int, float]:
+    """Ground-truth argmin over every feasible config at data size D.
+
+    One batched oracle evaluation over the whole candidate table.  Returns
+    (best_P, best_time, n_evaluations, total_device_seconds).
+    """
+    table = spec.candidates(D, hw)
+    if not len(table):
+        raise ValueError(f"no feasible configuration for {spec.name} at {D}")
+    times = device.true_time_batch(spec.traffic_table(D, table, hw))
+    best = int(np.argmin(times))
+    return (table.row(best), float(times[best]), len(table),
+            float(np.sum(times)))
+
+
+def selection_ratio(
+    spec: KernelSpec,
+    device: DeviceModel,
+    driver: DriverProgram,
+    D: Dims,
+    hw: HardwareParams,
+) -> dict:
+    """Fig. 1 metric: best_time / chosen_time at data size D (1.0 = optimal)."""
+    chosen = driver.choose(D)
+    one = CandidateTable.from_rows(spec.program_params, [chosen])
+    t_chosen = float(device.true_time_batch(spec.traffic_table(D, one, hw))[0])
+    best_P, t_best, n, _ = exhaustive_search(spec, device, D, hw)
+    return {
+        "kernel": spec.name,
+        "D": dict(D),
+        "chosen": chosen,
+        "chosen_time_s": t_chosen,
+        "best": best_P,
+        "best_time_s": t_best,
+        "ratio": t_best / max(t_chosen, 1e-300),
+        "n_configs": n,
+    }

@@ -16,7 +16,8 @@ from .driver import (DriverProgram, choose_or_default, dkey, fit_tile,
                      register_driver, registry)
 from .fitting import FitResult, fit_auto, fit_polynomial, fit_rational
 from .kernel_spec import (CandidateTable, GridAxis, KernelSpec, Operand,
-                          SpecError, matmul_spec)
+                          SpecError, flash_attention_spec, flash_probe_data,
+                          matmul_spec)
 from .occupancy import cuda_occupancy_program
 from .perf_model import LOW_LEVEL_METRICS, build_time_program
 from .polynomial import Polynomial, design_matrix, monomial_exponents
@@ -37,7 +38,7 @@ __all__ = [
     "register_driver", "registry",
     "FitResult", "fit_auto", "fit_polynomial", "fit_rational",
     "CandidateTable", "GridAxis", "KernelSpec", "Operand", "SpecError",
-    "matmul_spec",
+    "flash_attention_spec", "flash_probe_data", "matmul_spec",
     "cuda_occupancy_program",
     "LOW_LEVEL_METRICS", "build_time_program",
     "Polynomial", "design_matrix", "monomial_exponents",

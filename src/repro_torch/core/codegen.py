@@ -175,7 +175,7 @@ def generate_driver_source(
         else f"    mask &= _row_mask({i}, {scalars}, cols)"
         for i, c in enumerate(spec.constraints)]
     for a in spec.grid:
-        if a.block is not None and isinstance(a.data, str):
+        if a.block is not None and isinstance(a.data, str) and not a.ragged:
             mask_srcs.append(f"    mask &= ({a.block} <= {a.data}) & "
                              f"({a.data} % {a.block} == 0)")
     mask_lines = "\n".join(mask_srcs)

@@ -29,11 +29,16 @@ roofline ratio::
     mem_time = total * t_mem / (t_mem + t_cmp)
     compute_time = total - mem_time
 
-The compute peak is that of the unit the kernel's arithmetic runs on: the
-port's matmul accumulates with FP32 FMAs on the CUDA cores whatever the
-input type, so its peak is ``peak_flops_f32``.  The split only labels the
-measured time: the perf model recombines the fitted parts, so what the
-rule decides is which of the two fits carries the measured variation.
+The compute peak is that of the unit the kernel's arithmetic runs on.
+Both of the port's kernels do their FLOPs as FP32 FMAs on the CUDA cores
+whatever the input type -- the matmul's micro-tile products, and flash
+attention's QK^T and PV products (its exp and tanh run on the special
+function units and are not counted as FLOPs) -- so the peak of every row is
+``peak_flops_f32``.  The bytes are the spec's operand traffic: for flash
+attention a Q tile and an output tile per CTA and a K and a V tile per loop
+iteration.  The split only labels the measured time: the perf model
+recombines the fitted parts, so what the rule decides is which of the two
+fits carries the measured variation.
 """
 
 from __future__ import annotations
@@ -226,7 +231,8 @@ class TrafficTable:
 def roofline_times(table: TrafficTable, hw: HardwareParams
                    ) -> tuple[np.ndarray, np.ndarray]:
     """(t_mem, t_cmp) per row: operand traffic over the memory rate and
-    FLOPs over the FP32 FMA peak -- the split rule's two parts."""
+    FLOPs over the FP32 FMA peak (the unit both port kernels compute on) --
+    the split rule's two parts."""
     mem_bytes = sum(op.bytes() for op in table.operands)
     t_mem = np.asarray(mem_bytes, dtype=np.float64) / hw.hbm_bw
     t_cmp = np.asarray(table.flops_total, dtype=np.float64) / \

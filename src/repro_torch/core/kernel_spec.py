@@ -24,8 +24,9 @@ Feasibility on Hopper (``feasible_mask``) replaces the TPU's VMEM and
 lane/sublane rules: staged shared memory per block within the opt-in
 limit, threads per CTA in [warp size, max threads per block], registers per
 thread within the per-thread limit and registers x threads within the SM's
-register file, tiles no larger than the data and dividing it (the kernels
-take no ragged edge), plus the spec's own granularity constraints.
+register file, tiles no larger than the data and dividing it along every
+axis whose kernel takes no ragged edge (a ``ragged`` axis is masked by the
+kernel, so any tile fits it), plus the spec's own granularity constraints.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Floor, Max, Min,
 
 __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
-    "matmul_spec", "substitute",
+    "flash_attention_spec", "flash_probe_data", "matmul_spec", "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -161,13 +162,16 @@ class GridAxis:
     """One grid dimension: extent = ceil(D[data] / P[block]) (or a literal).
 
     A ``sequential`` axis is not a grid dimension of the CUDA launch but
-    the loop every block runs inside itself.
+    the loop every block runs inside itself.  A ``ragged`` axis is one whose
+    kernel masks the last, partial block, so its tile need not divide the
+    data.
     """
 
     name: str
     data: str | int
     block: str | None = None
     sequential: bool = False
+    ragged: bool = False
 
     def extent_expr(self) -> Expr:
         total = var(self.data) if isinstance(self.data, str) \
@@ -184,6 +188,8 @@ class Operand:
     ``tile``: each entry is a program-param name, data-param name or literal.
     ``deps``: grid axis names the tile's position depends on.
     ``staged``: the tile is held in shared memory.
+    ``scratch``: the tile lives in shared memory only (counted in the stage
+    bytes, never read from or written to device memory).
     """
 
     name: str
@@ -192,6 +198,7 @@ class Operand:
     dtype_bytes: int = 2
     is_output: bool = False
     staged: bool = False
+    scratch: bool = False
 
 
 def _product(exprs: Sequence[Expr]) -> Expr:
@@ -227,7 +234,7 @@ class KernelSpec:
         """Shared-memory bytes per CTA: the staged tiles, one buffer each."""
         total: Expr = Const(0.0)
         for op in self.operands:
-            if not op.staged:
+            if not (op.staged or op.scratch):
                 continue
             tile = _product([var(t) if isinstance(t, str) else Const(float(t))
                              for t in op.tile])
@@ -296,6 +303,8 @@ class KernelSpec:
                  for a in self.grid if a.sequential}
         operands = []
         for op in self.operands:
+            if op.scratch:
+                continue
             fetches = ctas.copy()
             if not op.is_output:
                 for d in op.deps:
@@ -358,7 +367,8 @@ class KernelSpec:
         mask &= threads * self.regs_per_thread <= hw.regs_per_sm
         mask &= self.regs_per_thread <= hw.max_regs_per_thread
         for a in self.grid:
-            if a.block is not None and isinstance(a.data, str):
+            if a.block is not None and isinstance(a.data, str) \
+                    and not a.ragged:
                 size = int(D[a.data])
                 mask &= (table[a.block] <= size) & (size % table[a.block] == 0)
         return mask
@@ -438,3 +448,78 @@ def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
             "ovh_step": ("bm", "bn", "bk"),
         },
     )
+
+
+# kernels/csrc/flash_attention.cu: a CTA of 4 * bq threads, each owning 4
+# query rows; __launch_bounds__ caps registers at 128 per thread for head
+# dims up to 128 (512 threads) and at 255 for head dim 256 (256 threads).
+FLASH_HEAD_DIMS = (64, 128, 256)
+FLASH_THREADS_PER_ROW = 4
+FLASH_PAD = 16      # f32 words of padding per row of the staged P tile
+
+
+def flash_regs_per_thread(head_dim: int) -> int:
+    """The register cap the flash kernel of ``head_dim`` is compiled to."""
+    if head_dim not in FLASH_HEAD_DIMS:
+        raise ValueError(f"no flash kernel for head dim {head_dim}; the "
+                         f"kernel is built for {FLASH_HEAD_DIMS}")
+    return 255 if head_dim == 256 else 128
+
+
+def flash_attention_spec(head_dim: int = 128, causal: bool = True,
+                         dtype_bytes: int = 2) -> KernelSpec:
+    """Flash attention forward: CTAs over (bh, q blocks), a loop over kv
+    blocks inside (online softmax).
+
+    D: bh = batch * q heads (flattened), sq, skv.  P: bq, bkv.  The CTA has
+    4 * bq threads.  Q (bq, d), K and V (bkv, d) tiles are staged in shared
+    memory, and so is the f32 probability tile (bq, bkv) with 16 words of
+    padding per row; m, l and the output accumulator are registers.  FLOPs
+    per (bh, sq, skv) point: 4 * d (QK^T and PV), halved when causal.  The
+    kernel masks ragged q and kv tails, so tiles need not divide sq or skv.
+    """
+    regs = flash_regs_per_thread(head_dim)
+    return KernelSpec(
+        name=f"flash_attn_d{head_dim}" + ("_causal" if causal else ""),
+        data_params=("bh", "sq", "skv"),
+        program_params=("bq", "bkv"),
+        grid=(GridAxis("b", "bh", None),
+              GridAxis("iq", "sq", "bq", ragged=True),
+              GridAxis("ikv", "skv", "bkv", sequential=True, ragged=True)),
+        operands=(
+            Operand("q", ("bq", head_dim), ("b", "iq"), dtype_bytes,
+                    staged=True),
+            Operand("k", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
+                    staged=True),
+            Operand("v", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
+                    staged=True),
+            Operand("out", ("bq", head_dim), ("b", "iq"), dtype_bytes,
+                    is_output=True),
+            Operand("p", ("bq", "bkv"), (), 4, scratch=True),
+            Operand("p_pad", ("bq", FLASH_PAD), (), 4, scratch=True),
+        ),
+        flops_per_point=4.0 * head_dim * (0.5 if causal else 1.0),
+        threads=var("bq") * const(float(FLASH_THREADS_PER_ROW)),
+        regs_per_thread=regs,
+        # 4 rows per thread and 16 threads across a row: bq % 16; the P tile
+        # row is split over 16 lanes, bkv % 32 keeps its padding aligned.
+        constraints=("bq % 16 == 0", "bkv % 32 == 0"),
+        param_candidates={
+            "bq": (16, 32, 64, 128),
+            "bkv": (32, 64, 128),
+        },
+        fit_vars={
+            "mem_step": ("bq", "bkv"),
+            "cmp_step": ("bq", "bkv"),
+            "ovh_step": ("bq", "bkv"),
+        },
+    )
+
+
+def flash_probe_data(bhs: Sequence[int] = (4, 16, 64),
+                     seqs: Sequence[int] = (256, 512, 1024)
+                     ) -> list[dict[str, int]]:
+    """Small probe sizes for a flash spec: few heads, sq = skv <= 1024
+    (self-attention, the shape every model layer launches)."""
+    return [{"bh": int(bh), "sq": int(s), "skv": int(s)}
+            for bh in bhs for s in seqs]

@@ -2,9 +2,11 @@
 
 Each op consults the driver registry *immediately before launch* (paper
 Section V-C: one IO call per kernel call, data parameters in, launch
-parameters out), snaps the tiles to the shape with ``fit_tile`` at the
-granularities the port's kernel spec states, and launches the CUDA kernel.
-With no driver registered the op uses the static default config.
+parameters out) and launches the CUDA kernel with the chosen tiles: the
+matmul snaps them to the shape with ``fit_tile`` at the granularities the
+port's kernel spec states; flash attention masks ragged tails in the kernel
+and takes them as chosen.  With no driver registered an op uses its static
+default config.
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
@@ -13,20 +15,28 @@ the kernel's plain PyTorch version.
 from __future__ import annotations
 
 import functools
+import re
 from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 
 from ..core.driver import choose_or_default, fit_tile
-from ..core.kernel_spec import matmul_spec
+from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
+                                matmul_spec)
+from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .matmul import matmul_kernel, matmul_plain
 
-__all__ = ["MATMUL_DEFAULT", "matmul", "matmul_kernel_name",
+__all__ = ["FLASH_DEFAULT", "MATMUL_DEFAULT", "flash_attention",
+           "flash_kernel_name", "matmul", "matmul_kernel_name",
            "probe_launcher"]
 
-# Static heuristic default (what a programmer would hard-code).
+# Static heuristic defaults (what a programmer would hard-code).  The flash
+# default fits the kernel at every head dim and dtype it is built for.
 MATMUL_DEFAULT = {"bm": 128, "bn": 128, "bk": 32}
+FLASH_DEFAULT = {"bq": 64, "bkv": 64}
+
+_FLASH_NAME = re.compile(r"^flash_attn_d(\d+)(_causal)?$")
 
 _MATMUL_KERNELS = {torch.bfloat16: "matmul_b16", torch.float32: "matmul_b32"}
 
@@ -91,15 +101,91 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     return out.reshape(*lead, n)
 
 
+def flash_kernel_name(head_dim: int, causal: bool) -> str:
+    """The kernel-spec name flash attention is tuned under (as the JAX
+    package names it: the dtype is not part of the name)."""
+    return f"flash_attn_d{head_dim}" + ("_causal" if causal else "")
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_tile_fits(head_dim: int, causal: bool, dtype_bytes: int,
+                     bq: int, bkv: int) -> bool:
+    """Whether tiles (bq, bkv) satisfy the flash spec of this dtype (a
+    driver tuned in bf16 may pick a tile whose f32 stage is too large)."""
+    spec = flash_attention_spec(head_dim, causal, dtype_bytes)
+    one = CandidateTable.from_rows(spec.program_params,
+                                   [{"bq": bq, "bkv": bkv}])
+    D = {"bh": 1, "sq": 1, "skv": 1}
+    return bool(spec.feasible_mask(D, one)[0]) and \
+        bq in spec.default_candidates("bq") and \
+        bkv in spec.default_candidates("bkv")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    num_q_heads: int, num_kv_heads: int, causal: bool = True,
+                    window: int | None = None, softcap: float | None = None,
+                    scale: float | None = None,
+                    q_chunk: int | None = None) -> torch.Tensor:
+    """(b*hq, sq, d) x (b*hkv, skv, d)^2 -> (b*hq, sq, d), tuned tiles.
+
+    CPU tensors take ``flash_attention_plain`` (streamed over ``q_chunk``
+    query rows, as the JAX path does).  CUDA tensors resolve (bq, bkv)
+    through ``choose_or_default`` at D = (bh, sq, skv) and launch the
+    kernel, which masks ragged tails, so no shape is padded; ``q_chunk``
+    does not apply to the kernel, which streams by construction.
+    """
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+            causal=causal, window=window, softcap=softcap, scale=scale,
+            q_chunk=q_chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"not {q.device}")
+    bh, sq, d = q.shape
+    cfg = choose_or_default(flash_kernel_name(d, causal),
+                            {"bh": bh, "sq": sq, "skv": k.shape[1]},
+                            FLASH_DEFAULT)
+    if not _flash_tile_fits(d, causal, q.element_size(), cfg["bq"],
+                            cfg["bkv"]):
+        cfg = FLASH_DEFAULT
+    return flash_attention_kernel(
+        q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+        bq=cfg["bq"], bkv=cfg["bkv"], causal=causal, window=window,
+        softcap=softcap, scale=scale)
+
+
 def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
                    seed: int) -> Callable[[Mapping[str, int]], None]:
     """Bind seeded inputs of kernel ``kernel`` at data size D on ``device``
     and return ``launch(P)``, which runs the kernel once at tiles P --
-    what ``CudaEventTimer`` times."""
+    what ``CudaEventTimer`` times.
+
+    Flash attention is probed in bf16 (the models' dtype) with one kv head
+    per q head (D carries no head counts) and the spec's causality.
+    """
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    flash = _FLASH_NAME.match(kernel)
+    if flash:
+        d, causal = int(flash.group(1)), bool(flash.group(2))
+        bh, sq, skv = D["bh"], D["sq"], D["skv"]
+        q = torch.randn(bh, sq, d, generator=gen, device=device
+                        ).to(torch.bfloat16)
+        k = torch.randn(bh, skv, d, generator=gen, device=device
+                        ).to(torch.bfloat16)
+        v = torch.randn(bh, skv, d, generator=gen, device=device
+                        ).to(torch.bfloat16)
+
+        def launch_flash(P: Mapping[str, int]) -> None:
+            flash_attention_kernel(q, k, v, num_q_heads=bh, num_kv_heads=bh,
+                                   bq=int(P["bq"]), bkv=int(P["bkv"]),
+                                   causal=causal)
+
+        return launch_flash
     if kernel not in _MATMUL_KERNELS.values():
         raise ValueError(f"no probe launcher for kernel {kernel!r}")
     dtype = torch.bfloat16 if kernel == "matmul_b16" else torch.float32
-    gen = torch.Generator(device=device).manual_seed(int(seed))
     x = torch.randn(D["m"], D["k"], generator=gen, device=device).to(dtype)
     y = torch.randn(D["k"], D["n"], generator=gen, device=device).to(dtype)
 

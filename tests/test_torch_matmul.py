@@ -5,7 +5,7 @@ held against the reference's Pallas kernel run in interpret mode and its
 pure-jnp oracle, on the same seeded numpy inputs.  Tolerances are those of
 tests/test_kernels.py: 2e-4 for f32 and 2e-2 for bf16 (both sides sum in
 f32, in different orders; bf16 outputs round once).  The CUDA kernel itself
-runs only on a card: the ``cuda``-marked test holds it against the plain
+runs only on a card: tests/test_torch_cuda.py holds it against the plain
 version there and skips elsewhere.
 """
 
@@ -144,22 +144,3 @@ def test_wrapper_raises_and_never_falls_back(monkeypatch, tmp_path):
         _build.load.cache_clear()
         port_matmul._lib.cache_clear()
     assert LAUNCHES.count == 0
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.bfloat16, torch.float32):
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        x = torch.randn(256, 512, generator=gen, device="cuda").to(dtype)
-        y = torch.randn(512, 384, generator=gen, device="cuda").to(dtype)
-        before = LAUNCHES.count
-        out = matmul_kernel(x, y, bm=64, bn=128, bk=32)
-        assert LAUNCHES.count == before + 1
-        torch.testing.assert_close(out.float(), matmul_plain(x, y).float(),
-                                   atol=tol, rtol=tol)
-        torch.testing.assert_close(ops.matmul(x, y).float(),
-                                   matmul_plain(x, y).float(),
-                                   atol=tol, rtol=tol)

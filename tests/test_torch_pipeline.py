@@ -159,11 +159,15 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
-print(len([m for m in sys.modules if m.startswith("repro_torch")]))
+print(" ".join(sorted(m for m in sys.modules if m.startswith("repro_torch"))))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-c", code, os.path.join(REPO, "chip_smoke.py")],
         capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    walked = set(proc.stdout.split())
+    assert len(walked) >= 30
+    for sub in ("core", "search", "kernels", "models", "configs", "launch",
+                "serving"):
+        assert f"repro_torch.{sub}" in walked, sub

@@ -37,12 +37,31 @@ printed block:
      timed (kernel, bound, SDPA yardstick, plain);
  10. the serving engine at full width: 4 slots, 8 requests, every request
      finishes, and each greedy request's first token is compared with the
-     argmax of the prefill step on its prompt.
+     argmax of the prefill step on its prompt;
+ 11. the SSD chunked-scan kernel against its plain version, bf16 and f32,
+     (head dim, state) (64, 128) and the smoke model's (32, 32), at a ragged
+     length and at 4096, dt in the JAX kernel tests' range and small (where
+     the carried state dominates), over every feasible chunk;
+ 12. KLARAPTOR on the card for ``ssd_scan_h64_n128``: probes at bh <= 64 and
+     s <= 2048, the fit, the choice at the prefill shape (bh 24, s 4096)
+     and, after phase 13, its selection ratio against exhaustive search over
+     the feasible chunks (printed, not gated);
+ 13. the prefill step of mamba2-130m at full width (24 layers, d_model 768,
+     24 SSM heads of dim 64, state 128, vocab 50280, bf16, seeded random
+     weights) on 4096 tokens (cut from ``prefill_32k`` as llama's is): the
+     tuned SSD kernel launches once per layer, the logits are held against
+     the same step with the plain SSD, and each layer's SSD is timed
+     (kernel, default chunk, bound, plain);
+ 14. the serving engine at full width: 4 slots, 8 requests, every request
+     finishes; the first request of a separate batch-1 engine has its first
+     token compared with the prefill step's argmax (the JAX engine, which
+     the port reproduces, leaks recurrent state between slots and requests,
+     so that is the one request where the two must agree).
 
-The two kernels' main paths are phases 4-5 (matmul) and 8-9 (flash
-attention): each launch counter is set to 0 just before its path and read
-just after it; launches made to compare a kernel with its plain version or
-to time it come after the read.
+The three kernels' main paths are phases 4-5 (matmul), 8-9 (flash
+attention) and 12-13 (SSD scan): each launch counter is set to 0 just
+before its path and read just after it; launches made to compare a kernel
+with its plain version or to time it come after the read.
 The line before the last is one JSON object with each kernel's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits nonzero.  Without a CUDA device, or outside a checkout, it
@@ -51,6 +70,7 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -70,6 +90,7 @@ SHAPES = (
 )
 RATIO_SHAPES = ("q_o_proj", "k_v_proj", "gate_up")
 PEAK_BF16 = 989e12     # H100 SXM dense tensor-core rate
+PEAK_F32 = 67e12       # H100 SXM FP32 on the CUDA cores
 HBM_BW = 3.35e12       # H100 SXM HBM3
 SEED = 0
 
@@ -90,11 +111,25 @@ FLASH_VARIANTS = {
 LOGIT_REL_TOL = 5e-2
 N_REQUESTS, ENGINE_SLOTS, ENGINE_MAX_SEQ, MAX_NEW = 8, 4, 256, 16
 
+# The SSD scan: the sweep of phase 11, and the gate of phases 13 and 14 --
+# the logits of the tuned mamba2-130m prefill against the same step with the
+# plain SSD, relative to max |logit|; a broken kernel differs by the logits'
+# own size.  In bf16 two correct SSDs that round in different places already
+# differ by about 10 % after 24 layers of this randomly initialised model (the
+# plain version at two chunks, printed beside it), so the bf16 logits are
+# printed against that floor and the gate holds the same step on the same
+# weights in f32, where the floor is under 1e-3.
+SSD_SWEEP_S = 333                       # a length no chunk divides
+SSD_DT_RANGES = {"dt 0.01-0.51": (0.01, 0.51), "dt 1e-3-1e-2": (1e-3, 1e-2)}
+SSD_LOGIT_REL_TOL = 5e-2
 
-def _device_profile(fn, what: str) -> dict:
+
+def _device_profile(fn, what: str, own: tuple = ("flash", "flash_fwd")
+                    ) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and print the device time
-    by kernel group (flash, GEMM, the rest) and the device-busy share of
-    the window's wall time (inflated by the profiler's own overhead)."""
+    by kernel group (the port's kernel ``own`` = (group, name fragment),
+    GEMM, the rest) and the device-busy share of the window's wall time
+    (inflated by the profiler's own overhead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,14 +140,14 @@ def _device_profile(fn, what: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {own[0]: 0.0, "gemm": 0.0, "other": 0.0}
     kernels = []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
         name = ev.key.lower()
-        group = "flash" if "flash_fwd" in name else "gemm" if any(
+        group = own[0] if own[1] in name else "gemm" if any(
             t in name for t in ("gemm", "cutlass", "xmma", "cublas",
                                 "nvjet")) else "other"
         groups[group] += ms
@@ -147,6 +182,30 @@ def _flash_bound_ms(bh: int, sq: int, skv: int, hkv_rows: int, d: int,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _ssd_bound_ms(bh: int, s: int, dh: int, n: int, chunk: int,
+                  elem: int) -> tuple[float, str]:
+    """Least time of one SSD scan on the card: x, B, C (as the model hands
+    them over, per head), f32 dt and A read once and y written once, and the
+    FLOPs of the chunked form at ``chunk`` (per chunk of l rows: the causal
+    C B^T and its product with x, (n + dh) l (l + 1), and the carried
+    state's output term and update, 4 n dh l) at the tensor-core peak of
+    bf16 inputs (the FP32 rate for f32)."""
+    ops = 0.0
+    for c0 in range(0, s, chunk):
+        rows = min(chunk, s - c0)
+        ops += (n + dh) * rows * (rows + 1) + 4.0 * n * dh * rows
+    t_ops = bh * ops / (PEAK_BF16 if elem == 2 else PEAK_F32)
+    t_bytes = (bh * s * (2 * dh + 2 * n) * elem + bh * (s + 1) * 4) / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _upcast(tree: dict) -> dict:
+    """A parameter tree with every tensor in f32."""
+    return {k: _upcast(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
 def _bound_ms(m: int, n: int, k: int) -> tuple[float, str]:
     """Least time of a bf16 GEMM on the card: each input read once, the
     output written once, and 2mnk FLOPs at the tensor-core peak."""
@@ -172,9 +231,11 @@ def main() -> int:
                                   selection_ratio)
     from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS,
                                               MATMUL_REGS_PER_THREAD,
+                                              SSD_REGS_PER_THREAD,
                                               flash_regs_per_thread)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.matmul import (LAUNCHES, kernel_attributes,
                                             matmul_kernel, matmul_plain)
 
@@ -268,6 +329,16 @@ def main() -> int:
                         f"flash kernel d={d} bkv={bkv} uses "
                         f"{attrs['num_regs']} registers; the spec assumes "
                         f"{flash_regs_per_thread(d)}")
+    ssd_ptxas = [ln.strip() for ln in _build.build_log("ssd_scan").splitlines()
+                 if "registers" in ln or "spill" in ln]
+    print("  ssd_scan ptxas:\n  " + "\n  ".join(ssd_ptxas))
+    for dt in (torch.bfloat16, torch.float32):
+        attrs = ssd.kernel_attributes(dt)
+        print(f"  ssd_scan {dt}: {attrs}")
+        if attrs["num_regs"] > SSD_REGS_PER_THREAD:
+            raise AssertionError(
+                f"SSD kernel uses {attrs['num_regs']} registers; the spec "
+                f"assumes {SSD_REGS_PER_THREAD}")
     phase_done(2)
 
     # -- 3. the kernel against its plain version --------------------------------
@@ -420,7 +491,9 @@ def main() -> int:
                    for r in rows],
     }
     flash_row = flash_phases(dev, hw, gen, check, time_ms, phase_done)
-    print(json.dumps({"kernels": [matmul_row, flash_row], "card": card}))
+    ssd_row = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
+    print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row],
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -682,6 +755,315 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         "selection_ratio": ratio["ratio"],
         "layers": layers,
     }
+
+
+def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
+    """Phases 11-14: the SSD chunked-scan kernel, KLARAPTOR on it, the
+    mamba2-130m prefill step and the serving engine.  Returns the kernel's
+    entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CudaEventTimer, Klaraptor, selection_ratio,
+                                  ssd_probe_data, ssd_scan_spec)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
+                                              ssd_scan_plain)
+    from repro_torch.launch import build_engine, make_prefill_step
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, greedy
+
+    f32_tol = (5e-3, 1e-3)      # tests/test_kernels.py's SSD tolerance
+
+    def inputs(bh, s, dh, n, dtype, dt_range):
+        lo, hi = dt_range
+        x = (torch.randn(bh, s, dh, generator=gen, device=dev) * 0.5
+             ).to(dtype)
+        dt = lo + (hi - lo) * torch.rand(bh, s, generator=gen, device=dev)
+        B = (torch.randn(bh, s, n, generator=gen, device=dev) * 0.3
+             ).to(dtype)
+        C = (torch.randn(bh, s, n, generator=gen, device=dev) * 0.3
+             ).to(dtype)
+        A = -0.5 - torch.rand(bh, generator=gen, device=dev)
+        return x, dt, B, C, A
+
+    # -- 11. the SSD kernel against its plain version -------------------------
+    print("[11] SSD kernel vs plain (tolerance: bf16 2e-2 abs and rel; f32 "
+          "5e-3 abs / 1e-3 rel, tests/test_kernels.py's SSD tolerance; "
+          f"bh 3 at S = {SSD_SWEEP_S}, bh 24 at S = {PREFILL_S}; A in "
+          "[-1.5, -0.5])", flush=True)
+    worst = 0.0
+    n_checked = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh, n in ((64, 128), (32, 32)):
+            spec = ssd_scan_spec(dh, n, torch.finfo(dtype).bits // 8)
+            for S, bh in ((SSD_SWEEP_S, 3), (PREFILL_S, 24)):
+                chunks = spec.candidates({"bh": bh, "s": S, "chunkflops": 1},
+                                         hw)["chunk"]
+                for name, rng in SSD_DT_RANGES.items():
+                    args = inputs(bh, S, dh, n, dtype, rng)
+                    errs = []
+                    for chunk in chunks.tolist():
+                        out = ssd_scan_kernel(*args, chunk=chunk)
+                        plain = ssd_scan_plain(*args, chunk=chunk)
+                        errs.append(check(
+                            out, plain, dtype, f"{dtype} h{dh} n{n} S={S} "
+                            f"{name} chunk {chunk}", f32_tol, quiet=True))
+                    n_checked += len(errs)
+                    worst = max([worst] + errs)
+                    print(f"  {dtype} h{dh} n{n} S={S} {name}: chunks "
+                          f"{chunks.tolist()}, max_abs_err={max(errs):.3e} "
+                          f"ok", flush=True)
+                    del args
+    print(f"  {n_checked} kernel launches agree with the plain version")
+    torch.cuda.empty_cache()
+    phase_done(11)
+
+    # -- 12. KLARAPTOR for ssd_scan_h64_n128 (SSD main path starts) ------------
+    LAUNCHES.reset()
+    cfg = get_config("mamba2-130m")
+    dh, n, Hm = cfg.mamba_head_dim, cfg.ssm_state, cfg.mamba_heads
+    spec = ssd_scan_spec(dh, n, dtype_bytes=2)
+    timer = CudaEventTimer(hw, warmup=1, timings=3, seed=SEED)
+    build = Klaraptor(timer).build_driver(spec, probe_data=ssd_probe_data(),
+                                          repeats=2)
+    cols = build.collected.columns
+    print(f"[12] KLARAPTOR build on the card for {spec.name}")
+    print("  " + build.fit_report().replace("\n", "\n  "))
+    print(f"  probe sizes: bh <= {int(cols['bh'].max())}, s <= "
+          f"{int(cols['s'].max())}; probe executions "
+          f"{build.collected.n_probe_executions}; probe device seconds "
+          f"{build.probe_device_seconds:.4f}", flush=True)
+    if int(cols["bh"].max()) > 64 or int(cols["s"].max()) > 2048:
+        raise AssertionError("probes left bh <= 64, s <= 2048")
+    D = {"bh": Hm, "s": PREFILL_S, "chunkflops": 1}
+    chosen = build.driver.choose(D)
+    print(f"  chosen at {D}: {chosen}; default {ops.SSD_DEFAULT}")
+    phase_done(12)
+
+    # -- 13. the prefill step at full width ------------------------------------
+    print(f"[13] mamba2-130m prefill step, full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, d_inner {cfg.mamba_d_inner}, "
+          f"{Hm} SSM heads of {dh}, state {n}, conv {cfg.conv_kernel}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}), B = 1, S = {PREFILL_S} "
+          f"(cut from prefill_32k's 32 x 32768), seeded random weights",
+          flush=True)
+    model = Model(cfg)
+    params = model.init(SEED)
+    print(f"  parameters: {model.param_count()}")
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_S), generator=gen,
+                           device=dev)
+    step = make_prefill_step(model)
+    torch.cuda.synchronize()
+    before = LAUNCHES.count
+    t0 = time.perf_counter()
+    logits = step(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ssd_launches = LAUNCHES.count            # the SSD main path ends here
+    per_prefill = ssd_launches - before
+    print(f"  prefill wall {prefill_s * 1e3:.2f} ms (first call); SSD "
+          f"launches in the step: {per_prefill}; main-path launches "
+          f"{ssd_launches} (probes, probe warm-ups and the prefill)")
+    if per_prefill != cfg.n_layers:
+        raise AssertionError(f"the prefill launched the SSD kernel "
+                             f"{per_prefill} times, not {cfg.n_layers}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError(f"prefill logits {logits.shape} not finite")
+
+    recorded = []
+    chunk, dflt = chosen["chunk"], ops.SSD_DEFAULT["chunk"]
+
+    def plain_recording(x, dt, B, C, A):
+        # the plain version at the kernel's chunk: the same function, summed
+        # in another order
+        recorded.append((x, dt, B, C, A))
+        return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+
+    ref_logits = make_prefill_step(model, ssd_op=plain_recording)(
+        params, tokens)
+    other = dflt if dflt != chunk else chunk // 2
+    floor_logits = make_prefill_step(model, ssd_op=functools.partial(
+        ssd_scan_plain, chunk=other))(params, tokens)
+    # the padded vocab columns (50280 of 50432 are real) hold -1e30
+    V = cfg.vocab_size
+
+    def compare(a, b) -> tuple[float, float, bool]:
+        scale = float(b[:, :V].abs().max())
+        diff = float((a - b)[:, :V].abs().max())
+        return diff, scale, int(greedy(a)[0]) == int(greedy(b)[0])
+
+    diff, scale, agree = compare(logits, ref_logits)
+    fdiff, fscale, fagree = compare(floor_logits, ref_logits)
+    print(f"  bf16 logits vs the plain-SSD step: max|diff| {diff:.4e}, "
+          f"max|logit| {scale:.4e}, ratio {diff / scale:.3e}, argmax "
+          f"agrees: {agree}; bf16 floor, the plain SSD at chunk {other} "
+          f"vs {chunk}: ratio {fdiff / fscale:.3e}, argmax agrees: "
+          f"{fagree} (printed, not gated)", flush=True)
+    del ref_logits, floor_logits
+
+    # The same step on the same weights in f32: the gate.
+    cfg32 = cfg.replace(dtype=torch.float32)
+    model32 = Model(cfg32)
+    params32 = _upcast(params)
+    step32 = make_prefill_step(model32)
+    chunk32 = ops._ssd_chunk(dh, n, 4, chunk)
+    before = LAUNCHES.count
+    logits32 = step32(params32, tokens)
+    torch.cuda.synchronize()
+    if LAUNCHES.count - before != cfg.n_layers:
+        raise AssertionError("the f32 prefill did not launch the SSD kernel "
+                             "once per layer")
+    ref32 = make_prefill_step(model32, ssd_op=functools.partial(
+        ssd_scan_plain, chunk=chunk32))(params32, tokens)
+    diff, scale, agree = compare(logits32, ref32)
+    print(f"  f32 logits vs the plain-SSD step (chunk {chunk32}): max|diff| "
+          f"{diff:.4e}, max|logit| {scale:.4e}, ratio {diff / scale:.3e} "
+          f"(tol {SSD_LOGIT_REL_TOL:g}); argmax agrees: {agree}", flush=True)
+    if not diff <= SSD_LOGIT_REL_TOL * scale:
+        raise AssertionError("tuned prefill logits disagree with plain")
+    del logits32, ref32
+    t0 = time.perf_counter()
+    step(params, tokens)
+    torch.cuda.synchronize()
+    print(f"  prefill wall {(time.perf_counter() - t0) * 1e3:.2f} ms "
+          f"(second call)")
+    _device_profile(lambda: step(params, tokens), "one prefill step",
+                    own=("ssd", "ssd_chunk_scan"))
+
+    ctas = (dh // 16) * Hm
+    print(f"  one launch at B = 1: {ctas} CTAs of 256 threads on "
+          f"{hw.sm_count} SMs")
+    layers = []
+    for li, args in enumerate(recorded):
+        out = ssd_scan_kernel(*args, chunk=chunk)
+        plain = ssd_scan_plain(*args, chunk=chunk)
+        err = check(out, plain, args[0].dtype, f"layer {li}", quiet=True)
+        worst = max(worst, err)
+        bound, bound_by = _ssd_bound_ms(Hm, PREFILL_S, dh, n, chunk,
+                                        args[0].element_size())
+        r = {
+            "layer": li, "config": chosen, "max_abs_err": err,
+            "ms": time_ms(lambda: ssd_scan_kernel(*args, chunk=chunk)),
+            "default_ms": time_ms(lambda: ssd_scan_kernel(*args,
+                                                          chunk=dflt)),
+            "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
+                                max_iters=1),
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        r["gb_s"] = (Hm * PREFILL_S * (2 * dh + 2 * n) * 2) / \
+            (r["ms"] * 1e-3) / 1e9
+        layers.append(r)
+        print(f"  layer {li:2d}: kernel {r['ms']:.4f} ms ({r['gb_s']:.1f} "
+              f"GB/s) | default {r['default_ms']:.4f} ms | bound "
+              f"{r['bound_ms']:.4f} ms ({bound_by}) | plain "
+              f"{r['plain_ms']:.2f} ms | max_abs_err {err:.3e}", flush=True)
+    del recorded
+    torch.cuda.empty_cache()
+
+    ratio = selection_ratio(spec, timer, build.driver, D, hw)
+    print(f"  [12, after the main path] selection ratio at {D} "
+          f"(exhaustive: 1 warm-up + median of 3 timed launches per "
+          f"candidate; printed, not gated): chosen {ratio['chosen']} "
+          f"{ratio['chosen_time_s'] * 1e3:.4f} ms, best {ratio['best']} "
+          f"{ratio['best_time_s'] * 1e3:.4f} ms of {ratio['n_configs']}, "
+          f"ratio {ratio['ratio']:.3f}", flush=True)
+    phase_done(13)
+
+    # -- 14. the serving engine at full width ---------------------------------
+    engine = build_engine(cfg, batch=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                          params=params, seed=SEED)
+    rng = np.random.RandomState(SEED)
+    prompts = [[int(t) for t in rng.randint(2, cfg.vocab_size,
+                                            size=8 + 32 * i // 7)]
+               for i in range(N_REQUESTS)]
+    for i, p in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW,
+                              temperature=0.0 if i % 2 == 0 else 0.8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = engine.steps + sum(len(p) - 1 for p in prompts)
+    produced = sum(len(r.output) for r in done)
+    print(f"[14] serving engine, mamba2-130m full width: {ENGINE_SLOTS} "
+          f"slots, max_seq {ENGINE_MAX_SEQ}, {N_REQUESTS} requests, prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+          f"max_new_tokens {MAX_NEW}, half greedy")
+    print(f"  {len(done)} finished; {produced} tokens produced; {calls} "
+          f"decode-step calls ({engine.steps} decode rounds, the rest "
+          f"prompt tokens) in {wall:.2f} s: {wall / calls * 1e3:.2f} ms per "
+          f"decode step", flush=True)
+    if sorted(r.rid for r in done) != list(range(N_REQUESTS)) \
+            or not all(r.done and 1 <= len(r.output) <= MAX_NEW
+                       for r in done):
+        raise AssertionError("not every request finished")
+    tok = torch.tensor(engine.slot_last, device=dev)
+    pos = torch.tensor(np.arange(ENGINE_SLOTS) + 64, device=dev,
+                       dtype=torch.int32)
+
+    def four_decode_steps():
+        for _ in range(4):
+            engine.model.decode_step(params, tok, pos, engine.cache)
+
+    _device_profile(four_decode_steps, f"4 decode steps at batch "
+                    f"{ENGINE_SLOTS}", own=("ssd", "ssd_chunk_scan"))
+    # The engines step every slot to feed one slot's prompt and never reset a
+    # freed slot, so a Mamba-2 block's state leaks between slots and requests
+    # (as in the JAX engine).  Only the first request of a batch-1 engine
+    # starts from a clean state: there the decode path (an f32 recurrence,
+    # token by token) and the prefill step (the chunked scan) compute the same
+    # function, so the first token must equal the prefill argmax or score
+    # within the logit gate of it.  The gate holds in f32 (see
+    # SSD_LOGIT_REL_TOL); bf16 is printed.
+    for what, c, prm, stp in (("bf16", cfg, params, step),
+                              ("f32", cfg32, params32, step32)):
+        solo = build_engine(c, batch=1, max_seq=ENGINE_MAX_SEQ, params=prm,
+                            seed=SEED)
+        solo.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=4))
+        first = solo.run()[0].output[0]
+        pre = stp(prm, torch.tensor([prompts[0]], device=dev))[0, :V]
+        arg = int(greedy(pre[None])[0])
+        gap = float(pre[arg] - pre[first])
+        pre_scale = float(pre.abs().max())
+        top = torch.topk(pre, 2)
+        print(f"  {what} batch-1 engine, first request (prompt "
+              f"{len(prompts[0])}): first token {first}, prefill argmax "
+              f"{arg} (top-2 logits {top.values.tolist()}), equal: "
+              f"{first == arg}; logit gap {gap:.4e}, max|logit| "
+              f"{pre_scale:.4e}")
+    if not (first == arg or gap <= SSD_LOGIT_REL_TOL * pre_scale):
+        raise AssertionError("the engine's first token disagrees with the "
+                             "prefill step")
+    for req in sorted(done, key=lambda r: r.rid):
+        print(f"  request {req.rid}: prompt {len(req.prompt)}, "
+              f"{len(req.output)} tokens, temperature {req.temperature}")
+    phase_done(14)
+
+    total = {key: sum(r[key] for r in layers)
+             for key in ("ms", "plain_ms", "bound_ms", "default_ms")}
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:85",
+        "launches": ssd_launches,
+        "max_abs_err": worst,
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in layers) else "bytes",
+        "library_ms": None,   # no single PyTorch call computes the SSD
+        "default_ms": total["default_ms"],
+        "config": chosen,
+        "selection_ratio": ratio["ratio"],
+        "layers": layers,
+    }
+
 
 if __name__ == "__main__":
     sys.exit(main())

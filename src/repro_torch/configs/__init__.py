@@ -5,15 +5,14 @@ package's other architectures are known by id and raise, naming the ROADMAP
 item that ports them.
 """
 
-from . import llama3_2_1b
+from . import llama3_2_1b, mamba2_130m
 from .base import SHAPES, ShapePreset, shape_applicable
 
-REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b,)}
+REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b, mamba2_130m)}
 ARCH_IDS = tuple(REGISTRY)
 
 # The JAX package's architectures the port cannot run yet.
 PENDING = {
-    "mamba2-130m": "ROADMAP Queue A, 'Mamba-2 slice'",
     "gemma2-2b": "ROADMAP Queue A, 'Other architectures'",
     "internlm2-1.8b": "ROADMAP Queue A, 'Other architectures'",
     "qwen3-14b": "ROADMAP Queue A, 'Other architectures'",

@@ -47,7 +47,8 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Floor, Max, Min,
 
 __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
-    "flash_attention_spec", "flash_probe_data", "matmul_spec", "substitute",
+    "flash_attention_spec", "flash_probe_data", "matmul_spec",
+    "ssd_probe_data", "ssd_scan_spec", "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -215,7 +216,9 @@ class KernelSpec:
     program_params: tuple[str, ...]
     grid: tuple[GridAxis, ...]
     operands: tuple[Operand, ...]
-    flops_per_point: float          # FLOPs per point of the grid's data domain
+    # FLOPs per point of the grid's data domain: a number, or an Expr over
+    # the program params where the kernel's work per point depends on them.
+    flops_per_point: float | Expr
     threads: Expr                   # threads per CTA over the program params
     regs_per_thread: int            # what the kernel is compiled to
     constraints: tuple[str, ...] = ()
@@ -289,11 +292,18 @@ class KernelSpec:
                 cols.append(np.full(n, int(v), dtype=np.int64))
         return np.stack(cols, axis=1)
 
-    def flops_total(self, D: Dims) -> float:
-        n = 1.0
+    def flops_total(self, D: Dims, table: CandidateTable) -> np.ndarray:
+        """(n,) FLOPs of one launch of every config in ``table``."""
+        points = 1.0
         for a in self.grid:
-            n *= D[a.data] if isinstance(a.data, str) else a.data
-        return self.flops_per_point * n
+            points *= D[a.data] if isinstance(a.data, str) else a.data
+        per = self.flops_per_point
+        if isinstance(per, Expr):
+            env = {d: float(v) for d, v in D.items()}
+            env.update(table.columns)
+            per = per.eval(env)
+        return np.broadcast_to(np.asarray(per, dtype=np.float64) * points,
+                               (len(table),)).copy()
 
     def traffic_table(self, D: Dims, table: CandidateTable,
                       hw: HardwareParams = H100) -> TrafficTable:
@@ -314,7 +324,6 @@ class KernelSpec:
                 name=op.name, shapes=self._tile_columns(op, D, table),
                 fetches=fetches, dtype_bytes=op.dtype_bytes,
                 is_output=op.is_output))
-        n = len(table)
         return TrafficTable(
             kernel=self.name,
             D=dict(D),
@@ -326,7 +335,7 @@ class KernelSpec:
             blocks_per_sm=self._eval(self.blocks_per_sm_expr(hw), D, table),
             blocks_resident=self._eval(self.resident_expr(hw), D, table),
             grid_steps=self._eval(self.grid_steps_expr(hw), D, table),
-            flops_total=np.full(n, self.flops_total(D)),
+            flops_total=self.flops_total(D, table),
             operands=operands,
         )
 
@@ -522,4 +531,97 @@ def flash_probe_data(bhs: Sequence[int] = (4, 16, 64),
     """Small probe sizes for a flash spec: few heads, sq = skv <= 1024
     (self-attention, the shape every model layer launches)."""
     return [{"bh": int(bh), "sq": int(s), "skv": int(s)}
+            for bh in bhs for s in seqs]
+
+
+# kernels/csrc/ssd_scan.cu: a CTA of 256 threads owns one (batch * head) row
+# and SSD_COLS of its head-dim columns, and loops over the chunks of the
+# sequence; __launch_bounds__(256, 2) caps it at 128 registers per thread.
+SSD_COLS = 16           # head-dim columns of the state (and of y) per CTA
+SSD_ROWS = 32           # rows of one tile of the intra-chunk score matrix
+SSD_GPAD = 4            # f32 words of padding per row of the score tile
+SSD_THREADS = 256
+SSD_REGS_PER_THREAD = 128
+
+
+def ssd_smem_bytes(chunk: int, d_state: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of one SSD CTA: the chunk's B and C (chunk x n)
+    and x columns (chunk x SSD_COLS) in the input type, dt and its running
+    sum (f32), one padded f32 score tile (SSD_ROWS x chunk) and the f32
+    state columns (n x SSD_COLS)."""
+    return ((2 * d_state + SSD_COLS) * chunk * elem_bytes + 8 * chunk
+            + 4 * SSD_ROWS * (chunk + SSD_GPAD) + 4 * d_state * SSD_COLS)
+
+
+def ssd_scan_spec(d_head: int = 64, d_state: int = 128,
+                  dtype_bytes: int = 2) -> KernelSpec:
+    """Mamba-2 SSD chunked scan (state-space duality, arXiv:2405.21060):
+    CTAs over (bh, head-dim column blocks), a loop over chunks inside.
+
+    D: bh (batch * heads), s (sequence), and the reference's ``chunkflops``
+    (always 1; kept so the data parameters, and so the drivers' keys, are the
+    JAX package's).  P: chunk, the SSD chunk length.  The state's head-dim
+    columns are independent, so each CTA carries SSD_COLS of them through
+    the sequence: d_head / SSD_COLS CTAs per (batch, head) fill more SMs at
+    batch 1 than one CTA per head would, at the price of each recomputing
+    the chunk's C B^T scores.  The kernel masks a ragged last chunk, so
+    chunk need not divide s.
+
+    FLOPs depend on the chunk (the reference takes a constant, measured at
+    chunk 256): per (bh, column block, position) the kernel does
+    n (chunk + SSD_ROWS) for the causal C B^T score tiles, SSD_COLS
+    (chunk + 1) for the scores times x, and 4 n SSD_COLS for the carried
+    state's output term and its update.
+    """
+    if d_head % SSD_COLS or d_state % 8:
+        raise ValueError(f"no SSD kernel for head dim {d_head} and state "
+                         f"{d_state}: the kernel takes head dims divisible "
+                         f"by {SSD_COLS} and states divisible by 8")
+    n, cols = float(d_state), float(SSD_COLS)
+    chunk = var("chunk")
+    flops = (const(n) * (chunk + const(float(SSD_ROWS)))
+             + const(cols) * (chunk + const(1.0)) + const(4.0 * n * cols))
+    return KernelSpec(
+        name=f"ssd_scan_h{d_head}_n{d_state}",
+        data_params=("bh", "s", "chunkflops"),
+        program_params=("chunk",),
+        grid=(GridAxis("b", "bh", None),
+              GridAxis("d", d_head // SSD_COLS, None),
+              GridAxis("c", "s", "chunk", sequential=True, ragged=True)),
+        operands=(
+            Operand("x", ("chunk", SSD_COLS), ("b", "d", "c"), dtype_bytes,
+                    staged=True),
+            Operand("dt", ("chunk",), ("b", "c"), 4, staged=True),
+            Operand("b_proj", ("chunk", d_state), ("b", "c"), dtype_bytes,
+                    staged=True),
+            Operand("c_proj", ("chunk", d_state), ("b", "c"), dtype_bytes,
+                    staged=True),
+            Operand("decay", (1,), ("b",), 4),
+            # every chunk writes its rows: s rows per CTA over the launch
+            Operand("out", ("s", SSD_COLS), ("b", "d"), dtype_bytes,
+                    is_output=True),
+            Operand("cum", ("chunk",), (), 4, scratch=True),
+            Operand("scores", (SSD_ROWS, "chunk"), (), 4, scratch=True),
+            Operand("scores_pad", (SSD_ROWS, SSD_GPAD), (), 4, scratch=True),
+            Operand("state", (d_state, SSD_COLS), (), 4, scratch=True),
+        ),
+        flops_per_point=flops,
+        threads=const(float(SSD_THREADS)),
+        regs_per_thread=SSD_REGS_PER_THREAD,
+        # score tiles of SSD_ROWS rows
+        constraints=("chunk % 32 == 0",),
+        param_candidates={"chunk": (32, 64, 128, 256, 512, 1024, 2048)},
+        fit_vars={"mem_step": ("chunk",), "cmp_step": ("chunk",),
+                  "ovh_step": ("chunk",)},
+    )
+
+
+def ssd_probe_data(bhs: Sequence[int] = (4, 8, 16, 32, 64),
+                   seqs: Sequence[int] = (512, 1024, 2048)
+                   ) -> list[dict[str, int]]:
+    """Small probe sizes for an SSD spec: bh <= 64, s <= 2048.  The grid
+    has d_head / SSD_COLS CTAs per bh row, so at d_head 64 these bh cover
+    one block per SM (bh <= 32) and two (bh 64), the two regimes of the
+    perf model's skeleton."""
+    return [{"bh": int(bh), "s": int(s), "chunkflops": 1}
             for bh in bhs for s in seqs]

@@ -4,9 +4,9 @@ Each op consults the driver registry *immediately before launch* (paper
 Section V-C: one IO call per kernel call, data parameters in, launch
 parameters out) and launches the CUDA kernel with the chosen tiles: the
 matmul snaps them to the shape with ``fit_tile`` at the granularities the
-port's kernel spec states; flash attention masks ragged tails in the kernel
-and takes them as chosen.  With no driver registered an op uses its static
-default config.
+port's kernel spec states; flash attention and the SSD scan mask ragged
+tails in the kernel and take them as chosen.  With no driver registered an
+op uses its static default config.
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
@@ -23,20 +23,25 @@ import torch.nn.functional as F
 
 from ..core.driver import choose_or_default, fit_tile
 from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
-                                matmul_spec)
+                                matmul_spec, ssd_scan_spec)
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .matmul import matmul_kernel, matmul_plain
+from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
-__all__ = ["FLASH_DEFAULT", "MATMUL_DEFAULT", "flash_attention",
-           "flash_kernel_name", "matmul", "matmul_kernel_name",
-           "probe_launcher"]
+__all__ = ["FLASH_DEFAULT", "MATMUL_DEFAULT", "SSD_DEFAULT",
+           "flash_attention", "flash_kernel_name", "matmul",
+           "matmul_kernel_name", "probe_launcher", "ssd_kernel_name",
+           "ssd_scan"]
 
 # Static heuristic defaults (what a programmer would hard-code).  The flash
-# default fits the kernel at every head dim and dtype it is built for.
+# default fits the kernel at every head dim and dtype it is built for; the
+# SSD default is the reference's.
 MATMUL_DEFAULT = {"bm": 128, "bn": 128, "bk": 32}
 FLASH_DEFAULT = {"bq": 64, "bkv": 64}
+SSD_DEFAULT = {"chunk": 256}
 
 _FLASH_NAME = re.compile(r"^flash_attn_d(\d+)(_causal)?$")
+_SSD_NAME = re.compile(r"^ssd_scan_h(\d+)_n(\d+)$")
 
 _MATMUL_KERNELS = {torch.bfloat16: "matmul_b16", torch.float32: "matmul_b32"}
 
@@ -156,6 +161,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         softcap=softcap, scale=scale)
 
 
+def ssd_kernel_name(head_dim: int, d_state: int) -> str:
+    """The kernel-spec name the SSD scan is tuned under (the reference's:
+    the dtype is not part of the name)."""
+    return f"ssd_scan_h{head_dim}_n{d_state}"
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_chunk(head_dim: int, d_state: int, dtype_bytes: int,
+               chunk: int) -> int:
+    """``chunk`` if the SSD spec of this dtype takes it, else the largest
+    smaller candidate it takes (a driver tuned in bf16, or the default, may
+    name a chunk whose f32 stage is too large)."""
+    spec = ssd_scan_spec(head_dim, d_state, dtype_bytes)
+    D = {"bh": 1, "s": 1, "chunkflops": 1}
+    fits = spec.candidates(D)["chunk"]
+    below = fits[fits <= chunk]
+    if chunk in fits:
+        return int(chunk)
+    return int(below.max() if below.size else fits.min())
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD scan with the tuned chunk length: x (bh, s, dh), dt
+    (bh, s), B, C (bh, s, n), A (bh,) -> y (bh, s, dh) in x's dtype.
+
+    The chunk is resolved through ``choose_or_default`` at D = (bh, s,
+    chunkflops 1), the reference's key, and taken as chosen (the kernel
+    masks a ragged last chunk); a chunk this dtype's shared memory cannot
+    hold falls to the largest smaller one that fits.  CUDA tensors launch
+    the kernel; CPU tensors take ``ssd_scan_plain`` at the same chunk.
+    """
+    bh, s, dh = x.shape
+    n = B.shape[-1]
+    cfg = choose_or_default(ssd_kernel_name(dh, n),
+                            {"bh": bh, "s": s, "chunkflops": 1}, SSD_DEFAULT)
+    chunk = _ssd_chunk(dh, n, x.element_size(), int(cfg["chunk"]))
+    dt, A = dt.float().contiguous(), A.float().contiguous()
+    tensors = (x, dt, B, C, A)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
+                         f"{x.device}")
+    return ssd_scan_kernel(x.contiguous(), dt, B.contiguous(),
+                           C.contiguous(), A, chunk=chunk)
+
+
 def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
                    seed: int) -> Callable[[Mapping[str, int]], None]:
     """Bind seeded inputs of kernel ``kernel`` at data size D on ``device``
@@ -163,9 +216,32 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
     what ``CudaEventTimer`` times.
 
     Flash attention is probed in bf16 (the models' dtype) with one kv head
-    per q head (D carries no head counts) and the spec's causality.
+    per q head (D carries no head counts) and the spec's causality; the SSD
+    scan in bf16 with dt in [0.01, 0.51] and A in [-1.5, -0.5], the JAX
+    kernel tests' ranges.
     """
     gen = torch.Generator(device=device).manual_seed(int(seed))
+    ssd = _SSD_NAME.match(kernel)
+    if ssd:
+        dh, n = int(ssd.group(1)), int(ssd.group(2))
+        bh, s = D["bh"], D["s"]
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=gen, device=device)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=device)
+
+        x = (randn(bh, s, dh) * 0.5).to(torch.bfloat16)
+        dt = 0.01 + 0.5 * rand(bh, s)
+        Bm = (randn(bh, s, n) * 0.3).to(torch.bfloat16)
+        Cm = (randn(bh, s, n) * 0.3).to(torch.bfloat16)
+        A = -0.5 - rand(bh)
+
+        def launch_ssd(P: Mapping[str, int]) -> None:
+            ssd_scan_kernel(x, dt, Bm, Cm, A, chunk=int(P["chunk"]))
+
+        return launch_ssd
     flash = _FLASH_NAME.match(kernel)
     if flash:
         d, causal = int(flash.group(1)), bool(flash.group(2))

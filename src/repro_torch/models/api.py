@@ -1,9 +1,9 @@
-"""The model API: ``Model(cfg)`` for the decoder-only LM.
+"""The model API: ``Model(cfg)`` for the decoder-only stacks.
 
-The JAX package's ``models/api.py`` for ``arch_kind == "lm"``: parameters,
-the decode cache, one decode step, and the sequential prefill through
-decode steps.  The other kinds (ssm, vlm, encdec) raise and name their
-ROADMAP item.  A ``Model`` lives on one device, the card unless the caller
+The JAX package's ``models/api.py`` for ``arch_kind`` "lm" (dense
+attention) and "ssm" (attention-free Mamba-2): parameters, the decode cache,
+one decode step, and the sequential prefill through decode steps.  The other
+kinds (vlm, encdec) raise and name their ROADMAP item.  A ``Model`` lives on one device, the card unless the caller
 passes ``device="cpu"``; without a card it raises.
 """
 
@@ -17,8 +17,8 @@ from .module import init_params, param_count
 
 __all__ = ["Model", "resolve_device"]
 
+_KINDS = ("lm", "ssm")
 _KIND_TODO = {
-    "ssm": "ROADMAP Queue A, 'Mamba-2 slice'",
     "vlm": "ROADMAP Queue A, 'Other architectures'",
     "encdec": "ROADMAP Queue A, 'Other architectures'",
 }
@@ -37,7 +37,7 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
-        if cfg.arch_kind != "lm":
+        if cfg.arch_kind not in _KINDS:
             raise NotImplementedError(
                 f"arch_kind {cfg.arch_kind!r} is not ported yet "
                 f"({_KIND_TODO.get(cfg.arch_kind, 'ROADMAP Queue A')})")

@@ -1,17 +1,20 @@
-"""Model layers: RMS norm, RoPE, GQA attention and the dense MLP.
+"""Model layers: RMS norm, RoPE, GQA attention, the dense MLP and the
+Mamba-2 (SSD) mixer.
 
 The JAX package's ``models/layers.py`` as plain functions over dicts of
 tensors.  Full-sequence attention (prefill) routes through
-``kernels.ops.flash_attention`` -- the tuned CUDA kernel for CUDA tensors,
-its plain version for CPU tensors -- unless the caller passes another
-``attn_op`` of the same signature (a reference run does).  One-token decode
-attention is plain PyTorch over the KV cache, as the JAX package computes it
-outside any kernel.  The projections are ``@`` (``torch.matmul``), as they
-are ``@`` in JAX.  The JAX functions' ``sharder`` argument is dropped: the
-port runs on one device.
+``kernels.ops.flash_attention`` and the full-sequence Mamba-2 mixer through
+``kernels.ops.ssd_scan`` -- the tuned CUDA kernels for CUDA tensors, their
+plain versions for CPU tensors -- unless the caller passes another
+``attn_op`` / ``ssd_op`` of the same signature (a reference run does).
+One-token decode (attention over the KV cache, the Mamba-2 recurrence on its
+conv and SSM states) is plain PyTorch, as the JAX package computes it outside
+any kernel.  The projections are ``@`` (``torch.matmul``), as they are ``@``
+in JAX.  The JAX functions' ``sharder`` argument is dropped: the port runs on
+one device.
 
-The MoE MLP and the Mamba-2 mixer are not ported yet: their spec and layer
-functions raise and name their ROADMAP item.
+The MoE MLP is not ported yet: its spec and layer functions raise and name
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,17 +29,17 @@ from .config import BlockDesc, ModelConfig
 from .module import ParamSpec
 
 __all__ = [
-    "AttnOp", "attention", "attention_decode", "mamba", "mlp", "moe", "rmsnorm",
-    "rope", "spec_attention", "spec_mamba", "spec_mlp", "spec_moe",
+    "AttnOp", "SsdOp", "attention", "attention_decode", "mamba",
+    "mamba_decode", "mlp", "moe", "rmsnorm", "rope", "spec_attention",
+    "spec_mamba", "spec_mlp", "spec_moe",
 ]
 
 f32 = torch.float32
 AttnOp = Callable[..., torch.Tensor]
+SsdOp = Callable[..., torch.Tensor]
 
 MOE_TODO = ("MoE layers are not ported yet (ROADMAP Queue A, 'Other "
             "architectures')")
-MAMBA_TODO = ("Mamba-2 layers are not ported yet (ROADMAP Queue A, "
-              "'Mamba-2 slice')")
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +233,121 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 (SSD) mixer
+# ---------------------------------------------------------------------------
+
+def spec_mamba(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di, n, Hm = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    proj_out = 2 * di + 2 * n + Hm
+    return {
+        "norm": ParamSpec((d,), f32, (None,), "zeros"),
+        "in_proj": ParamSpec((d, proj_out), cfg.dtype,
+                             ("embed", "mamba_inner"), "scaled"),
+        "conv_w": ParamSpec((cfg.conv_kernel, di + 2 * n), cfg.dtype,
+                            ("conv_k", "mamba_inner"), "scaled"),
+        "conv_b": ParamSpec((di + 2 * n,), f32, ("mamba_inner",), "zeros"),
+        "A_log": ParamSpec((Hm,), f32, (None,), "zeros"),
+        "D": ParamSpec((Hm,), f32, (None,), "ones"),
+        "dt_bias": ParamSpec((Hm,), f32, (None,), "zeros"),
+        "ssm_norm": ParamSpec((di,), f32, (None,), "zeros"),
+        "out_proj": ParamSpec((di, d), cfg.dtype, ("mamba_inner", "embed"),
+                              "scaled"),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv over seq: xbc (B, S, Cc), w (K, Cc); f32 sums,
+    the result in xbc's dtype."""
+    K = w.shape[0]
+    S = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    out = torch.zeros(xbc.shape, dtype=f32, device=xbc.device)
+    for i in range(K):
+        out = out + pad[:, i:i + S].float() * w[i].float()
+    return (out + b.float()).to(xbc.dtype)
+
+
+def mamba(cfg: ModelConfig, p: dict, x: torch.Tensor,
+          ssd_op: SsdOp | None = None) -> torch.Tensor:
+    """Full-sequence Mamba-2 mixer (prefill).  x (B, S, d) -> (B, S, d).
+
+    ``ssd_op`` defaults to ``ops.ssd_scan``; it takes x (B * Hm, S, dh), dt
+    (B * Hm, S), B and C (B * Hm, S, n) and A (B * Hm,), as the JAX layer
+    hands them to its SSD.
+    """
+    ssd_op = ssd_op or ops.ssd_scan
+    B, S, _ = x.shape
+    di, n, Hm = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    dh = cfg.mamba_head_dim
+
+    proj = x @ p["in_proj"]                                 # (B,S,2di+2n+Hm)
+    z, xin, Bc, Cc, dt = torch.split(proj, [di, di, n, n, Hm], dim=-1)
+    xbc = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1), p["conv_w"],
+                       p["conv_b"])
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xin, Bc, Cc = torch.split(xbc, [di, n, n], dim=-1)
+
+    dtv = F.softplus(dt.float() + p["dt_bias"])             # (B,S,Hm)
+    A = -torch.exp(p["A_log"])                              # (Hm,)
+
+    xh = xin.reshape(B, S, Hm, dh).transpose(1, 2).reshape(B * Hm, S, dh)
+    dth = dtv.transpose(1, 2).reshape(B * Hm, S)
+    # B and C are shared by the heads: the kernel takes a copy per head
+    Bh = Bc[:, None].expand(B, Hm, S, n).reshape(B * Hm, S, n).contiguous()
+    Ch = Cc[:, None].expand(B, Hm, S, n).reshape(B * Hm, S, n).contiguous()
+    Ah = A[None, :].expand(B, Hm).reshape(B * Hm).contiguous()
+    y = ssd_op(xh.contiguous(), dth.contiguous(), Bh, Ch, Ah)
+    y = y.reshape(B, Hm, S, dh).transpose(1, 2).reshape(B, S, di)
+    y = y + (p["D"][None, None, :, None]
+             * xin.reshape(B, S, Hm, dh).float()).reshape(B, S, di
+                                                          ).to(y.dtype)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = rmsnorm(y, p["ssm_norm"], cfg.rms_eps)
+    return y @ p["out_proj"]
+
+
+def mamba_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
+                 conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """Single-token Mamba-2 step.
+
+    conv_state: (B, K-1, di+2n) trailing inputs; ssm_state: (B, Hm, n, dh).
+    Both are updated in place, where the JAX function returns new arrays;
+    the states it returns are the ones it was given.
+    Returns (y, conv_state, ssm_state).
+    """
+    B = x1.shape[0]
+    di, n, Hm = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    dh = cfg.mamba_head_dim
+
+    proj = x1[:, 0] @ p["in_proj"]                          # (B, ...)
+    z, xin, Bc, Cc, dt = torch.split(proj, [di, di, n, n, Hm], dim=-1)
+    xbc_new = torch.cat([xin, Bc, Cc], dim=-1)              # (B, di+2n)
+
+    full = torch.cat([conv_state, xbc_new[:, None]], dim=1)  # (B, K, .)
+    conv = torch.einsum("bkc,kc->bc", full.float(),
+                        p["conv_w"].float()) + p["conv_b"]
+    conv = F.silu(conv)
+    xin, Bc, Cc = torch.split(conv, [di, n, n], dim=-1)     # f32
+
+    dtv = F.softplus(dt.float() + p["dt_bias"])             # (B,Hm)
+    A = -torch.exp(p["A_log"])                              # (Hm,)
+    decay = torch.exp(A[None] * dtv)                        # (B,Hm)
+    xh = xin.reshape(B, Hm, dh)
+    new_state = decay[..., None, None] * ssm_state + \
+        (dtv[..., None, None] * Bc[:, None, :, None] * xh[:, :, None, :])
+    y = torch.einsum("bn,bhnd->bhd", Cc, new_state)         # (B,Hm,dh)
+    y = y + p["D"][None, :, None] * xh
+    y = y.reshape(B, 1, di)
+    y = y * F.silu(z.float())[:, None]
+    y = rmsnorm(y.to(x1.dtype), p["ssm_norm"], cfg.rms_eps)
+    conv_state.copy_(full[:, 1:])
+    ssm_state.copy_(new_state)
+    return y @ p["out_proj"], conv_state, ssm_state
+
+
+# ---------------------------------------------------------------------------
 # not ported yet
 # ---------------------------------------------------------------------------
 
@@ -239,11 +357,3 @@ def spec_moe(cfg: ModelConfig) -> dict:
 
 def moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
     raise NotImplementedError(MOE_TODO)
-
-
-def spec_mamba(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(MAMBA_TODO)
-
-
-def mamba(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    raise NotImplementedError(MAMBA_TODO)

@@ -1,11 +1,11 @@
 """Decoder stack over block patterns: specs, forward, decode step, cache.
 
-The JAX package's ``models/transformer.py`` for the dense attention stack.
-Parameters for one pattern period are stacked along a leading "layers" axis
-(the same tree as JAX's, so weights convert one to one); where JAX
-``lax.scan``s over the groups, the port loops over them in Python and runs
-each layer on views of the stacked leaves.  The decode cache carries the
-same leading axis and is updated in place.
+The JAX package's ``models/transformer.py`` for the dense attention stack
+and the attention-free Mamba-2 stack.  Parameters for one pattern period are
+stacked along a leading "layers" axis (the same tree as JAX's, so weights
+convert one to one); where JAX ``lax.scan``s over the groups, the port loops
+over them in Python and runs each layer on views of the stacked leaves.  The
+decode cache carries the same leading axis and is updated in place.
 """
 
 from __future__ import annotations
@@ -105,13 +105,13 @@ def _group(tree: dict, g: int) -> dict:
 
 def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, enc_out: torch.Tensor | None,
-                 causal: bool, attn_op) -> torch.Tensor:
+                 causal: bool, attn_op, ssd_op) -> torch.Tensor:
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     if desc.kind == "attn":
         x = x + L.attention(cfg, p, h, desc, positions, causal=causal,
                             attn_op=attn_op)
     else:
-        x = x + L.mamba(cfg, p, h)
+        x = x + L.mamba(cfg, p, h, ssd_op=ssd_op)
     if desc.cross_attn:
         if enc_out is None:
             raise ValueError("a cross-attention block needs enc_out")
@@ -128,13 +128,15 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
             positions: torch.Tensor | None = None,
             enc_out: torch.Tensor | None = None,
             causal: bool | None = None,
-            attn_op: L.AttnOp | None = None
+            attn_op: L.AttnOp | None = None,
+            ssd_op: L.SsdOp | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the block stack on embedded inputs x (B, S, d).
 
     Returns (hidden_states, moe_aux_loss); the aux loss is 0 (no MoE block
     is ported).  ``attn_op`` replaces ``ops.flash_attention`` in every
-    attention layer (see ``layers.attention``).
+    attention layer (see ``layers.attention``), ``ssd_op`` ``ops.ssd_scan``
+    in every Mamba-2 layer (see ``layers.mamba``).
     """
     B, S, _ = x.shape
     if positions is None:
@@ -144,7 +146,7 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
         for i, desc in enumerate(cfg.block_pattern):
             p = _group(params["blocks"][f"pos{i}"], g)
             x = _apply_block(cfg, desc, p, x, positions, enc_out, causal,
-                             attn_op)
+                             attn_op, ssd_op)
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return x, torch.zeros((), dtype=f32, device=x.device)
 
@@ -165,12 +167,15 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
                            seqs: tuple[int, ...] | None = None
                            ) -> list[KernelRequest]:
     """The tuned-kernel launches this model's forward makes at serving
-    shapes: the flash attention of each distinct attention block at each
-    sequence length in ``seqs`` (default ``(1, max_seq)``).  Derived from
-    the config alone, with the key and shape arithmetic ``layers.attention``
-    uses when it calls ``ops.flash_attention``.
+    shapes: the flash attention of each distinct attention block, or the
+    SSD scan of each distinct Mamba-2 block, at each sequence length in
+    ``seqs`` (default ``(1, max_seq)``).  Derived from the config alone,
+    with the key and shape arithmetic the layers use when they call
+    ``ops.flash_attention`` (heads folded into the batch axis) and
+    ``ops.ssd_scan`` (mamba heads folded into it).
     """
-    from ..kernels.ops import FLASH_DEFAULT, flash_kernel_name
+    from ..kernels.ops import (FLASH_DEFAULT, SSD_DEFAULT, flash_kernel_name,
+                               ssd_kernel_name)
 
     if seqs is None:
         seqs = (1, max_seq)
@@ -181,13 +186,17 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
         if key in seen:
             continue
         seen.add(key)
-        if desc.kind != "attn":
-            raise NotImplementedError(L.MAMBA_TODO)
         for s in seqs:
-            reqs.append(KernelRequest(
-                flash_kernel_name(cfg.head_dim, cfg.causal),
-                {"bh": batch * cfg.n_heads, "sq": s, "skv": s},
-                dict(FLASH_DEFAULT)))
+            if desc.kind == "attn":
+                reqs.append(KernelRequest(
+                    flash_kernel_name(cfg.head_dim, cfg.causal),
+                    {"bh": batch * cfg.n_heads, "sq": s, "skv": s},
+                    dict(FLASH_DEFAULT)))
+            else:
+                reqs.append(KernelRequest(
+                    ssd_kernel_name(cfg.mamba_head_dim, cfg.ssm_state),
+                    {"bh": batch * cfg.mamba_heads, "s": s, "chunkflops": 1},
+                    dict(SSD_DEFAULT)))
             if desc.cross_attn:
                 skv = cfg.encoder_seq if cfg.encoder_seq else s
                 reqs.append(KernelRequest(
@@ -204,17 +213,27 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
 def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
                      cross_seq: int = 0) -> dict:
     """ParamSpec tree of the decode cache: (layers, B, S, KV, dh) k and v
-    per self-attention block, and static cross-attention k/v."""
+    per self-attention block, (layers, B, K-1, di+2n) conv and f32
+    (layers, B, Hm, n, dh) ssm states per Mamba-2 block, and static
+    cross-attention k/v."""
     g = cfg.n_groups
     cache: dict = {}
     for i, desc in enumerate(cfg.block_pattern):
-        if desc.kind != "attn":
-            raise NotImplementedError(L.MAMBA_TODO)
         sub: dict = {}
-        kv = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        axes = ("layers", "cache_batch", "cache_seq", "cache_heads", None)
-        sub["k"] = ParamSpec(kv, cfg.dtype, axes, "zeros")
-        sub["v"] = ParamSpec(kv, cfg.dtype, axes, "zeros")
+        if desc.kind == "attn":
+            kv = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            axes = ("layers", "cache_batch", "cache_seq", "cache_heads", None)
+            sub["k"] = ParamSpec(kv, cfg.dtype, axes, "zeros")
+            sub["v"] = ParamSpec(kv, cfg.dtype, axes, "zeros")
+        else:
+            sub["conv"] = ParamSpec(
+                (g, batch, cfg.conv_kernel - 1, cfg.mamba_conv_dim),
+                cfg.dtype, ("layers", "cache_batch", None, "mamba_inner"),
+                "zeros")
+            sub["ssm"] = ParamSpec(
+                (g, batch, cfg.mamba_heads, cfg.ssm_state, cfg.mamba_head_dim),
+                f32, ("layers", "cache_batch", "mamba_heads", None, None),
+                "zeros")
         if desc.cross_attn:
             xkv = (g, batch, cross_seq, cfg.n_kv_heads, cfg.head_dim)
             axes = ("layers", "cache_batch", None, "cache_heads", None)
@@ -237,8 +256,11 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
             p = _group(params["blocks"][f"pos{i}"], g)
             c = _group(cache[f"pos{i}"], g)
             h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
-            y, _, _ = L.attention_decode(cfg, p, h, desc, pos, c["k"],
-                                         c["v"])
+            if desc.kind == "attn":
+                y, _, _ = L.attention_decode(cfg, p, h, desc, pos, c["k"],
+                                             c["v"])
+            else:
+                y, _, _ = L.mamba_decode(cfg, p, h, c["conv"], c["ssm"])
             x = x + y
             if desc.cross_attn:
                 h = L.rmsnorm(x, p["x_norm"], cfg.rms_eps)

@@ -94,8 +94,11 @@ class ServingEngine:
             self.slot_budget[s] = req.max_new_tokens
 
     def _single(self, slot: int, token: int, pos: int) -> None:
-        """One prompt token of ``slot``; the other slots rewrite their own
-        current position with their own last token, which is idempotent."""
+        """One prompt token of ``slot``, through a step of every slot, as
+        the JAX engine does.  The other slots rewrite their own current
+        position with their own last token: idempotent for a KV cache, but
+        a Mamba-2 block's conv and SSM states advance in every slot at
+        every step (a fault of the reference the port reproduces)."""
         tok = np.array(self.slot_last, np.int32)
         ps = np.array(self.slot_pos, np.int32)
         tok[slot] = token

@@ -6,8 +6,8 @@ imports no JAX (the machine with the card has none), so on that machine
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 runs them.  Tolerances: 2e-2 abs and rel in bf16; in f32 2e-4 for the
-matmul and 2e-3 abs / 1e-3 rel for flash attention (tests/test_kernels.py's
-tolerances for each kernel).
+matmul, 2e-3 abs / 1e-3 rel for flash attention and 5e-3 abs / 1e-3 rel for
+the SSD scan (tests/test_kernels.py's tolerances for each kernel).
 """
 
 import itertools
@@ -21,6 +21,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
 from repro_torch.kernels.matmul import matmul_kernel, matmul_plain
+from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
 VARIANTS = {
     "causal": dict(causal=True),
@@ -71,3 +73,37 @@ def test_cuda_flash_kernel_matches_plain():
         torch.testing.assert_close(
             ops.flash_attention(q, k, v, **heads, **kw).float(),
             plain.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_matches_plain():
+    """Every chunk the kernel takes at each dtype, at a length no chunk
+    divides, with dt in the JAX kernel tests' range and with small steps,
+    where the state carried across chunks dominates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, (dh, n), (lo, hi) in itertools.product(
+            (torch.bfloat16, torch.float32), ((64, 128), (32, 32)),
+            ((0.01, 0.51), (1e-3, 1e-2))):
+        atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (5e-3, 1e-3)
+        bh, s = 6, 333
+        x = (torch.randn(bh, s, dh, generator=gen, device="cuda") * 0.5
+             ).to(dtype)
+        dt = lo + (hi - lo) * torch.rand(bh, s, generator=gen, device="cuda")
+        B = (torch.randn(bh, s, n, generator=gen, device="cuda") * 0.3
+             ).to(dtype)
+        C = (torch.randn(bh, s, n, generator=gen, device="cuda") * 0.3
+             ).to(dtype)
+        A = -0.5 - torch.rand(bh, generator=gen, device="cuda")
+        for chunk in (32, 64, 128) + ((256,) if dtype == torch.bfloat16
+                                      else ()):
+            plain = ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+            before = SSD_LAUNCHES.count
+            out = ssd_scan_kernel(x, dt, B, C, A, chunk=chunk)
+            assert SSD_LAUNCHES.count == before + 1
+            torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                                       rtol=rtol)
+        torch.testing.assert_close(
+            ops.ssd_scan(x, dt, B, C, A).float(),
+            ssd_scan_plain(x, dt, B, C, A).float(), atol=atol, rtol=rtol)

@@ -278,8 +278,8 @@ def test_kernel_requests_and_cache_specs_match_reference():
 
 def test_unported_layers_name_their_roadmap_item():
     cfg = get_config("llama3.2-1b", smoke=True)
-    for fn in (L.spec_moe, L.spec_mamba):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg.replace(arch_kind="ssm"), device="cpu")
+        L.spec_moe(cfg)
+    for kind in ("vlm", "encdec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(cfg.replace(arch_kind=kind), device="cpu")

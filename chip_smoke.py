@@ -5,11 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It drives KLARAPTOR's tune -> choose -> launch loop on the card for both of
-the port's CUDA kernels, and serves llama3.2-1b (16 layers, d_model 2048,
+It drives KLARAPTOR's tune -> choose -> launch loop on the card for each of
+the port's six CUDA kernels, serves llama3.2-1b (16 layers, d_model 2048,
 32 q and 8 kv heads of dim 64, d_ff 8192, vocab 128256, bf16, seeded random
-weights) through the port's prefill step and serving engine, one phase per
-printed block:
+weights) and mamba2-130m through the port's prefill step and serving engine,
+and derives kernel specs from the compiled kernels, one phase per printed
+block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed);
@@ -58,10 +59,39 @@ printed block:
      the port reproduces, leaks recurrent state between slots and requests,
      so that is the one request where the two must agree).
 
-The three kernels' main paths are phases 4-5 (matmul), 8-9 (flash
-attention) and 12-13 (SSD scan): each launch counter is set to 0 just
-before its path and read just after it; launches made to compare a kernel
-with its plain version or to time it come after the read.
+ 15. the grouped-matmul kernel against its plain version, bf16 and f32, at a
+     small shape over every feasible tile, and at an unaligned shape through
+     ``ops.moe_gmm`` (zero-padded);
+ 16. KLARAPTOR on the card for ``moe_gmm_b16``: probes at e <= 4 and g, k,
+     n <= 1024, the fit, then tuned launches through ``ops.moe_gmm`` at
+     qwen3-moe-235b's expert width (d_model 4096, expert d_ff 1536) with 8
+     local experts of 4096 tokens each, the up (k 4096 -> n 1536) and the
+     down (k 1536 -> n 4096) product; each held against the plain version,
+     timed against ``torch.bmm`` (yardstick only) and the bound, and the
+     selection ratio against exhaustive search (printed, not gated);
+ 17. introspection on the card: ``layernorm_c2048_b16`` (llama3.2-1b's
+     d_model) and ``colsum_b16`` derived from the compiled kernels (grid,
+     operands with their dependences, constraints, compiled registers
+     against the launch-bounds cap, spilled bytes); ``matmul_b16`` and
+     ``moe_gmm_b16`` derived likewise, and drivers built from them choose
+     the configs the hand specs' drivers choose (``HopperModel`` oracle, the
+     reference's equivalence shapes);
+ 18. the auto path: ``build_auto_kernels(d_model=2048)`` tuned against the
+     card, then ``ops.layernorm`` at r 4096, 16384 and 4097 (a ragged last
+     row block, which must still launch many CTAs) and
+     ``ops.blocked_colsum`` at (8192, 4096) and (2048, 8192), each held
+     against its plain version, timed against the bytes bound and one
+     PyTorch call (``F.layer_norm``, which leaves out the residual add;
+     ``torch.sum``), and the selection ratios against exhaustive search;
+ 19. the entry point: ``repro_torch.launch.serve.main`` with
+     ``--auto-kernels`` in this process (the drivers dropped first, so it
+     tunes both kernels on the card again), serving llama3.2-1b requests.
+
+The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
+12-13 (SSD scan), 16 (grouped matmul) and 18 (layernorm and column sum; 19
+is the entry point, read the same way): each launch counter is set to 0
+just before its path and read just after it; launches made to compare a
+kernel with its plain version or to time it come after the read.
 The line before the last is one JSON object with each kernel's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits nonzero.  Without a CUDA device, or outside a checkout, it
@@ -93,6 +123,7 @@ PEAK_BF16 = 989e12     # H100 SXM dense tensor-core rate
 PEAK_F32 = 67e12       # H100 SXM FP32 on the CUDA cores
 HBM_BW = 3.35e12       # H100 SXM HBM3
 SEED = 0
+SPIN_CYCLES = 4_000_000   # about 2 ms at the H100's boost clock
 
 # Flash attention: the prefill shape (llama3.2-1b, B = 1, S = 4096) and the
 # sweep of phase 7.
@@ -122,6 +153,19 @@ N_REQUESTS, ENGINE_SLOTS, ENGINE_MAX_SEQ, MAX_NEW = 8, 4, 256, 16
 SSD_SWEEP_S = 333                       # a length no chunk divides
 SSD_DT_RANGES = {"dt 0.01-0.51": (0.01, 0.51), "dt 1e-3-1e-2": (1e-3, 1e-2)}
 SSD_LOGIT_REL_TOL = 5e-2
+
+# The grouped matmul of phase 16: qwen3-moe-235b's expert width (d_model
+# 4096, expert d_ff 1536, src/repro/configs/qwen3_moe_235b.py) with 8 local
+# experts of 4096 tokens each, the reference's own bench shape
+# (benchmarks/bench_telemetry.py); (name, k, n) of the up and down product.
+GMM_E, GMM_G = 8, 4096
+GMM_SHAPES = (("up", 4096, 1536), ("down", 1536, 4096))
+# Phase 18: llama3.2-1b's d_model and the reference's auto-kernel shapes
+# (benchmarks/bench_introspect.py), plus a row count no multiple of 8
+# divides (the layernorm's masked last row block).
+AUTO_D_MODEL = 2048
+LN_ROWS = (4096, 16384, 4097)
+COLSUM_SHAPES = ((8192, 4096), (2048, 8192))
 
 
 def _device_profile(fn, what: str, own: tuple = ("flash", "flash_fwd")
@@ -236,15 +280,20 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.layernorm import LAYERNORM
     from repro_torch.kernels.matmul import (LAUNCHES, kernel_attributes,
                                             matmul_kernel, matmul_plain)
+    from repro_torch.kernels.moe_gmm import MOE_GMM
+    from repro_torch.kernels.reduce import COLSUM
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     def time_ms(fn, target_ms: float = 40.0, max_iters: int = 20) -> float:
-        """Mean ms of fn() from CUDA events, after one warm-up launch."""
+        """Mean ms of fn() from CUDA events over launches queued behind a
+        spin of the card, after one warm-up launch; the median of three such
+        loops (one where a loop is one call, as for the plain versions)."""
         fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -254,12 +303,19 @@ def main() -> int:
         end.synchronize()
         once = start.elapsed_time(end)
         iters = int(min(max(target_ms / max(once, 1e-3), 1), max_iters))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+        loops = []
+        for _ in range(3 if max_iters > 1 else 1):
+            # the card spins (about 2 ms) while the host queues the
+            # launches, so a kernel shorter than its wrapper's host time is
+            # timed alone
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            loops.append(start.elapsed_time(end) / iters)
+        return sorted(loops)[len(loops) // 2]
 
     def max_err(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
@@ -339,6 +395,19 @@ def main() -> int:
             raise AssertionError(
                 f"SSD kernel uses {attrs['num_regs']} registers; the spec "
                 f"assumes {SSD_REGS_PER_THREAD}")
+    for kern in (MOE_GMM, LAYERNORM, COLSUM):
+        lines = [ln.strip() for ln in
+                 _build.build_log(kern.source).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"  {kern.source} ptxas:\n  " + "\n  ".join(lines))
+        for dt in (torch.bfloat16, torch.float32):
+            attrs = kern.attributes(dt)
+            print(f"  {kern.source} {dt}: {attrs} (launch-bounds cap "
+                  f"{kern.regs_cap})")
+            if attrs["num_regs"] > kern.regs_cap:
+                raise AssertionError(
+                    f"{kern.source} uses {attrs['num_regs']} registers, "
+                    f"above its cap {kern.regs_cap}")
     phase_done(2)
 
     # -- 3. the kernel against its plain version --------------------------------
@@ -492,7 +561,11 @@ def main() -> int:
     }
     flash_row = flash_phases(dev, hw, gen, check, time_ms, phase_done)
     ssd_row = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
-    print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row],
+    gmm_row = gmm_phases(dev, hw, gen, check, time_ms, phase_done)
+    introspect_phase(hw, phase_done)
+    ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done)
+    print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
+                                  ln_row, cs_row],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1063,6 +1136,380 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         "selection_ratio": ratio["ratio"],
         "layers": layers,
     }
+
+
+def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
+    """Phases 15-16: the grouped-matmul kernel and KLARAPTOR on it.
+    Returns the kernel's entry of the ``kernels`` line."""
+    import torch
+
+    from repro_torch.core import (CudaEventTimer, Klaraptor, fit_tile,
+                                  gmm_probe_data, moe_gmm_spec,
+                                  selection_ratio)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gmm import (LAUNCHES, moe_gmm_kernel,
+                                             moe_gmm_plain)
+
+    def inputs(e, g, k, n, dtype):
+        x = torch.randn(e, g, k, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(e, k, n, generator=gen, device=dev) / k ** 0.5
+             ).to(dtype)
+        return x, w
+
+    # -- 15. the grouped-matmul kernel against its plain version --------------
+    print("[15] grouped-matmul kernel vs plain (tolerance: 2e-2 bf16, 2e-4 "
+          "f32, atol=rtol, the repo's kernel-test tolerances)", flush=True)
+    worst = 0.0
+    n_checked = 0
+    D = {"e": 4, "g": 256, "k": 256, "n": 512}
+    for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        table = moe_gmm_spec(nbytes).candidates(D, hw)
+        x, w = inputs(D["e"], D["g"], D["k"], D["n"], dtype)
+        plain = moe_gmm_plain(x, w)
+        errs = [check(moe_gmm_kernel(x, w, **table.row(i)), plain, dtype,
+                      f"{dtype} {D} {table.row(i)}", quiet=True)
+                for i in range(len(table))]
+        n_checked += len(errs)
+        worst = max([worst] + errs)
+        print(f"  {dtype} {D}: {len(errs)} feasible tiles, max_abs_err="
+              f"{max(errs):.3e} ok", flush=True)
+        xu, wu = inputs(3, 100, 77, 50, dtype)
+        worst = max(worst, check(ops.moe_gmm(xu, wu), moe_gmm_plain(xu, wu),
+                                 dtype, f"{dtype} ops.moe_gmm at the "
+                                 f"unaligned (e, g, k, n) (3, 100, 77, 50)"))
+    print(f"  {n_checked} sweep launches agree with the plain version")
+    phase_done(15)
+
+    # -- 16. KLARAPTOR for moe_gmm_b16 (the grouped-matmul main path) ---------
+    LAUNCHES.reset()
+    spec = moe_gmm_spec(dtype_bytes=2)
+    timer = CudaEventTimer(hw, warmup=1, timings=3, seed=SEED)
+    build = Klaraptor(timer).build_driver(
+        spec, probe_data=gmm_probe_data(), repeats=2,
+        max_configs_per_size=24)
+    cols = build.collected.columns
+    print(f"[16] KLARAPTOR build on the card for {spec.name}")
+    print("  " + build.fit_report().replace("\n", "\n  "))
+    print(f"  probe sizes: e <= {int(cols['e'].max())}, g, k, n <= "
+          f"{max(int(cols[d].max()) for d in 'gkn')}; probe executions "
+          f"{build.collected.n_probe_executions}; probe device seconds "
+          f"{build.probe_device_seconds:.4f}", flush=True)
+    if int(cols["e"].max()) > 4 or \
+            max(int(cols[d].max()) for d in "gkn") > 1024:
+        raise AssertionError("probes left e <= 4, g, k, n <= 1024")
+    kept = {}
+    for name, k, n in GMM_SHAPES:
+        x, w = inputs(GMM_E, GMM_G, k, n, torch.bfloat16)
+        before = LAUNCHES.count
+        out = ops.moe_gmm(x, w)
+        if LAUNCHES.count != before + 1:
+            raise AssertionError(f"{name}: ops.moe_gmm launched "
+                                 f"{LAUNCHES.count - before} kernels, not 1")
+        if tuple(out.shape) != (GMM_E, GMM_G, n) \
+                or out.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: output {out.shape} {out.dtype}")
+        kept[name] = (x, w, out)
+    launches = LAUNCHES.count           # the grouped-matmul main path ends
+    print(f"  main-path launches: {launches} (probes, probe warm-ups and "
+          f"the tuned calls)")
+    rows = []
+    for name, k, n in GMM_SHAPES:
+        x, w, out = kept.pop(name)
+        Dn = {"e": GMM_E, "g": GMM_G, "k": k, "n": n}
+        cfg = build.driver.choose(Dn)
+        dflt = {p: fit_tile(Dn[d], v, 8) for (p, v), d in
+                zip(ops.GMM_DEFAULT.items(), "gnk")}
+        plain = moe_gmm_plain(x, w)
+        err = check(out, plain, torch.bfloat16,
+                    f"{name} {Dn} tuned {cfg} vs plain")
+        worst = max(worst, err)
+        flops = 2.0 * GMM_E * GMM_G * k * n
+        t_ops = flops / PEAK_BF16
+        t_bytes = GMM_E * (GMM_G * k + k * n + GMM_G * n) * 2 / HBM_BW
+        r = {
+            "shape": name, **Dn, "config": cfg, "max_abs_err": err,
+            "default": dflt,
+            "ms": time_ms(lambda: moe_gmm_kernel(x, w, **cfg)),
+            "default_ms": time_ms(lambda: moe_gmm_kernel(x, w, **dflt)),
+            "library_ms": time_ms(lambda: torch.bmm(x, w)),
+            "plain_ms": time_ms(lambda: moe_gmm_plain(x, w), max_iters=1),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        rows.append(r)
+        print(f"  {name} {Dn}: chosen {cfg} {r['ms']:.4f} ms "
+              f"({r['tflops']:.2f} TFLOP/s) | default {dflt} "
+              f"{r['default_ms']:.4f} ms | torch.bmm {r['library_ms']:.4f} "
+              f"ms | plain {r['plain_ms']:.2f} ms | bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        del x, w, out, plain
+        torch.cuda.empty_cache()
+    for r in rows:
+        Dn = {d: r[d] for d in ("e", "g", "k", "n")}
+        t0 = time.perf_counter()
+        ratio = selection_ratio(spec, timer, build.driver, Dn, hw)
+        r["selection_ratio"] = ratio["ratio"]
+        print(f"  [16, after the main path] selection ratio at {Dn} "
+              f"(exhaustive: 1 warm-up + median of 3 timed launches per "
+              f"candidate; printed, not gated): chosen {ratio['chosen']} "
+              f"{ratio['chosen_time_s'] * 1e3:.4f} ms, best {ratio['best']} "
+              f"{ratio['best_time_s'] * 1e3:.4f} ms of {ratio['n_configs']}, "
+              f"ratio {ratio['ratio']:.3f} ({time.perf_counter() - t0:.1f} "
+              f"s)", flush=True)
+        torch.cuda.empty_cache()
+    phase_done(16)
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "default_ms")}
+    return {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:46",
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in rows) else "bytes",
+        "library_ms": total["library_ms"],
+        "default_ms": total["default_ms"],
+        "shapes": rows,
+    }
+
+
+def introspect_phase(hw, phase_done) -> None:
+    """Phase 17: specs derived from the compiled kernels on the card."""
+    from repro_torch.core import HopperModel, Klaraptor, gmm_probe_data
+    from repro_torch.introspect import derive_kernel
+    from repro_torch.introspect.tier1 import EQUIV_SHAPES, tier1_pairs
+    from repro_torch.kernels.layernorm import LAYERNORM, layernorm_grid_spec
+    from repro_torch.kernels.reduce import COLSUM, colsum_grid_spec
+
+    print("[17] introspection on the card: specs derived from the launch "
+          "descriptions and the compiled kernels", flush=True)
+
+    def show(spec, cap) -> None:
+        axes = ", ".join(
+            f"{a.name}={a.data}" + (f"/{a.block}" if a.block else "")
+            + (" (loop)" if a.sequential else "")
+            + (" (ragged)" if a.ragged else "") for a in spec.grid)
+        print(f"  {spec.name}: grid [{axes}]; threads "
+              f"{spec.threads.to_source()}; "
+              f"flops/point {spec.flops_per_point}")
+        for op in spec.operands:
+            kind = ("scratch" if op.scratch else "output" if op.is_output
+                    else "staged" if op.staged else "input")
+            print(f"    {op.name}: tile {op.tile} deps {op.deps} "
+                  f"{op.dtype_bytes} B/elem, {kind}")
+        print(f"    constraints {list(spec.constraints)}")
+        print(f"    registers {cap.num_regs} ({cap.attributes_source}) "
+              f"against the launch-bounds cap {cap.regs_cap}; spilled local "
+              f"bytes {cap.local_bytes}; fingerprint {cap.fingerprint}",
+              flush=True)
+        if cap.attributes_source != "compiled" or \
+                cap.num_regs > cap.regs_cap:
+            raise AssertionError(f"{spec.name}: registers {cap.num_regs} "
+                                 f"({cap.attributes_source})")
+
+    for kernel, gs in ((LAYERNORM, layernorm_grid_spec(AUTO_D_MODEL)),
+                       (COLSUM, colsum_grid_spec())):
+        spec, cap = derive_kernel(kernel, gs)
+        show(spec, cap)
+        if spec.name.startswith("layernorm"):
+            if [op.deps for op in spec.operands[2:4]] != [(), ()]:
+                raise AssertionError("gamma and beta are not resident")
+        elif spec.operands[1].deps != (spec.grid[0].name,):
+            raise AssertionError("the column sums are not written once per "
+                                 "column block")
+    for kernel, gs, hand in tier1_pairs():
+        spec, cap = derive_kernel(kernel, gs)
+        show(spec, cap)
+        probes = gmm_probe_data() if hand.name.startswith("moe") else None
+        drivers = [Klaraptor(HopperModel(hw, noise=0.03, seed=3)
+                             ).build_driver(s, probe_data=probes, repeats=2,
+                                            max_configs_per_size=12,
+                                            register=False).driver
+                   for s in (hand, spec)]
+        same = [drivers[0].choose(D) == drivers[1].choose(D)
+                for D in EQUIV_SHAPES[hand.name]]
+        print(f"    drivers from the hand spec (registers "
+              f"{hand.regs_per_thread}) and the derived one (registers "
+              f"{spec.regs_per_thread}) on HopperModel choose the same "
+              f"config at {sum(same)} of {len(same)} shapes", flush=True)
+        if not all(same):
+            raise AssertionError(f"{hand.name}: derived and hand specs "
+                                 f"choose differently")
+    phase_done(17)
+
+
+def auto_phases(dev, hw, gen, check, time_ms, phase_done):
+    """Phases 18-19: the auto-specced layernorm and column sum, tuned on
+    the card and launched through the ops and the serving entry point.
+    Returns the two kernels' entries of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import CudaEventTimer, registry, selection_ratio
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reduce as cs
+    from repro_torch.launch import build_auto_kernels
+    from repro_torch.launch import serve
+
+    # -- 18. the auto path (the layernorm and column-sum main path) -----------
+    ln.LAUNCHES.reset()
+    cs.LAUNCHES.reset()
+    timer = CudaEventTimer(hw, warmup=1, timings=3, seed=SEED)
+    t0 = time.perf_counter()
+    kernels = build_auto_kernels(d_model=AUTO_D_MODEL, tune_device=timer)
+    print(f"[18] the auto path: build_auto_kernels(d_model={AUTO_D_MODEL}) "
+          f"introspected and tuned {[ak.name for ak in kernels]} on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    ak_ln, ak_cs = kernels
+    c = AUTO_D_MODEL
+    calls = []
+    for r in LN_ROWS:
+        x, res = (torch.randn(r, c, generator=gen, device=dev
+                              ).to(torch.bfloat16) for _ in range(2))
+        g, b = (torch.randn(c, generator=gen, device=dev) for _ in range(2))
+        before = ln.LAUNCHES.count
+        out = ops.layernorm(x, res, g, b)
+        if ln.LAUNCHES.count != before + 1:
+            raise AssertionError("ops.layernorm did not launch the kernel "
+                                 "once")
+        calls.append(("layernorm", {"r": r}, (x, res, g, b), out))
+    for r, cc in COLSUM_SHAPES:
+        x = torch.randn(r, cc, generator=gen, device=dev).to(torch.bfloat16)
+        before = cs.LAUNCHES.count
+        out = ops.blocked_colsum(x)
+        if cs.LAUNCHES.count != before + 1:
+            raise AssertionError("ops.blocked_colsum did not launch the "
+                                 "kernel once")
+        calls.append(("colsum", {"r": r, "c": cc}, (x,), out))
+    launches = {"layernorm": ln.LAUNCHES.count,      # the main path ends
+                "colsum": cs.LAUNCHES.count}
+    print(f"  main-path launches: layernorm {launches['layernorm']}, colsum "
+          f"{launches['colsum']} (probes, probe warm-ups and the tuned "
+          f"calls)")
+    rows = {"layernorm": [], "colsum": []}
+    for kind, Dn, args, out in calls:
+        ak = ak_ln if kind == "layernorm" else ak_cs
+        cfg = ak.fit_config(ak.choose(Dn), Dn)
+        dflt = ak.fit_config(ak.defaults, Dn)
+        if kind == "layernorm":
+            x, res, g, b = args
+            r = Dn["r"]
+            if -(-r // cfg["br"]) < 2:
+                raise AssertionError(f"layernorm at r {r} runs br "
+                                     f"{cfg['br']}: one CTA")
+            plain = ln.layernorm_plain(x, res, g, b)
+            kern = functools.partial(ln.layernorm_kernel, x, res, g, b)
+            plain_fn = functools.partial(ln.layernorm_plain, x, res, g, b)
+
+            def library(x=x, g=g, b=b):
+                return F.layer_norm(x, (c,), g.to(x.dtype), b.to(x.dtype),
+                                    1e-6)
+
+            nbytes = 3 * r * c * 2 + 2 * c * 4
+            flops = ln.LN_FLOPS_PER_ELEMENT * r * c
+            lib_name = "F.layer_norm (no residual add)"
+        else:
+            (x,) = args
+            plain = cs.colsum_plain(x)
+            kern = functools.partial(cs.colsum_kernel, x)
+            plain_fn = functools.partial(cs.colsum_plain, x)
+
+            def library(x=x):
+                return torch.sum(x, 0, dtype=torch.float32)
+
+            nbytes = Dn["r"] * Dn["c"] * 2 + Dn["c"] * 4
+            flops = Dn["r"] * Dn["c"]
+            lib_name = "torch.sum"
+        err = check(out, plain, torch.bfloat16, f"{kind} {Dn} tuned {cfg}")
+        t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BW
+        row = {
+            "shape": Dn, "config": cfg, "default": dflt, "max_abs_err": err,
+            "ms": time_ms(lambda: kern(**cfg)),
+            "default_ms": time_ms(lambda: kern(**dflt)),
+            "library_ms": time_ms(library),
+            "plain_ms": time_ms(plain_fn),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        row["gb_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        rows[kind].append(row)
+        print(f"  {kind} {Dn}: chosen {cfg} {row['ms']:.4f} ms "
+              f"({row['gb_s']:.0f} GB/s) | default {dflt} "
+              f"{row['default_ms']:.4f} ms | {lib_name} "
+              f"{row['library_ms']:.4f} ms | plain {row['plain_ms']:.4f} ms "
+              f"| bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    for kind, ak in (("layernorm", ak_ln), ("colsum", ak_cs)):
+        for row in rows[kind]:
+            ratio = selection_ratio(ak.spec, timer, registry.get(ak.name),
+                                    row["shape"], hw)
+            row["selection_ratio"] = ratio["ratio"]
+            print(f"  [18, after the main path] {ak.name} selection ratio at "
+                  f"{row['shape']} (printed, not gated): chosen "
+                  f"{ratio['chosen']} {ratio['chosen_time_s'] * 1e3:.4f} ms, "
+                  f"best {ratio['best']} {ratio['best_time_s'] * 1e3:.4f} ms "
+                  f"of {ratio['n_configs']}, ratio {ratio['ratio']:.3f}",
+                  flush=True)
+    phase_done(18)
+
+    # -- 19. the entry point ---------------------------------------------------
+    ln.LAUNCHES.reset()
+    cs.LAUNCHES.reset()
+    registry.clear()
+    argv = ["--arch", "llama3.2-1b", "--auto-kernels", "--requests", "3",
+            "--max-new", "4", "--batch", "2", "--max-seq", "64"]
+    print(f"[19] the entry point: repro_torch.launch.serve.main({argv})",
+          flush=True)
+    done = serve.main(argv)
+    torch.cuda.synchronize()
+    entry = {"layernorm": ln.LAUNCHES.count, "colsum": cs.LAUNCHES.count}
+    print(f"  launches through the entry point: {entry}")
+    if sorted(r.rid for r in done) != [0, 1, 2] or \
+            not all(r.done and 1 <= len(r.output) <= 4 for r in done):
+        raise AssertionError("the entry point did not serve every request")
+    if min(entry.values()) < 1:
+        raise AssertionError("the entry point did not run both kernels")
+    phase_done(19)
+
+    out = []
+    for kind, ak, src, line in (
+            ("layernorm", ak_ln, "layernorm.cu",
+             "src/repro/kernels/layernorm.py:45"),
+            ("colsum", ak_cs, "colsum.cu", "src/repro/kernels/reduce.py:47")):
+        rs = rows[kind]
+        total = {key: sum(r[key] for r in rs)
+                 for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "default_ms")}
+        out.append({
+            "name": kind,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": line,
+            "launches": launches[kind],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                            for r in rs) else "bytes",
+            "library_ms": total["library_ms"],
+            "default_ms": total["default_ms"],
+            "entry_point_launches": entry[kind],
+            "spec": ak.name,
+            "registers": ak.capture.num_regs,
+            "shapes": rs,
+        })
+    return tuple(out)
 
 
 if __name__ == "__main__":

@@ -382,13 +382,19 @@ class CudaEventTimer(DeviceModel):
 
     For each row of a traffic table it launches the kernel at the row's
     (D, P) ``warmup`` times untimed, then once per repeat between two
-    ``torch.cuda.Event``s on the current stream.  ``probe_batch`` returns
+    ``torch.cuda.Event``s on the current stream.  Before each timed launch
+    the card spins for ``SPIN_CYCLES`` clock cycles (``torch.cuda._sleep``),
+    so it is still busy while the host records the start event and runs the
+    wrapper; otherwise a kernel shorter than the wrapper's host time would
+    be timed with the host's gap in it.  ``probe_batch`` returns
     those per-launch times split by the roofline rule in this module's
     docstring; ``true_time_batch`` returns the median of ``timings``
     launches per row.  Inputs are made once per data size from ``seed``.
     ``kernels.ops.probe_launcher`` binds the inputs and launches.  There
     is no CPU fallback: without a card the constructor raises.
     """
+
+    SPIN_CYCLES = 200_000     # about 100 us at the H100's boost clock
 
     def __init__(self, hw: HardwareParams | None = None,
                  device: str | torch.device = "cuda", warmup: int = 1,
@@ -431,10 +437,12 @@ class CudaEventTimer(DeviceModel):
             events = [(torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
                       for _ in range(n_timed)]
-            for start, end in events:
-                start.record(stream)
-                launch(P)
-                end.record(stream)
+            with torch.cuda.device(self.device):
+                for start, end in events:
+                    torch.cuda._sleep(self.SPIN_CYCLES)
+                    start.record(stream)
+                    launch(P)
+                    end.record(stream)
             events[-1][1].synchronize()
             out[:, i] = [s.elapsed_time(e) * 1e-3 for s, e in events]
         return out

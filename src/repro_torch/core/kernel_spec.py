@@ -47,8 +47,9 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Floor, Max, Min,
 
 __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
-    "flash_attention_spec", "flash_probe_data", "matmul_spec",
-    "ssd_probe_data", "ssd_scan_spec", "substitute",
+    "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
+    "matmul_spec", "moe_gmm_spec", "ssd_probe_data", "ssd_scan_spec",
+    "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -224,6 +225,9 @@ class KernelSpec:
     constraints: tuple[str, ...] = ()
     param_candidates: dict[str, tuple[int, ...]] = field(default_factory=dict)
     fit_vars: dict[str, tuple[str, ...]] = field(default_factory=dict)
+    # Identity of the compiled kernel a derived spec was read from
+    # (``repro_torch.introspect``); empty on hand-written specs.
+    source_fingerprint: str = ""
 
     # -- symbolic launch geometry (rational-program Exprs) ---------------------
     def ctas_expr(self) -> Expr:
@@ -457,6 +461,64 @@ def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
             "ovh_step": ("bm", "bn", "bk"),
         },
     )
+
+
+# kernels/csrc/moe_gmm.cu: csrc/matmul.cu's body with the expert on
+# blockIdx.z, the same 8 x 8 micro-tiles and __launch_bounds__(512).
+GMM_REGS_PER_THREAD = 128
+
+
+def moe_gmm_spec(dtype_bytes: int = 2) -> KernelSpec:
+    """out[e] = x[e] @ w[e], x (e, g, k), w (e, k, n): CTAs over (ex, i, j),
+    a loop over k inside.
+
+    (bg, bn) is the thread-block shape: bg * bn / 64 threads, one 8 x 8
+    micro-tile each.  Token (bg, bk) and weight (bk, bn) tiles are staged in
+    shared memory; the f32 accumulators are registers.  The TPU rules of
+    the reference spec (``bg <= 8 * g``, ``bn % 128``) do not carry over:
+    8-granularity plus the Hopper shared-memory, thread and register limits
+    replace them.
+    """
+    tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
+    return KernelSpec(
+        name=f"moe_gmm_b{dtype_bytes * 8}",
+        data_params=("e", "g", "k", "n"),
+        program_params=("bg", "bn", "bk"),
+        grid=(GridAxis("ex", "e", None), GridAxis("i", "g", "bg"),
+              GridAxis("j", "n", "bn"),
+              GridAxis("l", "k", "bk", sequential=True)),
+        operands=(
+            Operand("tokens", ("bg", "bk"), ("ex", "i", "l"), dtype_bytes,
+                    staged=True),
+            Operand("weights", ("bk", "bn"), ("ex", "l", "j"), dtype_bytes,
+                    staged=True),
+            Operand("out", ("bg", "bn"), ("ex", "i", "j"), dtype_bytes,
+                    is_output=True),
+        ),
+        flops_per_point=2.0,  # over the (e, g, n, k) domain
+        threads=var("bg") * var("bn") / const(tile),
+        regs_per_thread=GMM_REGS_PER_THREAD,
+        constraints=("bg % 8 == 0", "bn % 8 == 0", "bk % 8 == 0"),
+        param_candidates={
+            "bg": (16, 32, 64, 128, 256, 512),
+            "bn": (16, 32, 64, 128, 256, 512),
+            "bk": (8, 16, 32, 64, 128, 256),
+        },
+        fit_vars={
+            "mem_step": ("bg", "bn", "bk"),
+            "cmp_step": ("bg", "bn", "bk"),
+            "ovh_step": ("bg", "bn", "bk"),
+        },
+    )
+
+
+def gmm_probe_data(experts: Sequence[int] = (2, 4),
+                   sizes: Sequence[int] = (256, 1024)
+                   ) -> list[dict[str, int]]:
+    """Small probe sizes for a grouped-matmul spec: few experts (the
+    reference's ``probe_hints={"e": (2, 4)}``) and g, k, n <= 1024."""
+    return [{"e": int(e), "g": int(g), "k": int(k), "n": int(n)}
+            for e in experts for g in sizes for k in sizes for n in sizes]
 
 
 # kernels/csrc/flash_attention.cu: a CTA of 4 * bq threads, each owning 4

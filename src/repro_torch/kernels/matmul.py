@@ -10,6 +10,8 @@ result is cast to ``out_dtype`` (bf16, f16 or f32).
 in f32 as a sum of outer products over k.  The tests use it, and the wrapper
 takes it only for tensors on the CPU; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES.count`` counts kernel launches and nothing else.
+``matmul_launch`` states a launch in numbers for introspection
+(``repro_torch.introspect``), ``MATMUL`` bundles it with the wrapper.
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ import functools
 
 import torch
 
+from ..core.kernel_spec import MATMUL_MICRO_TILE, MATMUL_REGS_PER_THREAD
+from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
 from ._build import load
 
-__all__ = ["IN_DTYPES", "LAUNCHES", "OUT_DTYPES", "LaunchCounter",
-           "kernel_attributes", "matmul_kernel", "matmul_plain"]
+__all__ = ["IN_DTYPES", "LAUNCHES", "MATMUL", "OUT_DTYPES", "LaunchCounter",
+           "kernel_attributes", "matmul_kernel", "matmul_launch",
+           "matmul_plain"]
 
 IN_DTYPES = (torch.float32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -101,6 +106,29 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def matmul_launch(args, *, bm: int, bn: int, bk: int,
+                  out_dtype: torch.dtype | None = None) -> LaunchDescription:
+    """The launch ``matmul_kernel`` makes on tensors of the ``(shape,
+    dtype)`` pairs ``args`` = (x, y): grid (m / bm, n / bn), a loop over
+    k / bk, x and y tiles staged in shared memory.  Arithmetic only."""
+    (xs, dt), (ys, _) = args
+    m, k = xs
+    n = ys[1]
+    return LaunchDescription(
+        grid=(-(-m // bm), -(-n // bn)),
+        loops=(-(-k // bk),),
+        threads=(bm // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
+        smem_bytes=(bm + bn) * bk * dt.itemsize,
+        operands=(
+            OperandLaunch((bm, bk), (0, 2), dt, staged=True),
+            OperandLaunch((bk, bn), (1, 2), dt, staged=True),
+            OperandLaunch((bm, bn), (0, 1), out_dtype or dt, is_output=True),
+        ),
+        flops=2.0 * m * n * k,
+        dtype=dt,
+    )
+
+
 def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
            out_dtype: torch.dtype) -> None:
     """Raise ValueError on anything the kernel does not take."""
@@ -126,15 +154,16 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
                              f"of {GRANULE}")
         if size % t:
             raise ValueError(f"{name}={t} does not divide {size}")
-    threads = (bm // GRANULE) * (bn // GRANULE)
-    if threads > MAX_THREADS:
-        raise ValueError(f"bm * bn / 64 = {threads} threads exceeds the "
+    d = matmul_launch((((m, k), x.dtype), ((k, n), y.dtype)), bm=bm, bn=bn,
+                      bk=bk, out_dtype=out_dtype)
+    if d.threads > MAX_THREADS:
+        raise ValueError(f"bm * bn / 64 = {d.threads} threads exceeds the "
                          f"kernel's {MAX_THREADS}")
-    smem = (bm + bn) * bk * x.element_size()
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tiles need {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block can have")
-    if m // bm > MAX_GRID_Y or max(m, n, k) >= 2**31:
+    if d.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
+                         f"memory, more than the {SMEM_LIMIT} a block can "
+                         f"have")
+    if d.grid[0] > MAX_GRID_Y or max(m, n, k) >= 2**31:
         raise ValueError(f"shape ({m}, {n}, {k}) exceeds the launch grid")
     if x.device.type == "cuda" and (x.data_ptr() % 16 or y.data_ptr() % 16):
         raise ValueError("inputs must be 16-byte aligned")
@@ -161,3 +190,8 @@ def matmul_kernel(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
         _raise_cuda("matmul kernel launch", rc)
     LAUNCHES.count += 1
     return out
+
+
+MATMUL = CudaKernel(source="matmul", describe=matmul_launch,
+                    launch=matmul_kernel, attributes=kernel_attributes,
+                    regs_cap=MATMUL_REGS_PER_THREAD)

@@ -1,0 +1,185 @@
+"""Grouped (expert) matmul: the hand-written CUDA kernel's wrapper and its
+plain version.
+
+``moe_gmm_kernel`` launches ``csrc/moe_gmm.cu`` (the Hopper port of the JAX
+package's ``moe_gmm_pallas``) with launch parameters (bg, bn, bk): a grid of
+(n / bn) x (g / bg) x e CTAs of (bg / 8) * (bn / 8) threads, each CTA
+looping over k in steps of bk.  x (e, g, k) and w (e, k, n) are bf16 or f32
+of one type, accumulation is f32 and out (e, g, n) has x's type: the
+capacity-padded per-expert product of an MoE layer.
+
+``moe_gmm_plain`` computes the same function in plain PyTorch, per expert in
+f32 as a sum of outer products over chunks of k.  The tests use it, and the
+wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
+kernel or raises.  ``LAUNCHES.count`` counts kernel launches and nothing
+else.  ``moe_gmm_launch`` states a launch in numbers for introspection
+(``repro_torch.introspect``), ``MOE_GMM`` bundles it with the wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.kernel_spec import GMM_REGS_PER_THREAD, MATMUL_MICRO_TILE
+from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
+from ._build import load
+from .matmul import LaunchCounter
+
+__all__ = ["DTYPES", "LAUNCHES", "MOE_GMM", "kernel_attributes",
+           "moe_gmm_kernel", "moe_gmm_launch", "moe_gmm_plain"]
+
+DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+GRANULE = 8             # micro-tile edge and 16-byte vector width (bf16)
+MAX_THREADS = 512       # the kernel's __launch_bounds__
+SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
+MAX_GRID_YZ = 65535
+_PLAIN_CHUNK_ELEMS = 1 << 24   # f32 elements of one outer-product chunk
+
+LAUNCHES = LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load("moe_gmm")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.klaraptor_moe_gmm.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.klaraptor_moe_gmm.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.klaraptor_moe_gmm_attributes.argtypes = [i, ip, ip, ip]
+    lib.klaraptor_moe_gmm_attributes.restype = i
+    lib.klaraptor_moe_gmm_error_string.argtypes = [i]
+    lib.klaraptor_moe_gmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_cuda(what: str, rc: int) -> None:
+    msg = _lib().klaraptor_moe_gmm_error_string(rc).decode()
+    raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
+    """Registers per thread, thread limit and spilled local bytes of the
+    kernel compiled for ``dtype`` (builds it if needed)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = _lib().klaraptor_moe_gmm_attributes(
+        _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
+    if rc:
+        _raise_cuda("cudaFuncGetAttributes", rc)
+    return dict(zip(("num_regs", "max_threads", "local_bytes"),
+                    (v.value for v in vals)))
+
+
+def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x[e, g, k] @ w[e, k, n] in plain PyTorch: f32 accumulation per
+    expert, cast to x's type at the end.
+
+    Sums outer products over chunks of k, so no library matmul is called;
+    chunks are sized to keep the (e, g, chunk, n) product under 64 MB.
+    """
+    e, g, k = x.shape
+    n = w.shape[2]
+    xf, wf = x.float(), w.float()
+    acc = torch.zeros((e, g, n), dtype=torch.float32, device=x.device)
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(e * g * n, 1))
+    for l0 in range(0, k, chunk):
+        l1 = min(l0 + chunk, k)
+        if l1 - l0 == 1:
+            acc.addcmul_(xf[:, :, l0:l1], wf[:, l0:l1, :])
+        else:
+            acc += (xf[:, :, l0:l1, None] * wf[:, None, l0:l1, :]).sum(2)
+    return acc.to(x.dtype)
+
+
+def moe_gmm_launch(args, *, bg: int, bn: int, bk: int) -> LaunchDescription:
+    """The launch ``moe_gmm_kernel`` makes on tensors of the ``(shape,
+    dtype)`` pairs ``args`` = (x, w): grid (e, g / bg, n / bn), a loop over
+    k / bk, x and w tiles staged in shared memory.  Arithmetic only."""
+    (xs, dt), (ws, _) = args
+    e, g, k = xs
+    n = ws[2]
+    elem = dt.itemsize
+    return LaunchDescription(
+        grid=(e, -(-g // bg), -(-n // bn)),
+        loops=(-(-k // bk),),
+        threads=(bg // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
+        smem_bytes=(bg + bn) * bk * elem,
+        operands=(
+            OperandLaunch((1, bg, bk), (0, 1, 3), dt, staged=True),
+            OperandLaunch((1, bk, bn), (0, 2, 3), dt, staged=True),
+            OperandLaunch((1, bg, bn), (0, 1, 2), dt, is_output=True),
+        ),
+        flops=2.0 * e * g * n * k,
+        dtype=dt,
+    )
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
+           bk: int) -> None:
+    """Raise ValueError on anything the kernel does not take."""
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"moe_gmm takes x (e, g, k) and w (e, k, n); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in DTYPES:
+        raise ValueError(f"moe_gmm takes two inputs of one dtype in "
+                         f"{DTYPES}; got {x.dtype} and {w.dtype}")
+    if x.device != w.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"inputs must share one cpu or cuda device; got "
+                         f"{x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("moe_gmm takes contiguous inputs")
+    e, g, k = x.shape
+    n = w.shape[2]
+    for name, t, size in (("bg", bg, g), ("bn", bn, n), ("bk", bk, k)):
+        if not isinstance(t, int) or t <= 0 or t % GRANULE:
+            raise ValueError(f"{name}={t!r} must be a positive multiple "
+                             f"of {GRANULE}")
+        if size % t:
+            raise ValueError(f"{name}={t} does not divide {size}")
+    d = moe_gmm_launch((((e, g, k), x.dtype), ((e, k, n), w.dtype)),
+                       bg=bg, bn=bn, bk=bk)
+    if d.threads > MAX_THREADS:
+        raise ValueError(f"bg * bn / 64 = {d.threads} threads exceeds the "
+                         f"kernel's {MAX_THREADS}")
+    if d.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
+                         f"memory, more than the {SMEM_LIMIT} a block can "
+                         f"have")
+    if max(d.grid[:2]) > MAX_GRID_YZ \
+            or max(e * g * k, e * k * n, e * g * n) >= 2**31:
+        raise ValueError(f"shape ({e}, {g}, {n}, {k}) exceeds the launch "
+                         f"grid")
+    if x.device.type == "cuda" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("inputs must be 16-byte aligned")
+
+
+def moe_gmm_kernel(x: torch.Tensor, w: torch.Tensor, *, bg: int, bn: int,
+                   bk: int) -> torch.Tensor:
+    """out[e] = x[e] @ w[e] with tiles (bg, bn, bk): the CUDA kernel for
+    CUDA tensors, ``moe_gmm_plain`` for CPU tensors (after the same
+    argument checks)."""
+    _check(x, w, bg, bn, bk)
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, w)
+    e, g, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((e, g, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().klaraptor_moe_gmm(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), e, g, n, k, bg, bn,
+            bk, _DTYPE_CODE[x.dtype], stream)
+    if rc:
+        _raise_cuda("moe_gmm kernel launch", rc)
+    LAUNCHES.count += 1
+    return out
+
+
+MOE_GMM = CudaKernel(source="moe_gmm", describe=moe_gmm_launch,
+                     launch=moe_gmm_kernel, attributes=kernel_attributes,
+                     regs_cap=GMM_REGS_PER_THREAD)

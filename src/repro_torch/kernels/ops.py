@@ -3,10 +3,15 @@
 Each op consults the driver registry *immediately before launch* (paper
 Section V-C: one IO call per kernel call, data parameters in, launch
 parameters out) and launches the CUDA kernel with the chosen tiles: the
-matmul snaps them to the shape with ``fit_tile`` at the granularities the
-port's kernel spec states; flash attention and the SSD scan mask ragged
-tails in the kernel and take them as chosen.  With no driver registered an
-op uses its static default config.
+matmul and the grouped matmul snap them to the shape with ``fit_tile`` at
+the granularities the port's kernel spec states; flash attention and the
+SSD scan mask ragged tails in the kernel and take them as chosen.  With no
+driver registered an op uses its static default config.
+
+``layernorm`` and ``blocked_colsum`` have no hand-written spec anywhere: on
+first dispatch their kernel is introspected (``repro_torch.introspect``
+derives the spec, including the granularities ``fit_config`` snaps to), and
+launch parameters flow through the same ``choose_or_default`` chain.
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
@@ -23,20 +28,25 @@ import torch.nn.functional as F
 
 from ..core.driver import choose_or_default, fit_tile
 from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
-                                matmul_spec, ssd_scan_spec)
+                                matmul_spec, moe_gmm_spec, ssd_scan_spec)
+from ..introspect import AutoKernel, auto_register, get_auto
 from .flash_attention import flash_attention_kernel, flash_attention_plain
+from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
 from .matmul import matmul_kernel, matmul_plain
+from .moe_gmm import moe_gmm_kernel
+from .reduce import COLSUM, colsum_grid_spec, colsum_kernel
 from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
-__all__ = ["FLASH_DEFAULT", "MATMUL_DEFAULT", "SSD_DEFAULT",
-           "flash_attention", "flash_kernel_name", "matmul",
-           "matmul_kernel_name", "probe_launcher", "ssd_kernel_name",
-           "ssd_scan"]
+__all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "MATMUL_DEFAULT", "SSD_DEFAULT",
+           "blocked_colsum", "flash_attention", "flash_kernel_name",
+           "gmm_kernel_name", "layernorm", "matmul", "matmul_kernel_name",
+           "moe_gmm", "probe_launcher", "ssd_kernel_name", "ssd_scan"]
 
 # Static heuristic defaults (what a programmer would hard-code).  The flash
 # default fits the kernel at every head dim and dtype it is built for; the
 # SSD default is the reference's.
 MATMUL_DEFAULT = {"bm": 128, "bn": 128, "bk": 32}
+GMM_DEFAULT = {"bg": 128, "bn": 128, "bk": 32}
 FLASH_DEFAULT = {"bq": 64, "bkv": 64}
 SSD_DEFAULT = {"chunk": 256}
 
@@ -44,6 +54,7 @@ _FLASH_NAME = re.compile(r"^flash_attn_d(\d+)(_causal)?$")
 _SSD_NAME = re.compile(r"^ssd_scan_h(\d+)_n(\d+)$")
 
 _MATMUL_KERNELS = {torch.bfloat16: "matmul_b16", torch.float32: "matmul_b32"}
+_GMM_KERNELS = {torch.bfloat16: "moe_gmm_b16", torch.float32: "moe_gmm_b32"}
 
 
 def matmul_kernel_name(dtype: torch.dtype) -> str:
@@ -55,9 +66,20 @@ def matmul_kernel_name(dtype: torch.dtype) -> str:
                          f"one of {tuple(_MATMUL_KERNELS)}") from None
 
 
+def gmm_kernel_name(dtype: torch.dtype) -> str:
+    """The kernel-spec name the grouped matmul of ``dtype`` inputs is tuned
+    under."""
+    try:
+        return _GMM_KERNELS[dtype]
+    except KeyError:
+        raise ValueError(f"no grouped-matmul kernel for {dtype}; inputs must "
+                         f"be one of {tuple(_GMM_KERNELS)}") from None
+
+
 @functools.lru_cache(maxsize=None)
 def _alignments(kernel: str) -> dict[str, int]:
-    spec = matmul_spec(dtype_bytes=2 if kernel == "matmul_b16" else 4)
+    make = moe_gmm_spec if kernel.startswith("moe_gmm") else matmul_spec
+    spec = make(dtype_bytes=2 if kernel.endswith("_b16") else 4)
     return {p: spec.alignment(p) for p in spec.program_params}
 
 
@@ -104,6 +126,42 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     if (mp, np_) != (m, n):
         out = out[:m, :n]
     return out.reshape(*lead, n)
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Tuned grouped matmul: x (e, g, k) @ w (e, k, n) -> (e, g, n) in x's
+    type, f32 accumulation.
+
+    Resolves (bg, bn, bk) through ``choose_or_default("moe_gmm_b16" |
+    "moe_gmm_b32", {e, g, k, n}, GMM_DEFAULT)``.  g, n and k that are not
+    multiples of the spec's granularity are zero-padded (exact for a
+    product) and the result is sliced back; the tiles are then snapped to
+    the padded shape with ``fit_tile``.  CUDA tensors launch the kernel, CPU
+    tensors take ``moe_gmm_plain`` through the same wrapper.
+    """
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"moe_gmm takes x (e, g, k) and w (e, k, n); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    kernel = gmm_kernel_name(x.dtype)
+    align = _alignments(kernel)
+    e, g, k = x.shape
+    n = w.shape[2]
+    gp, np_, kp = (_round_up(g, align["bg"]), _round_up(n, align["bn"]),
+                   _round_up(k, align["bk"]))
+    if (gp, kp) != (g, k):
+        x = F.pad(x, (0, kp - k, 0, gp - g))
+    if (kp, np_) != (k, n):
+        w = F.pad(w, (0, np_ - n, 0, kp - k))
+    cfg = choose_or_default(kernel, {"e": e, "g": gp, "k": kp, "n": np_},
+                            GMM_DEFAULT)
+    out = moe_gmm_kernel(x.contiguous(), w.contiguous(),
+                         bg=fit_tile(gp, cfg["bg"], align["bg"]),
+                         bn=fit_tile(np_, cfg["bn"], align["bn"]),
+                         bk=fit_tile(kp, cfg["bk"], align["bk"]))
+    if (gp, np_) != (g, n):
+        out = out[:, :g, :n]
+    return out
 
 
 def flash_kernel_name(head_dim: int, causal: bool) -> str:
@@ -209,6 +267,65 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                            C.contiguous(), A, chunk=chunk)
 
 
+@functools.lru_cache(maxsize=None)
+def _layernorm_auto(c: int, dtype_bytes: int, eps: float,
+                    device: str) -> AutoKernel:
+    return auto_register(LAYERNORM, layernorm_grid_spec(c, dtype_bytes, eps),
+                         device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _colsum_auto(dtype_bytes: int, device: str) -> AutoKernel:
+    return auto_register(COLSUM, colsum_grid_spec(dtype_bytes),
+                         device=device)
+
+
+def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
+              beta: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """Fused layernorm + residual of x, res (r, c) with an
+    introspection-tuned row tile.
+
+    The kernel is auto-registered for (c, dtype, eps) on first use; ``br``
+    is resolved through ``choose_or_default(layernorm_c{c}_b{16|32}, {r},
+    defaults)`` and fitted to r by ``fit_config``: the derived row axis is
+    ragged (the kernel masks the last block), so br is kept, at most r
+    rounded up to the derived granularity.  CUDA tensors launch the kernel,
+    CPU tensors take ``layernorm_plain`` through the same wrapper.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"layernorm takes x (r, c); got {tuple(x.shape)}")
+    r, c = x.shape
+    ak = _layernorm_auto(c, x.element_size(), float(eps), x.device.type)
+    cfg = ak.fit_config(choose_or_default(ak.name, {"r": r}, ak.defaults),
+                        {"r": r})
+    return layernorm_kernel(x.contiguous(), res.contiguous(), gamma, beta,
+                            br=cfg["br"], eps=eps)
+
+
+def blocked_colsum(x: torch.Tensor) -> torch.Tensor:
+    """Column sums of x (r, c) as (c,) f32 with introspection-tuned (br, bc)
+    tiles.
+
+    The kernel is auto-registered for x's dtype on first use; a c that is
+    not a multiple of the derived ``bc`` granularity is zero-padded (zero
+    columns land in the sliced-off tail), and the resolved config is
+    snapped to the shape by ``fit_config``.  CUDA tensors launch the
+    kernel, CPU tensors take ``colsum_plain`` through the same wrapper.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"blocked_colsum takes x (r, c); got "
+                         f"{tuple(x.shape)}")
+    r, c = x.shape
+    ak = _colsum_auto(x.element_size(), x.device.type)
+    cp = _round_up(c, ak.alignments()["bc"])
+    if cp != c:
+        x = F.pad(x, (0, cp - c))
+    D = {"r": r, "c": cp}
+    cfg = ak.fit_config(choose_or_default(ak.name, D, ak.defaults), D)
+    out = colsum_kernel(x.contiguous(), br=cfg["br"], bc=cfg["bc"])
+    return out[:c] if cp != c else out
+
+
 def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
                    seed: int) -> Callable[[Mapping[str, int]], None]:
     """Bind seeded inputs of kernel ``kernel`` at data size D on ``device``
@@ -218,9 +335,23 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
     Flash attention is probed in bf16 (the models' dtype) with one kv head
     per q head (D carries no head counts) and the spec's causality; the SSD
     scan in bf16 with dt in [0.01, 0.51] and A in [-1.5, -0.5], the JAX
-    kernel tests' ranges.
+    kernel tests' ranges.  An auto-registered kernel (``get_auto``) is
+    probed on standard-normal inputs of its GridSpec's ``make_args(D)``
+    with its static keyword arguments.
     """
     gen = torch.Generator(device=device).manual_seed(int(seed))
+    ak = get_auto(kernel)
+    if ak is not None:
+        tensors = [torch.randn(tuple(shape), generator=gen, device=device
+                               ).to(dt)
+                   for shape, dt in ak.grid_spec.make_args(D)]
+        static = dict(ak.grid_spec.call_kwargs)
+
+        def launch_auto(P: Mapping[str, int]) -> None:
+            ak.kernel.launch(*tensors, **static,
+                             **{p: int(P[p]) for p in ak.spec.program_params})
+
+        return launch_auto
     ssd = _SSD_NAME.match(kernel)
     if ssd:
         dh, n = int(ssd.group(1)), int(ssd.group(2))
@@ -259,6 +390,17 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
                                    causal=causal)
 
         return launch_flash
+    if kernel in _GMM_KERNELS.values():
+        dtype = torch.bfloat16 if kernel == "moe_gmm_b16" else torch.float32
+        e, g, k, n = D["e"], D["g"], D["k"], D["n"]
+        xg = torch.randn(e, g, k, generator=gen, device=device).to(dtype)
+        wg = torch.randn(e, k, n, generator=gen, device=device).to(dtype)
+
+        def launch_gmm(P: Mapping[str, int]) -> None:
+            moe_gmm_kernel(xg, wg, bg=int(P["bg"]), bn=int(P["bn"]),
+                           bk=int(P["bk"]))
+
+        return launch_gmm
     if kernel not in _MATMUL_KERNELS.values():
         raise ValueError(f"no probe launcher for kernel {kernel!r}")
     dtype = torch.bfloat16 if kernel == "matmul_b16" else torch.float32

@@ -6,8 +6,9 @@ imports no JAX (the machine with the card has none), so on that machine
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 runs them.  Tolerances: 2e-2 abs and rel in bf16; in f32 2e-4 for the
-matmul, 2e-3 abs / 1e-3 rel for flash attention and 5e-3 abs / 1e-3 rel for
-the SSD scan (tests/test_kernels.py's tolerances for each kernel).
+matmul, the grouped matmul, the layernorm and the column sum, 2e-3 abs /
+1e-3 rel for flash attention and 5e-3 abs / 1e-3 rel for the SSD scan
+(tests/test_kernels.py's tolerances for each kernel).
 """
 
 import itertools
@@ -16,6 +17,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import layernorm as ln
+from repro_torch.kernels import moe_gmm as gmm
+from repro_torch.kernels import reduce as cs
 from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
@@ -107,3 +111,71 @@ def test_cuda_ssd_kernel_matches_plain():
         torch.testing.assert_close(
             ops.ssd_scan(x, dt, B, C, A).float(),
             ssd_scan_plain(x, dt, B, C, A).float(), atol=atol, rtol=rtol)
+
+
+def _close(out, plain, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(4, 128, 256, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(4, 256, 192, generator=gen, device="cuda")
+             / 16).to(dtype)
+        plain = gmm.moe_gmm_plain(x, w)
+        for P in ({"bg": 64, "bn": 64, "bk": 32},
+                  {"bg": 16, "bn": 192, "bk": 8},
+                  {"bg": 128, "bn": 32, "bk": 256}):
+            before = gmm.LAUNCHES.count
+            out = gmm.moe_gmm_kernel(x, w, **P)
+            assert gmm.LAUNCHES.count == before + 1
+            _close(out, plain, dtype)
+        xu = torch.randn(3, 37, 45, generator=gen, device="cuda").to(dtype)
+        wu = torch.randn(3, 45, 29, generator=gen, device="cuda").to(dtype)
+        _close(ops.moe_gmm(xu, wu), gmm.moe_gmm_plain(xu, wu), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_layernorm_kernel_matches_plain():
+    """Vector and scalar loads (c a multiple of 8, and not), br from one
+    warp's row to the whole tensor, and a ragged last row block (r 97)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, (r, c) in itertools.product(
+            (torch.bfloat16, torch.float32),
+            ((256, 512), (96, 100), (97, 512))):
+        x, res = (torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+        g, b = (torch.randn(c, generator=gen, device="cuda")
+                for _ in range(2))
+        plain = ln.layernorm_plain(x, res, g, b)
+        for br in (8, 32, r):
+            before = ln.LAUNCHES.count
+            out = ln.layernorm_kernel(x, res, g, b, br=br)
+            assert ln.LAUNCHES.count == before + 1
+            _close(out, plain, dtype)
+        _close(ops.layernorm(x, res, g, b), plain, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_colsum_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1024, 2048, generator=gen, device="cuda").to(dtype)
+        plain = cs.colsum_plain(x)
+        for br, bc in ((8, 128), (256, 512), (1024, 1024)):
+            before = cs.LAUNCHES.count
+            out = cs.colsum_kernel(x, br=br, bc=bc)
+            assert cs.LAUNCHES.count == before + 1
+            _close(out, plain, dtype)
+        xu = torch.randn(99, 13, generator=gen, device="cuda").to(dtype)
+        _close(ops.blocked_colsum(xu), cs.colsum_plain(xu), dtype)

@@ -169,5 +169,5 @@ print(" ".join(sorted(m for m in sys.modules if m.startswith("repro_torch"))))
     walked = set(proc.stdout.split())
     assert len(walked) >= 30
     for sub in ("core", "search", "kernels", "models", "configs", "launch",
-                "serving"):
+                "serving", "introspect"):
         assert f"repro_torch.{sub}" in walked, sub

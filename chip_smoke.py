@@ -13,15 +13,19 @@ and derives kernel specs from the compiled kernels, one phase per printed
 block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: nvcc compiles every CUDA source of the port (timed);
-  3. the kernel against its plain PyTorch version on the card, in bf16 and
-     f32, over a sweep of the spec's candidate tiles and at the five GEMM
-     shapes;
+  2. build: nvcc compiles every CUDA source of the port (timed), with each
+     kernel's registers and spills against its cap, and the HGMMA
+     (wgmma) instructions in each library's SASS (``cuobjdump -sass``):
+     the matmul and the grouped matmul must have some;
+  3. the kernel against its plain PyTorch version on the card: every
+     compiled bf16 wgmma tile with each output type (f32, bf16, f16) at k
+     1024 (the 4-slot ring wraps), a sweep of the f32 SIMT tiles, and both
+     at the five GEMM shapes;
   4. KLARAPTOR on the card: probes of the real kernel (CUDA events) at
      m, n, k <= 1024, the SVD fit and the generated driver;
-  5. the tuned launch through ``ops.matmul`` at the five shapes, with kernel,
-     bound, ``torch.matmul`` (yardstick only), default-config and plain
-     times, and the launch counter;
+  5. the tuned launch through ``ops.matmul`` at the five shapes, with kernel
+     time, TFLOP/s and % of bound, ``torch.matmul`` (yardstick only),
+     default-config and plain times, and the launch counter;
   6. the selection ratio against exhaustive search at three shapes
      (printed, not gated);
   7. the flash-attention kernel against its plain version, bf16 and f32,
@@ -59,16 +63,18 @@ block:
      the port reproduces, leaks recurrent state between slots and requests,
      so that is the one request where the two must agree).
 
- 15. the grouped-matmul kernel against its plain version, bf16 and f32, at a
-     small shape over every feasible tile, and at an unaligned shape through
+ 15. the grouped-matmul kernel against its plain version, bf16 (every
+     compiled wgmma tile) and f32 (every feasible SIMT tile), at a small
+     shape whose k steps wrap the ring, and at an unaligned shape through
      ``ops.moe_gmm`` (zero-padded);
  16. KLARAPTOR on the card for ``moe_gmm_b16``: probes at e <= 4 and g, k,
      n <= 1024, the fit, then tuned launches through ``ops.moe_gmm`` at
      qwen3-moe-235b's expert width (d_model 4096, expert d_ff 1536) with 8
      local experts of 4096 tokens each, the up (k 4096 -> n 1536) and the
      down (k 1536 -> n 4096) product; each held against the plain version,
-     timed against ``torch.bmm`` (yardstick only) and the bound, and the
-     selection ratio against exhaustive search (printed, not gated);
+     timed (TFLOP/s, % of bound) against ``torch.bmm`` (yardstick only) and
+     the bound, and the selection ratio against exhaustive search (printed,
+     not gated);
  17. introspection on the card: ``layernorm_c2048_b16`` (llama3.2-1b's
      d_model) and ``colsum_b16`` derived from the compiled kernels (grid,
      operands with their dependences, constraints, compiled registers
@@ -259,6 +265,20 @@ def _bound_ms(m: int, n: int, k: int) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump (beside nvcc)."""
+    import os
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(path):
+        raise RuntimeError("cuobjdump not found on PATH or under CUDA_HOME")
+    return path
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the "
@@ -271,17 +291,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     from repro_torch.core import (CudaEventTimer, HardwareParams, Klaraptor,
-                                  fit_tile, matmul_spec, registry,
-                                  selection_ratio)
-    from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS,
-                                              MATMUL_REGS_PER_THREAD,
+                                  matmul_spec, registry, selection_ratio)
+    from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS, SM90_TILES,
                                               SSD_REGS_PER_THREAD,
                                               flash_regs_per_thread)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.layernorm import LAYERNORM
-    from repro_torch.kernels.matmul import (LAUNCHES, kernel_attributes,
+    from repro_torch.kernels.matmul import (LAUNCHES, MATMUL, OUT_DTYPES,
                                             matmul_kernel, matmul_plain)
     from repro_torch.kernels.moe_gmm import MOE_GMM
     from repro_torch.kernels.reduce import COLSUM
@@ -361,16 +379,36 @@ def main() -> int:
     libs = _build.build_all()
     print(f"[2] build: {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} "
           f"in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True)
+        hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+        print(f"  {lib.name}: {hgmma} HGMMA instructions in the SASS")
+        if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-")):
+            raise AssertionError(f"{lib.name} has no wgmma (HGMMA) in its "
+                                 f"SASS: the bf16 path is not on the tensor "
+                                 f"cores")
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels.matmul import tile_attributes
+    for kern, tile_attrs in ((MATMUL, tile_attributes),
+                             (gmm_mod.MOE_GMM, gmm_mod.tile_attributes)):
+        cap = kern.regs_cap_for(torch.bfloat16)
+        for t in SM90_TILES:
+            attrs = tile_attrs(*t)
+            print(f"  {kern.source} bf16 wgmma tile {t}: {attrs} (cap {cap})")
+            if attrs["num_regs"] > cap or attrs["local_bytes"]:
+                raise AssertionError(f"{kern.source} tile {t}: {attrs} "
+                                     f"against the cap {cap}, no spills")
     ptxas = [ln.strip() for ln in _build.build_log("matmul").splitlines()
              if "registers" in ln or "spill" in ln]
     print("  " + "\n  ".join(ptxas))
     for dt in (torch.bfloat16, torch.float32):
-        attrs = kernel_attributes(dt)
-        print(f"  matmul {dt}: {attrs}")
-        if attrs["num_regs"] > MATMUL_REGS_PER_THREAD:
+        attrs = MATMUL.attributes(dt)
+        print(f"  matmul {dt}: {attrs} (cap {MATMUL.regs_cap_for(dt)})")
+        if attrs["num_regs"] > MATMUL.regs_cap_for(dt):
             raise AssertionError(
                 f"kernel uses {attrs['num_regs']} registers; the spec "
-                f"assumes {MATMUL_REGS_PER_THREAD}")
+                f"assumes {MATMUL.regs_cap_for(dt)}")
     flash_ptxas = [ln.strip() for ln in
                    _build.build_log("flash_attention").splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -402,12 +440,12 @@ def main() -> int:
         print(f"  {kern.source} ptxas:\n  " + "\n  ".join(lines))
         for dt in (torch.bfloat16, torch.float32):
             attrs = kern.attributes(dt)
-            print(f"  {kern.source} {dt}: {attrs} (launch-bounds cap "
-                  f"{kern.regs_cap})")
-            if attrs["num_regs"] > kern.regs_cap:
+            cap = kern.regs_cap_for(dt)
+            print(f"  {kern.source} {dt}: {attrs} (launch-bounds cap {cap})")
+            if attrs["num_regs"] > cap:
                 raise AssertionError(
                     f"{kern.source} uses {attrs['num_regs']} registers, "
-                    f"above its cap {kern.regs_cap}")
+                    f"above its cap {cap}")
     phase_done(2)
 
     # -- 3. the kernel against its plain version --------------------------------
@@ -423,25 +461,41 @@ def main() -> int:
         return x, y
 
     worst = 0.0
-    for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
-        D = {"m": 512, "n": 1024, "k": 512}
-        table = matmul_spec(nbytes).candidates(D, hw)
-        x, y = inputs(D["m"], D["n"], D["k"], dtype)
-        plain = matmul_plain(x, y)
-        picks = sorted(set(range(0, len(table), max(len(table) // 12, 1)))
-                       | {len(table) - 1})
-        for i in picks:
-            P = table.row(i)
-            out = matmul_kernel(x, y, **P)
-            worst = max(worst, check(out, plain, dtype,
-                                     f"{dtype} sweep {D} {P}"))
+    D = {"m": 256, "n": 512, "k": 1024}
+    x, y = inputs(D["m"], D["n"], D["k"], torch.bfloat16)
+    plain = matmul_plain(x, y, torch.float32)
+    errs = []
+    for t in SM90_TILES:
+        for od in OUT_DTYPES:
+            out = matmul_kernel(x, y, bm=t[0], bn=t[1], bk=t[2],
+                                out_dtype=od)
+            if out.dtype != od:
+                raise AssertionError(f"tile {t}: output {out.dtype}")
+            errs.append(check(out, plain, torch.bfloat16,
+                              f"bf16 {D} {t} -> {od}", quiet=True))
+    worst = max([worst] + errs)
+    print(f"  bf16 {D}: {len(SM90_TILES)} compiled wgmma tiles x "
+          f"{len(OUT_DTYPES)} output types, max_abs_err={max(errs):.3e} ok",
+          flush=True)
+    D = {"m": 512, "n": 1024, "k": 512}
+    table = matmul_spec(4).candidates(D, hw)
+    x, y = inputs(D["m"], D["n"], D["k"], torch.float32)
+    plain = matmul_plain(x, y)
+    picks = sorted(set(range(0, len(table), max(len(table) // 12, 1)))
+                   | {len(table) - 1})
+    for i in picks:
+        P = table.row(i)
+        out = matmul_kernel(x, y, **P)
+        worst = max(worst, check(out, plain, torch.float32,
+                                 f"{torch.float32} sweep {D} {P}"))
     kept = {}
     for name, m, n, k in SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x, y = inputs(m, n, k, dtype)
             plain = matmul_plain(x, y)
-            cfg = {p: fit_tile(s, v, 8) for (p, v), s in
-                   zip(ops.MATMUL_DEFAULT.items(), (m, n, k))}
+            kname = ops.matmul_kernel_name(dtype)
+            cfg = ops._fit_gemm(kname, ops._DEFAULTS[kname],
+                                {"bm": m, "bn": n, "bk": k})
             out = matmul_kernel(x, y, **cfg)
             worst = max(worst, check(out, plain, dtype,
                                      f"{dtype} {name} ({m},{n},{k}) {cfg}"))
@@ -450,7 +504,7 @@ def main() -> int:
                 kept[name] = (x, y, plain)
             del x, y, plain
     x, y, plain = kept["q_o_proj"]
-    out = matmul_kernel(x, y, bm=128, bn=128, bk=32, out_dtype=torch.float32)
+    out = matmul_kernel(x, y, bm=128, bn=128, bk=64, out_dtype=torch.float32)
     worst = max(worst, check(out, plain, torch.bfloat16,
                              "bf16 in, f32 out q_o_proj"))
     del out
@@ -502,8 +556,8 @@ def main() -> int:
     for name, m, n, k in SHAPES:
         x, y, plain = kept.pop(name)
         cfg = tuned[name]
-        dflt = {p: fit_tile(s, v, 8) for (p, v), s in
-                zip(ops.MATMUL_DEFAULT.items(), (m, n, k))}
+        dflt = ops._fit_gemm("matmul_b16", ops.MATMUL_DEFAULT,
+                             {"bm": m, "bn": n, "bk": k})
         bound, bound_by = _bound_ms(m, n, k)
         r = {
             "shape": name, "m": m, "n": n, "k": k, "config": cfg,
@@ -515,12 +569,15 @@ def main() -> int:
             "bound_ms": bound, "bound_by": bound_by,
         }
         r["tflops"] = 2.0 * m * n * k / (r["ms"] * 1e-3) / 1e12
+        r["pct_of_bound"] = 100.0 * r["bound_ms"] / r["ms"]
         rows.append(r)
         print(f"  {name} ({m},{n},{k}) chosen {cfg} {r['ms']:.4f} ms "
-              f"({r['tflops']:.2f} TFLOP/s) | default {dflt} "
-              f"{r['default_ms']:.4f} ms | torch.matmul "
-              f"{r['library_ms']:.4f} ms | plain {r['plain_ms']:.2f} ms | "
-              f"bound {r['bound_ms']:.4f} ms ({bound_by})", flush=True)
+              f"({r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.1f} % of "
+              f"bound) | default {dflt} {r['default_ms']:.4f} ms | "
+              f"torch.matmul {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.2f}x) | plain "
+              f"{r['plain_ms']:.2f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({bound_by})", flush=True)
         del x, y, plain
         torch.cuda.empty_cache()
     phase_done(5)
@@ -555,7 +612,8 @@ def main() -> int:
                                         for r in rows) else "bytes",
         "library_ms": matmul_total["library_ms"],
         "shapes": [{k: r[k] for k in ("shape", "m", "n", "k", "config",
-                                      "ms", "default_ms", "library_ms",
+                                      "ms", "tflops", "pct_of_bound",
+                                      "default_ms", "library_ms",
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in rows],
     }
@@ -1143,9 +1201,8 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     Returns the kernel's entry of the ``kernels`` line."""
     import torch
 
-    from repro_torch.core import (CudaEventTimer, Klaraptor, fit_tile,
-                                  gmm_probe_data, moe_gmm_spec,
-                                  selection_ratio)
+    from repro_torch.core import (CudaEventTimer, Klaraptor, gmm_probe_data,
+                                  moe_gmm_spec, selection_ratio)
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gmm import (LAUNCHES, moe_gmm_kernel,
                                              moe_gmm_plain)
@@ -1161,7 +1218,7 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
           "f32, atol=rtol, the repo's kernel-test tolerances)", flush=True)
     worst = 0.0
     n_checked = 0
-    D = {"e": 4, "g": 256, "k": 256, "n": 512}
+    D = {"e": 4, "g": 256, "k": 1024, "n": 512}   # the ring wraps
     for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
         table = moe_gmm_spec(nbytes).candidates(D, hw)
         x, w = inputs(D["e"], D["g"], D["k"], D["n"], dtype)
@@ -1217,8 +1274,8 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         x, w, out = kept.pop(name)
         Dn = {"e": GMM_E, "g": GMM_G, "k": k, "n": n}
         cfg = build.driver.choose(Dn)
-        dflt = {p: fit_tile(Dn[d], v, 8) for (p, v), d in
-                zip(ops.GMM_DEFAULT.items(), "gnk")}
+        dflt = ops._fit_gemm("moe_gmm_b16", ops.GMM_DEFAULT,
+                             {"bg": GMM_G, "bn": n, "bk": k})
         plain = moe_gmm_plain(x, w)
         err = check(out, plain, torch.bfloat16,
                     f"{name} {Dn} tuned {cfg} vs plain")
@@ -1237,12 +1294,15 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
         r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        r["pct_of_bound"] = 100.0 * r["bound_ms"] / r["ms"]
         rows.append(r)
         print(f"  {name} {Dn}: chosen {cfg} {r['ms']:.4f} ms "
-              f"({r['tflops']:.2f} TFLOP/s) | default {dflt} "
-              f"{r['default_ms']:.4f} ms | torch.bmm {r['library_ms']:.4f} "
-              f"ms | plain {r['plain_ms']:.2f} ms | bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"({r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.1f} % of "
+              f"bound) | default {dflt} {r['default_ms']:.4f} ms | "
+              f"torch.bmm {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.2f}x) | plain "
+              f"{r['plain_ms']:.2f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
         del x, w, out, plain
         torch.cuda.empty_cache()
     for r in rows:

@@ -25,15 +25,18 @@ total.  ``CudaEventTimer`` splits each measured total by the row's analytic
 roofline ratio::
 
     t_mem = sum over operands of tile_bytes * fetches / hbm_bw
-    t_cmp = flops / peak_flops_f32
+    t_cmp = flops / peak_flops(compute_unit)
     mem_time = total * t_mem / (t_mem + t_cmp)
     compute_time = total - mem_time
 
-The compute peak is that of the unit the kernel's arithmetic runs on.
-Both of the port's kernels do their FLOPs as FP32 FMAs on the CUDA cores
-whatever the input type -- the matmul's micro-tile products, and flash
-attention's QK^T and PV products (its exp and tanh run on the special
-function units and are not counted as FLOPs) -- so the peak of every row is
+The compute peak is that of the unit the kernel's arithmetic runs on, which
+its spec states (``KernelSpec.compute_unit``, carried by the traffic
+table).  The bf16 matmul and grouped matmul run wgmma on the tensor cores,
+so their rows take ``peak_flops_bf16``.  Every other kernel does its FLOPs
+as FP32 FMAs on the CUDA cores whatever the input type -- the f32 matmul's
+micro-tile products, flash attention's QK^T and PV products (its exp and
+tanh run on the special function units and are not counted as FLOPs), the
+SSD scan, the layernorm and the column sum -- so their rows take
 ``peak_flops_f32``.  The bytes are the spec's operand traffic: for flash
 attention a Q tile and an output tile per CTA and a K and a V tile per loop
 iteration.  The split only labels the measured time: the perf model
@@ -79,6 +82,15 @@ class HardwareParams:
     @property
     def max_warps_per_sm(self) -> int:
         return self.max_threads_per_sm // self.warp_size
+
+    def peak_flops(self, unit: str) -> float:
+        """Peak FLOP/s of a compute unit: "bf16" (tensor cores) or "f32"
+        (FMAs on the CUDA cores)."""
+        if unit == "bf16":
+            return self.peak_flops_bf16
+        if unit == "f32":
+            return self.peak_flops_f32
+        raise ValueError(f"no peak for compute unit {unit!r}")
 
     @classmethod
     def from_device(cls, device: str | torch.device = "cuda"
@@ -209,6 +221,7 @@ class TrafficTable:
     grid_steps: np.ndarray        # waves * seq_iters
     flops_total: np.ndarray
     operands: list
+    compute_unit: str = "f32"     # the unit the FLOPs run on (peak_flops)
 
     def __len__(self) -> int:
         return int(self.grid_steps.shape[0])
@@ -231,12 +244,12 @@ class TrafficTable:
 def roofline_times(table: TrafficTable, hw: HardwareParams
                    ) -> tuple[np.ndarray, np.ndarray]:
     """(t_mem, t_cmp) per row: operand traffic over the memory rate and
-    FLOPs over the FP32 FMA peak (the unit both port kernels compute on) --
-    the split rule's two parts."""
+    FLOPs over the peak of the unit the kernel computes on -- the split
+    rule's two parts."""
     mem_bytes = sum(op.bytes() for op in table.operands)
     t_mem = np.asarray(mem_bytes, dtype=np.float64) / hw.hbm_bw
     t_cmp = np.asarray(table.flops_total, dtype=np.float64) / \
-        hw.peak_flops_f32
+        hw.peak_flops(table.compute_unit)
     return t_mem, t_cmp
 
 
@@ -299,8 +312,10 @@ class HopperModel(DeviceModel):
       * tiles move from L2 into an SM at a per-SM share of the L2 rate, with
         an efficiency that ramps with the bytes a block loads per iteration
         (eff = 0.9 * s / (s + 8 KiB): small loads are latency-bound);
-      * FP32 FMA throughput is a per-SM share of the peak, scaled by how
-        many warps the SM holds to hide latency (saturating at 16 warps);
+      * arithmetic throughput is a per-SM share of the peak of the unit the
+        kernel computes on (tensor cores for the bf16 matmuls, FP32 FMAs
+        otherwise), scaled by how many warps the SM holds to hide latency
+        (saturating at 16 warps);
       * every iteration of the loop inside a block pays a barrier and load
         latency bubble of 0.8 us, which co-resident blocks hide;
       * with >= 2 blocks resident per SM one block's loads overlap another's
@@ -344,7 +359,7 @@ class HopperModel(DeviceModel):
         res = np.maximum(np.asarray(t.blocks_resident, dtype=np.float64), 1.0)
         warps = res * np.asarray(t.threads, dtype=np.float64) / hw.warp_size
         eff_cmp = 0.6 * np.minimum(warps / 16.0, 1.0)
-        c = flops / (hw.peak_flops_f32 / sm * eff_cmp)
+        c = flops / (hw.peak_flops(t.compute_unit) / sm * eff_cmp)
         overlapped = res * (np.maximum(m, c) + 0.1 * np.minimum(m, c)) \
             + self.ITER_BUBBLE_S / res
         serialized = m + c + self.ITER_BUBBLE_S

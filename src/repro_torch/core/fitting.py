@@ -20,7 +20,13 @@ value -- the SVD method.  We additionally:
    (poles make extrapolation meaningless);
  * perform degree-bound model selection by k-fold cross-validation with a
    parsimony penalty, mirroring "these degree bounds ... are relatively
-   small" -- the search space is tiny.
+   small" -- the search space is tiny;
+ * skip degree bounds whose monomials the distinct sample points do not
+   determine (a rank-deficient design): there a numerator that vanishes on
+   every sample point over a zero denominator solves the system exactly,
+   and the SVD returns that 0/0 instead of a fit.  A kernel compiled for a
+   few tile sizes (the bf16 wgmma matmul's nine tiles, which miss three
+   corners of their 2 x 3 x 2 grid) is sampled at only those points.
 """
 
 from __future__ import annotations
@@ -105,6 +111,10 @@ def fit_rational(
     den_exps = monomial_exponents(den_bounds, total_degree)
     if len(num_exps) + len(den_exps) > X.shape[0] + 1:
         return None  # underdetermined even before noise; skip
+    points = np.unique(Xs, axis=0)
+    for exps in (num_exps, den_exps):
+        if np.linalg.matrix_rank(design_matrix(points, exps)) < len(exps):
+            return None  # the samples do not determine these monomials
     weights = 1.0 / np.maximum(np.abs(y), 1e-12)
     alpha_s, beta_s, cond = _solve_svd(Xs, y, num_exps, den_exps, weights)
     alpha = _unscale_coeffs(alpha_s, num_exps, scale)

@@ -48,8 +48,8 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Floor, Max, Min,
 __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
     "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
-    "matmul_spec", "moe_gmm_spec", "ssd_probe_data", "ssd_scan_spec",
-    "substitute",
+    "matmul_spec", "moe_gmm_spec", "sm90_smem_bytes", "ssd_probe_data",
+    "ssd_scan_spec", "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -228,6 +228,9 @@ class KernelSpec:
     # Identity of the compiled kernel a derived spec was read from
     # (``repro_torch.introspect``); empty on hand-written specs.
     source_fingerprint: str = ""
+    # The unit the kernel's FLOPs run on (``HardwareParams.peak_flops``):
+    # "f32" FMAs on the CUDA cores, or "bf16" on the tensor cores.
+    compute_unit: str = "f32"
 
     # -- symbolic launch geometry (rational-program Exprs) ---------------------
     def ctas_expr(self) -> Expr:
@@ -341,6 +344,7 @@ class KernelSpec:
             grid_steps=self._eval(self.grid_steps_expr(hw), D, table),
             flops_total=self.flops_total(D, table),
             operands=operands,
+            compute_unit=self.compute_unit,
         )
 
     # -- feasibility / enumeration (Section IV step 4) -------------------------
@@ -419,26 +423,96 @@ class KernelSpec:
 # Concrete specs for the port's CUDA kernels in src/repro_torch/kernels/
 # ---------------------------------------------------------------------------
 
-# kernels/csrc/matmul.cu: each thread owns an 8 x 8 block of C in registers,
-# and __launch_bounds__(512) caps it at 128 registers per thread.
+# kernels/csrc/matmul.cu, f32: each thread owns an 8 x 8 block of C in
+# registers, and __launch_bounds__(512) caps it at 128 registers per thread.
 MATMUL_MICRO_TILE = 8
 MATMUL_REGS_PER_THREAD = 128
+
+# kernels/csrc/gemm_sm90.cuh, the bf16 matmul and grouped matmul: one
+# consumer warpgroup per 64 rows of the tile (2 * bm threads), wgmma's
+# 64-row, 64-column and one-swizzle-atom (64 bf16 along k) granules, a ring
+# of SM90_STAGES (bm, bk) + (bk, bn) slots plus SM90_SMEM_EXTRA bytes (the
+# ring's barriers and its 1 KiB alignment), and __launch_bounds__(256, 1),
+# which caps registers at 255 per thread.
+SM90_STAGES = 4
+SM90_GRANULE = 64
+SM90_SMEM_EXTRA = 1024 + 2 * SM90_STAGES * 8
+SM90_REGS_PER_THREAD = 255
+SM90_CANDIDATES = {"m": (64, 128), "n": (64, 128, 256), "k": (64, 128)}
+
+
+def sm90_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of one bf16 wgmma CTA: the ring and its
+    barriers."""
+    return SM90_STAGES * (bm + bn) * bk * 2 + SM90_SMEM_EXTRA
+
+
+# The compiled tiles (GEMM_SM90_TILES in gemm_sm90.cuh): every candidate
+# whose ring fits the shared memory a block may have.
+SM90_TILES = tuple(
+    (bm, bn, bk) for bm in SM90_CANDIDATES["m"]
+    for bn in SM90_CANDIDATES["n"] for bk in SM90_CANDIDATES["k"]
+    if sm90_smem_bytes(bm, bn, bk) <= H100.smem_per_block_optin)
+
+
+def _sm90_gemm_spec(name: str, data_params: tuple[str, ...], rows: str,
+                    grid: tuple[GridAxis, ...], lhs: str, rhs: str,
+                    batch: tuple[str, ...]) -> KernelSpec:
+    """The wgmma kernel's spec.  Operands: the staged x and y tiles of one
+    k step, the output, and the ring's other SM90_STAGES - 1 slots and its
+    barriers as scratch (shared memory that moves no bytes of its own)."""
+    params = (rows, "bn", "bk")
+    ring = SM90_STAGES - 1
+    return KernelSpec(
+        name=name,
+        data_params=data_params,
+        program_params=params,
+        grid=grid,
+        operands=(
+            Operand(lhs, (rows, "bk"), (*batch, "i", "l"), 2, staged=True),
+            Operand(rhs, ("bk", "bn"), (*batch, "l", "j"), 2, staged=True),
+            Operand("out", (rows, "bn"), (*batch, "i", "j"), 2,
+                    is_output=True),
+            Operand(f"{lhs}_ring", (ring, rows, "bk"), (), 2, scratch=True),
+            Operand(f"{rhs}_ring", (ring, "bk", "bn"), (), 2, scratch=True),
+            Operand("ring_barriers", (SM90_SMEM_EXTRA,), (), 1, scratch=True),
+        ),
+        flops_per_point=2.0,  # one multiply-add per point of the domain
+        threads=var(rows) * const(2.0),
+        regs_per_thread=SM90_REGS_PER_THREAD,
+        # wgmma's 64 rows per warpgroup, 64-column B boxes and 64-wide
+        # swizzle atoms along k.
+        constraints=tuple(f"{p} % {SM90_GRANULE} == 0" for p in params),
+        param_candidates={rows: SM90_CANDIDATES["m"],
+                          "bn": SM90_CANDIDATES["n"],
+                          "bk": SM90_CANDIDATES["k"]},
+        fit_vars={m: params for m in ("mem_step", "cmp_step", "ovh_step")},
+        compute_unit="bf16",
+    )
 
 
 def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
     """C[m,n] = A[m,k] @ B[k,n]: CTAs over (i, j), a loop over k inside.
 
-    (bm, bn) is the thread-block shape: bm * bn / 64 threads, one 8 x 8
-    micro-tile each.  A (bm, bk) and B (bk, bn) tiles are staged in shared
-    memory; the f32 accumulators are registers and move no bytes.
+    bf16 (``dtype_bytes=2``) runs the wgmma mainloop on the tensor cores:
+    2 * bm threads, the nine compiled (bm, bn, bk) tiles (``SM90_TILES``),
+    granules of 64, and shared memory for a ring of ``SM90_STAGES`` slots,
+    of which the traffic counts one fetch per k step.  f32 runs the SIMT
+    body: (bm, bn) is the thread-block shape, bm * bn / 64 threads, one
+    8 x 8 micro-tile each.  A (bm, bk) and B (bk, bn) tiles are staged in
+    shared memory; the f32 accumulators are registers and move no bytes.
     """
+    grid = (GridAxis("i", "m", "bm"), GridAxis("j", "n", "bn"),
+            GridAxis("l", "k", "bk", sequential=True))
+    if dtype_bytes == 2:
+        return _sm90_gemm_spec("matmul_b16", ("m", "n", "k"), "bm", grid,
+                               "lhs", "rhs", ())
     tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
     return KernelSpec(
         name=f"matmul_b{dtype_bytes * 8}",
         data_params=("m", "n", "k"),
         program_params=("bm", "bn", "bk"),
-        grid=(GridAxis("i", "m", "bm"), GridAxis("j", "n", "bn"),
-              GridAxis("l", "k", "bk", sequential=True)),
+        grid=grid,
         operands=(
             Operand("lhs", ("bm", "bk"), ("i", "l"), dtype_bytes, staged=True),
             Operand("rhs", ("bk", "bn"), ("l", "j"), dtype_bytes, staged=True),
@@ -463,8 +537,8 @@ def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
     )
 
 
-# kernels/csrc/moe_gmm.cu: csrc/matmul.cu's body with the expert on
-# blockIdx.z, the same 8 x 8 micro-tiles and __launch_bounds__(512).
+# kernels/csrc/moe_gmm.cu, f32: csrc/matmul.cu's SIMT body with the expert
+# on blockIdx.z, the same 8 x 8 micro-tiles and __launch_bounds__(512).
 GMM_REGS_PER_THREAD = 128
 
 
@@ -472,21 +546,28 @@ def moe_gmm_spec(dtype_bytes: int = 2) -> KernelSpec:
     """out[e] = x[e] @ w[e], x (e, g, k), w (e, k, n): CTAs over (ex, i, j),
     a loop over k inside.
 
-    (bg, bn) is the thread-block shape: bg * bn / 64 threads, one 8 x 8
+    bf16 runs the wgmma mainloop with the expert on blockIdx.z, as
+    ``matmul_spec(2)`` states it: 2 * bg threads, the compiled tiles,
+    granules of 64 and the ring's shared memory.  f32 runs the SIMT body:
+    (bg, bn) is the thread-block shape, bg * bn / 64 threads, one 8 x 8
     micro-tile each.  Token (bg, bk) and weight (bk, bn) tiles are staged in
     shared memory; the f32 accumulators are registers.  The TPU rules of
     the reference spec (``bg <= 8 * g``, ``bn % 128``) do not carry over:
-    8-granularity plus the Hopper shared-memory, thread and register limits
-    replace them.
+    the kernel's granules plus the Hopper shared-memory, thread and register
+    limits replace them.
     """
+    grid = (GridAxis("ex", "e", None), GridAxis("i", "g", "bg"),
+            GridAxis("j", "n", "bn"),
+            GridAxis("l", "k", "bk", sequential=True))
+    if dtype_bytes == 2:
+        return _sm90_gemm_spec("moe_gmm_b16", ("e", "g", "k", "n"), "bg",
+                               grid, "tokens", "weights", ("ex",))
     tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
     return KernelSpec(
         name=f"moe_gmm_b{dtype_bytes * 8}",
         data_params=("e", "g", "k", "n"),
         program_params=("bg", "bn", "bk"),
-        grid=(GridAxis("ex", "e", None), GridAxis("i", "g", "bg"),
-              GridAxis("j", "n", "bn"),
-              GridAxis("l", "k", "bk", sequential=True)),
+        grid=grid,
         operands=(
             Operand("tokens", ("bg", "bk"), ("ex", "i", "l"), dtype_bytes,
                     staged=True),

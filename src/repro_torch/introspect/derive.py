@@ -38,10 +38,13 @@ Feasibility constraints are synthesized in the Python-syntax string form
 hand specs use: one ``"p <= d"`` cap per blocked axis, plus one granularity
 per program parameter.  **The Hopper granularity rule**, which replaces the
 TPU's 8-sublane / 128-lane rule: a program parameter that sizes a tile
-dimension of any operand is a multiple of 8 -- eight elements are one
-16-byte vector load of bf16 (two of f32), and eight rows or columns are the
-micro-tile, row-lane and warp granule of the port's kernels; a parameter
-that sizes no tile gets no granularity constraint.  Shared memory, threads
+dimension of any operand is a multiple of the kernel's granule, which its
+launch description states -- 8 by default (eight elements are one 16-byte
+vector load of bf16, two of f32, and eight rows or columns are the
+micro-tile, row-lane and warp granule of the SIMT kernels), 64 for the
+wgmma kernels (a warpgroup's 64 rows, 64-column B boxes, 64-wide swizzle
+atoms along k); a parameter that sizes no tile gets no granularity
+constraint.  The compute unit the FLOPs run on is the description's too.  Shared memory, threads
 and registers are then checked by the same Hopper launch limits every spec
 gets (``KernelSpec.feasible_mask``).
 """
@@ -67,8 +70,6 @@ Dims = Mapping[str, int]
 # Two points whose derived per-point FLOPs differ by more than this are
 # P-dependent (not expressible as a constant flops_per_point).
 _FLOP_TOLERANCE = 0.25
-# The Hopper tile granularity (see the module docstring).
-GRANULE = 8
 
 
 def _match_dim(name: str, what: str, v1: int, v2: int,
@@ -242,7 +243,8 @@ def _derive_threads(gs: GridSpec, cap1: Capture, cap2: Capture,
 
 
 def _derive_constraints(gs: GridSpec, axes: tuple[GridAxis, ...],
-                        operands: tuple[Operand, ...]) -> tuple[str, ...]:
+                        operands: tuple[Operand, ...],
+                        granule: int) -> tuple[str, ...]:
     cons: list[str] = []
     for a in axes:
         if a.block is not None and isinstance(a.data, str):
@@ -250,7 +252,7 @@ def _derive_constraints(gs: GridSpec, axes: tuple[GridAxis, ...],
     tiled = {t for op in operands for t in op.tile}
     for p in gs.program_params:
         if p in tiled:
-            cons.append(f"{p} % {GRANULE} == 0")
+            cons.append(f"{p} % {granule} == 0")
     return tuple(cons)
 
 
@@ -271,6 +273,11 @@ def derive_kernel(kernel: CudaKernel, grid_spec: GridSpec, *,
     cap2 = capture_kernel(kernel, grid_spec, D2, P2, device=device)
     axes = _match_grid(grid_spec, cap1, cap2, D1, P1, D2, P2)
     operands = _match_operands(grid_spec, cap1, cap2, axes, D1, P1, D2, P2)
+    if (cap1.granule, cap1.compute_unit) != (cap2.granule,
+                                             cap2.compute_unit):
+        raise IntrospectError(
+            f"{grid_spec.name}: granule or compute unit changed between "
+            f"points")
     spec = KernelSpec(
         name=grid_spec.name,
         data_params=tuple(grid_spec.data_params),
@@ -280,10 +287,12 @@ def derive_kernel(kernel: CudaKernel, grid_spec: GridSpec, *,
         flops_per_point=_derive_flops(grid_spec, cap1, cap2, axes, D1, D2),
         threads=_derive_threads(grid_spec, cap1, cap2, P1, P2),
         regs_per_thread=cap1.num_regs,
-        constraints=_derive_constraints(grid_spec, axes, operands),
+        constraints=_derive_constraints(grid_spec, axes, operands,
+                                        cap1.granule),
         param_candidates=dict(grid_spec.param_candidates),
         fit_vars=dict(grid_spec.fit_vars),
         source_fingerprint=cap1.fingerprint,
+        compute_unit=cap1.compute_unit,
     )
     for D, P, cap in ((D1, P1, cap1), (D2, P2, cap2)):
         env = {**{k: float(v) for k, v in D.items()},

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.kernel_spec import SM90_CANDIDATES
 from .gridspec import GridSpec
 
 __all__ = ["EQUIV_SHAPES", "matmul_grid_spec", "moe_gmm_grid_spec",
@@ -52,6 +53,21 @@ def _dtype(dtype_bytes: int) -> torch.dtype:
     return torch.bfloat16 if dtype_bytes == 2 else torch.float32
 
 
+def _candidates(rows: str, dtype_bytes: int) -> dict[str, tuple[int, ...]]:
+    """The tile values to tune over: the wgmma kernel's compiled sizes in
+    bf16, the SIMT kernel's powers of two in f32."""
+    if dtype_bytes == 2:
+        return {rows: SM90_CANDIDATES["m"], "bn": SM90_CANDIDATES["n"],
+                "bk": SM90_CANDIDATES["k"]}
+    return {rows: (16, 32, 64, 128, 256, 512),
+            "bn": (16, 32, 64, 128, 256, 512),
+            "bk": (8, 16, 32, 64, 128, 256)}
+
+
+def _defaults(rows: str, dtype_bytes: int) -> dict[str, int]:
+    return {rows: 128, "bn": 128, "bk": 64 if dtype_bytes == 2 else 32}
+
+
 def matmul_grid_spec(dtype_bytes: int = 2) -> GridSpec:
     dt = _dtype(dtype_bytes)
     return GridSpec(
@@ -59,13 +75,9 @@ def matmul_grid_spec(dtype_bytes: int = 2) -> GridSpec:
         data_params=("m", "n", "k"),
         program_params=("bm", "bn", "bk"),
         make_args=lambda D: (((D["m"], D["k"]), dt), ((D["k"], D["n"]), dt)),
-        param_candidates={
-            "bm": (16, 32, 64, 128, 256, 512),
-            "bn": (16, 32, 64, 128, 256, 512),
-            "bk": (8, 16, 32, 64, 128, 256),
-        },
+        param_candidates=_candidates("bm", dtype_bytes),
         fit_vars={m: ("bm", "bn", "bk") for m in _FIT},
-        defaults={"bm": 128, "bn": 128, "bk": 32},
+        defaults=_defaults("bm", dtype_bytes),
     )
 
 
@@ -77,14 +89,10 @@ def moe_gmm_grid_spec(dtype_bytes: int = 2) -> GridSpec:
         program_params=("bg", "bn", "bk"),
         make_args=lambda D: (((D["e"], D["g"], D["k"]), dt),
                              ((D["e"], D["k"], D["n"]), dt)),
-        param_candidates={
-            "bg": (16, 32, 64, 128, 256, 512),
-            "bn": (16, 32, 64, 128, 256, 512),
-            "bk": (8, 16, 32, 64, 128, 256),
-        },
+        param_candidates=_candidates("bg", dtype_bytes),
         fit_vars={m: ("bg", "bn", "bk") for m in _FIT},
         probe_hints={"e": (2, 4)},
-        defaults={"bg": 128, "bn": 128, "bk": 32},
+        defaults=_defaults("bg", dtype_bytes),
     )
 
 

@@ -13,8 +13,10 @@ or validated, so the synthetic trace points may exceed every launch limit:
     (the block-residency analysis: a tile that depends on no loop is loaded
     once per CTA), whether it is staged in shared memory, shared memory only
     (scratch), or an output,
-  * the kernel's own FLOP count for the launch, and the template
-    instantiation (dtype) the launch runs.
+  * the kernel's own FLOP count for the launch, the unit it runs on (FP32
+    FMAs or the bf16 tensor cores), the template instantiation (dtype) the
+    launch runs, and the granule its tile sizes come in (8 unless the
+    kernel states another: the wgmma kernels take multiples of 64).
 
 The compiled half is what ``cudaFuncGetAttributes`` reports of the built
 library -- registers per thread and spilled local bytes, the R input of
@@ -35,7 +37,7 @@ from typing import Callable, Mapping
 
 import torch
 
-from ..kernels._build import CSRC, NVCC_FLAGS
+from ..kernels._build import NVCC_FLAGS, source_bytes
 from .gridspec import GridSpec, IntrospectError
 
 __all__ = ["Capture", "CudaKernel", "LaunchDescription", "OperandCapture",
@@ -61,7 +63,10 @@ class OperandLaunch:
 class LaunchDescription:
     """What one launch of a CUDA kernel would do, in numbers.  ``ragged``
     indexes the axes (grid axes first, then the loops) whose last, partial
-    block the kernel masks, so their tile need not divide the data."""
+    block the kernel masks, so their tile need not divide the data.
+    ``granule`` is what every tile size the kernel takes is a multiple of;
+    ``compute_unit`` is where its FLOPs run ("f32" FMAs on the CUDA cores,
+    "bf16" on the tensor cores)."""
 
     grid: tuple[int, ...]
     loops: tuple[int, ...]
@@ -71,6 +76,8 @@ class LaunchDescription:
     flops: float
     dtype: torch.dtype
     ragged: tuple[int, ...] = ()
+    granule: int = 8
+    compute_unit: str = "f32"
 
 
 @dataclass(frozen=True)
@@ -81,14 +88,20 @@ class CudaKernel:
     **kwargs)`` would make on tensors of the ``(shape, dtype)`` pairs
     ``args``; ``attributes(dtype)`` reads the compiled instantiation
     (``num_regs``, ``max_threads``, ``local_bytes``) on the card;
-    ``regs_cap`` is its ``__launch_bounds__`` register cap.
+    ``regs_cap`` is its ``__launch_bounds__`` register cap, or a mapping
+    from dtype to the cap of that instantiation's body.
     """
 
     source: str
     describe: Callable[..., LaunchDescription]
     launch: Callable[..., torch.Tensor]
     attributes: Callable[[torch.dtype], dict]
-    regs_cap: int
+    regs_cap: int | Mapping[torch.dtype, int]
+
+    def regs_cap_for(self, dtype: torch.dtype) -> int:
+        """The register cap of the instantiation for ``dtype``."""
+        cap = self.regs_cap
+        return int(cap[dtype]) if isinstance(cap, Mapping) else int(cap)
 
 
 @dataclass
@@ -119,13 +132,16 @@ class Capture:
     local_bytes: int | None        # spilled bytes (None without a card)
     attributes_source: str         # "compiled" or "launch_bounds"
     fingerprint: str
+    granule: int = 8               # tile sizes are multiples of it
+    compute_unit: str = "f32"      # where the FLOPs run
 
 
 def source_fingerprint(kernel: CudaKernel, grid_spec: GridSpec,
                        dtype: torch.dtype) -> str:
-    """sha256 of the kernel's source, the nvcc flags, the instantiation and
-    the GridSpec's static keyword arguments (16 hex digits)."""
-    h = hashlib.sha256((CSRC / f"{kernel.source}.cu").read_bytes())
+    """sha256 of the kernel's source and the headers it may include, the
+    nvcc flags, the instantiation and the GridSpec's static keyword
+    arguments (16 hex digits)."""
+    h = hashlib.sha256(source_bytes(kernel.source))
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(f"\n{kernel.source}\n{dtype}\n".encode())
     h.update(repr(sorted(grid_spec.call_kwargs.items())).encode())
@@ -170,12 +186,14 @@ def capture_kernel(kernel: CudaKernel, grid_spec: GridSpec, D: Dims, P: Dims,
         num_regs, local, source = (int(attrs["num_regs"]),
                                    int(attrs["local_bytes"]), "compiled")
     else:
-        num_regs, local, source = int(kernel.regs_cap), None, "launch_bounds"
+        num_regs, local, source = (kernel.regs_cap_for(desc.dtype), None,
+                                   "launch_bounds")
     return Capture(
         grid=axes, n_parallel=len(desc.grid),
         ragged=tuple(sorted(desc.ragged)), threads=int(desc.threads),
         smem_bytes=int(desc.smem_bytes), operands=operands,
         flops=float(desc.flops), num_regs=num_regs,
-        regs_cap=int(kernel.regs_cap), local_bytes=local,
+        regs_cap=kernel.regs_cap_for(desc.dtype), local_bytes=local,
         attributes_source=source,
-        fingerprint=source_fingerprint(kernel, grid_spec, desc.dtype))
+        fingerprint=source_fingerprint(kernel, grid_spec, desc.dtype),
+        granule=int(desc.granule), compute_unit=desc.compute_unit)

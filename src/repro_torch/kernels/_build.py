@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled, at
 first use, into ``build/repro_torch/lib<name>-<hash>.so`` under the
-repository root (a git-ignored directory).  The hash covers the source and
-the flags, so an edited source builds anew and a stale library is never
-loaded.  ``nvcc -Xptxas -v`` output (registers, shared memory and spills per
-kernel) is kept beside the library as ``.log``.  There is no fallback: a
+repository root (a git-ignored directory).  The hash covers the source,
+every header in ``csrc/`` (``*.cuh``, which a source may include) and the
+flags, so an edited source or header builds anew and a stale library is
+never loaded.  ``nvcc -Xptxas -v`` output (registers, shared memory and
+spills per kernel) is kept beside the library as ``.log``.  There is no fallback: a
 missing ``nvcc`` or a failed build raises.
 """
 
@@ -22,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_all",
-           "build_log", "load"]
+           "build_log", "load", "source_bytes"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,9 +44,19 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
-def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def source_bytes(name: str, csrc: Path | None = None) -> bytes:
+    """``csrc/<name>.cu`` followed by every ``csrc/*.cuh``, sorted by name:
+    what a build of ``name`` compiles."""
+    csrc = csrc or CSRC
+    parts = [(csrc / f"{name}.cu").read_bytes()]
+    parts += [h.name.encode() + h.read_bytes()
+              for h in sorted(csrc.glob("*.cuh"))]
+    return b"\0".join(parts)
+
+
+def _library_path(name: str, csrc: Path | None = None) -> Path:
+    digest = hashlib.sha256(source_bytes(name, csrc)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -10,25 +10,30 @@
 // (mk + kn + mn) elements, hundreds of FLOPs per byte, so it is bound by
 // operations, not bytes.  The roofline takes the bf16 tensor-core rate.
 //
-// What this design does about it: it is the simple, correct first version.
-// Each CTA computes one (bm, bn) tile of C and loops over k inside the block
-// (where the TPU had a sequential grid axis).  Per iteration it stages a
-// (bm, bk) tile of x (transposed) and a (bk, bn) tile of y in dynamic shared
-// memory with 16-byte vector loads, then every thread accumulates an 8 x 8
-// micro-tile of C with FP32 FMAs from registers; f32 accumulation matches
-// _matmul_kernel's preferred_element_type=f32, and the result is cast to the
-// output type once.  bm, bn and bk are launch parameters taken at run time,
-// so the tuner can pick any candidate of the spec: the CTA has
-// (bm / 8) * (bn / 8) threads, so the chosen (bm, bn) is the thread-block
-// shape.  Re-use through shared memory cuts the bytes moved by bm and bn; the
-// FMAs run on the CUDA cores, so the kernel is capped at the FP32 rate, a
-// fifteenth of the bf16 tensor-core bound.  wgmma, TMA and multi-stage
-// pipelining are later work.
+// What this design does about it: two bodies, one per input type.
+//   * bf16 inputs run the Hopper mainloop of csrc/gemm_sm90.cuh: wgmma on
+//     the tensor cores, fed by a 4-slot TMA ring, one or two consumer
+//     warpgroups (2 * bm threads), f32 accumulators in registers and the
+//     result cast once to the output type (f32, bf16 or f16, chosen at run
+//     time).  (bm, bn, bk) are template instantiations, the nine tiles of
+//     GEMM_SM90_TILES; the C entry point dispatches to them.
+//   * f32 inputs keep the SIMT body below: wgmma takes f32 only as TF32,
+//     whose ten mantissa bits would break the 2e-4 f32 tolerance the port
+//     holds to.  Each CTA computes one (bm, bn) tile of C and loops over k
+//     inside the block (where the TPU had a sequential grid axis).  Per
+//     iteration it stages a (bm, bk) tile of x (transposed) and a (bk, bn)
+//     tile of y in dynamic shared memory with 16-byte vector loads, then
+//     every thread accumulates an 8 x 8 micro-tile of C with FP32 FMAs from
+//     registers.  bm, bn and bk are taken at run time: the CTA has
+//     (bm / 8) * (bn / 8) threads.  It is capped at the FP32 rate of the
+//     CUDA cores (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -40,9 +45,6 @@ enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -180,21 +182,31 @@ int klaraptor_matmul(const void* x, const void* y, void* out, int m, int n, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype) {
     case kF32: return launch_out<float>(out_dtype, x, y, out, m, n, k, bm, bn, bk, s);
-    case kBF16: return launch_out<__nv_bfloat16>(out_dtype, x, y, out, m, n, k, bm, bn, bk, s);
+    case kBF16:
+      return gemm_sm90::dispatch(x, y, out, out_dtype, 1, m, n, k, bm, bn, bk, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Registers per thread, launch-bound thread limit and local (spill) bytes of
-// the bf16 -> bf16 and f32 -> f32 instantiations.
+// Registers per thread, launch-bound thread limit and local (spill) bytes:
+// of the f32 -> f32 SIMT kernel, or for bf16 the largest over the compiled
+// wgmma tiles.
 int klaraptor_matmul_attributes(int in_dtype, int* num_regs, int* max_threads,
                                 int* local_bytes) {
   switch (in_dtype) {
     case kF32: return attributes<float, float>(num_regs, max_threads, local_bytes);
     case kBF16:
-      return attributes<__nv_bfloat16, __nv_bfloat16>(num_regs, max_threads, local_bytes);
+      *max_threads = gemm_sm90::kMaxThreads;
+      return gemm_sm90::dispatch_attributes(0, 0, 0, num_regs, local_bytes);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Registers per thread and local (spill) bytes of the bf16 wgmma tile
+// (bm, bn, bk); cudaErrorInvalidValue if it is not compiled.
+int klaraptor_matmul_tile_attributes(int bm, int bn, int bk, int* num_regs,
+                                     int* local_bytes) {
+  return gemm_sm90::dispatch_attributes(bm, bn, bk, num_regs, local_bytes);
 }
 
 const char* klaraptor_error_string(int err) {

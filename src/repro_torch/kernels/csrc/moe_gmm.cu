@@ -11,22 +11,30 @@
 // (gk + kn + gn) elements, hundreds of FLOPs per byte, so it is bound by
 // operations.  The roofline takes the bf16 tensor-core rate.
 //
-// What this design does about it: it is the simple, correct first version,
-// csrc/matmul.cu's body with the expert on blockIdx.z.  Each CTA computes one
-// (bg, bn) tile of one expert's output and loops over k inside the block
-// (where the TPU had a sequential grid axis).  Per iteration it stages a
-// (bg, bk) tile of x (transposed) and a (bk, bn) tile of w in dynamic shared
-// memory with 16-byte vector loads, then every thread accumulates an 8 x 8
-// micro-tile in f32 registers (the Pallas kernel's VMEM scratch) with FP32
-// FMAs, and the result is cast to x's type once.  bg, bn and bk are taken at
-// run time, so the tuner can pick any candidate of the spec: the CTA has
-// (bg / 8) * (bn / 8) threads.  The FMAs run on the CUDA cores, so the kernel
-// is capped at the FP32 rate, a fifteenth of the bf16 tensor-core bound.
-// wgmma, TMA and multi-stage pipelining are later work.
+// What this design does about it: two bodies, one per input type.
+//   * bf16 runs csrc/gemm_sm90.cuh, the Hopper mainloop csrc/matmul.cu's
+//     bf16 path runs too, with the expert on blockIdx.z: wgmma on the tensor
+//     cores fed by a 4-slot TMA ring, one or two consumer warpgroups
+//     (2 * bg threads), f32 accumulators in registers (the Pallas kernel's
+//     VMEM scratch) and the result cast once to bf16.  Its 3-D tensor maps
+//     over x (e, g, k) and w (e, k, n) keep every box inside its expert.
+//     (bg, bn, bk) are template instantiations, the nine tiles of
+//     GEMM_SM90_TILES.
+//   * f32 keeps the SIMT body below (wgmma would take f32 only as TF32):
+//     each CTA computes one (bg, bn) tile of one expert's output, looping
+//     over k inside the block (where the TPU had a sequential grid axis).
+//     Per iteration it stages a (bg, bk) tile of x (transposed) and a (bk,
+//     bn) tile of w in dynamic shared memory with 16-byte vector loads, then
+//     every thread accumulates an 8 x 8 micro-tile in f32 registers with
+//     FP32 FMAs, and the result is cast once.  bg, bn and bk are taken at
+//     run time: the CTA has (bg / 8) * (bn / 8) threads.  It is capped at
+//     the FP32 rate of the CUDA cores (67 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -37,13 +45,9 @@ constexpr int kVecBytes = 16;      // global and shared loads are 16 bytes wide
 enum DType { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Requires g % bg == n % bn == k % bk == 0, bg % 8 == bn % 8 == bk % 8 == 0,
 // 16-byte aligned x and w, and blockDim.x == (bg / 8) * (bn / 8).
@@ -160,20 +164,31 @@ int klaraptor_moe_gmm(const void* x, const void* w, void* out, int e, int g, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return launch<float>(x, w, out, e, g, n, k, bg, bn, bk, s);
-    case kBF16: return launch<__nv_bfloat16>(x, w, out, e, g, n, k, bg, bn, bk, s);
+    case kBF16:
+      return gemm_sm90::dispatch(x, w, out, gemm_sm90::kBF16, e, g, n, k, bg, bn, bk, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Registers per thread, launch-bound thread limit and local (spill) bytes of
-// the bf16 and f32 instantiations.
+// Registers per thread, launch-bound thread limit and local (spill) bytes:
+// of the f32 SIMT kernel, or for bf16 the largest over the compiled wgmma
+// tiles.
 int klaraptor_moe_gmm_attributes(int dtype, int* num_regs, int* max_threads,
                                  int* local_bytes) {
   switch (dtype) {
     case kF32: return attributes<float>(num_regs, max_threads, local_bytes);
-    case kBF16: return attributes<__nv_bfloat16>(num_regs, max_threads, local_bytes);
+    case kBF16:
+      *max_threads = gemm_sm90::kMaxThreads;
+      return gemm_sm90::dispatch_attributes(0, 0, 0, num_regs, local_bytes);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Registers per thread and local (spill) bytes of the bf16 wgmma tile
+// (bg, bn, bk); cudaErrorInvalidValue if it is not compiled.
+int klaraptor_moe_gmm_tile_attributes(int bg, int bn, int bk, int* num_regs,
+                                      int* local_bytes) {
+  return gemm_sm90::dispatch_attributes(bg, bn, bk, num_regs, local_bytes);
 }
 
 const char* klaraptor_moe_gmm_error_string(int err) {

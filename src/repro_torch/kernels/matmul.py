@@ -2,9 +2,13 @@
 
 ``matmul_kernel`` launches ``csrc/matmul.cu`` (the Hopper port of the JAX
 package's ``matmul_pallas``) with launch parameters (bm, bn, bk): a grid of
-(m / bm) x (n / bn) CTAs of (bm / 8) * (bn / 8) threads, each CTA looping
-over k in steps of bk.  Inputs are bf16 or f32, accumulation is f32, and the
-result is cast to ``out_dtype`` (bf16, f16 or f32).
+(m / bm) x (n / bn) CTAs, each looping over k in steps of bk.  Inputs are
+bf16 or f32, accumulation is f32, and the result is cast to ``out_dtype``
+(bf16, f16 or f32).  bf16 runs the wgmma + TMA-ring mainloop of
+``csrc/gemm_sm90.cuh``: 2 * bm threads, a ring of ``SM90_STAGES`` slots, and
+only the compiled tiles ``SM90_TILES``.  f32 runs the SIMT body: (bm / 8) *
+(bn / 8) threads, any 8-granular tile within the thread and shared-memory
+limits.
 
 ``matmul_plain`` computes the same function in plain PyTorch, accumulating
 in f32 as a sum of outer products over k.  The tests use it, and the wrapper
@@ -21,13 +25,16 @@ import functools
 
 import torch
 
-from ..core.kernel_spec import MATMUL_MICRO_TILE, MATMUL_REGS_PER_THREAD
+from ..core.kernel_spec import (MATMUL_MICRO_TILE, MATMUL_REGS_PER_THREAD,
+                                SM90_GRANULE, SM90_REGS_PER_THREAD,
+                                SM90_SMEM_EXTRA, SM90_STAGES, SM90_TILES,
+                                sm90_smem_bytes)
 from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
 from ._build import load
 
 __all__ = ["IN_DTYPES", "LAUNCHES", "MATMUL", "OUT_DTYPES", "LaunchCounter",
            "kernel_attributes", "matmul_kernel", "matmul_launch",
-           "matmul_plain"]
+           "matmul_plain", "sm90_operands", "tile_attributes"]
 
 IN_DTYPES = (torch.float32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -62,6 +69,8 @@ def _lib() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_matmul_attributes.argtypes = [i, ip, ip, ip]
     lib.klaraptor_matmul_attributes.restype = i
+    lib.klaraptor_matmul_tile_attributes.argtypes = [i, i, i, ip, ip]
+    lib.klaraptor_matmul_tile_attributes.restype = i
     lib.klaraptor_error_string.argtypes = [i]
     lib.klaraptor_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,7 +83,8 @@ def _raise_cuda(what: str, rc: int) -> None:
 
 def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
     """Registers per thread, thread limit and spilled local bytes of the
-    kernel compiled for ``dtype`` in and out (builds it if needed)."""
+    kernel compiled for ``dtype`` in and out (builds it if needed); for
+    bf16 the largest over the compiled wgmma tiles."""
     vals = [ctypes.c_int() for _ in range(3)]
     rc = _lib().klaraptor_matmul_attributes(
         _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
@@ -82,6 +92,17 @@ def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
         _raise_cuda("cudaFuncGetAttributes", rc)
     return dict(zip(("num_regs", "max_threads", "local_bytes"),
                     (v.value for v in vals)))
+
+
+def tile_attributes(bm: int, bn: int, bk: int) -> dict[str, int]:
+    """Registers per thread and spilled local bytes of the bf16 wgmma
+    instantiation of tile (bm, bn, bk)."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    rc = _lib().klaraptor_matmul_tile_attributes(
+        bm, bn, bk, *[ctypes.byref(v) for v in vals])
+    if rc:
+        _raise_cuda(f"attributes of tile {(bm, bn, bk)}", rc)
+    return dict(zip(("num_regs", "local_bytes"), (v.value for v in vals)))
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor,
@@ -106,16 +127,45 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def sm90_operands(deps: tuple[tuple[int, ...], ...], batch: tuple[int, ...],
+                  rows: int, bn: int, bk: int, dt: torch.dtype,
+                  out_dt: torch.dtype) -> tuple[OperandLaunch, ...]:
+    """The operands of a bf16 wgmma launch: x, y and the output (their axis
+    dependences ``deps``, their tiles led by ``batch``), then the ring's
+    other SM90_STAGES - 1 slots and its barriers as shared-memory scratch."""
+    ring = SM90_STAGES - 1
+    return (
+        OperandLaunch((*batch, rows, bk), deps[0], dt, staged=True),
+        OperandLaunch((*batch, bk, bn), deps[1], dt, staged=True),
+        OperandLaunch((*batch, rows, bn), deps[2], out_dt, is_output=True),
+        OperandLaunch((ring, rows, bk), (), dt, scratch=True),
+        OperandLaunch((ring, bk, bn), (), dt, scratch=True),
+        OperandLaunch((SM90_SMEM_EXTRA,), (), torch.uint8, scratch=True),
+    )
+
+
 def matmul_launch(args, *, bm: int, bn: int, bk: int,
                   out_dtype: torch.dtype | None = None) -> LaunchDescription:
     """The launch ``matmul_kernel`` makes on tensors of the ``(shape,
     dtype)`` pairs ``args`` = (x, y): grid (m / bm, n / bn), a loop over
-    k / bk, x and y tiles staged in shared memory.  Arithmetic only."""
+    k / bk, x and y tiles staged in shared memory.  bf16: 2 * bm threads on
+    the tensor cores, the ring of SM90_STAGES slots in shared memory, tiles
+    in multiples of 64.  f32: (bm / 8) * (bn / 8) threads of FP32 FMAs, one
+    buffer per tile.  Arithmetic only."""
     (xs, dt), (ys, _) = args
     m, k = xs
     n = ys[1]
+    grid = (-(-m // bm), -(-n // bn))
+    if dt == torch.bfloat16:
+        return LaunchDescription(
+            grid=grid, loops=(-(-k // bk),), threads=2 * bm,
+            smem_bytes=sm90_smem_bytes(bm, bn, bk),
+            operands=sm90_operands(((0, 2), (1, 2), (0, 1)), (), bm, bn, bk,
+                                   dt, out_dtype or dt),
+            flops=2.0 * m * n * k, dtype=dt, granule=SM90_GRANULE,
+            compute_unit="bf16")
     return LaunchDescription(
-        grid=(-(-m // bm), -(-n // bn)),
+        grid=grid,
         loops=(-(-k // bk),),
         threads=(bm // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
         smem_bytes=(bm + bn) * bk * dt.itemsize,
@@ -148,12 +198,17 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
         raise ValueError("matmul takes contiguous inputs")
     m, k = x.shape
     n = y.shape[1]
+    sm90 = x.dtype == torch.bfloat16
+    granule = SM90_GRANULE if sm90 else GRANULE
     for name, t, size in (("bm", bm, m), ("bn", bn, n), ("bk", bk, k)):
-        if not isinstance(t, int) or t <= 0 or t % GRANULE:
+        if not isinstance(t, int) or t <= 0 or t % granule:
             raise ValueError(f"{name}={t!r} must be a positive multiple "
-                             f"of {GRANULE}")
+                             f"of {granule}")
         if size % t:
             raise ValueError(f"{name}={t} does not divide {size}")
+    if sm90 and (bm, bn, bk) not in SM90_TILES:
+        raise ValueError(f"tile {(bm, bn, bk)} is not compiled for bf16; "
+                         f"the wgmma kernel has {SM90_TILES}")
     d = matmul_launch((((m, k), x.dtype), ((k, n), y.dtype)), bm=bm, bn=bn,
                       bk=bk, out_dtype=out_dtype)
     if d.threads > MAX_THREADS:
@@ -163,7 +218,8 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
         raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT} a block can "
                          f"have")
-    if d.grid[0] > MAX_GRID_Y or max(m, n, k) >= 2**31:
+    # grid.y holds m / bm in the SIMT body, n / bn in the wgmma body
+    if d.grid[1 if sm90 else 0] > MAX_GRID_Y or max(m, n, k) >= 2**31:
         raise ValueError(f"shape ({m}, {n}, {k}) exceeds the launch grid")
     if x.device.type == "cuda" and (x.data_ptr() % 16 or y.data_ptr() % 16):
         raise ValueError("inputs must be 16-byte aligned")
@@ -194,4 +250,5 @@ def matmul_kernel(x: torch.Tensor, y: torch.Tensor, *, bm: int, bn: int,
 
 MATMUL = CudaKernel(source="matmul", describe=matmul_launch,
                     launch=matmul_kernel, attributes=kernel_attributes,
-                    regs_cap=MATMUL_REGS_PER_THREAD)
+                    regs_cap={torch.float32: MATMUL_REGS_PER_THREAD,
+                              torch.bfloat16: SM90_REGS_PER_THREAD})

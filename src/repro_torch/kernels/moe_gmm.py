@@ -3,10 +3,12 @@ plain version.
 
 ``moe_gmm_kernel`` launches ``csrc/moe_gmm.cu`` (the Hopper port of the JAX
 package's ``moe_gmm_pallas``) with launch parameters (bg, bn, bk): a grid of
-(n / bn) x (g / bg) x e CTAs of (bg / 8) * (bn / 8) threads, each CTA
-looping over k in steps of bk.  x (e, g, k) and w (e, k, n) are bf16 or f32
-of one type, accumulation is f32 and out (e, g, n) has x's type: the
-capacity-padded per-expert product of an MoE layer.
+e x (g / bg) x (n / bn) CTAs, each looping over k in steps of bk.  x (e, g,
+k) and w (e, k, n) are bf16 or f32 of one type, accumulation is f32 and out
+(e, g, n) has x's type: the capacity-padded per-expert product of an MoE
+layer.  bf16 runs the wgmma + TMA-ring mainloop of ``csrc/gemm_sm90.cuh``
+with the expert on blockIdx.z: 2 * bg threads and only the compiled tiles
+``SM90_TILES``.  f32 runs the SIMT body: (bg / 8) * (bn / 8) threads.
 
 ``moe_gmm_plain`` computes the same function in plain PyTorch, per expert in
 f32 as a sum of outer products over chunks of k.  The tests use it, and the
@@ -23,13 +25,16 @@ import functools
 
 import torch
 
-from ..core.kernel_spec import GMM_REGS_PER_THREAD, MATMUL_MICRO_TILE
+from ..core.kernel_spec import (GMM_REGS_PER_THREAD, MATMUL_MICRO_TILE,
+                                SM90_GRANULE, SM90_REGS_PER_THREAD,
+                                SM90_TILES, sm90_smem_bytes)
 from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
 from ._build import load
-from .matmul import LaunchCounter
+from .matmul import LaunchCounter, sm90_operands
 
 __all__ = ["DTYPES", "LAUNCHES", "MOE_GMM", "kernel_attributes",
-           "moe_gmm_kernel", "moe_gmm_launch", "moe_gmm_plain"]
+           "moe_gmm_kernel", "moe_gmm_launch", "moe_gmm_plain",
+           "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,6 +57,8 @@ def _lib() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_moe_gmm_attributes.argtypes = [i, ip, ip, ip]
     lib.klaraptor_moe_gmm_attributes.restype = i
+    lib.klaraptor_moe_gmm_tile_attributes.argtypes = [i, i, i, ip, ip]
+    lib.klaraptor_moe_gmm_tile_attributes.restype = i
     lib.klaraptor_moe_gmm_error_string.argtypes = [i]
     lib.klaraptor_moe_gmm_error_string.restype = ctypes.c_char_p
     return lib
@@ -64,7 +71,8 @@ def _raise_cuda(what: str, rc: int) -> None:
 
 def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
     """Registers per thread, thread limit and spilled local bytes of the
-    kernel compiled for ``dtype`` (builds it if needed)."""
+    kernel compiled for ``dtype`` (builds it if needed); for bf16 the
+    largest over the compiled wgmma tiles."""
     vals = [ctypes.c_int() for _ in range(3)]
     rc = _lib().klaraptor_moe_gmm_attributes(
         _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
@@ -72,6 +80,17 @@ def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
         _raise_cuda("cudaFuncGetAttributes", rc)
     return dict(zip(("num_regs", "max_threads", "local_bytes"),
                     (v.value for v in vals)))
+
+
+def tile_attributes(bg: int, bn: int, bk: int) -> dict[str, int]:
+    """Registers per thread and spilled local bytes of the bf16 wgmma
+    instantiation of tile (bg, bn, bk)."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    rc = _lib().klaraptor_moe_gmm_tile_attributes(
+        bg, bn, bk, *[ctypes.byref(v) for v in vals])
+    if rc:
+        _raise_cuda(f"attributes of tile {(bg, bn, bk)}", rc)
+    return dict(zip(("num_regs", "local_bytes"), (v.value for v in vals)))
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -98,13 +117,23 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def moe_gmm_launch(args, *, bg: int, bn: int, bk: int) -> LaunchDescription:
     """The launch ``moe_gmm_kernel`` makes on tensors of the ``(shape,
     dtype)`` pairs ``args`` = (x, w): grid (e, g / bg, n / bn), a loop over
-    k / bk, x and w tiles staged in shared memory.  Arithmetic only."""
+    k / bk, x and w tiles staged in shared memory; for bf16 the wgmma
+    launch ``matmul_launch`` states, per expert.  Arithmetic only."""
     (xs, dt), (ws, _) = args
     e, g, k = xs
     n = ws[2]
     elem = dt.itemsize
+    grid = (e, -(-g // bg), -(-n // bn))
+    if dt == torch.bfloat16:
+        return LaunchDescription(
+            grid=grid, loops=(-(-k // bk),), threads=2 * bg,
+            smem_bytes=sm90_smem_bytes(bg, bn, bk),
+            operands=sm90_operands(((0, 1, 3), (0, 2, 3), (0, 1, 2)), (1,),
+                                   bg, bn, bk, dt, dt),
+            flops=2.0 * e * g * n * k, dtype=dt, granule=SM90_GRANULE,
+            compute_unit="bf16")
     return LaunchDescription(
-        grid=(e, -(-g // bg), -(-n // bn)),
+        grid=grid,
         loops=(-(-k // bk),),
         threads=(bg // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
         smem_bytes=(bg + bn) * bk * elem,
@@ -135,12 +164,17 @@ def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
         raise ValueError("moe_gmm takes contiguous inputs")
     e, g, k = x.shape
     n = w.shape[2]
+    sm90 = x.dtype == torch.bfloat16
+    granule = SM90_GRANULE if sm90 else GRANULE
     for name, t, size in (("bg", bg, g), ("bn", bn, n), ("bk", bk, k)):
-        if not isinstance(t, int) or t <= 0 or t % GRANULE:
+        if not isinstance(t, int) or t <= 0 or t % granule:
             raise ValueError(f"{name}={t!r} must be a positive multiple "
-                             f"of {GRANULE}")
+                             f"of {granule}")
         if size % t:
             raise ValueError(f"{name}={t} does not divide {size}")
+    if sm90 and (bg, bn, bk) not in SM90_TILES:
+        raise ValueError(f"tile {(bg, bn, bk)} is not compiled for bf16; "
+                         f"the wgmma kernel has {SM90_TILES}")
     d = moe_gmm_launch((((e, g, k), x.dtype), ((e, k, n), w.dtype)),
                        bg=bg, bn=bn, bk=bk)
     if d.threads > MAX_THREADS:
@@ -150,7 +184,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
         raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT} a block can "
                          f"have")
-    if max(d.grid[:2]) > MAX_GRID_YZ \
+    # SIMT: (n / bn, g / bg, e) on (x, y, z); wgmma: (g / bg, n / bn, e)
+    yz = (d.grid[0], d.grid[2]) if sm90 else d.grid[:2]
+    if max(yz) > MAX_GRID_YZ \
             or max(e * g * k, e * k * n, e * g * n) >= 2**31:
         raise ValueError(f"shape ({e}, {g}, {n}, {k}) exceeds the launch "
                          f"grid")
@@ -182,4 +218,5 @@ def moe_gmm_kernel(x: torch.Tensor, w: torch.Tensor, *, bg: int, bn: int,
 
 MOE_GMM = CudaKernel(source="moe_gmm", describe=moe_gmm_launch,
                      launch=moe_gmm_kernel, attributes=kernel_attributes,
-                     regs_cap=GMM_REGS_PER_THREAD)
+                     regs_cap={torch.float32: GMM_REGS_PER_THREAD,
+                               torch.bfloat16: SM90_REGS_PER_THREAD})

@@ -3,9 +3,10 @@
 Each op consults the driver registry *immediately before launch* (paper
 Section V-C: one IO call per kernel call, data parameters in, launch
 parameters out) and launches the CUDA kernel with the chosen tiles: the
-matmul and the grouped matmul snap them to the shape with ``fit_tile`` at
-the granularities the port's kernel spec states; flash attention and the
-SSD scan mask ragged tails in the kernel and take them as chosen.  With no
+matmul and the grouped matmul snap them to the shape (f32 with ``fit_tile``
+at the granularities the port's kernel spec states, bf16 to the largest
+compiled tile size that divides it); flash attention and the SSD scan mask
+ragged tails in the kernel and take them as chosen.  With no
 driver registered an op uses its static default config.
 
 ``layernorm`` and ``blocked_colsum`` have no hand-written spec anywhere: on
@@ -32,21 +33,25 @@ from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
 from ..introspect import AutoKernel, auto_register, get_auto
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
-from .matmul import matmul_kernel, matmul_plain
+from .matmul import matmul_kernel
 from .moe_gmm import moe_gmm_kernel
 from .reduce import COLSUM, colsum_grid_spec, colsum_kernel
 from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
-__all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "MATMUL_DEFAULT", "SSD_DEFAULT",
+__all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "GMM_DEFAULT_F32",
+           "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "SSD_DEFAULT",
            "blocked_colsum", "flash_attention", "flash_kernel_name",
            "gmm_kernel_name", "layernorm", "matmul", "matmul_kernel_name",
            "moe_gmm", "probe_launcher", "ssd_kernel_name", "ssd_scan"]
 
-# Static heuristic defaults (what a programmer would hard-code).  The flash
-# default fits the kernel at every head dim and dtype it is built for; the
-# SSD default is the reference's.
-MATMUL_DEFAULT = {"bm": 128, "bn": 128, "bk": 32}
-GMM_DEFAULT = {"bg": 128, "bn": 128, "bk": 32}
+# Static heuristic defaults (what a programmer would hard-code).  The bf16
+# matmul defaults are compiled wgmma tiles, the f32 ones SIMT tiles; the
+# flash default fits the kernel at every head dim and dtype it is built
+# for; the SSD default is the reference's.
+MATMUL_DEFAULT = {"bm": 128, "bn": 128, "bk": 64}
+MATMUL_DEFAULT_F32 = {"bm": 128, "bn": 128, "bk": 32}
+GMM_DEFAULT = {"bg": 128, "bn": 128, "bk": 64}
+GMM_DEFAULT_F32 = {"bg": 128, "bn": 128, "bk": 32}
 FLASH_DEFAULT = {"bq": 64, "bkv": 64}
 SSD_DEFAULT = {"chunk": 256}
 
@@ -55,6 +60,8 @@ _SSD_NAME = re.compile(r"^ssd_scan_h(\d+)_n(\d+)$")
 
 _MATMUL_KERNELS = {torch.bfloat16: "matmul_b16", torch.float32: "matmul_b32"}
 _GMM_KERNELS = {torch.bfloat16: "moe_gmm_b16", torch.float32: "moe_gmm_b32"}
+_DEFAULTS = {"matmul_b16": MATMUL_DEFAULT, "matmul_b32": MATMUL_DEFAULT_F32,
+             "moe_gmm_b16": GMM_DEFAULT, "moe_gmm_b32": GMM_DEFAULT_F32}
 
 
 def matmul_kernel_name(dtype: torch.dtype) -> str:
@@ -77,10 +84,29 @@ def gmm_kernel_name(dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _alignments(kernel: str) -> dict[str, int]:
+def _gemm_spec(kernel: str):
     make = moe_gmm_spec if kernel.startswith("moe_gmm") else matmul_spec
-    spec = make(dtype_bytes=2 if kernel.endswith("_b16") else 4)
+    return make(dtype_bytes=2 if kernel.endswith("_b16") else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _alignments(kernel: str) -> dict[str, int]:
+    spec = _gemm_spec(kernel)
     return {p: spec.alignment(p) for p in spec.program_params}
+
+
+def _fit_gemm(kernel: str, cfg: Mapping[str, int],
+              sizes: Mapping[str, int]) -> dict[str, int]:
+    """Tiles of ``cfg`` snapped to the (padded) shape: the bf16 wgmma
+    kernel takes only compiled tile sizes, so each becomes the largest
+    candidate <= it that divides its extent (smaller than a compiled tile,
+    so still compiled); the f32 SIMT kernel takes ``fit_tile``'s."""
+    spec, align = _gemm_spec(kernel), _alignments(kernel)
+    if spec.compute_unit != "bf16":
+        return {p: fit_tile(sizes[p], int(cfg[p]), align[p]) for p in cfg}
+    return {p: max(v for v in spec.default_candidates(p)
+                   if v <= tile and sizes[p] % v == 0)
+            for p, tile in cfg.items()}
 
 
 def _round_up(v: int, a: int) -> int:
@@ -93,8 +119,10 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
 
     ``y`` is one (k, n) matrix shared by every batch entry, so the batch
     folds into m and the product is one launch at (batch * m, n, k).  Dims
-    that are not multiples of the spec's granularity are zero-padded (exact
-    for a product) and the result is sliced back.
+    that are not multiples of the spec's granularity (64 for bf16, 8 for
+    f32) are zero-padded (exact for a product) and the result is sliced
+    back.  CUDA tensors launch the kernel, CPU tensors take
+    ``matmul_plain`` through the same wrapper.
     """
     if x.ndim < 2 or y.ndim != 2 or x.shape[-1] != y.shape[0]:
         raise ValueError(f"matmul takes x (..., m, k) and y (k, n); got "
@@ -103,9 +131,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     lead = x.shape[:-1]
     k, n = y.shape
     x2 = x.reshape(-1, k)
-    if x.device.type == "cpu" and y.device.type == "cpu":
-        return matmul_plain(x2, y, out_dtype).reshape(*lead, n)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"matmul runs on cuda or cpu tensors, not {x.device}")
     kernel = matmul_kernel_name(x.dtype)
     align = _alignments(kernel)
@@ -118,10 +144,9 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         y = F.pad(y, (0, np_ - n, 0, kp - k))
     x2, y2 = x2.contiguous(), y.contiguous()
     cfg = choose_or_default(kernel, {"m": mp, "n": np_, "k": kp},
-                            MATMUL_DEFAULT)
-    out = matmul_kernel(x2, y2, bm=fit_tile(mp, cfg["bm"], align["bm"]),
-                        bn=fit_tile(np_, cfg["bn"], align["bn"]),
-                        bk=fit_tile(kp, cfg["bk"], align["bk"]),
+                            _DEFAULTS[kernel])
+    out = matmul_kernel(x2, y2, **_fit_gemm(kernel, cfg,
+                                            {"bm": mp, "bn": np_, "bk": kp}),
                         out_dtype=out_dtype)
     if (mp, np_) != (m, n):
         out = out[:m, :n]
@@ -133,11 +158,12 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     type, f32 accumulation.
 
     Resolves (bg, bn, bk) through ``choose_or_default("moe_gmm_b16" |
-    "moe_gmm_b32", {e, g, k, n}, GMM_DEFAULT)``.  g, n and k that are not
-    multiples of the spec's granularity are zero-padded (exact for a
-    product) and the result is sliced back; the tiles are then snapped to
-    the padded shape with ``fit_tile``.  CUDA tensors launch the kernel, CPU
-    tensors take ``moe_gmm_plain`` through the same wrapper.
+    "moe_gmm_b32", {e, g, k, n}, GMM_DEFAULT | GMM_DEFAULT_F32)``.  g, n
+    and k that are not multiples of the spec's granularity (64 for bf16, 8
+    for f32) are zero-padded (exact for a product) and the result is sliced
+    back; the tiles are then snapped to the padded shape.  CUDA tensors
+    launch the kernel, CPU tensors take ``moe_gmm_plain`` through the same
+    wrapper.
     """
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -154,11 +180,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if (kp, np_) != (k, n):
         w = F.pad(w, (0, np_ - n, 0, kp - k))
     cfg = choose_or_default(kernel, {"e": e, "g": gp, "k": kp, "n": np_},
-                            GMM_DEFAULT)
+                            _DEFAULTS[kernel])
     out = moe_gmm_kernel(x.contiguous(), w.contiguous(),
-                         bg=fit_tile(gp, cfg["bg"], align["bg"]),
-                         bn=fit_tile(np_, cfg["bn"], align["bn"]),
-                         bk=fit_tile(kp, cfg["bk"], align["bk"]))
+                         **_fit_gemm(kernel, cfg,
+                                     {"bg": gp, "bn": np_, "bk": kp}))
     if (gp, np_) != (g, n):
         out = out[:, :g, :n]
     return out

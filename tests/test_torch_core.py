@@ -101,6 +101,25 @@ def test_fit_auto_identical(both_data, metric):
     assert fp.cv_error == fr.cv_error
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fit_auto_skips_unidentified_degrees(seed):
+    """Samples at the bf16 matmul's nine compiled tiles (three corners of
+    the 2 x 3 x 2 grid missing) leave a multilinear numerator that vanishes
+    on every point; the fit must still predict the samples, not return that
+    0/0 null vector.  On full grids the fit is the reference's
+    (``test_fit_auto_identical``)."""
+    from repro_torch.core.kernel_spec import SM90_TILES
+    rng = np.random.RandomState(seed)
+    P = np.array(SM90_TILES * 20, dtype=np.float64)
+    bm, bn, bk = P.T
+    y = (1e-7 * bm * bn * bk / 4096 + 3e-7) * np.exp(
+        rng.normal(0.0, 0.02, len(P)))
+    fit = port_fitting.fit_auto(P, y, ("bm", "bn", "bk"),
+                                max_num_degree=2, max_den_degree=2)
+    rel = np.abs(fit.function(P) - y) / y
+    assert np.median(rel) < 0.05 and np.max(rel) < 0.2, fit
+
+
 def test_fitresult_from_json(both_data):
     ref, _ = both_data
     fits = {m: ref_fitting.fit_auto(*ref.matrix(m, FIT_VARS), FIT_VARS,

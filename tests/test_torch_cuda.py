@@ -23,8 +23,9 @@ from repro_torch.kernels import reduce as cs
 from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
+from repro_torch.core.kernel_spec import SM90_TILES
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
-from repro_torch.kernels.matmul import matmul_kernel, matmul_plain
+from repro_torch.kernels.matmul import OUT_DTYPES, matmul_kernel, matmul_plain
 from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
@@ -38,20 +39,28 @@ VARIANTS = {
 
 @pytest.mark.cuda
 def test_cuda_matmul_kernel_matches_plain():
+    """Every compiled bf16 wgmma tile with each output type, at k 1024 (8
+    or 16 k steps: the 4-slot ring wraps), and the f32 SIMT kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        x = torch.randn(256, 512, generator=gen, device="cuda").to(dtype)
-        y = torch.randn(512, 384, generator=gen, device="cuda").to(dtype)
-        before = MATMUL_LAUNCHES.count
-        out = matmul_kernel(x, y, bm=64, bn=128, bk=32)
-        assert MATMUL_LAUNCHES.count == before + 1
-        torch.testing.assert_close(out.float(), matmul_plain(x, y).float(),
-                                   atol=tol, rtol=tol)
-        torch.testing.assert_close(ops.matmul(x, y).float(),
-                                   matmul_plain(x, y).float(),
+        x = torch.randn(256, 1024, generator=gen, device="cuda").to(dtype)
+        y = (torch.randn(1024, 512, generator=gen, device="cuda") / 32
+             ).to(dtype)
+        plain = matmul_plain(x, y, torch.float32)
+        runs = ([(t, o) for t in SM90_TILES for o in OUT_DTYPES]
+                if dtype == torch.bfloat16 else [((64, 128, 32), dtype)])
+        for (bm, bn, bk), out_dtype in runs:
+            before = MATMUL_LAUNCHES.count
+            out = matmul_kernel(x, y, bm=bm, bn=bn, bk=bk,
+                                out_dtype=out_dtype)
+            assert MATMUL_LAUNCHES.count == before + 1
+            assert out.dtype == out_dtype
+            torch.testing.assert_close(out.float(), plain, atol=tol,
+                                       rtol=tol)
+        torch.testing.assert_close(ops.matmul(x, y).float(), plain,
                                    atol=tol, rtol=tol)
 
 
@@ -125,13 +134,19 @@ def test_cuda_moe_gmm_kernel_matches_plain():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(4, 128, 256, generator=gen, device="cuda").to(dtype)
-        w = (torch.randn(4, 256, 192, generator=gen, device="cuda")
+        # bf16: every compiled wgmma tile at k 768 (6 or 12 k steps: the
+        # ring wraps); f32: SIMT tiles
+        k, n = (768, 256) if dtype == torch.bfloat16 else (256, 192)
+        x = torch.randn(4, 128, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(4, k, n, generator=gen, device="cuda")
              / 16).to(dtype)
         plain = gmm.moe_gmm_plain(x, w)
-        for P in ({"bg": 64, "bn": 64, "bk": 32},
-                  {"bg": 16, "bn": 192, "bk": 8},
-                  {"bg": 128, "bn": 32, "bk": 256}):
+        tiles = ([dict(zip(("bg", "bn", "bk"), t)) for t in SM90_TILES]
+                 if dtype == torch.bfloat16
+                 else ({"bg": 64, "bn": 64, "bk": 32},
+                       {"bg": 16, "bn": 192, "bk": 8},
+                       {"bg": 128, "bn": 32, "bk": 256}))
+        for P in tiles:
             before = gmm.LAUNCHES.count
             out = gmm.moe_gmm_kernel(x, w, **P)
             assert gmm.LAUNCHES.count == before + 1

@@ -31,9 +31,11 @@ from repro_torch.introspect import (CudaKernel, GridSpec, IntrospectError,
                                     auto_kernels, auto_register,
                                     capture_kernel, derive_kernel, get_auto,
                                     spec_from_kernel, trace_points)
-from repro_torch.introspect.tier1 import (EQUIV_SHAPES, moe_gmm_grid_spec,
-                                         tier1_pairs)
+from repro_torch.core.kernel_spec import SM90_SMEM_EXTRA
+from repro_torch.introspect.tier1 import (EQUIV_SHAPES, matmul_grid_spec,
+                                         moe_gmm_grid_spec, tier1_pairs)
 from repro_torch.kernels import ops
+from repro_torch.kernels.matmul import MATMUL
 from repro_torch.kernels.layernorm import (LAYERNORM, LN_REGS_PER_THREAD,
                                            layernorm_grid_spec,
                                            layernorm_plain)
@@ -139,10 +141,14 @@ class TestDerivation:
             assert float(spec.stage_expr().eval(env)) == cap.smem_bytes
 
     def test_grouped_matmul_expert_axis_squeezed(self, pairs):
+        """The expert's literal-1 tile dim is squeezed; the bf16 kernel's
+        ring (the other three slots and its barriers) is scratch."""
         _, intro, _, _ = pairs["moe_gmm_b16"]
         assert intro.grid[0].data == "e" and intro.grid[0].block is None
         assert [op.tile for op in intro.operands] == \
-            [("bg", "bk"), ("bk", "bn"), ("bg", "bn")]
+            [("bg", "bk"), ("bk", "bn"), ("bg", "bn"), (3, "bg", "bk"),
+             (3, "bk", "bn"), (SM90_SMEM_EXTRA,)]
+        assert [op.scratch for op in intro.operands] == [False] * 3 + [True] * 3
 
     def test_layernorm_gamma_beta_resident(self):
         """gamma and beta depend on no axis: staged once per CTA, so their
@@ -194,12 +200,17 @@ class TestDerivation:
         np.testing.assert_array_equal(out_t.bytes(), np.full(len(t), 4 * 4096))
 
     def test_hopper_granularity_rule(self, pairs):
-        """Every program parameter that sizes a tile is a multiple of 8; one
-        that sizes none gets no granularity constraint."""
+        """Every program parameter that sizes a tile is a multiple of the
+        kernel's granule -- 64 for the bf16 wgmma matmul, 8 for the f32 SIMT
+        one and by default; one that sizes none gets no granularity
+        constraint."""
         hand, intro, _, _ = pairs["matmul_b16"]
+        f32 = spec_from_kernel(MATMUL, matmul_grid_spec(4), device="cpu")
         for p in ("bm", "bn", "bk"):
-            assert f"{p} % 8 == 0" in intro.constraints
-            assert intro.alignment(p) == hand.alignment(p) == 8
+            assert f"{p} % 64 == 0" in intro.constraints
+            assert intro.alignment(p) == hand.alignment(p) == 64
+            assert f"{p} % 8 == 0" in f32.constraints
+            assert f32.alignment(p) == matmul_spec(4).alignment(p) == 8
         spec = spec_from_kernel(_toy_kernel(), _toy_grid_spec(),
                                 device="cpu")
         assert "bm % 8 == 0" in spec.constraints

@@ -2,7 +2,9 @@
 
 ``matmul_plain`` and the CPU path of ``ops.matmul`` / ``matmul_kernel`` are
 held against the reference's Pallas kernel run in interpret mode and its
-pure-jnp oracle, on the same seeded numpy inputs.  Tolerances are those of
+pure-jnp oracle, on the same seeded numpy inputs.  The bf16 wrapper takes
+the wgmma kernel's compiled tiles only (granules of 64), the f32 wrapper
+the SIMT kernel's; both specs are held against those tables.  Tolerances are those of
 tests/test_kernels.py: 2e-4 for f32 and 2e-2 for bf16 (both sides sum in
 f32, in different orders; bf16 outputs round once).  The CUDA kernel itself
 runs only on a card: tests/test_torch_cuda.py holds it against the plain
@@ -19,6 +21,11 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref
 from repro.kernels.matmul import matmul_pallas
 
+from repro_torch.core import H100, HopperModel, matmul_spec, moe_gmm_spec
+from repro_torch.core.device_model import roofline_times
+from repro_torch.core.kernel_spec import (SM90_SMEM_EXTRA, SM90_STAGES,
+                                          SM90_TILES, Operand,
+                                          sm90_smem_bytes)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import matmul as port_matmul
 from repro_torch.kernels.matmul import LAUNCHES, matmul_kernel, matmul_plain
@@ -63,13 +70,16 @@ def test_plain_and_ops_match_reference(m, n, k, name):
         _close(port, oracle, name)
 
 
-@pytest.mark.parametrize("bm,bn,bk", [(8, 128, 128), (32, 256, 128),
-                                      (64, 128, 256), (128, 128, 128)])
-def test_kernel_wrapper_cpu_block_sweep(bm, bn, bk):
+@pytest.mark.parametrize("name,bm,bn,bk", [
+    *[("float32", *t) for t in [(8, 128, 128), (32, 256, 128),
+                                (64, 128, 256), (128, 128, 128)]],
+    *[("bfloat16", *t) for t in SM90_TILES]])
+def test_kernel_wrapper_cpu_block_sweep(name, bm, bn, bk):
+    """The f32 SIMT tiles as before, and every compiled bf16 wgmma tile."""
     xa, ya = _inputs(7, (128, 256), (256, 256))
-    (xj, xt), (yj, yt) = _both(xa, "float32"), _both(ya, "float32")
+    (xj, xt), (yj, yt) = _both(xa, name), _both(ya, name)
     expected = matmul_pallas(xj, yj, bm=bm, bn=bn, bk=bk, interpret=True)
-    _close(matmul_kernel(xt, yt, bm=bm, bn=bn, bk=bk), expected, "float32")
+    _close(matmul_kernel(xt, yt, bm=bm, bn=bn, bk=bk), expected, name)
 
 
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
@@ -92,8 +102,9 @@ def test_out_dtype_matches_reference(name, out_name):
     xa, ya = _inputs(5, (64, 256), (256, 128))
     (xj, xt), (yj, yt) = _both(xa, name), _both(ya, name)
     expected = ref.matmul_ref(xj, yj, out_dtype=jout)
+    bm = 64 if name == "bfloat16" else 32    # bf16 tiles are wgmma's
     for out in (matmul_plain(xt, yt, tout), ops.matmul(xt, yt, out_dtype=tout),
-                matmul_kernel(xt, yt, bm=32, bn=64, bk=64, out_dtype=tout)):
+                matmul_kernel(xt, yt, bm=bm, bn=64, bk=64, out_dtype=tout)):
         assert out.dtype == tout
         tol = max(_tol(name), _tol(out_name))
         np.testing.assert_allclose(out.float().numpy(),
@@ -105,6 +116,163 @@ def test_ops_pads_unaligned_shapes():
     xa, ya = _inputs(9, (5, 60, 100), (100, 36))
     (xj, xt), (yj, yt) = _both(xa, "float32"), _both(ya, "float32")
     _close(ops.matmul(xt, yt), ref.matmul_ref(xj, yj), "float32")
+
+
+@pytest.mark.parametrize("name,padded", [("bfloat16", (320, 128, 64)),
+                                         ("float32", (304, 104, 40))])
+def test_ops_pads_to_the_kernels_granules(monkeypatch, name, padded):
+    """An unaligned shape is zero-padded to 64 in bf16 (the wgmma
+    granules) and to 8 in f32, launched at a tile the kernel takes, and the
+    sliced result still matches the JAX reference."""
+    seen = []
+
+    def recording(x, y, **kw):
+        seen.append((x.shape[0], y.shape[1], x.shape[1], kw))
+        return matmul_kernel(x, y, **kw)
+
+    monkeypatch.setattr(ops, "matmul_kernel", recording)
+    xa, ya = _inputs(11, (5, 60, 37), (37, 100))
+    (xj, xt), (yj, yt) = _both(xa, name), _both(ya, name)
+    out = ops.matmul(xt, yt)
+    assert tuple(out.shape) == (5, 60, 100)
+    _close(out, ref.matmul_ref(xj, yj), name)
+    (m, n, k, kw), = seen
+    assert (m, n, k) == padded
+    if name == "bfloat16":
+        assert (kw["bm"], kw["bn"], kw["bk"]) in SM90_TILES
+
+
+def test_bf16_wrapper_rejects_an_uncompiled_tile():
+    """The bf16 kernel is a table of instantiations: a tile off the wgmma
+    granules, or on them but not compiled (its ring would not fit), raises
+    on the CPU too, before any plain fallback could run."""
+    LAUNCHES.reset()
+    x = torch.zeros(384, 256, dtype=torch.bfloat16)
+    y = torch.zeros(256, 512, dtype=torch.bfloat16)
+    for kw, msg in ((dict(bm=96, bn=128, bk=32), "multiple of 64"),
+                    (dict(bm=64, bn=128, bk=32), "multiple of 64"),
+                    (dict(bm=128, bn=128, bk=128), "not compiled"),
+                    (dict(bm=64, bn=256, bk=128), "not compiled")):
+        with pytest.raises(ValueError, match=msg):
+            matmul_kernel(x, y, **kw)
+    assert LAUNCHES.count == 0
+
+
+@pytest.mark.parametrize("make,rows", [(matmul_spec, "bm"),
+                                       (moe_gmm_spec, "bg")])
+def test_bf16_spec_is_the_compiled_table(make, rows):
+    """The bf16 spec's feasible set is exactly the compiled tiles: the
+    candidates whose ring fits 232448 bytes, with 2 * bm threads and the
+    ring's shared memory; the table is the header's GEMM_SM90_TILES."""
+    spec = make(2)
+    D = ({"m": 4096, "n": 4096, "k": 4096} if rows == "bm"
+         else {"e": 8, "g": 4096, "k": 4096, "n": 4096})
+    table = spec.candidates(D, H100)
+    got = sorted(zip(*(table[p].tolist() for p in (rows, "bn", "bk"))))
+    assert got == sorted(SM90_TILES) and len(got) == 9
+    tt = spec.traffic_table(D, table, H100)
+    np.testing.assert_array_equal(tt.threads, 2 * table[rows])
+    np.testing.assert_array_equal(
+        tt.stage_bytes, [sm90_smem_bytes(*t) for t in zip(
+            table[rows], table["bn"], table["bk"])])
+    assert np.all(tt.stage_bytes <= 232448)
+    assert spec.compute_unit == "bf16" and tt.compute_unit == "bf16"
+    # the traffic counts one fetch of each input tile per k step
+    ins = [op for op in tt.operands if not op.is_output]
+    assert len(ins) == 2
+    for op in ins:
+        np.testing.assert_array_equal(op.fetches, tt.ctas * tt.seq_iters)
+    header = (port_matmul.__file__.rsplit("/", 1)[0]
+              + "/csrc/gemm_sm90.cuh")
+    text = open(header).read()
+    macro = text[text.index("#define GEMM_SM90_TILES"):]
+    macro = macro[:macro.index("\n\n")]
+    import re
+    tiles = [tuple(int(v) for v in t.split(","))
+             for t in re.findall(r"X\((\d+, \d+, \d+)\)", macro)]
+    assert sorted(tiles) == sorted(SM90_TILES)
+    assert f"kStages = {SM90_STAGES};" in text
+    assert SM90_SMEM_EXTRA == 1024 + 2 * SM90_STAGES * 8
+
+
+def _pr14_simt_spec(name, rows, data, grid, ops_):
+    """The f32 specs exactly as the SIMT kernel had them before the bf16
+    redesign."""
+    from repro_torch.core.kernel_spec import KernelSpec
+    from repro_torch.core.rational_program import const, var
+    return KernelSpec(
+        name=name, data_params=data, program_params=(rows, "bn", "bk"),
+        grid=grid, operands=ops_, flops_per_point=2.0,
+        threads=var(rows) * var("bn") / const(64.0), regs_per_thread=128,
+        constraints=(f"{rows} % 8 == 0", "bn % 8 == 0", "bk % 8 == 0"),
+        param_candidates={rows: (16, 32, 64, 128, 256, 512),
+                          "bn": (16, 32, 64, 128, 256, 512),
+                          "bk": (8, 16, 32, 64, 128, 256)},
+        fit_vars={m: (rows, "bn", "bk")
+                  for m in ("mem_step", "cmp_step", "ovh_step")})
+
+
+def test_f32_specs_are_unchanged():
+    from repro_torch.core.kernel_spec import GridAxis
+    mm = _pr14_simt_spec(
+        "matmul_b32", "bm", ("m", "n", "k"),
+        (GridAxis("i", "m", "bm"), GridAxis("j", "n", "bn"),
+         GridAxis("l", "k", "bk", sequential=True)),
+        (Operand("lhs", ("bm", "bk"), ("i", "l"), 4, staged=True),
+         Operand("rhs", ("bk", "bn"), ("l", "j"), 4, staged=True),
+         Operand("out", ("bm", "bn"), ("i", "j"), 4, is_output=True)))
+    gmm = _pr14_simt_spec(
+        "moe_gmm_b32", "bg", ("e", "g", "k", "n"),
+        (GridAxis("ex", "e", None), GridAxis("i", "g", "bg"),
+         GridAxis("j", "n", "bn"), GridAxis("l", "k", "bk", sequential=True)),
+        (Operand("tokens", ("bg", "bk"), ("ex", "i", "l"), 4, staged=True),
+         Operand("weights", ("bk", "bn"), ("ex", "l", "j"), 4, staged=True),
+         Operand("out", ("bg", "bn"), ("ex", "i", "j"), 4, is_output=True)))
+    assert matmul_spec(4) == mm
+    assert moe_gmm_spec(4) == gmm
+    assert mm.compute_unit == gmm.compute_unit == "f32"
+
+
+def test_roofline_uses_the_tensor_core_peak_for_bf16():
+    """The split rule and HopperModel divide a bf16 matmul row's FLOPs by
+    the 989 TFLOP/s tensor-core peak, an f32 row's by the 67 TFLOP/s FP32
+    peak."""
+    D = {"m": 4096, "n": 4096, "k": 4096}
+    flops = 2.0 * 4096 ** 3
+    for elem, peak in ((2, H100.peak_flops_bf16), (4, H100.peak_flops_f32)):
+        spec = matmul_spec(elem)
+        table = spec.candidates(D, H100)
+        tt = spec.traffic_table(D, table, H100)
+        t_mem, t_cmp = roofline_times(tt, H100)
+        np.testing.assert_allclose(t_cmp, flops / peak)
+        assert H100.peak_flops(spec.compute_unit) == peak
+    # HopperModel: the same table is much faster on the tensor cores
+    spec = matmul_spec(2)
+    one = spec.candidates(D, H100).select([0])
+    tt = spec.traffic_table(D, one, H100)
+    model = HopperModel(noise=0.0)
+    _, _, c_bf16 = model._times(tt)
+    tt.compute_unit = "f32"
+    _, _, c_f32 = model._times(tt)
+    np.testing.assert_allclose(c_f32 / c_bf16,
+                               H100.peak_flops_bf16 / H100.peak_flops_f32)
+
+
+def test_changed_header_builds_a_new_library(tmp_path):
+    """The library path hashes every csrc/*.cuh, so an edited header never
+    loads a stale library."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = {n: _build._library_path(n, csrc) for n in ("matmul", "colsum")}
+    assert before["matmul"] == _build._library_path("matmul")
+    header = csrc / "gemm_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._library_path(n, csrc) for n in ("matmul", "colsum")}
+    assert after["matmul"] != before["matmul"]
+    assert after["colsum"] != before["colsum"]
+    (csrc / "extra.cuh").write_text("// new header\n")
+    assert _build._library_path("matmul", csrc) != after["matmul"]
 
 
 def test_wrapper_raises_and_never_falls_back(monkeypatch, tmp_path):

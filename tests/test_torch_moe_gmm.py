@@ -23,6 +23,7 @@ from repro.kernels.moe_gmm import moe_gmm_pallas
 from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
                               choose_or_default, gmm_probe_data, moe_gmm_spec,
                               registry, selection_ratio)
+from repro_torch.core.kernel_spec import SM90_TILES, sm90_smem_bytes
 from repro_torch.kernels import moe_gmm as port_gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels.moe_gmm import (LAUNCHES, moe_gmm_kernel,
@@ -61,8 +62,14 @@ def test_plain_and_ops_match_reference(e, g, k, n, name):
     (xj, xt), (wj, wt) = _both(xa, name), _both(wa, name)
     pallas = moe_gmm_pallas(xj, wj, bg=32, bn=128, bk=128, interpret=True)
     oracle = ref.moe_gmm_ref(xj, wj)
-    for port in (moe_gmm_plain(xt, wt), ops.moe_gmm(xt, wt),
-                 moe_gmm_kernel(xt, wt, bg=16, bn=64, bk=32)):
+    if name == "bfloat16":
+        # the wgmma kernel's tiles: g is zero-padded to its 64-row granule
+        gp = -(-g // 64) * 64
+        xp = torch.nn.functional.pad(xt, (0, 0, 0, gp - g))
+        direct = moe_gmm_kernel(xp, wt, bg=64, bn=64, bk=64)[:, :g]
+    else:
+        direct = moe_gmm_kernel(xt, wt, bg=16, bn=64, bk=32)
+    for port in (moe_gmm_plain(xt, wt), ops.moe_gmm(xt, wt), direct):
         assert port.shape == (e, g, n) and port.dtype == xt.dtype
         _close(port, pallas, name)
         _close(port, oracle, name)
@@ -70,14 +77,28 @@ def test_plain_and_ops_match_reference(e, g, k, n, name):
 
 @pytest.mark.parametrize("e,g,k,n", [(3, 37, 45, 29), (1, 5, 130, 7)])
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
-def test_ops_pads_unaligned_shapes(e, g, k, n, name):
-    """g, k, n that no 8-granular tile divides are zero-padded and sliced
-    back: the same outputs as the reference oracle."""
+def test_ops_pads_unaligned_shapes(e, g, k, n, name, monkeypatch):
+    """g, k, n that no tile divides are zero-padded to the kernel's
+    granules (64 in bf16, 8 in f32) and sliced back: the same outputs as
+    the reference oracle, launched at a tile the kernel takes."""
+    seen = []
+
+    def recording(x, w, **kw):
+        seen.append((tuple(x.shape), tuple(w.shape), kw))
+        return moe_gmm_kernel(x, w, **kw)
+
+    monkeypatch.setattr(ops, "moe_gmm_kernel", recording)
     xa, wa = _inputs(7 * g + k, e, g, k, n)
     (xj, xt), (wj, wt) = _both(xa, name), _both(wa, name)
     out = ops.moe_gmm(xt, wt)
     assert out.shape == (e, g, n) and out.dtype == xt.dtype
     _close(out, ref.moe_gmm_ref(xj, wj), name)
+    a = 64 if name == "bfloat16" else 8
+    (xs, ws, kw), = seen
+    assert xs == (e, -(-g // a) * a, -(-k // a) * a)
+    assert ws == (e, -(-k // a) * a, -(-n // a) * a)
+    if name == "bfloat16":
+        assert (kw["bg"], kw["bn"], kw["bk"]) in SM90_TILES
 
 
 def test_cpu_wrapper_counts_no_launch():
@@ -98,6 +119,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     w = torch.zeros(2, 64, 256)
     with pytest.raises(ValueError):
         moe_gmm_kernel(x, w, **bad)
+    # bf16 takes only the wgmma kernel's compiled tiles
+    with pytest.raises(ValueError):
+        moe_gmm_kernel(x.bfloat16(), w.bfloat16(), **bad)
     with pytest.raises(ValueError):
         moe_gmm_kernel(x, torch.zeros(3, 64, 256), bg=32, bn=32, bk=32)
     with pytest.raises(ValueError):
@@ -127,7 +151,9 @@ def test_spec_feasibility_is_the_kernels_limits(elem):
         except ValueError:
             takes = False
         assert (takes and threads[i] >= 32) == bool(mask[i]), (P, takes)
-        if takes:
+        if takes and elem == 2:     # the wgmma kernel's ring
+            assert stage[i] == sm90_smem_bytes(P["bg"], P["bn"], P["bk"])
+        elif takes:
             assert stage[i] == (P["bg"] + P["bn"]) * P["bk"] * elem
     table = spec.candidates(D, H100)
     tt = spec.traffic_table(D, table, H100)

@@ -14,9 +14,10 @@ block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
-     kernel's registers and spills against its cap, and the HGMMA
-     (wgmma) instructions in each library's SASS (``cuobjdump -sass``):
-     the matmul and the grouped matmul must have some;
+     kernel's registers and spills against its cap (every wgmma tile with
+     no spill), and the HGMMA (wgmma) instructions in each library's SASS
+     (``cuobjdump -sass``): the matmul, the grouped matmul and flash
+     attention must have some;
   3. the kernel against its plain PyTorch version on the card: every
      compiled bf16 wgmma tile with each output type (f32, bf16, f16) at k
      1024 (the 4-slot ring wraps), a sweep of the f32 SIMT tiles, and both
@@ -30,7 +31,9 @@ block:
      (printed, not gated);
   7. the flash-attention kernel against its plain version, bf16 and f32,
      causal and not, GQA group 4 and 1, window 64, softcap 30, head dims
-     64 / 128 / 256, at a ragged length, over every feasible (bq, bkv);
+     64 / 128 / 256, at a ragged length, over every compiled wgmma tile
+     (bf16 at d 64 and 128) and every feasible SIMT tile (f32, bf16 at d
+     256);
   8. KLARAPTOR on the card for ``flash_attn_d64_causal``: probes at
      bh <= 64 and sq = skv <= 1024, the fit, the choice at the prefill shape
      (bh 32, sq = skv = 4096) and, after phase 9, its selection ratio against
@@ -39,7 +42,9 @@ block:
      the ``prefill_32k`` preset's 32 x 32768 to fit the time limit): the
      tuned flash kernel launches once per layer, the logits are held against
      the same step with the plain attention, and each layer's attention is
-     timed (kernel, bound, SDPA yardstick, plain);
+     timed (kernel with TFLOP/s and % of bound, default tile, bound, SDPA
+     yardstick, plain), then summed per prefill beside the profile's flash
+     share of the prefill's device time;
  10. the serving engine at full width: 4 slots, 8 requests, every request
      finishes, and each greedy request's first token is compared with the
      argmax of the prefill step on its prompt;
@@ -83,7 +88,10 @@ block:
      the configs the hand specs' drivers choose (``HopperModel`` oracle, the
      reference's equivalence shapes);
  18. the auto path: ``build_auto_kernels(d_model=2048)`` tuned against the
-     card, then ``ops.layernorm`` at r 4096, 16384 and 4097 (a ragged last
+     card; the layernorm's fit errors, its probe rows, and per br candidate
+     at each probe and chosen-for size the card's time (with and without
+     the timer's L2 flush) beside the driver's prediction; then ``ops.layernorm`` at r 4096, 16384 and 4097 (a ragged
+     last
      row block, which must still launch many CTAs) and
      ``ops.blocked_colsum`` at (8192, 4096) and (2048, 8192), each held
      against its plain version, timed against the bytes bound and one
@@ -174,7 +182,7 @@ LN_ROWS = (4096, 16384, 4097)
 COLSUM_SHAPES = ((8192, 4096), (2048, 8192))
 
 
-def _device_profile(fn, what: str, own: tuple = ("flash", "flash_fwd")
+def _device_profile(fn, what: str, own: tuple = ("flash", "flash_")
                     ) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and print the device time
     by kernel group (the port's kernel ``own`` = (group, name fragment),
@@ -292,7 +300,10 @@ def main() -> int:
 
     from repro_torch.core import (CudaEventTimer, HardwareParams, Klaraptor,
                                   matmul_spec, registry, selection_ratio)
-    from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS, SM90_TILES,
+    from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS,
+                                              FLASH_SM90_HEAD_DIMS,
+                                              FLASH_SM90_REGS_PER_THREAD,
+                                              FLASH_SM90_TILES, SM90_TILES,
                                               SSD_REGS_PER_THREAD,
                                               flash_regs_per_thread)
     from repro_torch.kernels import _build, ops
@@ -384,7 +395,8 @@ def main() -> int:
                               capture_output=True, text=True, check=True)
         hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
         print(f"  {lib.name}: {hgmma} HGMMA instructions in the SASS")
-        if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-")):
+        if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-",
+                                               "libflash_attention-")):
             raise AssertionError(f"{lib.name} has no wgmma (HGMMA) in its "
                                  f"SASS: the bf16 path is not on the tensor "
                                  f"cores")
@@ -413,16 +425,26 @@ def main() -> int:
                    _build.build_log("flash_attention").splitlines()
                    if "registers" in ln or "spill" in ln]
     print("  flash_attention ptxas:\n  " + "\n  ".join(flash_ptxas))
-    for dt in (torch.bfloat16, torch.float32):
-        for d in FLASH_HEAD_DIMS:
-            for bkv in flash.BKV_TILES:
-                attrs = flash.kernel_attributes(dt, d, bkv)
-                print(f"  flash {dt} d={d} bkv={bkv}: {attrs}")
-                if attrs["num_regs"] > flash_regs_per_thread(d):
-                    raise AssertionError(
-                        f"flash kernel d={d} bkv={bkv} uses "
-                        f"{attrs['num_regs']} registers; the spec assumes "
-                        f"{flash_regs_per_thread(d)}")
+    for d in FLASH_SM90_HEAD_DIMS:
+        for bq, bkv in FLASH_SM90_TILES[d]:
+            attrs = flash.tile_attributes(d, bq, bkv)
+            print(f"  flash bf16 wgmma d={d} tile ({bq}, {bkv}): {attrs} "
+                  f"(cap {FLASH_SM90_REGS_PER_THREAD})")
+            if attrs["num_regs"] > FLASH_SM90_REGS_PER_THREAD \
+                    or attrs["local_bytes"]:
+                raise AssertionError(
+                    f"flash wgmma tile d={d} ({bq}, {bkv}): {attrs} against "
+                    f"the cap {FLASH_SM90_REGS_PER_THREAD}, no spills")
+    for dt, d in [(torch.float32, d) for d in FLASH_HEAD_DIMS] \
+            + [(torch.bfloat16, 256)]:
+        for bkv in flash.BKV_TILES:
+            attrs = flash.kernel_attributes(dt, d, bkv)
+            print(f"  flash SIMT {dt} d={d} bkv={bkv}: {attrs}")
+            if attrs["num_regs"] > flash_regs_per_thread(d):
+                raise AssertionError(
+                    f"flash kernel d={d} bkv={bkv} uses "
+                    f"{attrs['num_regs']} registers; the spec assumes "
+                    f"{flash_regs_per_thread(d)}")
     ssd_ptxas = [ln.strip() for ln in _build.build_log("ssd_scan").splitlines()
                  if "registers" in ln or "spill" in ln]
     print("  ssd_scan ptxas:\n  " + "\n  ".join(ssd_ptxas))
@@ -656,7 +678,9 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     # -- 7. the flash kernel against its plain version ------------------------
     print("[7] flash kernel vs plain (tolerance: bf16 2e-2 abs and rel; f32 "
           "2e-3 abs / 1e-3 rel, tests/test_kernels.py's flash tolerance; "
-          f"S = {FLASH_SWEEP_S}, batch 2)", flush=True)
+          f"S = {FLASH_SWEEP_S}, batch 2): every compiled wgmma tile (bf16, "
+          "d 64 and 128) and every feasible SIMT tile (f32, and bf16 at d "
+          "256)", flush=True)
     worst = 0.0
     n_checked = 0
     S = FLASH_SWEEP_S
@@ -683,9 +707,10 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
                             f"hq/hkv={hq}/{hkv} {P}", f32_tol, quiet=True))
                     n_checked += len(errs)
                     worst = max([worst] + errs)
+                    body = "wgmma" if spec.compute_unit == "bf16" else "SIMT"
                     print(f"  {dtype} d={d} hq/hkv={hq}/{hkv} {name}: "
-                          f"{len(errs)} tiles, max_abs_err={max(errs):.3e} "
-                          f"ok", flush=True)
+                          f"{len(errs)} {body} tiles, max_abs_err="
+                          f"{max(errs):.3e} ok", flush=True)
     print(f"  {n_checked} kernel launches agree with the plain version")
     phase_done(7)
 
@@ -760,9 +785,10 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     t0 = time.perf_counter()
     step(params, tokens)
     torch.cuda.synchronize()
-    print(f"  prefill wall {(time.perf_counter() - t0) * 1e3:.2f} ms "
-          f"(second call)")
-    _device_profile(lambda: step(params, tokens), "one prefill step")
+    prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  prefill wall {prefill_warm_ms:.2f} ms (second call)")
+    profile = _device_profile(lambda: step(params, tokens),
+                              "one prefill step")
 
     bq, bkv = chosen["bq"], chosen["bkv"]
     layers = []
@@ -797,14 +823,31 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         }
         r["tflops"] = (4.0 * cfg.head_dim * q.shape[0] * PREFILL_S
                        * (PREFILL_S + 1) / 2) / (r["ms"] * 1e-3) / 1e12
+        r["pct_of_bound"] = 100.0 * r["bound_ms"] / r["ms"]
         layers.append(r)
         print(f"  layer {li:2d}: kernel {r['ms']:.4f} ms "
-              f"({r['tflops']:.2f} TFLOP/s) | default "
-              f"{r['default_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
-              f"({bound_by}) | SDPA {r['library_ms']:.4f} ms | plain "
-              f"{r['plain_ms']:.2f} ms | max_abs_err {err:.3e}", flush=True)
+              f"({r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.1f} % of "
+              f"bound) | default {r['default_ms']:.4f} ms | bound "
+              f"{r['bound_ms']:.4f} ms ({bound_by}) | SDPA "
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x) "
+              f"| plain {r['plain_ms']:.2f} ms | max_abs_err {err:.3e}",
+              flush=True)
     del recorded, ref_logits
     torch.cuda.empty_cache()
+    total = {key: sum(r[key] for r in layers)
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "default_ms")}
+    flops = sum(r["tflops"] * r["ms"] for r in layers)
+    share = (profile["flash"] / profile["busy_ms"]) if profile else None
+    print(f"  per prefill ({len(layers)} launches at {chosen}): kernel "
+          f"{total['ms']:.3f} ms ({flops / total['ms']:.2f} TFLOP/s, "
+          f"{100.0 * total['bound_ms'] / total['ms']:.1f} % of the bound "
+          f"{total['bound_ms']:.4f} ms) | default {total['default_ms']:.3f} "
+          f"ms | SDPA {total['library_ms']:.3f} ms "
+          f"({total['ms'] / total['library_ms']:.2f}x) | plain "
+          f"{total['plain_ms']:.2f} ms | flash share of the prefill's device "
+          f"time: " + ("not measured" if share is None else f"{share:.1%}"),
+          flush=True)
 
     ratio = selection_ratio(spec, timer, build.driver, D, hw)
     print(f"  [8, after the main path] selection ratio at {D} "
@@ -865,9 +908,6 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         print(line)
     phase_done(10)
 
-    total = {key: sum(r[key] for r in layers)
-             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                         "default_ms")}
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -882,8 +922,11 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
                                         for r in layers) else "bytes",
         "library_ms": total["library_ms"],
         "default_ms": total["default_ms"],
+        "redesigned": 16,
         "config": chosen,
         "selection_ratio": ratio["ratio"],
+        "prefill_warm_ms": prefill_warm_ms,
+        "prefill_flash_share": share,
         "layers": layers,
     }
 
@@ -1405,6 +1448,60 @@ def introspect_phase(hw, phase_done) -> None:
     phase_done(17)
 
 
+def _layernorm_table(ak, hw) -> dict:
+    """Phase 18's record of the layernorm's choice: the fit's errors, the
+    probe rows it saw, and at each probe size and each chosen-for size one
+    line per br candidate with the card's time as the timer takes it (a
+    warm-up, then the median of 7 launches, each after the L2 flush), the
+    same without the flush (the timer before it: each launch finds the
+    previous one's inputs and output in the L2), the driver's predicted
+    time, and the launch's CTAs and blocks resident per SM.  Returns and
+    prints as one JSON line {"cold": {r: {br: us}}, "no_flush": ...}."""
+    import numpy as np
+
+    from repro_torch.core import CudaEventTimer, registry
+
+    class NoFlush(CudaEventTimer):
+        def _flush_l2(self) -> None:
+            pass
+
+    build, drv = ak.build, registry.get(ak.name)
+    print(f"  {ak.name}: " + build.fit_report().replace("\n", "\n    "))
+    cols = build.collected.columns
+    total = build.collected.metrics["total_time_s"]
+    order = np.lexsort((cols["br"], cols["r"]))
+    print("    probe rows (r, br, measured us): " + ", ".join(
+        f"({int(cols['r'][i])}, {int(cols['br'][i])}, {total[i] * 1e6:.2f})"
+        for i in order))
+    timers = {"cold": CudaEventTimer(hw, warmup=1, timings=7, seed=SEED),
+              "no_flush": NoFlush(hw, warmup=1, timings=7, seed=SEED)}
+    recorded = {key: {} for key in timers}
+    for r in sorted(set(int(x) for x in cols["r"]) | set(LN_ROWS)):
+        D = {"r": r}
+        table = ak.spec.candidates(D, hw)
+        tt = ak.spec.traffic_table(D, table, hw)
+        card = {key: t.true_time_batch(tt) for key, t in timers.items()}
+        est = drv.estimate_batch(D, {p: table[p]
+                                     for p in ak.spec.program_params})
+        chosen = drv.choose(D)["br"]
+        best = int(table["br"][int(np.argmin(card["cold"]))])
+        for key in timers:
+            recorded[key][r] = {}
+        for i in range(len(table)):
+            br = int(table["br"][i])
+            for key in timers:
+                recorded[key][r][br] = round(float(card[key][i]) * 1e6, 3)
+            print(f"    r {r} br {br:4d}: card {card['cold'][i] * 1e6:8.2f} "
+                  f"us | without the flush {card['no_flush'][i] * 1e6:8.2f} "
+                  f"us | predicted {est[i] * 1e6:8.2f} us | CTAs "
+                  f"{int(tt.ctas[i])} resident {int(tt.blocks_resident[i])}"
+                  + (" | chosen" if br == chosen else "")
+                  + (" | card best" if br == best else ""))
+    print("    layernorm card us by r and br: " + json.dumps(recorded),
+          flush=True)
+    return recorded
+
+
 def auto_phases(dev, hw, gen, check, time_ms, phase_done):
     """Phases 18-19: the auto-specced layernorm and column sum, tuned on
     the card and launched through the ops and the serving entry point.
@@ -1454,6 +1551,7 @@ def auto_phases(dev, hw, gen, check, time_ms, phase_done):
     print(f"  main-path launches: layernorm {launches['layernorm']}, colsum "
           f"{launches['colsum']} (probes, probe warm-ups and the tuned "
           f"calls)")
+    _layernorm_table(ak_ln, hw)
     rows = {"layernorm": [], "colsum": []}
     for kind, Dn, args, out in calls:
         ak = ak_ln if kind == "layernorm" else ak_cs

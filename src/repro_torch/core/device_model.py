@@ -398,10 +398,18 @@ class CudaEventTimer(DeviceModel):
     For each row of a traffic table it launches the kernel at the row's
     (D, P) ``warmup`` times untimed, then once per repeat between two
     ``torch.cuda.Event``s on the current stream.  Before each timed launch
-    the card spins for ``SPIN_CYCLES`` clock cycles (``torch.cuda._sleep``),
-    so it is still busy while the host records the start event and runs the
-    wrapper; otherwise a kernel shorter than the wrapper's host time would
-    be timed with the host's gap in it.  ``probe_batch`` returns
+    the card reads a buffer of twice its L2 size, which leaves the L2 cache
+    holding clean lines of that buffer and nothing of the kernel's: every
+    timed launch reads its inputs from device memory, as a launch at a size
+    whose inputs exceed the L2 does, and finds no dirty line of the previous
+    launch's output to write back.  Without it a probe at a small size (the
+    layernorm's 4-16 MB at r 512-2048) re-read its inputs from the L2 that
+    the previous launch filled, and the fit mistook that for the kernel's
+    speed at the sizes it chooses for.  Then the card spins for
+    ``SPIN_CYCLES`` clock cycles (``torch.cuda._sleep``), so it is still
+    busy while the host records the start event and runs the wrapper;
+    otherwise a kernel shorter than the wrapper's host time would be timed
+    with the host's gap in it.  ``probe_batch`` returns
     those per-launch times split by the roofline rule in this module's
     docstring; ``true_time_batch`` returns the median of ``timings``
     launches per row.  Inputs are made once per data size from ``seed``.
@@ -425,6 +433,7 @@ class CudaEventTimer(DeviceModel):
         self.timings = int(timings)
         self.seed = int(seed)
         self._bound: tuple | None = None
+        self._flush: torch.Tensor | None = None
 
     def fingerprint(self) -> dict:
         return {"class": type(self).__name__, "hw": self.hw.name,
@@ -440,6 +449,14 @@ class CudaEventTimer(DeviceModel):
                                                self.seed))
         return self._bound[1]
 
+    def _flush_l2(self) -> None:
+        """Read twice the L2's bytes on the current stream (see the class
+        docstring)."""
+        if self._flush is None:
+            self._flush = torch.zeros(2 * self.hw.l2_bytes // 4,
+                                      device=self.device)
+        self._flush.sum()
+
     def _time_rows(self, table: TrafficTable, n_timed: int) -> np.ndarray:
         """(n_timed, n) seconds: one timed launch per entry."""
         launch = self._launch_fn(table.kernel, table.D)
@@ -454,6 +471,7 @@ class CudaEventTimer(DeviceModel):
                       for _ in range(n_timed)]
             with torch.cuda.device(self.device):
                 for start, end in events:
+                    self._flush_l2()
                     torch.cuda._sleep(self.SPIN_CYCLES)
                     start.record(stream)
                     launch(P)

@@ -602,20 +602,60 @@ def gmm_probe_data(experts: Sequence[int] = (2, 4),
             for e in experts for g in sizes for k in sizes for n in sizes]
 
 
-# kernels/csrc/flash_attention.cu: a CTA of 4 * bq threads, each owning 4
-# query rows; __launch_bounds__ caps registers at 128 per thread for head
-# dims up to 128 (512 threads) and at 255 for head dim 256 (256 threads).
+# kernels/csrc/flash_attention.cu, f32 and bf16 at head dim 256 (the SIMT
+# body): a CTA of 4 * bq threads, each owning 4 query rows; __launch_bounds__
+# caps registers at 128 per thread for head dims up to 128 (512 threads) and
+# at 255 for head dim 256 (256 threads).
 FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_THREADS_PER_ROW = 4
 FLASH_PAD = 16      # f32 words of padding per row of the staged P tile
 
 
 def flash_regs_per_thread(head_dim: int) -> int:
-    """The register cap the flash kernel of ``head_dim`` is compiled to."""
+    """The register cap the SIMT flash kernel of ``head_dim`` is compiled
+    to."""
     if head_dim not in FLASH_HEAD_DIMS:
         raise ValueError(f"no flash kernel for head dim {head_dim}; the "
                          f"kernel is built for {FLASH_HEAD_DIMS}")
     return 255 if head_dim == 256 else 128
+
+
+# kernels/csrc/flash_attention.cu, bf16 at head dims 64 and 128 (the wgmma
+# body): one consumer warpgroup per 64 query rows (2 * bq threads), the (bq,
+# d) Q tile and a ring of FLASH_SM90_STAGES (bkv, d) K and V slots in shared
+# memory, plus FLASH_SM90_SMEM_EXTRA bytes (the 1 KiB alignment and the full,
+# empty and Q barriers), and __launch_bounds__(256, 1), which caps registers
+# at 255 per thread.
+FLASH_SM90_HEAD_DIMS = (64, 128)
+FLASH_SM90_STAGES = 2
+FLASH_SM90_GRANULE = 64
+FLASH_SM90_SMEM_EXTRA = 1024 + (2 * FLASH_SM90_STAGES + 1) * 8
+FLASH_SM90_REGS_PER_THREAD = 255
+FLASH_SM90_CANDIDATES = {"bq": (64, 128), "bkv": (64, 128)}
+
+
+def flash_uses_sm90(head_dim: int, dtype_bytes: int) -> bool:
+    """Whether flash attention at this head dim and input width runs the
+    wgmma body (bf16 at head dims 64 and 128) rather than the SIMT one."""
+    return dtype_bytes == 2 and head_dim in FLASH_SM90_HEAD_DIMS
+
+
+def flash_sm90_smem_bytes(head_dim: int, bq: int, bkv: int) -> int:
+    """Dynamic shared memory of one wgmma flash CTA: Q, the K/V ring and
+    the extra bytes."""
+    return ((bq + 2 * FLASH_SM90_STAGES * bkv) * head_dim * 2
+            + FLASH_SM90_SMEM_EXTRA)
+
+
+# The compiled tiles (FLASH_SM90_TILES in flash_attention.cu): every (bq,
+# bkv) candidate whose Q tile and ring fit the shared memory a block may
+# have, at each head dim.
+FLASH_SM90_TILES = {
+    d: tuple((bq, bkv) for bq in FLASH_SM90_CANDIDATES["bq"]
+             for bkv in FLASH_SM90_CANDIDATES["bkv"]
+             if flash_sm90_smem_bytes(d, bq, bkv)
+             <= H100.smem_per_block_optin)
+    for d in FLASH_SM90_HEAD_DIMS}
 
 
 def flash_attention_spec(head_dim: int = 128, causal: bool = True,
@@ -623,36 +663,72 @@ def flash_attention_spec(head_dim: int = 128, causal: bool = True,
     """Flash attention forward: CTAs over (bh, q blocks), a loop over kv
     blocks inside (online softmax).
 
-    D: bh = batch * q heads (flattened), sq, skv.  P: bq, bkv.  The CTA has
-    4 * bq threads.  Q (bq, d), K and V (bkv, d) tiles are staged in shared
-    memory, and so is the f32 probability tile (bq, bkv) with 16 words of
-    padding per row; m, l and the output accumulator are registers.  FLOPs
-    per (bh, sq, skv) point: 4 * d (QK^T and PV), halved when causal.  The
+    D: bh = batch * q heads (flattened), sq, skv.  P: bq, bkv.  FLOPs per
+    (bh, sq, skv) point: 4 * d (QK^T and PV), halved when causal.  The
     kernel masks ragged q and kv tails, so tiles need not divide sq or skv.
+
+    bf16 at head dims 64 and 128 runs the wgmma body on the tensor cores,
+    as ``matmul_spec(2)`` states the GEMMs': 2 * bq threads, the compiled
+    (bq, bkv) tiles (``FLASH_SM90_TILES``), granules of 64, the register cap
+    255, and stage bytes of the Q tile and one K/V slot, with the ring's
+    other slots and its barriers as scratch; P lives in registers.  f32, and
+    bf16 at head dim 256, run the SIMT body: 4 * bq threads, Q, K and V
+    tiles staged in shared memory and so is the f32 probability tile (bq,
+    bkv) with 16 words of padding per row; m, l and the output accumulator
+    are registers.
     """
-    regs = flash_regs_per_thread(head_dim)
+    name = f"flash_attn_d{head_dim}" + ("_causal" if causal else "")
+    grid = (GridAxis("b", "bh", None),
+            GridAxis("iq", "sq", "bq", ragged=True),
+            GridAxis("ikv", "skv", "bkv", sequential=True, ragged=True))
+    tiles = (
+        Operand("q", ("bq", head_dim), ("b", "iq"), dtype_bytes, staged=True),
+        Operand("k", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
+                staged=True),
+        Operand("v", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
+                staged=True),
+        Operand("out", ("bq", head_dim), ("b", "iq"), dtype_bytes,
+                is_output=True),
+    )
+    flops = 4.0 * head_dim * (0.5 if causal else 1.0)
+    fit_vars = {m: ("bq", "bkv") for m in ("mem_step", "cmp_step", "ovh_step")}
+    if flash_uses_sm90(head_dim, dtype_bytes):
+        ring = FLASH_SM90_STAGES - 1
+        return KernelSpec(
+            name=name,
+            data_params=("bh", "sq", "skv"),
+            program_params=("bq", "bkv"),
+            grid=grid,
+            operands=tiles + (
+                Operand("k_ring", (ring, "bkv", head_dim), (), 2,
+                        scratch=True),
+                Operand("v_ring", (ring, "bkv", head_dim), (), 2,
+                        scratch=True),
+                Operand("ring_barriers", (FLASH_SM90_SMEM_EXTRA,), (), 1,
+                        scratch=True),
+            ),
+            flops_per_point=flops,
+            threads=var("bq") * const(2.0),
+            regs_per_thread=FLASH_SM90_REGS_PER_THREAD,
+            # a warpgroup's 64 rows, and wgmma N in whole 64-wide K/V boxes
+            constraints=(f"bq % {FLASH_SM90_GRANULE} == 0",
+                         f"bkv % {FLASH_SM90_GRANULE} == 0"),
+            param_candidates=dict(FLASH_SM90_CANDIDATES),
+            fit_vars=fit_vars,
+            compute_unit="bf16",
+        )
     return KernelSpec(
-        name=f"flash_attn_d{head_dim}" + ("_causal" if causal else ""),
+        name=name,
         data_params=("bh", "sq", "skv"),
         program_params=("bq", "bkv"),
-        grid=(GridAxis("b", "bh", None),
-              GridAxis("iq", "sq", "bq", ragged=True),
-              GridAxis("ikv", "skv", "bkv", sequential=True, ragged=True)),
-        operands=(
-            Operand("q", ("bq", head_dim), ("b", "iq"), dtype_bytes,
-                    staged=True),
-            Operand("k", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
-                    staged=True),
-            Operand("v", ("bkv", head_dim), ("b", "ikv"), dtype_bytes,
-                    staged=True),
-            Operand("out", ("bq", head_dim), ("b", "iq"), dtype_bytes,
-                    is_output=True),
+        grid=grid,
+        operands=tiles + (
             Operand("p", ("bq", "bkv"), (), 4, scratch=True),
             Operand("p_pad", ("bq", FLASH_PAD), (), 4, scratch=True),
         ),
-        flops_per_point=4.0 * head_dim * (0.5 if causal else 1.0),
+        flops_per_point=flops,
         threads=var("bq") * const(float(FLASH_THREADS_PER_ROW)),
-        regs_per_thread=regs,
+        regs_per_thread=flash_regs_per_thread(head_dim),
         # 4 rows per thread and 16 threads across a row: bq % 16; the P tile
         # row is split over 16 lanes, bkv % 32 keeps its padding aligned.
         constraints=("bq % 16 == 0", "bkv % 32 == 0"),
@@ -660,11 +736,7 @@ def flash_attention_spec(head_dim: int = 128, causal: bool = True,
             "bq": (16, 32, 64, 128),
             "bkv": (32, 64, 128),
         },
-        fit_vars={
-            "mem_step": ("bq", "bkv"),
-            "cmp_step": ("bq", "bkv"),
-            "ovh_step": ("bq", "bkv"),
-        },
+        fit_vars=fit_vars,
     )
 
 

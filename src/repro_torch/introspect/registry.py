@@ -23,7 +23,7 @@ process-wide table.  The AutoKernel is the glue the other layers use:
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Mapping, Sequence
 
 import torch
@@ -50,6 +50,9 @@ class AutoKernel:
     grid_spec: GridSpec
     kernel: CudaKernel
     capture: Capture
+    # The collect -> fit -> codegen result of ``ensure_driver``'s last build
+    # (probes and fit errors), None until it builds one.
+    build: object = field(default=None, repr=False, compare=False)
 
     @property
     def name(self) -> str:
@@ -116,8 +119,8 @@ class AutoKernel:
         from ..core.tuner import Klaraptor
 
         build_kwargs.setdefault("probe_data", self.probe_data())
-        return Klaraptor(device).build_driver(self.spec,
-                                              **build_kwargs).driver
+        self.build = Klaraptor(device).build_driver(self.spec, **build_kwargs)
+        return self.build.driver
 
     def plan_envelope(self, sizes: Sequence[int] = (256, 512, 1024, 2048,
                                                     4096)) -> dict:

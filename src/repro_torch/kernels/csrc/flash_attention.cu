@@ -6,42 +6,84 @@
 // _flash_kernel), the TPU kernel with grid (b*hq, q blocks, kv blocks), the kv
 // axis sequential and (m, l, acc) carried in f32 VMEM scratch.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s FP32 on the
-// CUDA cores, 3.35 TB/s HBM3): at a prefill shape (32 q heads, 4096 tokens,
-// head dim 64, causal) the function does 2 * d FLOPs per visible (query, key)
-// pair for QK^T and as many for PV, about 69 GFLOP, on 4096 * 64 * (32 + 16)
-// elements in and 4096 * 64 * 32 out, tens of MB: thousands of FLOPs per
-// byte, so it is bound by operations, and the roofline takes the bf16
-// tensor-core rate.
+// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM3): at a
+// prefill shape (32 q heads, 4096 tokens, head dim 64, causal) the function
+// does 2 * d FLOPs per visible (query, key) pair for QK^T and as many for PV,
+// about 69 GFLOP, on 4096 * 64 * (32 + 16) elements in and 4096 * 64 * 32
+// out, tens of MB: thousands of FLOPs per byte, so it is bound by operations,
+// and the roofline takes the bf16 tensor-core rate.
 //
-// What this design does about it: it is the simple, correct first version.
-// One CTA per (b * hq, block of bq query rows) loops over kv blocks of BKV rows
-// inside the block (where the TPU had a sequential grid axis).  The CTA has
-// 4 * bq threads: 16 lanes (half a warp) across each group of 4 query rows,
+// Two bodies, one C interface.
+//
+// bf16 at head dims 64 and 128 -- flash_sm90_kernel, the tensor-core design.
+// One CTA per (b * hq, block of BQ query rows) with one consumer warpgroup
+// (128 threads) per 64 rows, so BQ = 64 or 128 means 1 or 2 warpgroups.
+//   * Thread 0 issues every TMA load (csrc/sm90.cuh): the (BQ, D) Q tile once,
+//     and the (BKV, D) K and V tiles of each kv step into a ring of kStages
+//     slots with full and empty mbarriers, the protocol of gemm_sm90.cuh.
+//     The tensor maps are 3-D, over (d, s, b * heads): a ragged q or kv tail
+//     is zero-filled at sq or skv, never read from the next head's rows.
+//     128-byte swizzle; a tile of D = 128 is two 64-wide boxes side by side.
+//   * S = Q K^T: wgmma.m64n{BKV}k16, D / 16 steps, both operands in shared
+//     memory.  Q is K-major for A; K stored (BKV, D) row-major is K-major for
+//     B too, so its descriptor has the transpose bit clear.
+//   * The online softmax runs in registers on S's accumulator fragment: thread
+//     t of a warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and eight below,
+//     BKV / 4 columns of each; the row max reduces over the 4 threads of a
+//     quad (__shfl_xor_sync 1 and 2), the row sum stays per thread until the
+//     end.  Scores are kept in the log2 domain (exp2f).
+//   * O += P V: P is converted to bf16 in registers and fed as wgmma's A
+//     operand from registers (wgmma.m64n{D}k16, BKV / 16 steps), as two
+//     bf16 terms, P = hi + lo, each with V, so the product keeps P to about
+//     2^-17, as the Pallas kernel keeps it in f32.  No shuffle
+//     is needed: for 16-bit inputs the accumulator fragment of columns
+//     [16 kk, 16 kk + 16) -- s[8kk .. 8kk+7] = (row r, cols c, c+1), (r + 8,
+//     c, c+1), (r, c+8, c+9), (r + 8, c+8, c+9) with c = 16 kk + 2 (t % 4) --
+//     is exactly the A fragment {a0, a1, a2, a3} of k step kk.  V stored
+//     (BKV, D) row-major is (k, n) row-major, MN-major for B, and goes in
+//     through the transpose bit as gemm_sm90.cuh's y does.  O is rescaled by
+//     alpha before each PV group.
+//   * The epilogue divides by l, converts to bf16, stages the warpgroup's rows
+//     in its own rows of the Q tile (XOR-swizzled 16-byte chunks, so the
+//     fragment stores do not conflict) and writes whole rows with 16-byte
+//     stores, clipped at sq.
+//   * Why two terms: with P rounded once to bf16 (the JAX oracle
+//     flash_attention_ref's arithmetic, p cast to v's dtype) each layer's
+//     output agrees within the bf16 tolerance, but llama3.2-1b's prefill
+//     logits drifted to 5.1e-2 of max |logit| from the plain-attention step
+//     after 16 layers, past the 5e-2 gate; the lo term costs BKV / 16 more
+//     wgmmas per kv step.
+// (D, BQ, BKV) are template parameters (wgmma's N is an immediate); the
+// caller dispatches from FLASH_SM90_TILES.  Warp specialisation (a producer
+// warp with setmaxnreg) and two consumer warpgroups ping-ponging softmax
+// against wgmma are later work.
+//
+// f32, and bf16 at head dim 256 -- flash_fwd_kernel, the SIMT body: wgmma
+// takes f32 only as TF32, and Q plus a K/V ring at d 256 leaves little shared
+// memory.  One CTA per (b * hq, block of bq query rows) loops over kv blocks
+// of BKV rows with 4 * bq threads: 16 lanes across each group of 4 query rows,
 // so a thread owns 4 rows, BKV / 16 columns of the score tile and d / 16
 // columns of the output.  Q (bq, d) is staged in shared memory once, K and V
 // (BKV, d) per iteration, and the f32 probability tile (bq, BKV + 16) goes
 // through shared memory between the two products; m, l and the output
-// accumulator stay in registers for the whole loop, and the row max and row
-// sum reduce across the 16 lanes with warp shuffles.  Both products are FP32
-// FMAs on the CUDA cores, so the kernel is capped at the FP32 rate, a
-// fifteenth of the bf16 tensor-core bound; wgmma, TMA and a pipelined ring of
-// K/V stages are later work.  bq is a launch parameter taken at run time and
-// sets the thread count; BKV is a template parameter (32, 64 or 128) that
-// sets the per-thread score registers; both set the shared memory, so the
-// tuner trades shared memory against occupancy.
+// accumulator stay in registers, and both products are FP32 FMAs.  bq is a
+// launch parameter taken at run time and sets the thread count; BKV (32, 64
+// or 128) is a template parameter.
 //
-// Masking follows the reference: rows with no visible key give 0; the
-// running max starts at -1e30 and masked probabilities are set to 0
-// explicitly, so a row whose first kv blocks are all masked never takes exp
-// of a NaN.  Unlike the TPU kernel, kv blocks wholly above the causal diagonal
-// or wholly outside the window are skipped, and ragged q and kv tails are
-// masked (rows past sq are neither staged nor written; keys past skv are
-// zero-filled and masked), so no shape needs padding.
+// Both bodies keep the reference's masking: rows with no visible key give 0;
+// the running max starts at -1e30 and masked probabilities are exactly 0, so a
+// row whose first kv blocks are all masked never takes exp of a NaN;
+// soft-capping applies before masking.  Unlike the TPU kernel, kv blocks
+// wholly above the causal diagonal or wholly outside the window are skipped,
+// q blocks run longest causal rows first, the masks are evaluated only on
+// blocks that straddle the diagonal, the window edge or skv, and ragged q and
+// kv tails are masked, so no shape needs padding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -340,12 +382,324 @@ cudaError_t attributes_d(int d, int bkv, int* num_regs, int* max_threads,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, head dims 64 and 128: the wgmma + TMA-ring body
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;             // K/V slots of the TMA ring
+constexpr int kSm90Threads = 256;      // at most two consumer warpgroups
+// Dynamic shared memory beyond Q and the ring: the 1 KiB alignment slack and
+// the full, empty and Q barriers.
+constexpr int kSm90SmemExtra = sm90::kAlign + (2 * kStages + 1) * 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int BQ, int BKV>
+constexpr int sm90_smem_bytes() {
+  return (BQ + 2 * kStages * BKV) * D * 2 + kSm90SmemExtra;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as a bf16 pair hi and the bf16 pair lo of what hi leaves out:
+// hi + lo holds a and b to about 2^-17 of their size.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// Byte offset of the 16-byte chunk (row, chunk) of a [D / 64][rows][64] bf16
+// tile whose 128-byte rows hold their chunks XOR-permuted by row % 8.
+__device__ __forceinline__ int staged_chunk(int rows, int row, int chunk) {
+  return (chunk / 8) * rows * 128 + row * 128 + (((chunk % 8) ^ (row % 8)) * 16);
+}
+
+// q: (bh, sq, D) through qmap; k, v: (bh / hq * hkv, skv, D) through kmap and
+// vmap; out: (bh, sq, D) row-major, 16-byte aligned.  blockDim.x == 2 * BQ,
+// gridDim = (ceil(sq / BQ), bh).  softcap <= 0 means no soft-capping.
+template <int D, int BQ, int BKV>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  __nv_bfloat16* __restrict__ out, int sq, int skv, int hq, int hkv,
+                  float scale, int causal, int has_window, int window,
+                  float softcap) {
+  using namespace sm90;
+  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes, wgmma N <= 128");
+  static_assert(BQ % 64 == 0 && BQ <= 128, "one warpgroup per 64 rows, at most two");
+  static_assert(BKV % 64 == 0 && BKV <= 128, "wgmma N and the score registers");
+  constexpr int kQBytes = BQ * D * 2;
+  constexpr int kKVBytes = BKV * D * 2;         // one K or one V tile
+  constexpr int kSlotBytes = 2 * kKVBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* qs = smem;                                   // [D/64][BQ][64]
+  unsigned char* ring = smem + kQBytes;                       // [kStages][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kSlotBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest causal rows first
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+
+  // The kv blocks any row of this q block can see.
+  int kv_begin = 0;
+  int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  if (has_window) {
+    const long long lo = (long long)q0 - window + 1;  // first key row q0 sees
+    if (lo > 0) kv_begin = (int)min(lo / BKV * BKV, (long long)skv);
+  }
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  auto load_kv = [&](int it, int s) {
+    unsigned char* ks = ring + s * kSlotBytes;
+    const int k0 = kv_begin + it * BKV;
+    mbar_expect_tx(&full[s], kSlotBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b) {
+      tma_load(ks + b * BKV * 128, &kmap, &full[s], b * kAtom, k0, kvh);
+      tma_load(ks + kKVBytes + b * BKV * 128, &vmap, &full[s], b * kAtom, k0, kvh);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, kQBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b)
+      tma_load(qs + b * BQ * 128, &qmap, qbar, b * kAtom, q0, bh);
+    for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, s);
+  }
+
+  // Scores in the log2 domain: x = scale * s (soft-capped: softcap *
+  // tanh(scale * s / softcap)), times log2(e).
+  const bool capped = softcap > 0.0f;
+  const float pre = capped ? scale / softcap : scale * kLog2e;
+  const float post = capped ? softcap * kLog2e : 1.0f;
+  const int qa = q0 + wg * 64;                          // this warpgroup's first row
+  const int row0 = qa + (t / 32) * 16 + lane / 4;       // rows row0 and row0 + 8
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+
+  mbar_wait(qbar, 0);
+  const uint32_t q_base = smem_addr(qs) + wg * 64 * 128;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t k_base = smem_addr(ring + s * kSlotBytes);
+    const uint32_t v_base = k_base + kKVBytes;
+
+    float sc[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = make_desc(q_base + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(k_base + (kk / 4) * BKV * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<BKV, kKMajor>::mma(sc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    const int k0 = kv_begin + it * BKV;
+    const bool masked = k0 + BKV > skv || (causal && k0 + BKV - 1 > qa) ||
+                        (has_window && qa + 63 - k0 >= window);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row0 + 8 * h;
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[4 * j + 2 * h + e];
+          x = capped ? post * tanhf(x * pre) : x * pre;
+          if (masked) {
+            const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
+            bool vis = kpos < skv;
+            if (causal) vis = vis && qpos >= kpos;
+            if (has_window) vis = vis && qpos - kpos < window;
+            if (!vis) x = __uint_as_float(0xff800000u);   // -inf: p = 0 exactly
+          }
+          sc[4 * j + 2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[h] = exp2f(m[h] - mx);                     // both finite: never NaN
+      m[h] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(sc[4 * j + 2 * h + e] - mx);
+          sc[4 * j + 2 * h + e] = p;
+          sum += p;
+        }
+      }
+      l[h] = alpha[h] * l[h] + sum;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+
+    // P = hi + lo, two bf16 A fragments: the PV product at f32 precision
+    uint32_t hi[BKV / 16][4], lo[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint64_t db = make_desc(v_base + kk * 16 * 128, BKV * 128, 1024);
+      WgmmaRS<D>::mma(o, hi[kk], db);
+      WgmmaRS<D>::mma(o, lo[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // this slot's K and V are consumed: release it, and refill it
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && it + kStages < n_tiles) {
+      mbar_wait(&empty[s], (it / kStages) & 1);
+      load_kv(it + kStages, s);
+    }
+  }
+
+  // Epilogue: O / l in bf16, staged in this warpgroup's rows of the Q tile,
+  // then whole rows out with 16-byte stores.
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[h] = sum > 0.0f ? 1.0f / sum : 0.0f;   // no visible key: o is 0
+  }
+  __syncthreads();   // every warpgroup's wgmmas are done with Q
+  const int rl = (t / 32) * 16 + lane / 4;     // local row in the warpgroup
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + rl + 8 * h;
+      *reinterpret_cast<uint32_t*>(qs + staged_chunk(BQ, r, j) + (lane % 4) * 4) =
+          pack_bf16(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
+    }
+  __syncthreads();
+  for (int i = t; i < 64 * (D / 8); i += 128) {
+    const int r = wg * 64 + i / (D / 8);
+    const int chunk = i % (D / 8);
+    const int qpos = q0 + r;
+    if (qpos < sq)
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * sq + qpos) * D + chunk * 8) =
+          *reinterpret_cast<const uint4*>(qs + staged_chunk(BQ, r, chunk));
+  }
+}
+
+template <int D, int BQ, int BKV>
+cudaError_t sm90_launch(const void* q, const void* k, const void* v, void* out, int bh,
+                        int sq, int skv, int hq, int hkv, float scale, int causal,
+                        int has_window, int window, float softcap,
+                        cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  const int bhkv = bh / hq * hkv;
+  if (!sm90::make_map(&qmap, q, D, sq, bh, BQ) ||
+      !sm90::make_map(&kmap, k, D, skv, bhkv, BKV) ||
+      !sm90::make_map(&vmap, v, D, skv, bhkv, BKV))
+    return cudaErrorInvalidValue;
+  constexpr int smem = sm90_smem_bytes<D, BQ, BKV>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_sm90_kernel<D, BQ, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  flash_sm90_kernel<D, BQ, BKV><<<grid, 2 * BQ, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, hq, hkv, scale,
+      causal, has_window, window, softcap);
+  return cudaGetLastError();
+}
+
+template <int D, int BQ, int BKV>
+cudaError_t sm90_attributes(int* num_regs, int* max_threads, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_sm90_kernel<D, BQ, BKV>);
+  if (err != cudaSuccess) return err;
+  *num_regs = attr.numRegs;
+  *max_threads = attr.maxThreadsPerBlock;
+  *local_bytes = (int)attr.localSizeBytes;
+  return cudaSuccess;
+}
+
+// The compiled wgmma tiles (D, BQ, BKV): BQ and BKV in {64, 128} at each
+// head dim (kernel_spec.FLASH_SM90_TILES).
+#define FLASH_SM90_TILES(X)                                                    \
+  X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128)                  \
+  X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 128, 128)
+
+// Launches the instantiation of (d, bq, bkv); cudaErrorInvalidValue for a
+// tile that is not compiled.
+cudaError_t sm90_dispatch(int d, int bq, int bkv, const void* q, const void* k,
+                          const void* v, void* out, int bh, int sq, int skv, int hq,
+                          int hkv, float scale, int causal, int has_window, int window,
+                          float softcap, cudaStream_t stream) {
+#define FLASH_SM90_CASE(D, BQ, BKV)                                             \
+  if (d == D && bq == BQ && bkv == BKV)                                         \
+    return sm90_launch<D, BQ, BKV>(q, k, v, out, bh, sq, skv, hq, hkv, scale,   \
+                                   causal, has_window, window, softcap, stream);
+  FLASH_SM90_TILES(FLASH_SM90_CASE)
+#undef FLASH_SM90_CASE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t sm90_dispatch_attributes(int d, int bq, int bkv, int* num_regs,
+                                     int* max_threads, int* local_bytes) {
+#define FLASH_SM90_ATTR(D, BQ, BKV)                                             \
+  if (d == D && bq == BQ && bkv == BKV)                                         \
+    return sm90_attributes<D, BQ, BKV>(num_regs, max_threads, local_bytes);
+  FLASH_SM90_TILES(FLASH_SM90_ATTR)
+#undef FLASH_SM90_ATTR
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); the
-// caller has checked shapes, dtypes, alignment, tiles and limits.
+// caller has checked shapes, dtypes, alignment, tiles and limits.  bf16 at
+// head dims 64 and 128 runs the wgmma body (bq, bkv a compiled tile); f32,
+// and bf16 at head dim 256, the SIMT body.
 int klaraptor_flash_attention(const void* q, const void* k, const void* v, void* out,
                               int bh, int sq, int skv, int d, int hq, int hkv, int bq,
                               int bkv, float scale, int causal, int has_window,
@@ -356,22 +710,33 @@ int klaraptor_flash_attention(const void* q, const void* k, const void* v, void*
       return launch_d<float>(d, bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
                              causal, has_window, window, softcap, s);
     case kBF16:
-      return launch_d<__nv_bfloat16>(d, bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq,
-                                     scale, causal, has_window, window, softcap, s);
+      if (d == 256)
+        return launch_bkv<__nv_bfloat16, 256>(bkv, q, k, v, out, bh, sq, skv, hq, hkv,
+                                              bq, scale, causal, has_window, window,
+                                              softcap, s);
+      return sm90_dispatch(d, bq, bkv, q, k, v, out, bh, sq, skv, hq, hkv, scale,
+                           causal, has_window, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Registers per thread, launch-bound thread limit and local (spill) bytes of
-// the instantiation for (dtype, head dim d, bkv).
+// the SIMT instantiation for (dtype, head dim d, bkv): f32, or bf16 at d 256.
 int klaraptor_flash_attention_attributes(int dtype, int d, int bkv, int* num_regs,
                                          int* max_threads, int* local_bytes) {
   switch (dtype) {
     case kF32: return attributes_d<float>(d, bkv, num_regs, max_threads, local_bytes);
     case kBF16:
-      return attributes_d<__nv_bfloat16>(d, bkv, num_regs, max_threads, local_bytes);
+      if (d != 256) return cudaErrorInvalidValue;
+      return attributes_bkv<__nv_bfloat16, 256>(bkv, num_regs, max_threads, local_bytes);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The same for the wgmma instantiation of bf16 tile (d, bq, bkv).
+int klaraptor_flash_attention_tile_attributes(int d, int bq, int bkv, int* num_regs,
+                                              int* max_threads, int* local_bytes) {
+  return sm90_dispatch_attributes(d, bq, bkv, num_regs, max_threads, local_bytes);
 }
 
 const char* klaraptor_flash_error_string(int err) {

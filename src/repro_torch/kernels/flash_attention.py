@@ -2,20 +2,27 @@
 
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` (the Hopper
 port of the JAX package's ``flash_attention_pallas``) with launch parameters
-(bq, bkv): a grid of ceil(sq / bq) x (b * hq) CTAs of 4 * bq threads, each CTA
-looping over kv blocks of bkv rows.  q is (b * hq, sq, d), k and v are
-(b * hkv, skv, d), bf16 or f32; q head ``bh`` reads kv head
+(bq, bkv): a grid of ceil(sq / bq) x (b * hq) CTAs, each looping over kv
+blocks of bkv rows.  q is (b * hq, sq, d), k and v are (b * hkv, skv, d),
+bf16 or f32; q head ``bh`` reads kv head
 ``(bh // hq) * hkv + (bh % hq) // (hq // hkv)``.  The softmax, its running
 max and sum, and the output accumulator are f32; the output has q's dtype.
+bf16 at head dims 64 and 128 runs the wgmma + TMA-ring body: 2 * bq threads
+(one warpgroup per 64 query rows) and only the compiled tiles
+``FLASH_SM90_TILES[d]``; its PV product takes P as two bf16 terms (hi +
+lo), as exact as an f32 P to about 2^-17.  f32, and bf16 at head dim 256,
+run the SIMT body: 4 * bq threads, any bq that is a multiple of 16 within
+the limits and bkv in ``BKV_TILES``.
 
 ``flash_attention_plain`` computes the same function in plain PyTorch, as
 the JAX package's ``flash_attention_ref`` does: the full score tensor per
 query chunk, the same masks, and 0 for a query row that sees no key.  It
-keeps the probabilities in f32 for the PV product (the kernel's arithmetic;
-the JAX oracle casts them to v's dtype first, which is the same in f32).  The
-tests use it, and the wrapper takes it only for tensors on the CPU; a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES.count`` counts kernel
-launches and nothing else.
+keeps the probabilities in f32 for the PV product, as both kernel bodies
+and the Pallas kernel do (the JAX oracle casts them to v's dtype first,
+which is the same in f32 and within the bf16 tolerance in bf16).  The tests
+use it, and the wrapper takes it only for tensors on the CPU; a CUDA tensor
+launches the kernel or raises.  ``LAUNCHES.count`` counts kernel launches
+and nothing else.
 """
 
 from __future__ import annotations
@@ -26,16 +33,19 @@ import functools
 import torch
 
 from ..core.kernel_spec import (FLASH_HEAD_DIMS, FLASH_PAD,
-                                FLASH_THREADS_PER_ROW, flash_regs_per_thread)
+                                FLASH_SM90_TILES, FLASH_THREADS_PER_ROW,
+                                flash_regs_per_thread, flash_sm90_smem_bytes,
+                                flash_uses_sm90)
 from ._build import load
 from .matmul import LaunchCounter
 
 __all__ = ["BKV_TILES", "DTYPES", "LAUNCHES", "flash_attention_kernel",
-           "flash_attention_plain", "kernel_attributes", "smem_bytes"]
+           "flash_attention_plain", "kernel_attributes", "smem_bytes",
+           "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-BKV_TILES = (32, 64, 128)       # the kernel's template instantiations
+BKV_TILES = (32, 64, 128)       # the SIMT body's template instantiations
 BQ_GRANULE = 16                 # 4 rows per thread x 4 threads per row
 SMEM_LIMIT = 232448             # dynamic shared memory a block may opt in to
 REGS_PER_SM = 65536
@@ -55,6 +65,9 @@ def _lib() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_flash_attention_attributes.argtypes = [i, i, i, ip, ip, ip]
     lib.klaraptor_flash_attention_attributes.restype = i
+    lib.klaraptor_flash_attention_tile_attributes.argtypes = [i, i, i, ip, ip,
+                                                              ip]
+    lib.klaraptor_flash_attention_tile_attributes.restype = i
     lib.klaraptor_flash_error_string.argtypes = [i]
     lib.klaraptor_flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,22 +78,37 @@ def _raise_cuda(what: str, rc: int) -> None:
     raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-def kernel_attributes(dtype: torch.dtype, head_dim: int,
-                      bkv: int) -> dict[str, int]:
-    """Registers per thread, thread limit and spilled local bytes of the
-    kernel compiled for (dtype, head_dim, bkv) (builds it if needed)."""
+def _attributes(fn, *args) -> dict[str, int]:
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = _lib().klaraptor_flash_attention_attributes(
-        _DTYPE_CODE[dtype], head_dim, bkv, *[ctypes.byref(v) for v in vals])
+    rc = fn(*args, *[ctypes.byref(v) for v in vals])
     if rc:
         _raise_cuda("cudaFuncGetAttributes", rc)
     return dict(zip(("num_regs", "max_threads", "local_bytes"),
                     (v.value for v in vals)))
 
 
+def kernel_attributes(dtype: torch.dtype, head_dim: int,
+                      bkv: int) -> dict[str, int]:
+    """Registers per thread, thread limit and spilled local bytes of the
+    SIMT kernel compiled for (dtype, head_dim, bkv): f32, or bf16 at head
+    dim 256 (builds it if needed)."""
+    return _attributes(_lib().klaraptor_flash_attention_attributes,
+                       _DTYPE_CODE[dtype], head_dim, bkv)
+
+
+def tile_attributes(head_dim: int, bq: int, bkv: int) -> dict[str, int]:
+    """The same for the bf16 wgmma kernel of tile (bq, bkv) at head dim 64
+    or 128."""
+    return _attributes(_lib().klaraptor_flash_attention_tile_attributes,
+                       head_dim, bq, bkv)
+
+
 def smem_bytes(head_dim: int, bq: int, bkv: int, elem_bytes: int) -> int:
-    """Dynamic shared memory of one CTA: Q, K and V tiles in the input type
-    and the padded f32 probability tile."""
+    """Dynamic shared memory of one CTA.  The wgmma body: the Q tile, the
+    K/V ring and its barriers; the SIMT body: Q, K and V tiles in the input
+    type and the padded f32 probability tile."""
+    if flash_uses_sm90(head_dim, elem_bytes):
+        return flash_sm90_smem_bytes(head_dim, bq, bkv)
     return (bq + 2 * bkv) * head_dim * elem_bytes + bq * (bkv + FLASH_PAD) * 4
 
 
@@ -182,20 +210,26 @@ def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
         raise ValueError(f"heads ({num_q_heads} q, {num_kv_heads} kv) do "
                          f"not match q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)}")
-    if not isinstance(bq, int) or bq <= 0 or bq % BQ_GRANULE:
-        raise ValueError(f"bq={bq!r} must be a positive multiple of "
-                         f"{BQ_GRANULE}")
-    if bkv not in BKV_TILES:
-        raise ValueError(f"bkv={bkv!r} must be one of {BKV_TILES}")
-    threads = FLASH_THREADS_PER_ROW * bq
-    regs = flash_regs_per_thread(d)
-    if threads * regs > REGS_PER_SM:
-        raise ValueError(f"bq={bq} gives {threads} threads of {regs} "
-                         f"registers, more than an SM's {REGS_PER_SM}")
-    smem = smem_bytes(d, bq, bkv, q.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tiles need {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block can have")
+    if flash_uses_sm90(d, q.element_size()):
+        if (bq, bkv) not in FLASH_SM90_TILES[d]:
+            raise ValueError(f"(bq, bkv)=({bq!r}, {bkv!r}) is not a "
+                             f"compiled tile of the bf16 wgmma kernel at "
+                             f"head dim {d}; it has {FLASH_SM90_TILES[d]}")
+    else:
+        if not isinstance(bq, int) or bq <= 0 or bq % BQ_GRANULE:
+            raise ValueError(f"bq={bq!r} must be a positive multiple of "
+                             f"{BQ_GRANULE}")
+        if bkv not in BKV_TILES:
+            raise ValueError(f"bkv={bkv!r} must be one of {BKV_TILES}")
+        threads = FLASH_THREADS_PER_ROW * bq
+        regs = flash_regs_per_thread(d)
+        if threads * regs > REGS_PER_SM:
+            raise ValueError(f"bq={bq} gives {threads} threads of {regs} "
+                             f"registers, more than an SM's {REGS_PER_SM}")
+        smem = smem_bytes(d, bq, bkv, q.element_size())
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"tiles need {smem} bytes of shared memory, "
+                             f"more than the {SMEM_LIMIT} a block can have")
     if bhq > MAX_GRID_Y or max(sq, skv) + 128 >= 2**31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
     if window is not None and (not isinstance(window, int)
@@ -225,6 +259,8 @@ def flash_attention_kernel(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if skv == 0:            # no key at all: every row gives 0
+        return out.zero_()
     scale = scale if scale is not None else d ** -0.5
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -52,6 +52,13 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                          eos_id=eos_id, seed=seed)
 
 
+# Configurations probed at each probe size of an auto kernel: all nine of the
+# layernorm's row tiles (a sample of eight left one out at each size, at r
+# 8192 the only probe of many small CTAs, br 8), twelve of the column sum's
+# 36 tiles.
+AUTO_PROBES_PER_SIZE = 12
+
+
 def build_auto_kernels(d_model: int = 1024, tune_device=None,
                        device: str | torch.device = "cuda"):
     """Introspect the auto-specced kernels (layernorm fusion at ``d_model``,
@@ -74,7 +81,8 @@ def build_auto_kernels(d_model: int = 1024, tune_device=None,
     ]
     if tune_device is not None:
         for ak in kernels:
-            ak.ensure_driver(tune_device, repeats=2, max_configs_per_size=8)
+            ak.ensure_driver(tune_device, repeats=2,
+                             max_configs_per_size=AUTO_PROBES_PER_SIZE)
     return kernels
 
 

@@ -23,7 +23,8 @@ from repro_torch.kernels import reduce as cs
 from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
-from repro_torch.core.kernel_spec import SM90_TILES
+from repro_torch.core.kernel_spec import (FLASH_SM90_TILES, SM90_TILES,
+                                          flash_uses_sm90)
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
 from repro_torch.kernels.matmul import OUT_DTYPES, matmul_kernel, matmul_plain
 from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
@@ -66,23 +67,32 @@ def test_cuda_matmul_kernel_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_flash_kernel_matches_plain():
+    """bf16 at d 64 and 128: every compiled wgmma tile; f32, and bf16 at
+    d 256: the SIMT tile (32, 64).  Causal, full, window and soft-cap, GQA
+    group 4 and 1, and ragged lengths (sq = skv = 200, sq 77 < skv 333,
+    sq 333 > skv 130) that no tile divides."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, d, (name, kw) in itertools.product(
+    for dtype, d, (name, kw), (hq, hkv), (sq, skv) in itertools.product(
             (torch.bfloat16, torch.float32), (64, 128, 256),
-            VARIANTS.items()):
+            VARIANTS.items(), ((4, 1), (2, 2)),
+            ((200, 200), (77, 333), (333, 130))):
         atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (2e-3, 1e-3)
-        q = torch.randn(8, 200, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(2, 200, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(2, 200, d, generator=gen, device="cuda").to(dtype)
-        heads = dict(num_q_heads=4, num_kv_heads=1)
+        q = torch.randn(2 * hq, sq, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(2 * hkv, skv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(2 * hkv, skv, d, generator=gen, device="cuda").to(dtype)
+        heads = dict(num_q_heads=hq, num_kv_heads=hkv)
         plain = flash_attention_plain(q, k, v, **heads, **kw)
-        before = FLASH_LAUNCHES.count
-        out = flash_attention_kernel(q, k, v, bq=32, bkv=64, **heads, **kw)
-        assert FLASH_LAUNCHES.count == before + 1
-        torch.testing.assert_close(out.float(), plain.float(), atol=atol,
-                                   rtol=rtol)
+        tiles = (FLASH_SM90_TILES[d] if flash_uses_sm90(d, q.element_size())
+                 else [(32, 64)])
+        for bq, bkv in tiles:
+            before = FLASH_LAUNCHES.count
+            out = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv, **heads,
+                                         **kw)
+            assert FLASH_LAUNCHES.count == before + 1
+            torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                                       rtol=rtol)
         torch.testing.assert_close(
             ops.flash_attention(q, k, v, **heads, **kw).float(),
             plain.float(), atol=atol, rtol=rtol)

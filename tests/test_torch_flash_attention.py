@@ -25,7 +25,11 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
                               flash_attention_spec, flash_probe_data,
                               registry, selection_ratio)
-from repro_torch.core.kernel_spec import FLASH_HEAD_DIMS
+from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS,
+                                          FLASH_SM90_HEAD_DIMS,
+                                          FLASH_SM90_REGS_PER_THREAD,
+                                          FLASH_SM90_TILES,
+                                          flash_sm90_smem_bytes)
 from repro_torch.kernels import flash_attention as port_flash
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (LAUNCHES,
@@ -140,8 +144,11 @@ def test_bf16_plain_matches_oracle():
 def test_spec_feasibility_is_the_kernels_limits(d, elem, causal):
     """A tile is feasible in the Hopper spec exactly when the kernel's
     argument check takes it, and the spec's stage bytes are the kernel's
-    dynamic shared memory."""
+    dynamic shared memory.  Each case is on one of the kernel's two bodies:
+    bf16 at d 64 and 128 is the wgmma body (2 * bq threads, the compiled
+    tiles), the rest the SIMT body (4 * bq threads)."""
     spec = flash_attention_spec(d, causal, elem)
+    wgmma = elem == 2 and d in FLASH_SM90_HEAD_DIMS
     dtype = torch.bfloat16 if elem == 2 else torch.float32
     D = {"bh": 4, "sq": 100, "skv": 100}
     grid = CandidateTable.product(
@@ -164,10 +171,151 @@ def test_spec_feasibility_is_the_kernels_limits(d, elem, causal):
     table = spec.candidates(D, H100)
     assert len(table) > 0
     tt = spec.traffic_table(D, table, H100)
-    assert np.all(tt.threads == 4 * table["bq"])
+    per_row = 2 if wgmma else 4
+    assert np.all(tt.threads == per_row * table["bq"])
+    assert spec.compute_unit == ("bf16" if wgmma else "f32")
+    if wgmma:
+        assert sorted(zip(table["bq"], table["bkv"])) == \
+            sorted(FLASH_SM90_TILES[d])
     assert np.all(tt.blocks_per_sm >= 1)
     # Scratch tiles live in shared memory only: no device-memory traffic.
     assert [op.name for op in tt.operands] == ["q", "k", "v", "out"]
+
+
+@pytest.mark.parametrize("d", sorted(FLASH_SM90_HEAD_DIMS))
+def test_bf16_spec_is_the_compiled_table(d):
+    """bf16 at d 64 and 128: the candidates are exactly the compiled wgmma
+    tiles, FLASH_DEFAULT is one of them, every tile's shared memory fits,
+    and the spec states the wgmma body (2 * bq threads, the register cap
+    255, the tensor-core peak, a K/V ring as scratch, no P tile)."""
+    for causal in (True, False):
+        spec = flash_attention_spec(d, causal, 2)
+        table = spec.candidates({"bh": 32, "sq": 4096, "skv": 4096}, H100)
+        tiles = sorted(zip(table["bq"].tolist(), table["bkv"].tolist()))
+        assert tiles == sorted(FLASH_SM90_TILES[d])
+        assert {(64, 64), (64, 128), (128, 64), (128, 128)} <= set(tiles)
+        assert (ops.FLASH_DEFAULT["bq"], ops.FLASH_DEFAULT["bkv"]) in tiles
+        assert all(flash_sm90_smem_bytes(d, bq, bkv) <= 227 * 1024
+                   for bq, bkv in tiles)
+        assert spec.regs_per_thread == FLASH_SM90_REGS_PER_THREAD == 255
+        assert spec.compute_unit == "bf16"
+        assert spec.constraints == ("bq % 64 == 0", "bkv % 64 == 0")
+        names = [op.name for op in spec.operands]
+        assert "p" not in names and "p_pad" not in names
+        assert {"k_ring", "v_ring", "ring_barriers"} <= set(names)
+
+
+def test_f32_and_d256_specs_are_unchanged():
+    """f32 at every head dim and bf16 at d 256 keep the SIMT body's spec:
+    4 * bq threads, the padded f32 P tile, the SIMT candidates and
+    constraints, FMAs on the CUDA cores."""
+    for d, elem in [(64, 4), (128, 4), (256, 4), (256, 2)]:
+        spec = flash_attention_spec(d, True, elem)
+        assert spec.param_candidates == {"bq": (16, 32, 64, 128),
+                                         "bkv": (32, 64, 128)}
+        assert spec.constraints == ("bq % 16 == 0", "bkv % 32 == 0")
+        assert spec.regs_per_thread == (255 if d == 256 else 128)
+        assert spec.compute_unit == "f32"
+        assert spec.threads.to_source() == \
+            flash_attention_spec(d, False, elem).threads.to_source()
+        tt = spec.traffic_table({"bh": 4, "sq": 256, "skv": 256},
+                                CandidateTable.from_rows(
+                                    ("bq", "bkv"), [{"bq": 32, "bkv": 64}]))
+        assert int(tt.threads[0]) == 128
+        assert [(op.name, op.tile, op.dtype_bytes) for op in spec.operands
+                if op.scratch] == [("p", ("bq", "bkv"), 4),
+                                   ("p_pad", ("bq", 16), 4)]
+        assert spec._eval(spec.stage_expr(), {"bh": 1, "sq": 1, "skv": 1},
+                          CandidateTable.from_rows(
+                              ("bq", "bkv"), [{"bq": 32, "bkv": 64}]))[0] \
+            == (32 + 128) * d * elem + 32 * (64 + 16) * 4
+
+
+def test_wrapper_rejects_an_uncompiled_tile():
+    """bf16 at d 64 and 128 takes only the compiled wgmma tiles, on the CPU
+    too (where the wrapper then computes the plain version), and launches
+    nothing; f32 at the same shape still takes a SIMT tile."""
+    LAUNCHES.reset()
+    heads = dict(num_q_heads=4, num_kv_heads=1)
+    for d in sorted(FLASH_SM90_HEAD_DIMS):
+        q, k, v = _qkv(d, 8, 2, 70, 70, d)
+        tq, tk, tv = (t.to(torch.bfloat16) for t in _t(q, k, v))
+        for bq, bkv in ((32, 64), (64, 32), (16, 128), (256, 64),
+                        (128, 256)):
+            with pytest.raises(ValueError, match="compiled tile"):
+                flash_attention_kernel(tq, tk, tv, bq=bq, bkv=bkv, **heads)
+        for bq, bkv in FLASH_SM90_TILES[d]:
+            out = flash_attention_kernel(tq, tk, tv, bq=bq, bkv=bkv, **heads)
+            assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+        flash_attention_kernel(*_t(q, k, v), bq=32, bkv=64, **heads)
+    assert LAUNCHES.count == 0
+
+
+def _attention_p_bf16(q, k, v, hq, hkv, causal, bkv=64, split=False):
+    """The wgmma kernel's online softmax in torch, f32 but for P: kv blocks
+    of bkv keys, a running max and sum in f32, and each block's
+    unnormalised probabilities rounded to bf16 before the PV product; with
+    ``split`` as the kernel feeds them, hi = bf16(p) plus lo = bf16(p -
+    hi)."""
+    bhq, sq, d = q.shape
+    group = hq // hkv
+    kvh = [(i // hq) * hkv + (i % hq) // group for i in range(bhq)]
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    kk, vv = k[kvh], v[kvh]                                 # (bhq, skv, d)
+    skv = k.shape[1]
+    m = torch.full((bhq, sq, 1), -1e30)
+    l = torch.zeros((bhq, sq, 1))
+    acc = torch.zeros((bhq, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bkv):
+        s = q @ kk[:, k0:k0 + bkv].transpose(1, 2) * d ** -0.5
+        kpos = k0 + torch.arange(s.shape[2])[None, :]
+        vis = (qpos >= kpos) if causal else torch.ones_like(s[0], dtype=bool)
+        s = s.masked_fill(~vis, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        p16 = p.to(torch.bfloat16).float()
+        if split:
+            p16 = p16 + (p - p16).to(torch.bfloat16).float()
+        acc = alpha * acc + p16 @ vv[:, k0:k0 + bkv]
+        m = m_new
+    return (acc / torch.where(l > 0, l, torch.ones_like(l))).numpy()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_p_in_bf16_matches_the_oracle_and_diverges_from_pallas(causal):
+    """wgmma takes P as bf16.  The JAX oracle ``flash_attention_ref`` casts P
+    to v's dtype (``ref.py:65``), while the Pallas kernel keeps P in f32;
+    the kernel feeds P as two bf16 terms (hi + lo), which keeps the Pallas
+    kernel's precision: its recomputation agrees with the Pallas kernel to
+    f32 rounding.  On bf16 inputs (held as f32) the
+    torch recomputation with P rounded to bf16 once agrees with the oracle within
+    the oracle's own bf16 output rounding (2.2e-3 causal, 3.0e-4 full at
+    this seed), and differs from the Pallas kernel by the P rounding alone
+    (7.4e-4 causal, 1.3e-4 full; outputs up to 0.82), under the 2e-2 bf16
+    tolerance the card holds the kernel to."""
+    hq, hkv, s, d = 4, 2, 192, 64
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+               for a in _qkv(17, 2 * hq, 2 * hkv, s, s, d))
+    heads = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal)
+    mine = _attention_p_bf16(q, k, v, hq, hkv, causal)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    oracle = np.asarray(ref.flash_attention_ref(jq, jk, jv, **heads),
+                        np.float32)
+    pallas = np.asarray(flash_attention_pallas(
+        q, k, v, bq=64, bkv=64, interpret=True, **heads), np.float32)
+    f32_oracle = np.asarray(ref.flash_attention_ref(q, k, v, **heads))
+    to_oracle = float(np.abs(mine - oracle).max())
+    to_pallas = float(np.abs(mine - pallas).max())
+    assert to_oracle < 2e-2 and to_pallas < 2e-2, (to_oracle, to_pallas)
+    # the divergence is P's rounding: the f32 oracle is the Pallas kernel
+    assert float(np.abs(pallas - f32_oracle).max()) < 1e-5
+    assert 1e-5 < to_pallas < 5e-3, to_pallas
+    np.testing.assert_allclose(mine, oracle, atol=2e-2, rtol=2e-2)
+    split = _attention_p_bf16(q, k, v, hq, hkv, causal, split=True)
+    assert float(np.abs(split - pallas).max()) < 2e-5
 
 
 def test_spec_matches_reference_interface():
@@ -232,7 +380,7 @@ def test_probe_launcher_binds_flash_kernels():
     launch = ops.probe_launcher("flash_attn_d64_causal",
                                 {"bh": 2, "sq": 40, "skv": 40},
                                 torch.device("cpu"), seed=0)
-    launch({"bq": 16, "bkv": 32})          # the plain version on the CPU
+    launch({"bq": 64, "bkv": 64})          # the plain version on the CPU
     with pytest.raises(ValueError):
         ops.probe_launcher("flash_attn_dx", {"bh": 1}, torch.device("cpu"), 0)
 

@@ -19,6 +19,9 @@ counts are read on the card by chip_smoke.py [17]):
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,8 @@ from repro_torch.introspect import (CudaKernel, GridSpec, IntrospectError,
                                     auto_kernels, auto_register,
                                     capture_kernel, derive_kernel, get_auto,
                                     spec_from_kernel, trace_points)
+from repro_torch.core.device_model import (DeviceModel, ProbeBatch,
+                                           roofline_times)
 from repro_torch.core.kernel_spec import SM90_SMEM_EXTRA
 from repro_torch.introspect.tier1 import (EQUIV_SHAPES, matmul_grid_spec,
                                          moe_gmm_grid_spec, tier1_pairs)
@@ -394,3 +399,179 @@ def _toy_kernel(flops=lambda m, bm: 2.0 * m,
 
     return CudaKernel(source="colsum", describe=describe, launch=None,
                       attributes=no_card, regs_cap=32)
+
+
+# The layernorm_c2048_b16 kernel's time in us on the card, each row tile at
+# the probe sizes (r 512, 2048, 8192) and the sizes chip_smoke.py [18]
+# chooses for (4096, 16384, 4097): the median of 7 launches, each after the
+# timer's L2 flush, and the same without the flush (the timer before the
+# repair), as chip_smoke.py [18] printed them ("layernorm card us by r and
+# br"; NVIDIA H100 80GB HBM3, 700 W power limit).
+H100_LAYERNORM_US = {
+    512: {8: 12.42, 16: 18.27, 32: 28.96, 64: 50.94, 128: 95.49, 256: 181.82,
+          512: 355.58},
+    2048: {8: 16.83, 16: 19.46, 32: 29.44, 64: 52.1, 128: 96.03, 256: 184.99,
+           512: 363.17, 1024: 712.93, 2048: 1408.67},
+    4096: {8: 27.04, 16: 26.62, 32: 32.67, 64: 54.91, 128: 99.65,
+           256: 186.85, 512: 364.83, 1024: 718.43, 2048: 1425.22},
+    4097: {8: 26.94, 16: 26.88, 32: 32.86, 64: 55.17, 128: 99.74,
+           256: 186.88, 512: 363.55, 1024: 717.22, 2048: 1416.54},
+    8192: {8: 47.65, 16: 44.22, 32: 46.5, 64: 62.75, 128: 106.62,
+           256: 195.17, 512: 367.3, 1024: 720.8, 2048: 1428.0},
+    16384: {8: 85.54, 16: 86.14, 32: 80.54, 64: 87.87, 128: 120.96,
+            256: 211.68, 512: 389.28, 1024: 738.66, 2048: 1448.45},
+}
+
+H100_LAYERNORM_NO_FLUSH_US = {
+    512: {8: 10.08, 16: 14.53, 32: 23.04, 64: 38.94, 128: 70.3, 256: 133.38,
+          512: 257.92},
+    2048: {8: 14.14, 16: 15.14, 32: 23.46, 64: 39.42, 128: 73.89,
+           256: 138.82, 512: 267.26, 1024: 522.05, 2048: 1032.1},
+    4096: {8: 25.54, 16: 29.12, 32: 37.41, 64: 59.65, 128: 105.06,
+           256: 192.61, 512: 321.7, 1024: 628.7, 2048: 1239.01},
+    4097: {8: 25.5, 16: 29.18, 32: 37.15, 64: 59.74, 128: 103.58,
+           256: 191.26, 512: 328.38, 1024: 635.04, 2048: 1250.78},
+    8192: {8: 49.09, 16: 46.78, 32: 50.11, 64: 66.69, 128: 112.67,
+           256: 201.57, 512: 377.86, 1024: 728.54, 2048: 1433.5},
+    16384: {8: 88.03, 16: 88.96, 32: 83.52, 64: 90.85, 128: 125.86,
+            256: 219.81, 512: 398.21, 1024: 748.7, 2048: 1452.16},
+}
+
+
+class _RecordedCard(DeviceModel):
+    """The card's recorded layernorm times as an oracle: each probe gets
+    the recorded time, split by the roofline rule as ``CudaEventTimer``
+    splits what it measures."""
+
+    def __init__(self, us: dict):
+        self.hw = H100
+        self.us = us
+
+    def _times(self, table) -> np.ndarray:
+        r = int(table.D["r"])
+        return np.array([self.us[r][int(b)] * 1e-6
+                         for b in table.config["br"]])
+
+    def probe_batch(self, table, rng=None, repeats=1):
+        total = np.tile(self._times(table), (repeats, 1))
+        t_mem, t_cmp = roofline_times(table, self.hw)
+        mem = total * (t_mem / (t_mem + t_cmp))[None, :]
+        return ProbeBatch(total_time_s=total, mem_time_s=mem,
+                          compute_time_s=total - mem,
+                          grid_steps=np.asarray(table.grid_steps),
+                          stage_bytes=np.asarray(table.stage_bytes),
+                          blocks_resident=np.asarray(table.blocks_resident))
+
+    def true_time_batch(self, table):
+        return self._times(table)
+
+
+class TestLayernormChoiceOnTheCard:
+    """The layernorm auto kernel chose br 32 at r 4096 on the card, where
+    br 8 ran 1.45x faster (selection ratio 0.69).  The cause: the timer ran
+    each probe back to back on the same inputs, so at r 512 and 2048 (4-16
+    MB in) every launch re-read what the previous one left in the 50 MB L2,
+    while at the sizes it chooses for the inputs come from device memory;
+    every tile looked 1.2-1.4x faster in those probes than L2-cold, and the
+    fit took a latency-bound CTA (br 32: one per SM, 8 warps each walking 4
+    rows) to be as fast at r 4096 as at r 2048.  And 8 probes
+    of 9 candidates per size dropped br 8 at r 8192, the one probe of many
+    small CTAs.  The repair: the timer flushes the L2 before every timed
+    launch, and the auto build probes every candidate of the layernorm."""
+
+    def test_timer_flushes_l2_before_every_timed_launch(self, monkeypatch):
+        from repro_torch.core import device_model as dm
+
+        log = []
+
+        class Event:
+            def __init__(self, enable_timing):
+                pass
+
+            def record(self, stream=None):
+                log.append("event")
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, other):
+                return 0.01
+
+        class Buffer:
+            def sum(self):
+                log.append("flush")
+
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "_sleep",
+                            lambda cycles: log.append("spin"))
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: None)
+        monkeypatch.setattr(torch.cuda, "device",
+                            lambda device: contextlib.nullcontext())
+        timer = object.__new__(dm.CudaEventTimer)
+        timer.hw, timer.device = H100, torch.device("cpu")
+        timer.warmup, timer.timings, timer.seed = 1, 3, 0
+        timer._bound, timer._flush = None, Buffer()
+        monkeypatch.setattr(timer, "_launch_fn", lambda kernel, D: (
+            lambda P: log.append("launch")))
+        spec = matmul_spec(4)
+        table = spec.candidates({"m": 256, "n": 256, "k": 256}, H100)
+        tt = spec.traffic_table({"m": 256, "n": 256, "k": 256},
+                                table.select(np.arange(2)), H100)
+        timer._time_rows(tt, 3)
+        timed = ["flush", "spin", "event", "launch", "event"]
+        assert log == (["launch"] + timed * 3) * 2
+
+        # the flush reads twice the L2's bytes
+        small = object.__new__(dm.CudaEventTimer)
+        small.hw = dataclasses.replace(H100, l2_bytes=4096)
+        small.device, small._flush = torch.device("cpu"), None
+        small._flush_l2()
+        assert small._flush.numel() * small._flush.element_size() == 8192
+
+    def test_auto_build_probes_every_layernorm_tile(self):
+        from repro_torch.launch import build_auto_kernels
+
+        registry.clear()
+        try:
+            ak, _ = build_auto_kernels(
+                d_model=2048, tune_device=HopperModel(noise=0.03, seed=5),
+                device="cpu")
+            cols = ak.build.collected.columns
+            for r in ak.grid_spec.probe_hints["r"]:
+                probed = set(cols["br"][cols["r"] == r].tolist())
+                feasible = set(ak.spec.candidates({"r": r}, H100)["br"]
+                               .tolist())
+                assert probed == feasible, (r, sorted(feasible - probed))
+        finally:
+            registry.clear()
+
+    def test_layernorm_chooses_well_on_recorded_card_times(self):
+        """The auto build's probes and fit, fed the card's L2-cold times,
+        choose within 0.85 of the card's best at every chosen-for size.
+        Either fault alone brings back br 32 at r 4096: the times the timer
+        took without the flush, or 8 probes of the 9 tiles per size."""
+        from repro_torch.launch.serve import AUTO_PROBES_PER_SIZE
+
+        cold = _RecordedCard(H100_LAYERNORM_US)
+        sizes = ({"r": 4096}, {"r": 16384}, {"r": 4097})
+        registry.clear()
+        try:
+            ak = auto_register(LAYERNORM, layernorm_grid_spec(2048),
+                               device="cpu")
+            drv = ak.ensure_driver(cold, repeats=2,
+                                   max_configs_per_size=AUTO_PROBES_PER_SIZE)
+            for D in sizes:
+                sel = selection_ratio(ak.spec, cold, drv, D, H100)
+                assert sel["ratio"] >= 0.85, sel
+        finally:
+            registry.clear()
+        for probes, per_size in (
+                (_RecordedCard(H100_LAYERNORM_NO_FLUSH_US),
+                 AUTO_PROBES_PER_SIZE), (cold, 8)):
+            drv = Klaraptor(probes, device="cpu").build_driver(
+                ak.spec, probe_data=ak.probe_data(), repeats=2,
+                max_configs_per_size=per_size, register=False).driver
+            assert drv.choose(sizes[0]) == {"br": 32}
+            assert selection_ratio(ak.spec, cold, drv, sizes[0],
+                                   H100)["ratio"] < 0.85

@@ -49,9 +49,10 @@ block:
      finishes, and each greedy request's first token is compared with the
      argmax of the prefill step on its prompt;
  11. the SSD chunked-scan kernel against its plain version, bf16 and f32,
-     (head dim, state) (64, 128) and the smoke model's (32, 32), at a ragged
-     length and at 4096, dt in the JAX kernel tests' range and small (where
-     the carried state dominates), over every feasible chunk;
+     (head dim, state) (64, 128) and the smoke model's (32, 32), with B and
+     C per head (h = 1) and shared by 24 rows (h = 24), at a ragged length
+     and at 4096, dt in the JAX kernel tests' range and small (where the
+     carried state dominates), over every compiled or feasible chunk;
  12. KLARAPTOR on the card for ``ssd_scan_h64_n128``: probes at bh <= 64 and
      s <= 2048, the fit, the choice at the prefill shape (bh 24, s 4096)
      and, after phase 13, its selection ratio against exhaustive search over
@@ -61,7 +62,9 @@ block:
      weights) on 4096 tokens (cut from ``prefill_32k`` as llama's is): the
      tuned SSD kernel launches once per layer, the logits are held against
      the same step with the plain SSD, and each layer's SSD is timed
-     (kernel, default chunk, bound, plain);
+     (kernel with % of bound and CTAs, default chunk, both bounds -- B and
+     C read once per group, as the kernel reads them, and once per head, as
+     the reference's interface hands them over -- plain);
  14. the serving engine at full width: 4 slots, 8 requests, every request
      finishes; the first request of a separate batch-1 engine has its first
      token compared with the prefill step's argmax (the JAX engine, which
@@ -96,7 +99,9 @@ block:
      ``ops.blocked_colsum`` at (8192, 4096) and (2048, 8192), each held
      against its plain version, timed against the bytes bound and one
      PyTorch call (``F.layer_norm``, which leaves out the residual add;
-     ``torch.sum``), and the selection ratios against exhaustive search;
+     ``torch.sum``), the column sum's workspace bytes and two calls on one
+     input held to identical bits, and the selection ratios against
+     exhaustive search;
  19. the entry point: ``repro_torch.launch.serve.main`` with
      ``--auto-kernels`` in this process (the drivers dropped first, so it
      tunes both kernels on the card again), serving llama3.2-1b requests.
@@ -115,6 +120,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -241,11 +247,13 @@ def _flash_bound_ms(bh: int, sq: int, skv: int, hkv_rows: int, d: int,
 
 
 def _ssd_bound_ms(bh: int, s: int, dh: int, n: int, chunk: int,
-                  elem: int) -> tuple[float, str]:
-    """Least time of one SSD scan on the card: x, B, C (as the model hands
-    them over, per head), f32 dt and A read once and y written once, and the
-    FLOPs of the chunked form at ``chunk`` (per chunk of l rows: the causal
-    C B^T and its product with x, (n + dh) l (l + 1), and the carried
+                  elem: int, groups: int) -> tuple[float, str]:
+    """Least time of one SSD scan on the card: x, f32 dt and A read once,
+    B and C read once for each of ``groups`` (bh / h: ``groups`` = 1 when
+    the heads share them, as the kernel reads them; bh when they come per
+    head, as the reference's interface hands them over) and y written once,
+    and the FLOPs of the chunked form at ``chunk`` (per chunk of l rows: the
+    causal C B^T and its product with x, (n + dh) l (l + 1), and the carried
     state's output term and update, 4 n dh l) at the tensor-core peak of
     bf16 inputs (the FP32 rate for f32)."""
     ops = 0.0
@@ -253,7 +261,8 @@ def _ssd_bound_ms(bh: int, s: int, dh: int, n: int, chunk: int,
         rows = min(chunk, s - c0)
         ops += (n + dh) * rows * (rows + 1) + 4.0 * n * dh * rows
     t_ops = bh * ops / (PEAK_BF16 if elem == 2 else PEAK_F32)
-    t_bytes = (bh * s * (2 * dh + 2 * n) * elem + bh * (s + 1) * 4) / HBM_BW
+    t_bytes = (bh * s * 2 * dh * elem + groups * s * 2 * n * elem
+               + bh * (s + 1) * 4) / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -305,6 +314,9 @@ def main() -> int:
                                               FLASH_SM90_REGS_PER_THREAD,
                                               FLASH_SM90_TILES, SM90_TILES,
                                               SSD_REGS_PER_THREAD,
+                                              SSD_SM90_CHUNKS,
+                                              SSD_SM90_REGS_PER_THREAD,
+                                              SSD_SM90_SHAPES,
                                               flash_regs_per_thread)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as flash
@@ -396,7 +408,8 @@ def main() -> int:
         hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
         print(f"  {lib.name}: {hgmma} HGMMA instructions in the SASS")
         if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-",
-                                               "libflash_attention-")):
+                                               "libflash_attention-",
+                                               "libssd_scan-")):
             raise AssertionError(f"{lib.name} has no wgmma (HGMMA) in its "
                                  f"SASS: the bf16 path is not on the tensor "
                                  f"cores")
@@ -450,11 +463,21 @@ def main() -> int:
     print("  ssd_scan ptxas:\n  " + "\n  ".join(ssd_ptxas))
     for dt in (torch.bfloat16, torch.float32):
         attrs = ssd.kernel_attributes(dt)
-        print(f"  ssd_scan {dt}: {attrs}")
+        print(f"  ssd_scan SIMT {dt}: {attrs}")
         if attrs["num_regs"] > SSD_REGS_PER_THREAD:
             raise AssertionError(
                 f"SSD kernel uses {attrs['num_regs']} registers; the spec "
                 f"assumes {SSD_REGS_PER_THREAD}")
+    for dh, n in SSD_SM90_SHAPES:
+        for chunk in SSD_SM90_CHUNKS:
+            attrs = ssd.tile_attributes(dh, n, chunk)
+            print(f"  ssd_scan bf16 wgmma (dh {dh}, n {n}) chunk {chunk}: "
+                  f"{attrs} (cap {SSD_SM90_REGS_PER_THREAD})")
+            if attrs["num_regs"] > SSD_SM90_REGS_PER_THREAD \
+                    or attrs["local_bytes"]:
+                raise AssertionError(
+                    f"SSD wgmma chunk {chunk}: {attrs} against the cap "
+                    f"{SSD_SM90_REGS_PER_THREAD}, no spills")
     for kern in (MOE_GMM, LAYERNORM, COLSUM):
         lines = [ln.strip() for ln in
                  _build.build_log(kern.source).splitlines()
@@ -942,22 +965,22 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     from repro_torch.core import (CudaEventTimer, Klaraptor, selection_ratio,
                                   ssd_probe_data, ssd_scan_spec)
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
-                                              ssd_scan_plain)
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_ctas,
+                                              ssd_scan_kernel, ssd_scan_plain)
     from repro_torch.launch import build_engine, make_prefill_step
     from repro_torch.models import Model
     from repro_torch.serving import Request, greedy
 
     f32_tol = (5e-3, 1e-3)      # tests/test_kernels.py's SSD tolerance
 
-    def inputs(bh, s, dh, n, dtype, dt_range):
+    def inputs(bh, s, dh, n, dtype, dt_range, h):
         lo, hi = dt_range
         x = (torch.randn(bh, s, dh, generator=gen, device=dev) * 0.5
              ).to(dtype)
         dt = lo + (hi - lo) * torch.rand(bh, s, generator=gen, device=dev)
-        B = (torch.randn(bh, s, n, generator=gen, device=dev) * 0.3
+        B = (torch.randn(bh // h, s, n, generator=gen, device=dev) * 0.3
              ).to(dtype)
-        C = (torch.randn(bh, s, n, generator=gen, device=dev) * 0.3
+        C = (torch.randn(bh // h, s, n, generator=gen, device=dev) * 0.3
              ).to(dtype)
         A = -0.5 - torch.rand(bh, generator=gen, device=dev)
         return x, dt, B, C, A
@@ -965,30 +988,34 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     # -- 11. the SSD kernel against its plain version -------------------------
     print("[11] SSD kernel vs plain (tolerance: bf16 2e-2 abs and rel; f32 "
           "5e-3 abs / 1e-3 rel, tests/test_kernels.py's SSD tolerance; "
-          f"bh 3 at S = {SSD_SWEEP_S}, bh 24 at S = {PREFILL_S}; A in "
-          "[-1.5, -0.5])", flush=True)
+          f"bh 24 at S = {SSD_SWEEP_S} and {PREFILL_S}, B and C per head "
+          "(h 1) and shared by 24 rows (h 24); A in [-1.5, -0.5])",
+          flush=True)
     worst = 0.0
     n_checked = 0
+    bh = 24
     for dtype in (torch.bfloat16, torch.float32):
         for dh, n in ((64, 128), (32, 32)):
             spec = ssd_scan_spec(dh, n, torch.finfo(dtype).bits // 8)
-            for S, bh in ((SSD_SWEEP_S, 3), (PREFILL_S, 24)):
+            for S in (SSD_SWEEP_S, PREFILL_S):
                 chunks = spec.candidates({"bh": bh, "s": S, "chunkflops": 1},
                                          hw)["chunk"]
-                for name, rng in SSD_DT_RANGES.items():
-                    args = inputs(bh, S, dh, n, dtype, rng)
+                for h, (name, rng) in itertools.product(
+                        (1, bh), SSD_DT_RANGES.items()):
+                    args = inputs(bh, S, dh, n, dtype, rng, h)
                     errs = []
                     for chunk in chunks.tolist():
                         out = ssd_scan_kernel(*args, chunk=chunk)
                         plain = ssd_scan_plain(*args, chunk=chunk)
                         errs.append(check(
                             out, plain, dtype, f"{dtype} h{dh} n{n} S={S} "
-                            f"{name} chunk {chunk}", f32_tol, quiet=True))
+                            f"heads/group {h} {name} chunk {chunk}", f32_tol,
+                            quiet=True))
                     n_checked += len(errs)
                     worst = max([worst] + errs)
-                    print(f"  {dtype} h{dh} n{n} S={S} {name}: chunks "
-                          f"{chunks.tolist()}, max_abs_err={max(errs):.3e} "
-                          f"ok", flush=True)
+                    print(f"  {dtype} h{dh} n{n} S={S} heads/group {h} "
+                          f"{name}: chunks {chunks.tolist()}, "
+                          f"max_abs_err={max(errs):.3e} ok", flush=True)
                     del args
     print(f"  {n_checked} kernel launches agree with the plain version")
     torch.cuda.empty_cache()
@@ -1105,19 +1132,28 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     print(f"  prefill wall {(time.perf_counter() - t0) * 1e3:.2f} ms "
           f"(second call)")
     _device_profile(lambda: step(params, tokens), "one prefill step",
-                    own=("ssd", "ssd_chunk_scan"))
+                    own=("ssd", "ssd_"))
 
-    ctas = (dh // 16) * Hm
-    print(f"  one launch at B = 1: {ctas} CTAs of 256 threads on "
-          f"{hw.sm_count} SMs")
+    dflt = ops._ssd_chunk(dh, n, 2, dflt)
+    ctas = ssd_ctas(Hm, PREFILL_S, dh, n, chunk, torch.bfloat16)
+    print(f"  one launch at B = 1, chunk {chunk}: {ctas} CTAs of "
+          f"{2 * chunk} threads on {hw.sm_count} SMs, chains of "
+          f"{-(-PREFILL_S // chunk)} chunk states; default chunk {dflt} "
+          f"(the reference's {ops.SSD_DEFAULT['chunk']}, fitted to the "
+          f"compiled chunks)")
     layers = []
     for li, args in enumerate(recorded):
+        if tuple(args[2].shape) != (1, PREFILL_S, n):
+            raise AssertionError(f"layer {li} handed the SSD B of shape "
+                                 f"{tuple(args[2].shape)}, not one per "
+                                 f"group")
         out = ssd_scan_kernel(*args, chunk=chunk)
         plain = ssd_scan_plain(*args, chunk=chunk)
         err = check(out, plain, args[0].dtype, f"layer {li}", quiet=True)
         worst = max(worst, err)
-        bound, bound_by = _ssd_bound_ms(Hm, PREFILL_S, dh, n, chunk,
-                                        args[0].element_size())
+        elem = args[0].element_size()
+        bound, bound_by = _ssd_bound_ms(Hm, PREFILL_S, dh, n, chunk, elem, 1)
+        per_head, _ = _ssd_bound_ms(Hm, PREFILL_S, dh, n, chunk, elem, Hm)
         r = {
             "layer": li, "config": chosen, "max_abs_err": err,
             "ms": time_ms(lambda: ssd_scan_kernel(*args, chunk=chunk)),
@@ -1126,14 +1162,26 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
             "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=chunk),
                                 max_iters=1),
             "bound_ms": bound, "bound_by": bound_by,
+            "bound_per_head_ms": per_head, "ctas": ctas,
         }
-        r["gb_s"] = (Hm * PREFILL_S * (2 * dh + 2 * n) * 2) / \
-            (r["ms"] * 1e-3) / 1e9
+        r["pct_of_bound"] = 100.0 * bound / r["ms"]
+        r["gb_s"] = (Hm * PREFILL_S * 2 * dh * 2 + PREFILL_S * 2 * n * 2) \
+            / (r["ms"] * 1e-3) / 1e9
         layers.append(r)
         print(f"  layer {li:2d}: kernel {r['ms']:.4f} ms ({r['gb_s']:.1f} "
-              f"GB/s) | default {r['default_ms']:.4f} ms | bound "
-              f"{r['bound_ms']:.4f} ms ({bound_by}) | plain "
-              f"{r['plain_ms']:.2f} ms | max_abs_err {err:.3e}", flush=True)
+              f"GB/s, {r['pct_of_bound']:.1f} % of bound) | default "
+              f"{r['default_ms']:.4f} ms | bound {bound:.4f} ms "
+              f"({bound_by}; {per_head:.4f} with B and C per head) | "
+              f"plain {r['plain_ms']:.2f} ms | max_abs_err {err:.3e}",
+              flush=True)
+    # the chunk's trade at the prefill shape: s / chunk hops of the chain
+    # of states against quadratic work per chunk
+    sweep = {c: time_ms(lambda: ssd_scan_kernel(*recorded[0], chunk=c))
+             for c in spec.candidates(D, hw)["chunk"].tolist()}
+    print("  layer 0 at every compiled chunk: " + ", ".join(
+        f"chunk {c} ({ssd_ctas(Hm, PREFILL_S, dh, n, c, torch.bfloat16)} "
+        f"CTAs, {-(-PREFILL_S // c)} chain hops) {t:.4f} ms"
+        for c, t in sweep.items()), flush=True)
     del recorded
     torch.cuda.empty_cache()
 
@@ -1184,7 +1232,7 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
             engine.model.decode_step(params, tok, pos, engine.cache)
 
     _device_profile(four_decode_steps, f"4 decode steps at batch "
-                    f"{ENGINE_SLOTS}", own=("ssd", "ssd_chunk_scan"))
+                    f"{ENGINE_SLOTS}", own=("ssd", "ssd_"))
     # The engines step every slot to feed one slot's prompt and never reset a
     # freed slot, so a Mamba-2 block's state leaks between slots and requests
     # (as in the JAX engine).  Only the first request of a batch-1 engine
@@ -1218,7 +1266,14 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     phase_done(14)
 
     total = {key: sum(r[key] for r in layers)
-             for key in ("ms", "plain_ms", "bound_ms", "default_ms")}
+             for key in ("ms", "plain_ms", "bound_ms", "default_ms",
+                         "bound_per_head_ms")}
+    print(f"  per prefill: kernel {total['ms']:.4f} ms, default chunk "
+          f"{total['default_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+          f"({100.0 * total['bound_ms'] / total['ms']:.1f} %; "
+          f"{total['bound_per_head_ms']:.4f} ms with B and C per head), "
+          f"plain {total['plain_ms']:.2f} ms, chunk {chunk}, {ctas} CTAs, "
+          f"selection ratio {ratio['ratio']:.3f}", flush=True)
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1233,8 +1288,10 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
                                         for r in layers) else "bytes",
         "library_ms": None,   # no single PyTorch call computes the SSD
         "default_ms": total["default_ms"],
+        "bound_per_head_ms": total["bound_per_head_ms"],
         "config": chosen,
         "selection_ratio": ratio["ratio"],
+        "chunk_sweep_ms": sweep,
         "layers": layers,
     }
 
@@ -1424,9 +1481,15 @@ def introspect_phase(hw, phase_done) -> None:
         if spec.name.startswith("layernorm"):
             if [op.deps for op in spec.operands[2:4]] != [(), ()]:
                 raise AssertionError("gamma and beta are not resident")
-        elif spec.operands[1].deps != (spec.grid[0].name,):
-            raise AssertionError("the column sums are not written once per "
-                                 "column block")
+        else:
+            cols, rows = (a.name for a in spec.grid)
+            deps = [op.deps for op in spec.operands[:4]]
+            if deps != [(cols, rows)] * 3 + [(cols,)] \
+                    or any(a.sequential for a in spec.grid):
+                raise AssertionError(
+                    f"the column sum's derived launch is not the row-split "
+                    f"grid (partials per CTA, the output once per column "
+                    f"block): {deps}")
     for kernel, gs, hand in tier1_pairs():
         spec, cap = derive_kernel(kernel, gs)
         show(spec, cap)
@@ -1587,6 +1650,15 @@ def auto_phases(dev, hw, gen, check, time_ms, phase_done):
             flops = Dn["r"] * Dn["c"]
             lib_name = "torch.sum"
         err = check(out, plain, torch.bfloat16, f"{kind} {Dn} tuned {cfg}")
+        extra = {}
+        if kind == "colsum":
+            again = kern(**cfg)
+            if not torch.equal(again, kern(**cfg)) or \
+                    not torch.equal(again, out):
+                raise AssertionError(f"colsum {Dn}: two calls on one input "
+                                     f"differ")
+            extra["workspace_bytes"] = Dn["r"] // cfg["br"] * Dn["c"] * 4
+            extra["ctas"] = (Dn["c"] // cfg["bc"]) * (Dn["r"] // cfg["br"])
         t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BW
         row = {
             "shape": Dn, "config": cfg, "default": dflt, "max_abs_err": err,
@@ -1598,9 +1670,15 @@ def auto_phases(dev, hw, gen, check, time_ms, phase_done):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
         row["gb_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+        row.update(extra)
         rows[kind].append(row)
+        detail = (f"; {extra['ctas']} CTAs, workspace "
+                  f"{extra['workspace_bytes']} bytes, identical bits on "
+                  f"repeat" if extra else "")
         print(f"  {kind} {Dn}: chosen {cfg} {row['ms']:.4f} ms "
-              f"({row['gb_s']:.0f} GB/s) | default {dflt} "
+              f"({row['gb_s']:.0f} GB/s, {row['pct_of_bound']:.1f} % of "
+              f"bound{detail}) | default {dflt} "
               f"{row['default_ms']:.4f} ms | {lib_name} "
               f"{row['library_ms']:.4f} ms | plain {row['plain_ms']:.4f} ms "
               f"| bound {row['bound_ms']:.4f} ms ({row['bound_by']})",

@@ -31,13 +31,13 @@ roofline ratio::
 
 The compute peak is that of the unit the kernel's arithmetic runs on, which
 its spec states (``KernelSpec.compute_unit``, carried by the traffic
-table).  The bf16 matmul and grouped matmul run wgmma on the tensor cores,
-so their rows take ``peak_flops_bf16``.  Every other kernel does its FLOPs
-as FP32 FMAs on the CUDA cores whatever the input type -- the f32 matmul's
-micro-tile products, flash attention's QK^T and PV products (its exp and
-tanh run on the special function units and are not counted as FLOPs), the
-SSD scan, the layernorm and the column sum -- so their rows take
-``peak_flops_f32``.  The bytes are the spec's operand traffic: for flash
+table).  The bf16 matmul and grouped matmul, bf16 flash attention at head
+dims 64 and 128 and the bf16 SSD scan at (64, 128) run wgmma on the tensor
+cores, so their rows take ``peak_flops_bf16``.  Every other kernel does its
+FLOPs as FP32 FMAs on the CUDA cores -- the f32 matmul's micro-tile
+products, the SIMT flash attention and SSD bodies (exp and tanh run on the
+special function units and are not counted as FLOPs), the layernorm and the
+column sum -- so their rows take ``peak_flops_f32``.  The bytes are the spec's operand traffic: for flash
 attention a Q tile and an output tile per CTA and a K and a V tile per loop
 iteration.  The split only labels the measured time: the perf model
 recombines the fitted parts, so what the rule decides is which of the two

@@ -17,8 +17,10 @@ candidate table and as rational-program ``Expr``s for the performance model
     CTA waves, blocks resident per SM in a wave, and grid steps
     (waves x loop iterations);
   * per-operand traffic: an input tile that depends on a sequential axis is
-    loaded once per iteration of every CTA, any other input once per CTA,
-    and every CTA writes its output tile once.
+    loaded once per iteration of every CTA, any other input once per CTA;
+    an output tile is written once per position over the parallel axes it
+    depends on (once per CTA when it depends on them all; once per column
+    block for the column sum, whose last CTA of a block writes it).
 
 Feasibility on Hopper (``feasible_mask``) replaces the TPU's VMEM and
 lane/sublane rules: staged shared memory per block within the opt-in
@@ -49,7 +51,7 @@ __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
     "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
     "matmul_spec", "moe_gmm_spec", "sm90_smem_bytes", "ssd_probe_data",
-    "ssd_scan_spec", "substitute",
+    "ssd_scan_spec", "ssd_uses_sm90", "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -316,14 +318,22 @@ class KernelSpec:
                       hw: HardwareParams = H100) -> TrafficTable:
         """Launch geometry and operand traffic of every config in ``table``."""
         ctas = self._eval(self.ctas_expr(), D, table)
-        iters = {a.name: self._eval(a.extent_expr(), D, table)
-                 for a in self.grid if a.sequential}
+        extents = {a.name: self._eval(a.extent_expr(), D, table)
+                   for a in self.grid}
+        iters = {a.name: extents[a.name] for a in self.grid if a.sequential}
         operands = []
         for op in self.operands:
             if op.scratch:
                 continue
-            fetches = ctas.copy()
-            if not op.is_output:
+            if op.is_output:
+                # written once per position: over the parallel axes it
+                # depends on (the CTAs of other positions write no tile)
+                fetches = np.ones_like(ctas)
+                for d in op.deps:
+                    if d not in iters:
+                        fetches = fetches * extents[d]
+            else:
+                fetches = ctas.copy()
                 for d in op.deps:
                     if d in iters:
                         fetches = fetches * iters[d]
@@ -749,60 +759,136 @@ def flash_probe_data(bhs: Sequence[int] = (4, 16, 64),
             for bh in bhs for s in seqs]
 
 
-# kernels/csrc/ssd_scan.cu: a CTA of 256 threads owns one (batch * head) row
-# and SSD_COLS of its head-dim columns, and loops over the chunks of the
-# sequence; __launch_bounds__(256, 2) caps it at 128 registers per thread.
+# kernels/csrc/ssd_scan.cu: one launch whose CTAs each take one chunk of one
+# (batch * head) row -- the SIMT body one chunk of SSD_COLS head-dim columns
+# -- all in parallel, the chunk states passed from CTA to CTA through an f32
+# ring in the L2 (SSD_STATE_SLOTS tiles of (n, columns) per chain).
+# SIMT body (f32, and bf16 at shapes without a wgmma instantiation): CTAs of
+# 256 threads, __launch_bounds__(256, 2), 128 registers per thread.
 SSD_COLS = 16           # head-dim columns of the state (and of y) per CTA
 SSD_ROWS = 32           # rows of one tile of the intra-chunk score matrix
 SSD_GPAD = 4            # f32 words of padding per row of the score tile
 SSD_THREADS = 256
 SSD_REGS_PER_THREAD = 128
+# wgmma body (bf16 at the compiled (d_head, d_state)): one warpgroup per 64
+# rows of the chunk (2 * chunk threads), __launch_bounds__(256, 1), which
+# caps registers at 255; the compiled chunks; shared memory for x, B, C, h_in
+# as hi + lo bf16 tiles, dt and two f32 vectors of the chunk, and
+# SSD_SM90_SMEM_EXTRA bytes (the 1 KiB alignment slack, the mbarrier and the
+# ticket).
+SSD_SM90_SHAPES = ((64, 128),)
+SSD_SM90_CHUNKS = (64, 128)
+SSD_SM90_GRANULE = 64
+SSD_SM90_REGS_PER_THREAD = 255
+SSD_SM90_SMEM_EXTRA = 1024 + 64
+SSD_STATE_SLOTS = 2
 
 
-def ssd_smem_bytes(chunk: int, d_state: int, elem_bytes: int) -> int:
-    """Dynamic shared memory of one SSD CTA: the chunk's B and C (chunk x n)
-    and x columns (chunk x SSD_COLS) in the input type, dt and its running
-    sum (f32), one padded f32 score tile (SSD_ROWS x chunk) and the f32
-    state columns (n x SSD_COLS)."""
-    return ((2 * d_state + SSD_COLS) * chunk * elem_bytes + 8 * chunk
+def ssd_uses_sm90(d_head: int, d_state: int, elem_bytes: int) -> bool:
+    """Whether the kernel runs its wgmma body at this shape and dtype."""
+    return elem_bytes == 2 and (d_head, d_state) in SSD_SM90_SHAPES
+
+
+def ssd_smem_bytes(chunk: int, d_state: int, elem_bytes: int,
+                   d_head: int = SSD_COLS) -> int:
+    """Dynamic shared memory of one SSD CTA.  wgmma body: x (chunk x dh), B
+    and C (chunk x n) and h_in's hi and lo (n x dh) in bf16, dt, the running
+    sum and the weights (f32 each), and SSD_SM90_SMEM_EXTRA.  SIMT body: the
+    chunk's B and C (chunk x n) and x columns (chunk x SSD_COLS) in the input
+    type, dt, its running sum and the weights (f32), one padded f32 score
+    tile (SSD_ROWS x chunk) and the f32 state columns (n x SSD_COLS)."""
+    if ssd_uses_sm90(d_head, d_state, elem_bytes):
+        return ((chunk * d_head + 2 * chunk * d_state + 2 * d_state * d_head)
+                * 2 + 12 * chunk + SSD_SM90_SMEM_EXTRA)
+    return ((2 * d_state + SSD_COLS) * chunk * elem_bytes + 12 * chunk
             + 4 * SSD_ROWS * (chunk + SSD_GPAD) + 4 * d_state * SSD_COLS)
 
 
 def ssd_scan_spec(d_head: int = 64, d_state: int = 128,
                   dtype_bytes: int = 2) -> KernelSpec:
     """Mamba-2 SSD chunked scan (state-space duality, arXiv:2405.21060):
-    CTAs over (bh, head-dim column blocks), a loop over chunks inside.
+    every chunk of every (batch * head) row is a CTA of its own, and the
+    chunk states pass from CTA to CTA in ticket order.
 
     D: bh (batch * heads), s (sequence), and the reference's ``chunkflops``
     (always 1; kept so the data parameters, and so the drivers' keys, are the
-    JAX package's).  P: chunk, the SSD chunk length.  The state's head-dim
-    columns are independent, so each CTA carries SSD_COLS of them through
-    the sequence: d_head / SSD_COLS CTAs per (batch, head) fill more SMs at
-    batch 1 than one CTA per head would, at the price of each recomputing
-    the chunk's C B^T scores.  The kernel masks a ragged last chunk, so
-    chunk need not divide s.
+    JAX package's).  P: chunk, the SSD chunk length.  The chunk axis is a
+    parallel grid axis now, and ragged (the kernel masks the last chunk).
+    Each CTA reads its chunk's x, dt, B and C and the previous chunk's f32
+    state, and writes its rows and its own state; so more chunks mean more
+    CTAs and more state traffic (and more hops of the chain, which the fitted
+    overhead carries), fewer mean more quadratic work per chunk.
 
-    FLOPs depend on the chunk (the reference takes a constant, measured at
-    chunk 256): per (bh, column block, position) the kernel does
-    n (chunk + SSD_ROWS) for the causal C B^T score tiles, SSD_COLS
+    bf16 at a compiled (d_head, d_state) runs the wgmma body: CTAs over
+    (bh, chunks), 2 * chunk threads, the compiled chunks only
+    (SSD_SM90_CHUNKS: the instantiations are templates), FLOPs on the bf16
+    tensor cores -- per row of a chunk 2 n chunk for C B^T, and the products
+    whose f32 operand goes in as hi + lo bf16 terms twice over: 4 dh chunk
+    for the scores times x, 4 n dh for the state, 4 n dh for C h_in.
+
+    The SIMT body (f32, and other shapes) splits the head dim too: CTAs
+    over (bh, d_head / SSD_COLS, chunks) of 256 threads, each recomputing
+    the chunk's C B^T scores; per (bh, column block, position) it does
+    n (chunk + SSD_ROWS) FLOPs for the causal C B^T score tiles, SSD_COLS
     (chunk + 1) for the scores times x, and 4 n SSD_COLS for the carried
-    state's output term and its update.
+    state's output term and the chunk's state, as FP32 FMAs.
     """
     if d_head % SSD_COLS or d_state % 8:
         raise ValueError(f"no SSD kernel for head dim {d_head} and state "
                          f"{d_state}: the kernel takes head dims divisible "
                          f"by {SSD_COLS} and states divisible by 8")
-    n, cols = float(d_state), float(SSD_COLS)
+    name = f"ssd_scan_h{d_head}_n{d_state}"
+    fit_vars = {"mem_step": ("chunk",), "cmp_step": ("chunk",),
+                "ovh_step": ("chunk",)}
     chunk = var("chunk")
+    n = float(d_state)
+    if ssd_uses_sm90(d_head, d_state, dtype_bytes):
+        dh = float(d_head)
+        return KernelSpec(
+            name=name,
+            data_params=("bh", "s", "chunkflops"),
+            program_params=("chunk",),
+            grid=(GridAxis("b", "bh", None),
+                  GridAxis("c", "s", "chunk", ragged=True)),
+            operands=(
+                Operand("x", ("chunk", d_head), ("b", "c"), 2, staged=True),
+                Operand("dt", ("chunk",), ("b", "c"), 4, staged=True),
+                Operand("b_proj", ("chunk", d_state), ("b", "c"), 2,
+                        staged=True),
+                Operand("c_proj", ("chunk", d_state), ("b", "c"), 2,
+                        staged=True),
+                Operand("decay", (1,), ("b",), 4),
+                Operand("state_in", (d_state, d_head), ("b", "c"), 4),
+                Operand("state_out", (d_state, d_head), ("b", "c"), 4,
+                        is_output=True),
+                Operand("out", ("chunk", d_head), ("b", "c"), 2,
+                        is_output=True),
+                Operand("h_hi_lo", (2, d_state, d_head), (), 2,
+                        scratch=True),
+                Operand("cum_w", (2, "chunk"), (), 4, scratch=True),
+                Operand("barrier", (SSD_SM90_SMEM_EXTRA,), (), 1,
+                        scratch=True),
+            ),
+            flops_per_point=(const(2.0 * n + 4.0 * dh) * chunk
+                             + const(8.0 * n * dh)),
+            threads=chunk * const(2.0),
+            regs_per_thread=SSD_SM90_REGS_PER_THREAD,
+            # a warpgroup's 64 rows
+            constraints=(f"chunk % {SSD_SM90_GRANULE} == 0",),
+            param_candidates={"chunk": SSD_SM90_CHUNKS},
+            fit_vars=fit_vars,
+            compute_unit="bf16",
+        )
+    cols = float(SSD_COLS)
     flops = (const(n) * (chunk + const(float(SSD_ROWS)))
              + const(cols) * (chunk + const(1.0)) + const(4.0 * n * cols))
     return KernelSpec(
-        name=f"ssd_scan_h{d_head}_n{d_state}",
+        name=name,
         data_params=("bh", "s", "chunkflops"),
         program_params=("chunk",),
         grid=(GridAxis("b", "bh", None),
               GridAxis("d", d_head // SSD_COLS, None),
-              GridAxis("c", "s", "chunk", sequential=True, ragged=True)),
+              GridAxis("c", "s", "chunk", ragged=True)),
         operands=(
             Operand("x", ("chunk", SSD_COLS), ("b", "d", "c"), dtype_bytes,
                     staged=True),
@@ -812,10 +898,12 @@ def ssd_scan_spec(d_head: int = 64, d_state: int = 128,
             Operand("c_proj", ("chunk", d_state), ("b", "c"), dtype_bytes,
                     staged=True),
             Operand("decay", (1,), ("b",), 4),
-            # every chunk writes its rows: s rows per CTA over the launch
-            Operand("out", ("s", SSD_COLS), ("b", "d"), dtype_bytes,
+            Operand("state_in", (d_state, SSD_COLS), ("b", "d", "c"), 4),
+            Operand("state_out", (d_state, SSD_COLS), ("b", "d", "c"), 4,
                     is_output=True),
-            Operand("cum", ("chunk",), (), 4, scratch=True),
+            Operand("out", ("chunk", SSD_COLS), ("b", "d", "c"), dtype_bytes,
+                    is_output=True),
+            Operand("cum_w", (2, "chunk"), (), 4, scratch=True),
             Operand("scores", (SSD_ROWS, "chunk"), (), 4, scratch=True),
             Operand("scores_pad", (SSD_ROWS, SSD_GPAD), (), 4, scratch=True),
             Operand("state", (d_state, SSD_COLS), (), 4, scratch=True),
@@ -826,17 +914,16 @@ def ssd_scan_spec(d_head: int = 64, d_state: int = 128,
         # score tiles of SSD_ROWS rows
         constraints=("chunk % 32 == 0",),
         param_candidates={"chunk": (32, 64, 128, 256, 512, 1024, 2048)},
-        fit_vars={"mem_step": ("chunk",), "cmp_step": ("chunk",),
-                  "ovh_step": ("chunk",)},
+        fit_vars=fit_vars,
     )
 
 
 def ssd_probe_data(bhs: Sequence[int] = (4, 8, 16, 32, 64),
                    seqs: Sequence[int] = (512, 1024, 2048)
                    ) -> list[dict[str, int]]:
-    """Small probe sizes for an SSD spec: bh <= 64, s <= 2048.  The grid
-    has d_head / SSD_COLS CTAs per bh row, so at d_head 64 these bh cover
-    one block per SM (bh <= 32) and two (bh 64), the two regimes of the
-    perf model's skeleton."""
+    """Small probe sizes for an SSD spec: bh <= 64, s <= 2048.  A launch
+    has bh x ceil(s / chunk) CTAs (times d_head / SSD_COLS in the SIMT
+    body), so at chunk 64 these run from 32 CTAs, a quarter of the SMs, to
+    2048, many waves; the chains of states run s / chunk hops, 4 to 64."""
     return [{"bh": int(bh), "s": int(s), "chunkflops": 1}
             for bh in bhs for s in seqs]

@@ -268,7 +268,8 @@ def _ssd_chunk(head_dim: int, d_state: int, dtype_bytes: int,
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Mamba-2 SSD scan with the tuned chunk length: x (bh, s, dh), dt
-    (bh, s), B, C (bh, s, n), A (bh,) -> y (bh, s, dh) in x's dtype.
+    (bh, s), B, C (bh / h, s, n) each shared by h consecutive rows of x (h
+    = 1: one copy per row), A (bh,) -> y (bh, s, dh) in x's dtype.
 
     The chunk is resolved through ``choose_or_default`` at D = (bh, s,
     chunkflops 1), the reference's key, and taken as chosen (the kernel
@@ -360,9 +361,10 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
     Flash attention is probed in bf16 (the models' dtype) with one kv head
     per q head (D carries no head counts) and the spec's causality; the SSD
     scan in bf16 with dt in [0.01, 0.51] and A in [-1.5, -0.5], the JAX
-    kernel tests' ranges.  An auto-registered kernel (``get_auto``) is
-    probed on standard-normal inputs of its GridSpec's ``make_args(D)``
-    with its static keyword arguments.
+    kernel tests' ranges, and one B and C shared by all bh rows (one group,
+    as mamba2-130m's heads at batch 1).  An auto-registered kernel
+    (``get_auto``) is probed on standard-normal inputs of its GridSpec's
+    ``make_args(D)`` with its static keyword arguments.
     """
     gen = torch.Generator(device=device).manual_seed(int(seed))
     ak = get_auto(kernel)
@@ -390,8 +392,8 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
 
         x = (randn(bh, s, dh) * 0.5).to(torch.bfloat16)
         dt = 0.01 + 0.5 * rand(bh, s)
-        Bm = (randn(bh, s, n) * 0.3).to(torch.bfloat16)
-        Cm = (randn(bh, s, n) * 0.3).to(torch.bfloat16)
+        Bm = (randn(1, s, n) * 0.3).to(torch.bfloat16)
+        Cm = (randn(1, s, n) * 0.3).to(torch.bfloat16)
         A = -0.5 - rand(bh)
 
         def launch_ssd(P: Mapping[str, int]) -> None:

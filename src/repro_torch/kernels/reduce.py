@@ -4,19 +4,23 @@ version, and its tunable interface -- auto-specced, no hand spec.
 out[j] = sum_i x[i, j] in f32 for x (r, c) in bf16 or f32.
 ``colsum_kernel`` launches ``csrc/colsum.cu`` (the Hopper port of the JAX
 package's ``colsum_pallas``) with launch parameters (br, bc): a grid of
-c / bc CTAs of bc threads, each CTA owning bc columns and looping over the
-rows in tiles of br.  A block keeps its own column sums, so each output
-column is written once and there is no cross-block reduction.  The output
-is ``(c,)``, not the TPU kernel's (8, c) sublane plane of which the JAX op
-takes row 0.
+(c / bc, r / br) CTAs of bc threads, each summing br rows of bc columns.
+The kernel is bound by bytes, so the row tile -- which the TPU kernel
+walked on one core -- is spread over CTAs to put bytes in flight on every
+SM.  Each CTA writes its bc partial sums to an f32 workspace (r / br, c)
+that the wrapper allocates, and the last CTA of a column block to finish
+(an integer ticket per block, kept zeroed between launches on one stream)
+adds them in row-split order and writes the output once: one launch, no
+float atomics, the same bits on every run.  The output is ``(c,)``, not the
+TPU kernel's (8, c) sublane plane of which the JAX op takes row 0.
 
 No KernelSpec exists for this kernel anywhere: ``repro_torch.introspect``
-derives it from the launch this module describes (``colsum_launch``) and the
-compiled kernel's registers, and ``ops.blocked_colsum`` dispatches through
-the derived spec.  ``colsum_plain`` computes the same function in plain
-PyTorch; the wrapper takes it only for tensors on the CPU, a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES.count`` counts kernel launches
-and nothing else.
+derives it from the launch this module describes (``colsum_launch``, the
+workspace among its operands) and the compiled kernel's registers, and
+``ops.blocked_colsum`` dispatches through the derived spec.
+``colsum_plain`` computes the same function in plain PyTorch; the wrapper
+takes it only for tensors on the CPU, a CUDA tensor launches the kernel or
+raises.  ``LAUNCHES.count`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -29,11 +33,12 @@ import torch
 from ..introspect.gridspec import GridSpec
 from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
 from ._build import load
+from ._workspace import zeroed_ints
 from .matmul import LaunchCounter
 
 __all__ = ["COLSUM", "COLSUM_LANES", "COLSUM_REGS_PER_THREAD", "DTYPES",
            "LAUNCHES", "colsum_grid_spec", "colsum_kernel", "colsum_launch",
-           "colsum_plain", "kernel_attributes"]
+           "colsum_plain", "colsum_split_order", "kernel_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +47,7 @@ GRANULE = 8                     # columns per thread
 COLSUM_LANES = 8                # row lanes per CTA
 COLSUM_REGS_PER_THREAD = 64     # __launch_bounds__(1024)
 MAX_THREADS = 1024
+MAX_GRID_Y = 65535
 
 LAUNCHES = LaunchCounter()
 
@@ -50,7 +56,7 @@ LAUNCHES = LaunchCounter()
 def _lib() -> ctypes.CDLL:
     lib = load("colsum")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.klaraptor_colsum.argtypes = [vp, vp, i, i, i, i, i, vp]
+    lib.klaraptor_colsum.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.klaraptor_colsum.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_colsum_attributes.argtypes = [i, ip, ip, ip]
@@ -83,20 +89,36 @@ def colsum_plain(x: torch.Tensor) -> torch.Tensor:
     return x.float().sum(dim=0)
 
 
+def colsum_split_order(x: torch.Tensor, br: int) -> torch.Tensor:
+    """Column sums in the kernel's two-level order: the f32 sum of each
+    split of br rows, then the splits added one by one in row-split order
+    (what the kernel's last CTA of a column block does)."""
+    r, c = x.shape
+    parts = x.float().reshape(r // br, br, c).sum(dim=1)
+    total = torch.zeros(c, dtype=torch.float32, device=x.device)
+    for k in range(parts.shape[0]):
+        total = total + parts[k]
+    return total
+
+
 def colsum_launch(args, *, br: int, bc: int) -> LaunchDescription:
     """The launch ``colsum_kernel`` makes on a tensor of the ``(shape,
-    dtype)`` pair ``args`` = (x,): grid c / bc, a loop over r / br, the
-    output written once per column block, an (8, bc) f32 scratch tile in
-    shared memory.  Arithmetic only."""
+    dtype)`` pair ``args`` = (x,): grid (c / bc, r / br) and no loop; each
+    CTA writes its (bc,) f32 partial sums to the workspace, which the last
+    CTA of its column block reads back (so the partials are one output and
+    one input tile per CTA); the output is written once per column block;
+    an (8, bc) f32 scratch tile in shared memory.  Arithmetic only."""
     ((xs, dt),) = args
     r, c = xs
     return LaunchDescription(
-        grid=(-(-c // bc),),
-        loops=(-(-r // br),),
+        grid=(-(-c // bc), -(-r // br)),
+        loops=(),
         threads=bc,
         smem_bytes=COLSUM_LANES * bc * 4,
         operands=(
             OperandLaunch((br, bc), (0, 1), dt),
+            OperandLaunch((bc,), (0, 1), torch.float32, is_output=True),
+            OperandLaunch((bc,), (0, 1), torch.float32),
             OperandLaunch((bc,), (0,), torch.float32, is_output=True),
             OperandLaunch((COLSUM_LANES, bc), (), torch.float32,
                           scratch=True),
@@ -127,7 +149,7 @@ def _check(x: torch.Tensor, br: int, bc: int) -> None:
     if d.threads > MAX_THREADS:
         raise ValueError(f"bc={bc} threads exceeds the kernel's "
                          f"{MAX_THREADS}")
-    if r >= 2**31 or c >= 2**31:
+    if r // br > MAX_GRID_Y or r * c >= 2**31:
         raise ValueError(f"shape ({r}, {c}) exceeds the kernel's limits")
     if x.device.type == "cuda" and x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
@@ -142,10 +164,13 @@ def colsum_kernel(x: torch.Tensor, *, br: int, bc: int) -> torch.Tensor:
         return colsum_plain(x)
     r, c = x.shape
     out = torch.empty(c, dtype=torch.float32, device=x.device)
+    part = torch.empty(r // br, c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().klaraptor_colsum(x.data_ptr(), out.data_ptr(), r, c, br,
-                                     bc, _DTYPE_CODE[x.dtype], stream)
+        tickets = zeroed_ints(x.device, stream, c // bc)
+        rc = _lib().klaraptor_colsum(x.data_ptr(), out.data_ptr(),
+                                     part.data_ptr(), tickets.data_ptr(), r,
+                                     c, br, bc, _DTYPE_CODE[x.dtype], stream)
     if rc:
         _raise_cuda("colsum kernel launch", rc)
     LAUNCHES.count += 1
@@ -165,10 +190,10 @@ def colsum_grid_spec(dtype_bytes: int = 2) -> GridSpec:
             "br": (8, 16, 32, 64, 128, 256, 512, 1024, 2048),
             "bc": (128, 256, 512, 1024, 2048),
         },
-        # Up to 4096 rows and 16384 columns: at c <= 1024 a launch has at
-        # most 8 CTAs, and the fit would never see one of many column
-        # blocks.
-        probe_hints={"r": (512, 4096), "c": (1024, 2048, 16384)},
+        # Rows from 512 to 8192, so the fit sees launches of one row split
+        # (r 512, br 512) up to 1024 (r 8192, br 8), and up to 16384
+        # columns, so it sees one column block and many.
+        probe_hints={"r": (512, 2048, 8192), "c": (1024, 2048, 16384)},
         defaults={"br": 256, "bc": 512},
     )
 

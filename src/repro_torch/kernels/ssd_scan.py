@@ -2,13 +2,23 @@
 plain version.
 
 ``ssd_scan_kernel`` launches ``csrc/ssd_scan.cu`` (the Hopper port of the JAX
-package's ``ssd_scan_pallas``) with launch parameter ``chunk``: a grid of
-(d_head / 16) x bh CTAs of 256 threads, each carrying 16 of the f32 state's
-head-dim columns of one (batch * head) row through the sequence, chunk by
-chunk.  x is (bh, s, dh), dt (bh, s), B and C (bh, s, n), A (bh,); x, B and
-C are bf16 or f32 of one type, dt and A are f32 (the layer computes them in
-f32), and y has x's type.  The kernel masks a ragged last chunk, so the
-chunk need not divide s.
+package's ``ssd_scan_pallas``) with launch parameter ``chunk``.  x is (bh, s,
+dh), dt (bh, s), A (bh,), and B and C (bh / h, s, n), each shared by h
+consecutive rows of x: h is inferred from the shapes, and h = 1 is the
+reference's per-head interface.  x, B and C are bf16 or f32 of one type, dt
+and A are f32 (the layer computes them in f32), and y has x's type.
+
+The kernel is bound by bytes and by the chain of chunk states, so it runs
+every chunk of every row as a CTA of its own, all in parallel: a CTA
+computes what needs no other chunk, then takes the previous chunk's f32
+state from an L2 ring (two slots per chain, which the wrapper allocates),
+publishes its own and finishes its rows.  The h rows that share B and C run
+each chunk together, so B and C come from device memory once per group.
+bf16 at a compiled (dh, n) (``SSD_SM90_SHAPES``) runs the wgmma body with
+the compiled chunks only (``SSD_SM90_CHUNKS``; another chunk raises, on the
+CPU too); f32, and bf16 at other shapes, the SIMT body, whose chunk is any
+multiple of 32 whose stage fits in shared memory.  The kernel masks a ragged
+last chunk, so the chunk need not divide s.
 
 ``ssd_scan_plain`` computes the same chunked function in plain PyTorch, f32
 inside: per chunk the decay-gated quadratic form and the carried state's
@@ -25,17 +35,19 @@ import functools
 
 import torch
 
-from ..core.kernel_spec import SSD_COLS, SSD_ROWS, ssd_smem_bytes
+from ..core.kernel_spec import (SSD_COLS, SSD_ROWS, SSD_SM90_CHUNKS,
+                                SSD_STATE_SLOTS, SSD_THREADS, ssd_smem_bytes,
+                                ssd_uses_sm90)
 from ._build import load
+from ._workspace import zeroed_ints
 from .matmul import LaunchCounter
 
-__all__ = ["DTYPES", "LAUNCHES", "kernel_attributes", "ssd_scan_kernel",
-           "ssd_scan_plain"]
+__all__ = ["DTYPES", "LAUNCHES", "kernel_attributes", "ssd_ctas",
+           "ssd_scan_kernel", "ssd_scan_plain", "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
-MAX_GRID_Y = 65535
 _NEG_INF = -1e30
 
 LAUNCHES = LaunchCounter()
@@ -45,12 +57,13 @@ LAUNCHES = LaunchCounter()
 def _lib() -> ctypes.CDLL:
     lib = load("ssd_scan")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.klaraptor_ssd_scan.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                       i, vp]
+    lib.klaraptor_ssd_scan.argtypes = [vp] * 8 + [i] * 7 + [vp]
     lib.klaraptor_ssd_scan.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_ssd_scan_attributes.argtypes = [i, ip, ip, ip]
     lib.klaraptor_ssd_scan_attributes.restype = i
+    lib.klaraptor_ssd_scan_tile_attributes.argtypes = [i, i, i, ip, ip, ip]
+    lib.klaraptor_ssd_scan_tile_attributes.restype = i
     lib.klaraptor_ssd_error_string.argtypes = [i]
     lib.klaraptor_ssd_error_string.restype = ctypes.c_char_p
     return lib
@@ -61,26 +74,55 @@ def _raise_cuda(what: str, rc: int) -> None:
     raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
-    """Registers per thread, thread limit and spilled local bytes of the
-    kernel compiled for ``dtype`` (builds it if needed)."""
+def _read_attributes(fn, *args) -> dict[str, int]:
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = _lib().klaraptor_ssd_scan_attributes(
-        _DTYPE_CODE[dtype], *[ctypes.byref(v) for v in vals])
+    rc = fn(*args, *[ctypes.byref(v) for v in vals])
     if rc:
         _raise_cuda("cudaFuncGetAttributes", rc)
     return dict(zip(("num_regs", "max_threads", "local_bytes"),
                     (v.value for v in vals)))
 
 
+def kernel_attributes(dtype: torch.dtype) -> dict[str, int]:
+    """Registers per thread, thread limit and spilled local bytes of the
+    SIMT body compiled for ``dtype`` (builds it if needed)."""
+    return _read_attributes(_lib().klaraptor_ssd_scan_attributes,
+                            _DTYPE_CODE[dtype])
+
+
+def tile_attributes(dh: int, n: int, chunk: int) -> dict[str, int]:
+    """The same for the bf16 wgmma instantiation (dh, n, chunk)."""
+    return _read_attributes(_lib().klaraptor_ssd_scan_tile_attributes, dh, n,
+                            chunk)
+
+
+def ssd_ctas(bh: int, s: int, dh: int, n: int, chunk: int,
+             dtype: torch.dtype) -> int:
+    """CTAs of one launch: one per chunk of each row, times dh / SSD_COLS
+    column blocks in the SIMT body."""
+    chunks = -(-s // chunk)
+    if ssd_uses_sm90(dh, n, torch.finfo(dtype).bits // 8):
+        return bh * chunks
+    return bh * (dh // SSD_COLS) * chunks
+
+
+def _per_row(t: torch.Tensor, bh: int) -> torch.Tensor:
+    """B or C (bh / h, s, n) as one copy per row of x (bh, s, n)."""
+    g = t.shape[0]
+    return t[:, None].expand(g, bh // g, *t.shape[1:]).reshape(bh,
+                                                                *t.shape[1:])
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, A: torch.Tensor,
                    chunk: int = 256) -> torch.Tensor:
     """The SSD scan in plain PyTorch, chunk by chunk, f32 inside; the output
-    has x's dtype.  x (bh, s, dh); dt (bh, s); B, C (bh, s, n); A (bh,)."""
+    has x's dtype.  x (bh, s, dh); dt (bh, s); B, C (bh / h, s, n), each
+    shared by h consecutive rows of x; A (bh,)."""
     bh, s, dh = x.shape
     n = B.shape[-1]
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = _per_row(B.float(), bh), _per_row(C.float(), bh)
     a = A.float()[:, None]                                  # (bh, 1)
     state = torch.zeros(bh, n, dh, dtype=torch.float32, device=x.device)
     out = torch.empty(bh, s, dh, dtype=torch.float32, device=x.device)
@@ -106,10 +148,13 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 def _check(x, dt, B, C, A, chunk) -> None:
     """Raise ValueError on anything the kernel does not take."""
     if x.ndim != 3 or B.ndim != 3 or B.shape != C.shape \
-            or B.shape[:2] != x.shape[:2] or tuple(dt.shape) != x.shape[:2] \
+            or B.shape[1] != x.shape[1] or B.shape[0] < 1 \
+            or x.shape[0] % B.shape[0] \
+            or tuple(dt.shape) != x.shape[:2] \
             or tuple(A.shape) != x.shape[:1]:
         raise ValueError(f"the SSD scan takes x (bh, s, dh), dt (bh, s), B "
-                         f"and C (bh, s, n) and A (bh,); got "
+                         f"and C (bh / h, s, n), each shared by h "
+                         f"consecutive rows of x, and A (bh,); got "
                          f"{tuple(x.shape)}, {tuple(dt.shape)}, "
                          f"{tuple(B.shape)}, {tuple(C.shape)}, "
                          f"{tuple(A.shape)}")
@@ -131,15 +176,23 @@ def _check(x, dt, B, C, A, chunk) -> None:
         raise ValueError(f"head dim {dh} and state {n} are not ones the "
                          f"kernel takes (head dim divisible by {SSD_COLS}, "
                          f"state divisible by 8)")
-    if not isinstance(chunk, int) or chunk <= 0 or chunk % SSD_ROWS:
+    if not isinstance(chunk, int) or chunk <= 0:
+        raise ValueError(f"chunk={chunk!r} must be a positive int")
+    if ssd_uses_sm90(dh, n, x.element_size()):
+        if chunk not in SSD_SM90_CHUNKS:
+            raise ValueError(f"chunk={chunk} is not compiled for the bf16 "
+                             f"wgmma body at (dh {dh}, n {n}): it has "
+                             f"chunks {SSD_SM90_CHUNKS}")
+    elif chunk % SSD_ROWS:
         raise ValueError(f"chunk={chunk!r} must be a positive multiple of "
                          f"{SSD_ROWS}")
-    smem = ssd_smem_bytes(chunk, n, x.element_size())
+    smem = ssd_smem_bytes(chunk, n, x.element_size(), dh)
     if smem > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk} needs {smem} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT} a block can "
                          f"have")
-    if bh > MAX_GRID_Y or x.numel() >= 2**31 or B.numel() >= 2**31:
+    if x.numel() >= 2**31 or B.numel() >= 2**31 \
+            or ssd_ctas(bh, s, dh, n, chunk, x.dtype) >= 2**31:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
     if x.device.type == "cuda" and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("x, dt, B, C, A must be 16-byte aligned")
@@ -149,20 +202,33 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                     C: torch.Tensor, A: torch.Tensor, *,
                     chunk: int) -> torch.Tensor:
     """The SSD scan at chunk length ``chunk``: the CUDA kernel for CUDA
-    tensors, ``ssd_scan_plain`` for CPU tensors (after the same checks)."""
+    tensors, ``ssd_scan_plain`` for CPU tensors (after the same checks).
+    B and C may be (bh / h, s, n), shared by h consecutive rows of x."""
     _check(x, dt, B, C, A, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
     bh, s, dh = x.shape
+    n = B.shape[-1]
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    # a chain per row (per 16 head-dim columns in the SIMT body), a flag per
+    # warp of a chain's CTA
+    if ssd_uses_sm90(dh, n, x.element_size()):
+        cols, warps = dh, 2 * chunk // 32
+    else:
+        cols, warps = SSD_COLS, SSD_THREADS // 32
+    chains = bh * (dh // cols)
+    states = torch.empty(chains * SSD_STATE_SLOTS * n * cols,
+                         dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        sync = zeroed_ints(x.device, stream, 1 + chains * warps)
         rc = _lib().klaraptor_ssd_scan(
             x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
-            A.data_ptr(), out.data_ptr(), bh, s, dh, B.shape[-1], chunk,
-            _DTYPE_CODE[x.dtype], stream)
+            A.data_ptr(), out.data_ptr(), states.data_ptr(), sync.data_ptr(),
+            bh, s, dh, n, chunk, bh // B.shape[0], _DTYPE_CODE[x.dtype],
+            stream)
     if rc:
         _raise_cuda("SSD scan kernel launch", rc)
     LAUNCHES.count += 1

@@ -274,8 +274,9 @@ def mamba(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """Full-sequence Mamba-2 mixer (prefill).  x (B, S, d) -> (B, S, d).
 
     ``ssd_op`` defaults to ``ops.ssd_scan``; it takes x (B * Hm, S, dh), dt
-    (B * Hm, S), B and C (B * Hm, S, n) and A (B * Hm,), as the JAX layer
-    hands them to its SSD.
+    (B * Hm, S) and A (B * Hm,) as the JAX layer hands them to its SSD, and
+    B and C as (B, S, n), each shared by the Hm heads of a batch row, where
+    the JAX layer copies them per head.
     """
     ssd_op = ssd_op or ops.ssd_scan
     B, S, _ = x.shape
@@ -294,11 +295,10 @@ def mamba(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     xh = xin.reshape(B, S, Hm, dh).transpose(1, 2).reshape(B * Hm, S, dh)
     dth = dtv.transpose(1, 2).reshape(B * Hm, S)
-    # B and C are shared by the heads: the kernel takes a copy per head
-    Bh = Bc[:, None].expand(B, Hm, S, n).reshape(B * Hm, S, n).contiguous()
-    Ch = Cc[:, None].expand(B, Hm, S, n).reshape(B * Hm, S, n).contiguous()
+    # B and C are shared by the heads: the kernel reads them once per group
     Ah = A[None, :].expand(B, Hm).reshape(B * Hm).contiguous()
-    y = ssd_op(xh.contiguous(), dth.contiguous(), Bh, Ch, Ah)
+    y = ssd_op(xh.contiguous(), dth.contiguous(), Bc.contiguous(),
+               Cc.contiguous(), Ah)
     y = y.reshape(B, Hm, S, dh).transpose(1, 2).reshape(B, S, di)
     y = y + (p["D"][None, None, :, None]
              * xin.reshape(B, S, Hm, dh).float()).reshape(B, S, di

@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
 from repro_torch.core.kernel_spec import (FLASH_SM90_TILES, SM90_TILES,
-                                          flash_uses_sm90)
+                                          flash_uses_sm90, ssd_scan_spec)
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
 from repro_torch.kernels.matmul import OUT_DTYPES, matmul_kernel, matmul_plain
 from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
@@ -100,33 +100,40 @@ def test_cuda_flash_kernel_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_ssd_kernel_matches_plain():
-    """Every chunk the kernel takes at each dtype, at a length no chunk
-    divides, with dt in the JAX kernel tests' range and with small steps,
-    where the state carried across chunks dominates."""
+    """Every chunk the kernel takes at each dtype (the compiled wgmma
+    chunks at bf16 (64, 128)), at a length no chunk divides (a ragged last
+    chunk), with B and C per head and shared by 3 rows, with dt in the JAX
+    kernel tests' range and with small steps, where the state carried
+    across chunks dominates."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, (dh, n), (lo, hi) in itertools.product(
+    for dtype, (dh, n), (lo, hi), h in itertools.product(
             (torch.bfloat16, torch.float32), ((64, 128), (32, 32)),
-            ((0.01, 0.51), (1e-3, 1e-2))):
+            ((0.01, 0.51), (1e-3, 1e-2)), (1, 3)):
         atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (5e-3, 1e-3)
         bh, s = 6, 333
         x = (torch.randn(bh, s, dh, generator=gen, device="cuda") * 0.5
              ).to(dtype)
         dt = lo + (hi - lo) * torch.rand(bh, s, generator=gen, device="cuda")
-        B = (torch.randn(bh, s, n, generator=gen, device="cuda") * 0.3
+        B = (torch.randn(bh // h, s, n, generator=gen, device="cuda") * 0.3
              ).to(dtype)
-        C = (torch.randn(bh, s, n, generator=gen, device="cuda") * 0.3
+        C = (torch.randn(bh // h, s, n, generator=gen, device="cuda") * 0.3
              ).to(dtype)
         A = -0.5 - torch.rand(bh, generator=gen, device="cuda")
-        for chunk in (32, 64, 128) + ((256,) if dtype == torch.bfloat16
-                                      else ()):
+        spec = ssd_scan_spec(dh, n, torch.finfo(dtype).bits // 8)
+        chunks = spec.candidates({"bh": bh, "s": s, "chunkflops": 1}
+                                 )["chunk"].tolist()
+        assert chunks
+        for chunk in chunks:
             plain = ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
             before = SSD_LAUNCHES.count
             out = ssd_scan_kernel(x, dt, B, C, A, chunk=chunk)
             assert SSD_LAUNCHES.count == before + 1
             torch.testing.assert_close(out.float(), plain.float(), atol=atol,
                                        rtol=rtol)
+            assert torch.equal(out, ssd_scan_kernel(x, dt, B, C, A,
+                                                    chunk=chunk))
         torch.testing.assert_close(
             ops.ssd_scan(x, dt, B, C, A).float(),
             ssd_scan_plain(x, dt, B, C, A).float(), atol=atol, rtol=rtol)
@@ -191,16 +198,22 @@ def test_cuda_layernorm_kernel_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_colsum_kernel_matches_plain():
+    """One row split and many (up to 256 CTAs per column block, each adding
+    its partials through the workspace), two calls on one input giving
+    identical bits, and an unaligned shape through the op."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(1024, 2048, generator=gen, device="cuda").to(dtype)
+        x = torch.randn(2048, 2048, generator=gen, device="cuda").to(dtype)
         plain = cs.colsum_plain(x)
-        for br, bc in ((8, 128), (256, 512), (1024, 1024)):
+        for br, bc in ((8, 128), (256, 512), (1024, 1024), (2048, 256),
+                       (16, 1024)):
             before = cs.LAUNCHES.count
             out = cs.colsum_kernel(x, br=br, bc=bc)
             assert cs.LAUNCHES.count == before + 1
             _close(out, plain, dtype)
+            _close(out, cs.colsum_split_order(x, br), dtype)
+            assert torch.equal(out, cs.colsum_kernel(x, br=br, bc=bc))
         xu = torch.randn(99, 13, generator=gen, device="cuda").to(dtype)
         _close(ops.blocked_colsum(xu), cs.colsum_plain(xu), dtype)

@@ -26,9 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (H100, HopperModel, Klaraptor, choose_or_default,
-                              gmm_probe_data, matmul_spec, registry,
-                              selection_ratio)
+from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
+                              choose_or_default, gmm_probe_data, matmul_spec,
+                              registry, selection_ratio)
 from repro_torch.introspect import (CudaKernel, GridSpec, IntrospectError,
                                     LaunchDescription, OperandLaunch,
                                     auto_kernels, auto_register,
@@ -184,25 +184,54 @@ class TestDerivation:
         assert (rows.data, rows.block, rows.ragged) == ("r", "br", True)
         assert 128 in spec.candidates({"r": 4097}, H100)["br"]
         cs = spec_from_kernel(COLSUM, colsum_grid_spec(), device="cpu")
-        assert not any(a.ragged for a in cs.grid)
+        assert [a.data for a in cs.grid] == ["c", "r"]
+        assert not any(a.ragged or a.sequential for a in cs.grid)
+        assert 128 not in cs.candidates({"r": 4097, "c": 2048}, H100)["br"]
 
     def test_colsum_output_written_once_per_column_block(self):
+        """The row splits are a parallel axis; the output depends on the
+        column blocks only, so its traffic is written once per column block
+        although every CTA of a block runs; the workspace's partial sums
+        are written and read back once per CTA."""
         spec = spec_from_kernel(COLSUM, colsum_grid_spec(), device="cpu")
         cols, rows = spec.grid
         assert (cols.data, cols.block, cols.sequential) == ("c", "bc", False)
-        assert (rows.data, rows.block, rows.sequential) == ("r", "br", True)
-        x, out, scratch = spec.operands
-        assert x.deps == (cols.name, rows.name)
+        assert (rows.data, rows.block, rows.sequential) == ("r", "br", False)
+        x, part_out, part_in, out, scratch = spec.operands
+        assert x.deps == part_out.deps == part_in.deps == (cols.name,
+                                                           rows.name)
+        assert part_out.is_output and not part_in.is_output
         assert out.is_output and out.deps == (cols.name,)
         assert out.tile == ("bc",) and out.dtype_bytes == 4
         assert scratch.scratch and scratch.tile == (8, "bc")
         D = {"r": 8192, "c": 4096}
         t = spec.candidates(D, H100)
         tt = spec.traffic_table(D, t, H100)
-        x_t, out_t = tt.operands               # scratch moves no bytes
-        np.testing.assert_array_equal(out_t.fetches, tt.ctas)
-        np.testing.assert_array_equal(x_t.fetches, tt.ctas * tt.seq_iters)
+        x_t, po_t, pi_t, out_t = tt.operands   # scratch moves no bytes
+        np.testing.assert_array_equal(tt.seq_iters, 1)
+        np.testing.assert_array_equal(tt.ctas,
+                                      (4096 // t["bc"]) * (8192 // t["br"]))
+        np.testing.assert_array_equal(out_t.fetches, 4096 // t["bc"])
+        np.testing.assert_array_equal(x_t.fetches, tt.ctas)
+        np.testing.assert_array_equal(x_t.bytes(), 2 * 8192 * 4096)
         np.testing.assert_array_equal(out_t.bytes(), np.full(len(t), 4 * 4096))
+        for part in (po_t, pi_t):
+            np.testing.assert_array_equal(part.bytes(),
+                                          4 * 4096 * (8192 // t["br"]))
+
+    @pytest.mark.parametrize("bc", [128, 512])
+    def test_colsum_ctas_grow_with_row_splits(self, bc):
+        """The derived CTA count is (c / bc) (r / br): it grows with the
+        row splits r / br."""
+        spec = spec_from_kernel(COLSUM, colsum_grid_spec(), device="cpu")
+        D = {"r": 8192, "c": 4096}
+        brs = (8, 64, 512, 2048)
+        t = CandidateTable.from_rows(("br", "bc"),
+                                     [{"br": br, "bc": bc} for br in brs])
+        tt = spec.traffic_table(D, t, H100)
+        np.testing.assert_array_equal(
+            tt.ctas, [(4096 // bc) * (8192 // br) for br in brs])
+        assert np.all(np.diff(tt.ctas) < 0)
 
     def test_hopper_granularity_rule(self, pairs):
         """Every program parameter that sizes a tile is a multiple of the
@@ -358,7 +387,7 @@ class TestAutoKernelPipeline:
         out = capsys.readouterr().out
         assert "auto kernel layernorm_c128_b16: 5 operands, grid rank 1" \
             in out
-        assert "auto kernel colsum_b16: 3 operands, grid rank 2" in out
+        assert "auto kernel colsum_b16: 5 operands, grid rank 2" in out
         assert "registers 64 (launch_bounds; launch-bounds cap 64)" in out
         assert sorted(r.rid for r in done) == [0, 1, 2]
         assert all(r.done and 1 <= len(r.output) <= 3 for r in done)

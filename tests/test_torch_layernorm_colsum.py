@@ -128,6 +128,21 @@ def test_colsum_matches_reference(r, c, name):
                                    np.asarray(pallas)[0], rtol=1e-5)
 
 
+@pytest.mark.parametrize("r,c,br", [(64, 256, 8), (512, 384, 64),
+                                    (1024, 128, 1024)])
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_colsum_split_order_matches_reference(r, c, br, name):
+    """The kernel's two-level order -- an f32 sum per split of br rows, then
+    the splits added in row-split order -- computes the reference's column
+    sums."""
+    xa = np.random.RandomState(r + c + br).randn(r, c).astype(np.float32)
+    xj, xt = _both(xa, name)
+    got = port_cs.colsum_split_order(xt, br)
+    assert got.shape == (c,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.colsum_ref(xj)),
+                               rtol=1e-5, atol=1e-4)
+
+
 def test_cpu_wrappers_count_no_launch():
     xa, ra, ga, ba = (torch.from_numpy(a) for a in _ln_inputs(2, 64, 128))
     before = (port_ln.LAUNCHES.count, port_cs.LAUNCHES.count)
@@ -171,9 +186,14 @@ def test_layernorm_launch_description(r, c, br):
 @pytest.mark.parametrize("r,c,br,bc", [(8192, 4096, 256, 512),
                                        (2048, 8192, 8, 1024)])
 def test_colsum_launch_description(r, c, br, bc):
+    """The row splits are a grid axis and no loop; the partial sums are
+    written and read back once per CTA, the output once per column block."""
     d = port_cs.colsum_launch((((r, c), torch.bfloat16),), br=br, bc=bc)
-    assert d.grid == (c // bc,) and d.loops == (r // br,)
+    assert d.grid == (c // bc, r // br) and d.loops == ()
     assert d.threads == bc and d.smem_bytes == 8 * bc * 4
-    x, out, scratch = d.operands
+    x, part_out, part_in, out, scratch = d.operands
     assert x.deps == (0, 1) and out.deps == (0,) and out.is_output
+    assert part_out.deps == part_in.deps == (0, 1)
+    assert part_out.is_output and not part_in.is_output
+    assert part_out.tile == part_in.tile == out.tile == (bc,)
     assert scratch.scratch and scratch.tile == (8, bc)

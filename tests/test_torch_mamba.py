@@ -132,6 +132,30 @@ def test_mamba_layer_matches(pair):
            LAYER_TOL)
 
 
+def test_layer_hands_shared_b_c_to_the_ssd(pair):
+    """The layer hands the SSD op B and C as (B, S, n), one per batch row
+    shared by its heads, with no per-head copy, and the op's result is the
+    one on per-head copies."""
+    _, _, _, cfg, _, params = pair
+    p = {k: v[0] for k, v in params["blocks"]["pos0"].items()}
+    x = torch.from_numpy(
+        np.random.RandomState(6).randn(2, 64, cfg.d_model).astype(np.float32))
+    seen = []
+
+    def spy(xh, dth, Bs, Cs, Ah):
+        seen.append((xh.shape, Bs.shape, Cs.shape))
+        per_head = [t.repeat_interleave(cfg.mamba_heads, 0) for t in (Bs, Cs)]
+        out = ssd_scan_plain(xh, dth, Bs, Cs, Ah)
+        assert torch.equal(out, ssd_scan_plain(xh, dth, *per_head, Ah))
+        return out
+
+    y = L.mamba(cfg, p, x, ssd_op=spy)
+    ((xs, bs, cs),) = seen
+    assert tuple(xs) == (2 * cfg.mamba_heads, 64, cfg.mamba_head_dim)
+    assert tuple(bs) == tuple(cs) == (2, 64, cfg.ssm_state)
+    torch.testing.assert_close(y, L.mamba(cfg, p, x), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_forward_and_unembed_match(pair, use_pallas):
     jcfg, _, jparams, cfg, _, params = pair

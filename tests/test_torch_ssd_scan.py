@@ -26,8 +26,9 @@ from repro.models.layers import ssd_parallel
 
 from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
                               registry, selection_ratio)
-from repro_torch.core.kernel_spec import (SSD_COLS, ssd_probe_data,
-                                          ssd_scan_spec, ssd_smem_bytes)
+from repro_torch.core.kernel_spec import (SSD_COLS, SSD_SM90_CHUNKS,
+                                          ssd_probe_data, ssd_scan_spec,
+                                          ssd_smem_bytes)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as port_ssd
 from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
@@ -116,8 +117,10 @@ def test_bf16_plain_matches_recurrence():
 @pytest.mark.parametrize("elem", [2, 4])
 def test_spec_feasibility_is_the_kernels_limits(dh, n, elem):
     """A chunk is feasible in the Hopper spec exactly when the kernel's
-    argument check takes it, and the spec's stage bytes are the kernel's
-    dynamic shared memory."""
+    argument check takes it (bf16 at (64, 128): the compiled wgmma chunks),
+    the spec's stage bytes are the kernel's dynamic shared memory, and its
+    CTAs are the launch's: one per chunk of each row (of each 16 head-dim
+    columns in the SIMT body)."""
     spec = ssd_scan_spec(dh, n, elem)
     dtype = torch.bfloat16 if elem == 2 else torch.float32
     D = {"bh": 4, "s": 100, "chunkflops": 1}
@@ -137,15 +140,23 @@ def test_spec_feasibility_is_the_kernels_limits(dh, n, elem):
             takes = False
         assert takes == bool(mask[i]), (chunk, takes)
         if takes:
-            assert stage[i] == ssd_smem_bytes(chunk, n, elem)
+            assert stage[i] == ssd_smem_bytes(chunk, n, elem, dh)
     table = spec.candidates(D, H100)
     assert len(table) > 0
+    if elem == 2 and (dh, n) == (64, 128):
+        assert table["chunk"].tolist() == list(SSD_SM90_CHUNKS)
     tt = spec.traffic_table(D, table, H100)
-    assert np.all(tt.ctas == 4 * dh // SSD_COLS)
+    per_row = 1 if (elem, dh, n) == (2, 64, 128) else dh // SSD_COLS
+    np.testing.assert_array_equal(
+        tt.ctas, [4 * per_row * -(-100 // c) for c in table["chunk"]])
+    np.testing.assert_array_equal(
+        tt.ctas, [port_ssd.ssd_ctas(4, 100, dh, n, int(c), dtype)
+                  for c in table["chunk"]])
     assert np.all(tt.blocks_per_sm >= 1)
     # scratch tiles live in shared memory only: no device-memory traffic
     assert [op.name for op in tt.operands] == \
-        ["x", "dt", "b_proj", "c_proj", "decay", "out"]
+        ["x", "dt", "b_proj", "c_proj", "decay", "state_in", "state_out",
+         "out"]
     # the FLOPs grow with the chunk (the quadratic intra-chunk term)
     assert np.all(np.diff(tt.flops_total) > 0)
 
@@ -159,8 +170,11 @@ def test_spec_matches_reference_interface():
         assert mine.name == theirs.name == ops.ssd_kernel_name(dh, n)
         assert mine.data_params == theirs.data_params
         assert mine.program_params == theirs.program_params
-    seq = [a for a in ssd_scan_spec().grid if a.sequential]
-    assert [a.data for a in seq] == ["s"] and seq[0].ragged
+    for spec in (ssd_scan_spec(), ssd_scan_spec(64, 128, 4)):
+        # the chunks run in parallel: no loop, a ragged chunk axis
+        assert not any(a.sequential for a in spec.grid)
+        (chunks,) = [a for a in spec.grid if a.data == "s"]
+        assert chunks.block == "chunk" and chunks.ragged
     with pytest.raises(ValueError, match="head dim"):
         ssd_scan_spec(40, 128)
 
@@ -213,10 +227,14 @@ def test_ssd_driver_feeds_the_op(ssd_build):
 
 def test_default_chunk_falls_to_one_that_fits():
     """The reference's default chunk (256) does not fit an f32 state of 128
-    in shared memory; the op takes the largest smaller chunk that does."""
-    assert ops._ssd_chunk(64, 128, 2, 256) == 256
+    in shared memory, and is not one of the bf16 wgmma body's compiled
+    chunks (64, 128); the op takes the largest smaller chunk the kernel
+    takes.  The SIMT body takes 256 at (32, 32)."""
+    assert ops._ssd_chunk(64, 128, 2, 256) == 128
     assert ops._ssd_chunk(64, 128, 4, 256) == 128
-    assert ops._ssd_chunk(64, 128, 2, 2048) == 256
+    assert ops._ssd_chunk(64, 128, 2, 2048) == 128
+    assert ops._ssd_chunk(64, 128, 2, 64) == 64
+    assert ops._ssd_chunk(32, 32, 2, 256) == 256
     registry.clear()
     arrays = _inputs(3, 2, 300, 64, 128)
     t = _t(*arrays)
@@ -227,7 +245,9 @@ def test_probe_launcher_binds_ssd_kernels():
     launch = ops.probe_launcher("ssd_scan_h64_n128",
                                 {"bh": 2, "s": 40, "chunkflops": 1},
                                 torch.device("cpu"), seed=0)
-    launch({"chunk": 32})          # the plain version on the CPU
+    launch({"chunk": 64})          # the plain version on the CPU
+    with pytest.raises(ValueError, match="not compiled"):
+        launch({"chunk": 32})      # the bf16 wgmma body has no chunk 32
     with pytest.raises(ValueError):
         ops.probe_launcher("ssd_scan_hx", {"bh": 1}, torch.device("cpu"), 0)
 
@@ -257,3 +277,101 @@ def test_wrapper_raises_and_never_falls_back():
         ops.ssd_scan(x.to("meta"), dt.to("meta"), B.to("meta"),
                      B.to("meta"), A.to("meta"))
     assert LAUNCHES.count == 0
+
+
+def _shared(seed, groups, h, s, dh, n, dt_range=(0.01, 0.51)):
+    """Inputs with B and C (groups, s, n) shared by h rows each, and the
+    same B and C copied per row (groups * h, s, n)."""
+    x, dt, _, _, A = _inputs(seed, groups * h, s, dh, n, dt_range)
+    rng = np.random.RandomState(seed + 1)
+    B = (rng.randn(groups, s, n) * 0.3).astype(np.float32)
+    C = (rng.randn(groups, s, n) * 0.3).astype(np.float32)
+    return (x, dt, B, C, A), (x, dt, np.repeat(B, h, 0), np.repeat(C, h, 0),
+                              A)
+
+
+@pytest.mark.parametrize("groups,h,s,chunk", [(1, 6, 256, 64),
+                                              (2, 3, 333, 128),
+                                              (3, 1, 128, 32)])
+def test_shared_b_c_equal_per_head_copies(groups, h, s, chunk):
+    """B and C (bh / h, s, n), shared by h consecutive rows of x: the plain
+    version gives the same bits as on per-head copies (the reference's
+    interface), and matches the Pallas kernel on the copies."""
+    shared, copies = _shared(groups + h + s, groups, h, s, 32, 16)
+    got = ssd_scan_plain(*_t(*shared), chunk=chunk)
+    assert torch.equal(got, ssd_scan_plain(*_t(*copies), chunk=chunk))
+    assert torch.equal(got, ssd_scan_kernel(*_t(*shared), chunk=chunk))
+    if s % chunk == 0:
+        pallas = ssd_scan_pallas(*copies, chunk=chunk, interpret=True)
+        _close(got, pallas, atol=2e-4, rtol=2e-4)
+    else:
+        _close(got, ref.ssd_scan_ref(*copies))
+
+
+def test_shared_b_c_shapes_are_checked():
+    x, dt, A = torch.zeros(6, 64, 32), torch.zeros(6, 64), torch.zeros(6)
+    for groups in (2, 3, 6):
+        B = torch.zeros(groups, 64, 16)
+        assert ssd_scan_kernel(x, dt, B, B, A, chunk=32).shape == x.shape
+    for bad in (torch.zeros(4, 64, 16), torch.zeros(2, 63, 16)):
+        with pytest.raises(ValueError, match="shared by h"):
+            ssd_scan_kernel(x, dt, bad, bad, A, chunk=32)
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _ssd_wgmma_emulated(x, dt, B, C, A, chunk, split):
+    """The wgmma body's arithmetic on the CPU, in f32: the three f32
+    operands of its products -- w o B, the gated scores, h_in -- go in as
+    bf16 hi + lo terms (``split``) or rounded to bf16 once; x, B and C are
+    bf16 already.  x (bh, s, dh), B and C (bh, s, n)."""
+    def bf16_operand(t):
+        hi = _bf(t)
+        return hi + _bf(t - hi) if split else hi
+
+    bh, s, dh = x.shape
+    n = B.shape[-1]
+    a = A[:, None]
+    h = torch.zeros(bh, n, dh)
+    out = torch.empty(bh, s, dh)
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        xc, dc, Bc, Cc = x[:, c0:c1], dt[:, c0:c1], B[:, c0:c1], C[:, c0:c1]
+        cum = torch.cumsum(a * dc, 1)
+        total = cum[:, -1:]
+        idx = torch.arange(c1 - c0)
+        causal = idx[:, None] >= idx[None, :]
+        gate = torch.exp((cum[:, :, None] - cum[:, None, :]).masked_fill(
+            ~causal, -1e30)) * dc[:, None, :]
+        scores = bf16_operand(torch.einsum("bin,bjn->bij", Cc, Bc) * gate)
+        out[:, c0:c1] = scores @ xc + torch.exp(cum)[..., None] * (
+            Cc @ bf16_operand(h))
+        w = torch.exp(total - cum) * dc
+        h = torch.exp(total)[..., None] * h + torch.einsum(
+            "bjn,bjd->bnd", bf16_operand(Bc * w[..., None]), xc)
+    return out
+
+
+def test_hi_lo_operands_keep_the_pallas_precision():
+    """wgmma takes bf16 operands.  Fed as two bf16 terms (hi + lo), the
+    kernel's f32 operands -- w o B, the gated scores and h_in -- keep the
+    Pallas kernel's precision: the emulation agrees with the Pallas kernel
+    (f32 inside) to f32 rounding on bf16 inputs (3.3e-6 of max |y| at this
+    seed).  Rounded once, they move the output by bf16 roundings (2.2e-3 of
+    max |y|), still within the card's 2e-2 bf16 tolerance, but far from the
+    Pallas kernel."""
+    arrays = [np.asarray(torch.from_numpy(a).to(torch.bfloat16).float())
+              if a.ndim == 3 else a
+              for a in _inputs(21, 3, 256, 64, 32, dt_range=(1e-3, 1e-2))]
+    pallas = np.asarray(ssd_scan_pallas(*arrays, chunk=64, interpret=True))
+    t = _t(*arrays)
+    split = _ssd_wgmma_emulated(*t, chunk=64, split=True).numpy()
+    once = _ssd_wgmma_emulated(*t, chunk=64, split=False).numpy()
+    scale = float(np.abs(pallas).max())
+    to_split = float(np.abs(split - pallas).max()) / scale
+    to_once = float(np.abs(once - pallas).max()) / scale
+    assert to_split < 1e-5, to_split
+    assert 1e-4 < to_once < 2e-2, to_once
+    _close(torch.from_numpy(split), ref.ssd_scan_ref(*arrays))

@@ -103,14 +103,36 @@ block:
      input held to identical bits, and the selection ratios against
      exhaustive search;
  19. the entry point: ``repro_torch.launch.serve.main`` with
-     ``--auto-kernels`` in this process (the drivers dropped first, so it
-     tunes both kernels on the card again), serving llama3.2-1b requests.
+     ``--auto-kernels`` in this process (the drivers dropped and the driver
+     cache pointed at an empty directory first, so it tunes both kernels on
+     the card again), serving llama3.2-1b requests;
+ 20. the paper's evaluation on the card: (a) the quickstart's loop on
+     ``matmul_b16`` (nine wgmma tiles, N 1024-16384) into an empty driver
+     cache, then a fresh ``python`` process that must find the driver there:
+     ``from_cache``, no probe launch (the matmul counter unchanged while it
+     builds and chooses) and the first process's choices at every N; (b)
+     the PolyBench suite's nine matmul rows that launch the f32 SIMT matmul:
+     one spec, ``matmul_b32``, so one build and one driver on the card
+     (``CudaEventTimer``), with Fig. 1 at N 2048 and Table I at N 1024 and
+     2048 -- the card's exhaustive best, the chosen config and the ratio,
+     from one exhaustive pass per N; the f32 matmul at N 2048
+     with the chosen tile against its plain version, ``torch.matmul`` in f32
+     (TF32 off) and the FP32 bound; (c) Fig. 3 for gemm, measured: the
+     build's wall seconds and those of the exhaustive pass over N 32-2048,
+     beside the reference's modeled formula; (d) the suite's other 19 rows on
+     ``HopperModel`` at the card's parameters, labelled so.  The ratios are
+     printed, not gated; the cache read and "every card row ran on
+     ``CudaEventTimer``" are gated.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
-12-13 (SSD scan), 16 (grouped matmul) and 18 (layernorm and column sum; 19
-is the entry point, read the same way): each launch counter is set to 0
+12-13 (SSD scan), 16 (grouped matmul), 18 (layernorm and column sum; 19
+is the entry point, read the same way) and 20 (b) (the f32 SIMT matmul:
+the suite's probes and exhaustive passes): each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
-kernel with its plain version or to time it come after the read.
+kernel with its plain version or to time it come after the read.  The
+driver cache (``$KLARAPTOR_CACHE_DIR``) is an empty temporary directory
+for the whole run, so every phase probes on the card and no run reads an
+earlier run's drivers.
 The line before the last is one JSON object with each kernel's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits nonzero.  Without a CUDA device, or outside a checkout, it
@@ -122,8 +144,11 @@ from __future__ import annotations
 import functools
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -306,6 +331,26 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    caches = []
+    try:
+        return run(caches)
+    finally:
+        for d in caches:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def fresh_cache(caches: list) -> str:
+    """Point the driver cache at a new empty directory (removed at exit)."""
+    d = tempfile.mkdtemp(prefix="klaraptor-cache-")
+    caches.append(d)
+    os.environ["KLARAPTOR_CACHE_DIR"] = d
+    return d
+
+
+def run(caches: list) -> int:
+    import torch
+
+    fresh_cache(caches)
 
     from repro_torch.core import (CudaEventTimer, HardwareParams, Klaraptor,
                                   matmul_spec, registry, selection_ratio)
@@ -666,9 +711,11 @@ def main() -> int:
     ssd_row = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
     gmm_row = gmm_phases(dev, hw, gen, check, time_ms, phase_done)
     introspect_phase(hw, phase_done)
-    ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done)
+    ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done,
+                                 caches)
+    simt_row = paper_phase(dev, hw, check, time_ms, phase_done, caches)
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
-                                  ln_row, cs_row],
+                                  ln_row, cs_row, simt_row],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1565,7 +1612,7 @@ def _layernorm_table(ak, hw) -> dict:
     return recorded
 
 
-def auto_phases(dev, hw, gen, check, time_ms, phase_done):
+def auto_phases(dev, hw, gen, check, time_ms, phase_done, caches):
     """Phases 18-19: the auto-specced layernorm and column sum, tuned on
     the card and launched through the ops and the serving entry point.
     Returns the two kernels' entries of the ``kernels`` line."""
@@ -1702,6 +1749,7 @@ def auto_phases(dev, hw, gen, check, time_ms, phase_done):
     ln.LAUNCHES.reset()
     cs.LAUNCHES.reset()
     registry.clear()
+    fresh_cache(caches)     # [18]'s drivers are in the old one
     argv = ["--arch", "llama3.2-1b", "--auto-kernels", "--requests", "3",
             "--max-new", "4", "--batch", "2", "--max-seq", "64"]
     print(f"[19] the entry point: repro_torch.launch.serve.main({argv})",
@@ -1746,6 +1794,190 @@ def auto_phases(dev, hw, gen, check, time_ms, phase_done):
             "shapes": rs,
         })
     return tuple(out)
+
+
+# A fresh process of phase 20 (a): the quickstart's build must come from the
+# driver cache with no launch; prints one JSON line.
+_CACHE_READER = """
+import json
+from repro_torch.examples import quickstart
+from repro_torch.kernels.matmul import LAUNCHES
+before = LAUNCHES.count
+spec, oracle, hw, build = quickstart.build("cuda")
+choices = {n: build.driver.choose({"m": n, "n": n, "k": n})
+           for n in quickstart.SIZES}
+print(json.dumps({"from_cache": build.from_cache,
+                  "probes": build.collected.n_probe_executions,
+                  "launches": LAUNCHES.count - before,
+                  "choices": {str(n): c for n, c in choices.items()}}))
+"""
+
+
+def paper_phase(dev, hw, check, time_ms, phase_done, caches) -> dict:
+    """Phase 20: the paper's evaluation on the card (see the module
+    docstring).  Returns the f32 SIMT matmul's entry of the ``kernels``
+    line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks import (fig1_accuracy, fig3_system_time,
+                                        table1_configs)
+    from repro_torch.benchmarks.common import build_suite_drivers
+    from repro_torch.configs import polybench
+    from repro_torch.core.kernel_spec import POLYBENCH_LAUNCH_ALIASES
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.matmul import (LAUNCHES, matmul_kernel,
+                                            matmul_plain)
+
+    fig1_n, table1_ns = fig1_accuracy.N, table1_configs.SIZES
+    fig3_ns = fig3_system_time.SIZES
+
+    # -- (a) the quickstart's loop, then a fresh process reads the cache ---
+    print("[20] the paper's evaluation on the card", flush=True)
+    print("  (a) python -m repro_torch.examples.quickstart, into an empty "
+          "driver cache", flush=True)
+    cache_dir = fresh_cache(caches)
+    t0 = time.perf_counter()
+    first = quickstart.main([])
+    first_s = time.perf_counter() - t0
+    if first.from_cache or first.collected.n_probe_executions == 0:
+        raise AssertionError("the quickstart's first build did not probe")
+    expect = {str(n): first.driver.choose({"m": n, "n": n, "k": n})
+              for n in quickstart.SIZES}
+    env = dict(os.environ, PYTHONPATH=str(SRC), KLARAPTOR_CACHE_DIR=cache_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CACHE_READER],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the cache reader failed:\n{proc.stderr}")
+    second = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  first process: built in {first_s:.2f} s with "
+          f"{first.collected.n_probe_executions} probe executions; a fresh "
+          f"process ({time.perf_counter() - t0:.2f} s, its start included): "
+          f"from_cache={second['from_cache']}, probe executions "
+          f"{second['probes']}, matmul launches {second['launches']}, "
+          f"choices at N {list(quickstart.SIZES)} "
+          f"{'identical' if second['choices'] == expect else 'DIFFER'}",
+          flush=True)
+    if not second["from_cache"] or second["probes"] or second["launches"] \
+            or second["choices"] != expect:
+        raise AssertionError(f"the fresh process did not read the driver "
+                             f"from the cache: {second} against {expect}")
+
+    # -- (b) Fig. 1 and Table I for the nine card-timed matmul rows --------
+    card_rows = [n for n in polybench.suite() if n in POLYBENCH_LAUNCH_ALIASES]
+    LAUNCHES.reset()                    # the f32 SIMT matmul's main path
+    t0 = time.perf_counter()
+    _, rows = build_suite_drivers(card_rows, device=dev)
+    oracles = {row.oracle_name for row in rows.values()}
+    if oracles != {"CudaEventTimer"} or len(rows) != 9:
+        raise AssertionError(f"the card rows ran on {oracles}")
+    if len({id(r) for r in rows.values()}) != 1:
+        raise AssertionError("the nine matmul rows did not share one build")
+    row = rows["gemm"]
+    if row.spec.name != "matmul_b32" or LAUNCHES.count == 0 or \
+            row.build.collected.n_probe_executions == 0:
+        raise AssertionError("the card rows' build launched no f32 matmul")
+    build_s = time.perf_counter() - t0
+    spec, timer, driver = row.spec, row.oracle, row.build.driver
+    passes = {}
+    for n in table1_ns:
+        D = polybench.eval_points(spec, sizes=(n,))[0]
+        table = spec.candidates(D, hw)
+        times = timer.true_time_batch(spec.traffic_table(D, table, hw))
+        passes[n] = (D, table, times)
+    launches = LAUNCHES.count           # the main path ends here
+    print(f"  (b) the nine matmul rows on CudaEventTimer ({card_rows}), "
+          f"one spec, so one driver of {spec.name}: built in "
+          f"{build_s:.2f} s; one exhaustive pass per N "
+          f"({', '.join(str(len(passes[n][1])) for n in table1_ns)} "
+          f"configurations at N {list(table1_ns)}); f32 SIMT matmul launches "
+          f"{launches} (probes, warm-ups, exhaustive passes)", flush=True)
+    ratios = {}
+    for n in table1_ns:
+        D, table, times = passes[n]
+        best = int(np.argmin(times))
+        chosen = driver.choose(D)
+        i = next(j for j in range(len(table)) if table.row(j) == chosen)
+        ratios[n] = float(times[best] / times[i])
+        print(f"  {'fig1' if n == fig1_n else 'table1'}/{spec.name}@N{n} "
+              f"(the nine rows): card best {table.row(best)} "
+              f"{times[best] * 1e3:.4f} ms, chosen {chosen} "
+              f"{times[i] * 1e3:.4f} ms, ratio {ratios[n]:.3f} "
+              f"(CudaEventTimer; printed, not gated)", flush=True)
+    print(f"  fig1 card kernels at N {fig1_n}: {spec.name} ratio "
+          f"{ratios[fig1_n]:.3f}, {int(ratios[fig1_n] >= 0.85)}/1 >= 0.85 "
+          f"(CudaEventTimer)", flush=True)
+
+    # the f32 SIMT matmul at Fig. 1's size with the chosen tile
+    N = fig1_n
+    cfg = driver.choose({"m": N, "n": N, "k": N})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(N, N, generator=gen, device=dev)
+    y = torch.randn(N, N, generator=gen, device=dev) / N ** 0.5
+    plain = matmul_plain(x, y)
+    err = check(matmul_kernel(x, y, **cfg), plain, torch.float32,
+                f"f32 SIMT matmul N {N} {cfg}")
+    t_ops, t_bytes = 2.0 * N ** 3 / PEAK_F32, 3 * N * N * 4 / HBM_BW
+    simt = {
+        "ms": time_ms(lambda: matmul_kernel(x, y, **cfg)),
+        "plain_ms": time_ms(lambda: matmul_plain(x, y), max_iters=1),
+        "library_ms": time_ms(lambda: torch.matmul(x, y)),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    print(f"  f32 SIMT matmul N {N}, chosen {cfg}: {simt['ms']:.4f} ms "
+          f"({2.0 * N ** 3 / simt['ms'] / 1e9:.2f} TFLOP/s, "
+          f"{100 * simt['bound_ms'] / simt['ms']:.1f} % of the FP32 bound "
+          f"{simt['bound_ms']:.4f} ms) | torch.matmul f32, TF32 off "
+          f"{simt['library_ms']:.4f} ms | plain {simt['plain_ms']:.4f} ms",
+          flush=True)
+    del x, y, plain
+
+    # -- (c) Fig. 3 for gemm, measured --------------------------------------
+    (f3,) = fig3_system_time.run(kernels=("gemm",), device=dev)
+    if f3["oracle"] != "CudaEventTimer":
+        raise AssertionError(f"Fig. 3's gemm ran on {f3['oracle']}")
+    print(f"  (c) fig3/gemm (CudaEventTimer), measured: build (anew, not "
+          f"from the cache) {f3['measured_build_s']:.3f} s, exhaustive "
+          f"passes over N {sorted(set(fig3_ns) - set(f3['skipped_sizes']))} "
+          f"{f3['measured_exhaustive_s']:.3f} s, speedup "
+          f"{f3['measured_speedup']:.1f}x; the reference's model "
+          f"({fig3_system_time.RUN_OVERHEAD_S * 1e3:g} ms per run, "
+          f"{fig3_system_time.MEASURE_REPS} repetitions) on the same run: "
+          f"{f3['klaraptor_s']:.3f} s against {f3['exhaustive_s']:.3f} s, "
+          f"{f3['speedup']:.1f}x; skipped N {f3['skipped_sizes']} (no "
+          f"feasible tile: bm * bn / 64 threads stay under one warp)",
+          flush=True)
+
+    # -- (d) the other rows on HopperModel at the card's parameters --------
+    others = [n for n in polybench.suite() if n not in card_rows]
+    model = fig1_accuracy.run(kernels=others, device=dev)
+    if {r["oracle"] for r in model} != {"HopperModel"}:
+        raise AssertionError("a row without a kernel ran on the card")
+    s = fig1_accuracy.summary(model)["HopperModel"]
+    print(f"  (d) the other {len(others)} rows on HopperModel (the analytic "
+          f"H100 at the card's parameters, not the card) at N {fig1_n}: "
+          f"median ratio {s['median_ratio']:.3f}, {s['good']}/{s['rows']} "
+          f">= 0.85: " + ", ".join(f"{r['kernel']} {r['ratio']:.3f}"
+                                   for r in model), flush=True)
+    phase_done(20)
+    return {
+        "name": "matmul_b32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:46",
+        "launches": launches,
+        "max_abs_err": err,
+        **simt,
+        "shape": {"m": N, "n": N, "k": N},
+        "config": cfg,
+        "fig1_ratio": ratios[fig1_n],
+        "table1_ratios": {str(n): ratios[n] for n in table1_ns},
+        "fig3_measured_s": {"build": f3["measured_build_s"],
+                            "exhaustive": f3["measured_exhaustive_s"]},
+    }
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 
 Each module exposes ``full()`` and ``smoke()`` ModelConfigs.  The JAX
 package's other architectures are known by id and raise, naming the ROADMAP
-item that ports them.
+item that ports them.  ``polybench`` is the paper's own kernel-suite workload
+(not a language model), exported as the JAX package exports it.
 """
 
-from . import llama3_2_1b, mamba2_130m
+from . import llama3_2_1b, mamba2_130m, polybench
 from .base import SHAPES, ShapePreset, shape_applicable
 
 REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b, mamba2_130m)}
@@ -35,4 +36,4 @@ def get_config(arch: str, smoke: bool = False):
 
 
 __all__ = ["ARCH_IDS", "PENDING", "REGISTRY", "SHAPES", "ShapePreset",
-           "get_config", "shape_applicable"]
+           "get_config", "polybench", "shape_applicable"]

@@ -6,6 +6,8 @@ fitting) are carried over from the JAX package unchanged; the hardware side
 an NVIDIA H100.
 """
 
+from .cache import (CacheEntry, DriverCache, cache_key, code_digest,
+                    default_cache, default_cache_dir, spec_fingerprint)
 from .collect import (BatchShard, CollectedData, batch_seed, collect,
                       collect_batch, default_probe_data,
                       from_reference_collected, merge_shards)
@@ -13,12 +15,13 @@ from .device_model import (H100, CudaEventTimer, DeviceModel, HardwareParams,
                            HopperModel, ProbeBatch, RowProbe, TrafficOperand,
                            TrafficTable, roofline_times)
 from .driver import (DriverProgram, choose_or_default, dkey, fit_tile,
-                     register_driver, registry)
+                     get_driver, register_driver, registry,
+                     warm_start_from_cache)
 from .fitting import FitResult, fit_auto, fit_polynomial, fit_rational
 from .kernel_spec import (CandidateTable, GridAxis, KernelSpec, Operand,
                           SpecError, flash_attention_spec, flash_probe_data,
                           gmm_probe_data, matmul_spec, moe_gmm_spec,
-                          ssd_probe_data, ssd_scan_spec)
+                          polybench_suite, ssd_probe_data, ssd_scan_spec)
 from .occupancy import cuda_occupancy_program
 from .perf_model import LOW_LEVEL_METRICS, build_time_program
 from .polynomial import Polynomial, design_matrix, monomial_exponents
@@ -30,17 +33,20 @@ from .tuner import (BuildResult, Klaraptor, exhaustive_search,
                     fitresult_from_json, selection_ratio)
 
 __all__ = [
+    "CacheEntry", "DriverCache", "cache_key", "code_digest",
+    "default_cache", "default_cache_dir", "spec_fingerprint",
     "BatchShard", "CollectedData", "batch_seed", "collect", "collect_batch",
     "default_probe_data", "from_reference_collected", "merge_shards",
     "H100", "CudaEventTimer", "DeviceModel", "HardwareParams", "HopperModel",
     "ProbeBatch", "RowProbe", "TrafficOperand", "TrafficTable",
     "roofline_times",
-    "DriverProgram", "choose_or_default", "dkey", "fit_tile",
-    "register_driver", "registry",
+    "DriverProgram", "choose_or_default", "dkey", "fit_tile", "get_driver",
+    "register_driver", "registry", "warm_start_from_cache",
     "FitResult", "fit_auto", "fit_polynomial", "fit_rational",
     "CandidateTable", "GridAxis", "KernelSpec", "Operand", "SpecError",
     "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
-    "matmul_spec", "moe_gmm_spec", "ssd_probe_data", "ssd_scan_spec",
+    "matmul_spec", "moe_gmm_spec", "polybench_suite", "ssd_probe_data",
+    "ssd_scan_spec",
     "cuda_occupancy_program",
     "LOW_LEVEL_METRICS", "build_time_program",
     "Polynomial", "design_matrix", "monomial_exponents",

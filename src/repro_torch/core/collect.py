@@ -104,6 +104,24 @@ class CollectedData:
     def __len__(self) -> int:
         return int(self.grid_steps.shape[0])
 
+    @classmethod
+    def empty(cls, spec: KernelSpec) -> "CollectedData":
+        """A dataset of no samples and no probe executions (what a build
+        that found its driver in the cache collected)."""
+        return cls(
+            spec_name=spec.name,
+            data_params=tuple(spec.data_params),
+            program_params=tuple(spec.program_params),
+            columns={v: np.empty(0) for v in
+                     (*spec.data_params, *spec.program_params)},
+            metrics={m: np.empty(0) for m in METRIC_COLUMNS},
+            grid_steps=np.empty(0, dtype=np.int64),
+            stage_bytes=np.empty(0, dtype=np.int64),
+            n_probe_executions=0,
+            probe_device_seconds=0.0,
+            collect_wall_seconds=0.0,
+        )
+
     def matrix(self, metric: str, var_names: Sequence[str]
                ) -> tuple[np.ndarray, np.ndarray]:
         """Design points X over ``var_names`` and targets y for ``metric``."""

@@ -46,6 +46,7 @@ fits carries the measured variation.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, fields, replace
 from typing import Mapping
 
@@ -55,7 +56,7 @@ import torch
 __all__ = [
     "HardwareParams", "H100", "ProbeBatch", "RowProbe", "DeviceModel",
     "TrafficOperand", "TrafficTable", "HopperModel", "CudaEventTimer",
-    "roofline_times",
+    "kernel_sources_digest", "roofline_times",
 ]
 
 
@@ -392,6 +393,18 @@ class HopperModel(DeviceModel):
         return self._times(table)[0]
 
 
+def kernel_sources_digest() -> str:
+    """SHA-256 over every CUDA source of the port's kernel library, each as
+    ``kernels._build.source_bytes`` gives it (the source and every header
+    it may include)."""
+    from ..kernels import _build
+
+    h = hashlib.sha256()
+    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+        h.update(name.encode() + b"\0" + _build.source_bytes(name))
+    return h.hexdigest()
+
+
 class CudaEventTimer(DeviceModel):
     """The real oracle: the port's kernel, timed on the card.
 
@@ -436,9 +449,11 @@ class CudaEventTimer(DeviceModel):
         self._flush: torch.Tensor | None = None
 
     def fingerprint(self) -> dict:
+        """The timer's settings and the hash of the kernel library's
+        sources: a driver tuned on other kernel code is another build."""
         return {"class": type(self).__name__, "hw": self.hw.name,
                 "warmup": self.warmup, "timings": self.timings,
-                "seed": self.seed}
+                "seed": self.seed, "sources": kernel_sources_digest()}
 
     def _launch_fn(self, kernel: str, D: Mapping[str, int]):
         key = (kernel, tuple(sorted(D.items())))

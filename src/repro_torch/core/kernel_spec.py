@@ -49,9 +49,10 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Floor, Max, Min,
 
 __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
+    "POLYBENCH_LAUNCH_ALIASES", "POLYBENCH_SUITE",
     "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
-    "matmul_spec", "moe_gmm_spec", "sm90_smem_bytes", "ssd_probe_data",
-    "ssd_scan_spec", "ssd_uses_sm90", "substitute",
+    "matmul_spec", "moe_gmm_spec", "polybench_suite", "sm90_smem_bytes",
+    "ssd_probe_data", "ssd_scan_spec", "ssd_uses_sm90", "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -397,7 +398,10 @@ class KernelSpec:
             if a.block is not None and isinstance(a.data, str) \
                     and not a.ragged:
                 size = int(D[a.data])
-                mask &= (table[a.block] <= size) & (size % table[a.block] == 0)
+                # a block named by a data parameter spans that extent
+                block = table[a.block] if a.block in table.columns \
+                    else int(D[a.block])
+                mask &= (block <= size) & (size % block == 0)
         return mask
 
     def default_candidates(self, param: str) -> tuple[int, ...]:
@@ -927,3 +931,156 @@ def ssd_probe_data(bhs: Sequence[int] = (4, 8, 16, 32, 64),
     2048, many waves; the chains of states run s / chunk hops, 4 to 64."""
     return [{"bh": int(bh), "s": int(s), "chunkflops": 1}
             for bh in bhs for s in seqs]
+
+
+# ---------------------------------------------------------------------------
+# The PolyBench/GPU-analogue suite (the paper's evaluation workloads,
+# Section VI, Table I), on Hopper
+# ---------------------------------------------------------------------------
+# The reference's 28 rows with their names, data and program parameters,
+# FLOPs per point, candidates and fit variables.  The matmul rows are the f32
+# SIMT matmul's spec (``matmul_spec(4)``), renamed; the reference's
+# ``mxu_fraction`` has no counterpart on the CUDA cores, so corr and covar
+# equal gemm here.  The matvec, stencil and reduction rows describe a kernel
+# neither package compiles: their spec states a notional SIMT launch (threads
+# and registers per thread), f32 FMAs on the CUDA cores, and the bytes such a
+# kernel would move, in place of the reference's TPU lane padding.
+
+POLYBENCH_MATMUL_ROWS = ("gemm", "mm2_k1", "mm2_k2", "mm3_k1", "mm3_k2",
+                         "mm3_k3", "syrk", "syr2k", "corr", "covar")
+
+# Suite rows the card times by launching a compiled kernel: each matmul row
+# whose spec is the f32 SIMT matmul's, FLOPs included.  syr2k counts two
+# products per point (4 FLOPs) and the kernel computes one, so it has none
+# and stays on HopperModel on the card too.
+POLYBENCH_LAUNCH_ALIASES = {name: "matmul_b32"
+                            for name in POLYBENCH_MATMUL_ROWS
+                            if name != "syr2k"}
+
+# Registers per thread of the notional kernels (an accumulator, a few
+# addresses and loop counters).
+NOTIONAL_REGS_PER_THREAD = 32
+# Threads per CTA of the notional reduction.
+REDUCTION_THREADS = 256
+
+_ALL_STEPS = ("mem_step", "cmp_step", "ovh_step")
+
+
+def _matvec_spec(name: str, n_mats: int = 1,
+                 dtype_bytes: int = 4) -> KernelSpec:
+    """out[i] = sum_j A[i, j] x[j] over CTAs of (br, bc) tiles.
+
+    Notional SIMT launch: bc threads, one per column of the tile, each
+    reading its x[j] once and walking the br rows (a warp reads 32
+    consecutive f32 of a row, one 128-byte transaction: ``bc % 32 == 0``);
+    each row's partial sum is reduced across the CTA and added into out[i]
+    with an atomic, so every CTA writes br values.  Nothing is staged in
+    shared memory.
+    """
+    return KernelSpec(
+        name=name,
+        data_params=("r", "c"),
+        program_params=("br", "bc"),
+        grid=(GridAxis("i", "r", "br"), GridAxis("j", "c", "bc")),
+        operands=(
+            Operand("mat", ("br", "bc"), ("i", "j"), dtype_bytes),
+            Operand("vec", ("bc",), ("j",), dtype_bytes),
+            Operand("out", ("br",), ("i", "j"), dtype_bytes, is_output=True),
+        ),
+        flops_per_point=2.0 * n_mats,
+        threads=var("bc"),
+        regs_per_thread=NOTIONAL_REGS_PER_THREAD,
+        constraints=("bc % 32 == 0",),
+        param_candidates={"br": (8, 16, 32, 64, 128, 256, 512, 1024),
+                          "bc": (128, 256, 512, 1024, 2048, 4096)},
+        fit_vars={m: ("br", "bc") for m in _ALL_STEPS},
+    )
+
+
+def _stencil_spec(name: str, halo: int, flops: float,
+                  dtype_bytes: int = 4) -> KernelSpec:
+    """out = stencil(inp) over CTAs of (br, bc) tiles.
+
+    Notional SIMT launch: bc threads, one per column of the tile (``bc %
+    32 == 0``: a warp's row reads coalesce), which stage the tile and its
+    ``halo`` rows above and below and ``halo`` columns left and right in
+    shared memory, then walk the br rows.  The halo is what a CUDA kernel
+    reads: ``2 * halo`` rows of bc and br rows of ``2 * halo``.
+    """
+    return KernelSpec(
+        name=name,
+        data_params=("r", "c"),
+        program_params=("br", "bc"),
+        grid=(GridAxis("i", "r", "br"), GridAxis("j", "c", "bc")),
+        operands=(
+            Operand("inp", ("br", "bc"), ("i", "j"), dtype_bytes, staged=True),
+            Operand("halo_r", (2 * halo, "bc"), ("i", "j"), dtype_bytes,
+                    staged=True),
+            Operand("halo_c", ("br", 2 * halo), ("i", "j"), dtype_bytes,
+                    staged=True),
+            Operand("out", ("br", "bc"), ("i", "j"), dtype_bytes,
+                    is_output=True),
+        ),
+        flops_per_point=flops,
+        threads=var("bc"),
+        regs_per_thread=NOTIONAL_REGS_PER_THREAD,
+        constraints=("bc % 32 == 0",),
+        param_candidates={"br": (8, 16, 32, 64, 128, 256, 512),
+                          "bc": (128, 256, 512, 1024, 2048)},
+        fit_vars={m: ("br", "bc") for m in _ALL_STEPS},
+    )
+
+
+def _reduction_spec(name: str, flops: float = 1.0,
+                    dtype_bytes: int = 4) -> KernelSpec:
+    """A full reduction of (r, c) to one value over CTAs of br whole rows.
+
+    Notional SIMT launch: REDUCTION_THREADS threads stride over the CTA's
+    br x c block (coalesced along c), reduce across the CTA, and add the
+    partial into the one output with an atomic.  The column axis is one
+    block of c columns (its block is the data parameter itself), so the
+    grid's points, and the FLOPs, are r x c.  Rows are looped over, so br
+    needs no granule.
+    """
+    return KernelSpec(
+        name=name,
+        data_params=("r", "c"),
+        program_params=("br",),
+        grid=(GridAxis("i", "r", "br"), GridAxis("j", "c", "c")),
+        operands=(
+            Operand("inp", ("br", "c"), ("i", "j"), dtype_bytes),
+            Operand("out", (1,), ("i",), dtype_bytes, is_output=True),
+        ),
+        flops_per_point=flops,
+        threads=const(float(REDUCTION_THREADS)),
+        regs_per_thread=NOTIONAL_REGS_PER_THREAD,
+        param_candidates={"br": (8, 16, 32, 64, 128, 256, 512, 1024)},
+        fit_vars={m: ("br",) for m in _ALL_STEPS},
+    )
+
+
+def polybench_suite() -> dict[str, KernelSpec]:
+    """The PolyBench/GPU-analogue suite (paper Table I rows) on Hopper."""
+    suite: dict[str, KernelSpec] = {}
+    for nm in POLYBENCH_MATMUL_ROWS:
+        s = matmul_spec(dtype_bytes=4)
+        s.name = nm
+        if nm == "syr2k":
+            s.flops_per_point = 4.0
+        suite[nm] = s
+    for nm, k in (("atax_k1", 1), ("atax_k2", 1), ("bicg_k1", 1),
+                  ("bicg_k2", 1), ("mvt_k1", 1), ("mvt_k2", 1),
+                  ("gesummv", 2)):
+        suite[nm] = _matvec_spec(nm, n_mats=k)
+    suite["conv2d"] = _stencil_spec("conv2d", halo=8, flops=17.0)
+    suite["conv3d"] = _stencil_spec("conv3d", halo=8, flops=53.0)
+    for nm in ("fdtd_step1", "fdtd_step2", "fdtd_step3"):
+        suite[nm] = _stencil_spec(nm, halo=8, flops=5.0)
+    for nm, fl in (("reduce", 1.0), ("mean", 2.0), ("std", 4.0)):
+        suite[nm] = _reduction_spec(nm, flops=fl)
+    for nm in ("gramschmidt_k1", "gramschmidt_k2", "gramschmidt_k3"):
+        suite[nm] = _matvec_spec(nm)
+    return suite
+
+
+POLYBENCH_SUITE = tuple(polybench_suite().keys())

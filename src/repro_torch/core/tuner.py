@@ -2,7 +2,10 @@
 
 ``Klaraptor.build_driver`` runs the three compile-time steps of Section IV
 (collect -> fit -> codegen) for one kernel spec against a device oracle and
-returns a ready, registered ``DriverProgram``.
+returns a ready, registered ``DriverProgram``.  Builds write through the
+persistent driver cache (core/cache.py): a later process asking for the same
+spec, card and build settings (the oracle's fingerprint among them) gets the
+stored driver back without one probe.
 
 ``exhaustive_search`` is the paper's comparison baseline (Table I "Best
 Config." column): time *every* feasible configuration at the actual data
@@ -13,6 +16,7 @@ scores a driver the way Fig. 1 does: best_time / chosen_time (>= 0.85 is
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Mapping, Sequence
@@ -20,6 +24,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from .cache import (CacheEntry, DriverCache, cache_key, code_digest,
+                    default_cache)
 from .codegen import generate_driver_source
 from .collect import CollectedData, collect
 from .device_model import CudaEventTimer, DeviceModel, HardwareParams
@@ -32,6 +38,8 @@ from .rational import RationalFunction
 __all__ = ["BuildResult", "Klaraptor", "exhaustive_search",
            "fitresult_from_json", "selection_ratio"]
 
+logger = logging.getLogger(__name__)
+
 Dims = Mapping[str, int]
 
 
@@ -42,9 +50,11 @@ class BuildResult:
     collected: CollectedData
     build_wall_seconds: float
     probe_device_seconds: float
+    from_cache: bool = False
 
     def fit_report(self) -> str:
-        lines = [f"driver build for {self.driver.kernel}:"]
+        origin = " (cached)" if self.from_cache else ""
+        lines = [f"driver build for {self.driver.kernel}{origin}:"]
         for m, f in self.fits.items():
             lines.append(
                 f"  {m}: deg(num)={f.num_bounds} deg(den)={f.den_bounds} "
@@ -55,6 +65,18 @@ class BuildResult:
             f"device_s={self.probe_device_seconds:.4f} "
             f"wall_s={self.build_wall_seconds:.2f}")
         return "\n".join(lines)
+
+
+def _fits_to_json(fits: Mapping[str, FitResult]) -> dict:
+    return {m: {
+        "function": f.function.to_json(),
+        "rel_error": f.rel_error,
+        "cv_error": f.cv_error,
+        "num_bounds": list(f.num_bounds),
+        "den_bounds": list(f.den_bounds),
+        "n_params": f.n_params,
+        "condition_number": f.condition_number,
+    } for m, f in fits.items()}
 
 
 def fitresult_from_json(raw: Mapping) -> dict[str, FitResult]:
@@ -77,15 +99,28 @@ class Klaraptor:
     With no oracle it times the port's kernels on the card
     (``CudaEventTimer``) and raises if there is none; on the CPU a caller
     passes an oracle (``HopperModel``) and ``device="cpu"`` explicitly.
+    ``cache``: None for the default driver cache, False for none, or a
+    ``DriverCache``.
     """
+
+    # The cache-write warning is given once per process: an unwritable
+    # cache directory is one diagnosis, not one per build.
+    _cache_write_warned = False
 
     def __init__(self, oracle: DeviceModel | None = None, *,
                  device: str | torch.device = "cuda",
-                 hw: HardwareParams | None = None):
+                 hw: HardwareParams | None = None,
+                 cache: DriverCache | None | bool = None):
         self.hw = hw or (oracle.hw if oracle is not None
                          else HardwareParams.from_device(device))
         self.oracle = oracle if oracle is not None else \
             CudaEventTimer(self.hw, device=device)
+        if cache is False:
+            self.cache: DriverCache | None = None
+        elif cache is None:
+            self.cache = default_cache()
+        else:
+            self.cache = cache
 
     def build_driver(
         self,
@@ -99,12 +134,50 @@ class Klaraptor:
         max_den_degree: int = 2,
         strategy=None,
         budget=None,
+        use_cache: bool = True,
+        cache_version: int = 0,
     ) -> BuildResult:
-        """Collect -> fit -> codegen one driver.
+        """Collect -> fit -> codegen one driver, through the driver cache.
 
-        There is no artifact cache yet: every call probes the oracle anew.
+        A cache hit (same spec, hardware, settings and oracle fingerprint)
+        returns the stored driver with ``from_cache=True`` and no probe;
+        ``use_cache=False`` skips the read but still writes.  A miss builds
+        and writes the driver as generation ``cache_version``; a failed
+        write warns once and does not fail the build.
         """
+        from ..search import resolve_strategy
+
         t0 = time.perf_counter()
+        key = None
+        if self.cache is not None:
+            key = cache_key(spec, self.hw, {
+                "repeats": repeats,
+                "max_configs_per_size": max_configs_per_size,
+                "seed": seed,
+                "max_num_degree": max_num_degree,
+                "max_den_degree": max_den_degree,
+                "probe_data": [sorted(d.items()) for d in probe_data]
+                if probe_data is not None else None,
+                "oracle": self.oracle.fingerprint(),
+                "strategy": resolve_strategy(strategy).fingerprint(),
+                "budget": budget.fingerprint() if budget is not None
+                else None,
+            })
+            entry = self.cache.get(spec.name, key) if use_cache else None
+            if entry is not None:
+                driver = DriverProgram.from_source(
+                    spec.name, entry.source, self.hw,
+                    tuning_version=entry.tuning_version)
+                if register:
+                    register_driver(driver)
+                return BuildResult(
+                    driver=driver,
+                    fits=fitresult_from_json(entry.fits),
+                    collected=CollectedData.empty(spec),
+                    build_wall_seconds=time.perf_counter() - t0,
+                    probe_device_seconds=0.0,
+                    from_cache=True,
+                )
         data = collect(spec, self.oracle, probe_data=probe_data, hw=self.hw,
                        repeats=repeats,
                        max_configs_per_size=max_configs_per_size, seed=seed,
@@ -118,9 +191,12 @@ class Klaraptor:
                                     max_den_degree=max_den_degree)
         source = generate_driver_source(
             spec, {m: f.function for m, f in fits.items()}, self.hw)
-        driver = DriverProgram.from_source(spec.name, source, self.hw)
+        driver = DriverProgram.from_source(spec.name, source, self.hw,
+                                           tuning_version=cache_version)
         if register:
             register_driver(driver)
+        if key is not None:
+            self._cache_put(spec, key, source, fits, cache_version)
         return BuildResult(
             driver=driver,
             fits=fits,
@@ -128,6 +204,25 @@ class Klaraptor:
             build_wall_seconds=time.perf_counter() - t0,
             probe_device_seconds=data.probe_device_seconds,
         )
+
+    def _cache_put(self, spec: KernelSpec, key: str, source: str,
+                   fits: dict[str, FitResult], tuning_version: int) -> None:
+        """Write one build through; an unwritable cache warns once."""
+        try:
+            self.cache.put(CacheEntry(
+                kernel=spec.name, key=key, source=source,
+                fits=_fits_to_json(fits), code=code_digest(spec),
+                created_at=time.time(), hw_name=self.hw.name,
+                tuning_version=tuning_version))
+        except OSError as e:
+            if not Klaraptor._cache_write_warned:
+                Klaraptor._cache_write_warned = True
+                logger.warning(
+                    "driver cache write failed (%s) at %s for kernel %s; "
+                    "builds will not persist, so every process probes "
+                    "anew (point KLARAPTOR_CACHE_DIR at a writable "
+                    "directory)", e, self.cache.path(spec.name, key),
+                    spec.name)
 
 
 def exhaustive_search(

@@ -8,11 +8,11 @@ process-wide table.  The AutoKernel is the glue the other layers use:
   * ``choose(D)``        -- launch parameters through the standard
     ``choose_or_default`` dispatch (override > driver > default), the same
     path ``kernels/ops.py`` uses for hand-specced kernels;
-  * ``ensure_driver``    -- the registered driver, else a full collect ->
-    fit -> codegen build against a device oracle (``CudaEventTimer`` on the
-    card, ``HopperModel`` on the CPU).  The port has no artifact cache yet
-    (ROADMAP Queue A, 'Rest of the tuning pipeline'), so it builds whenever
-    no driver is registered in this process;
+  * ``ensure_driver``    -- the registered driver, else a collect -> fit
+    -> codegen build against a device oracle (``CudaEventTimer`` on the
+    card, ``HopperModel`` on the CPU) through the driver cache, which hands
+    back a driver an earlier process built with the same kernel code and
+    settings;
   * ``fit_config``       -- snap a chosen config onto an actual shape with
     the *derived* granularities (parsed back out of the synthesized
     ``"p % g == 0"`` constraints) and the derived ragged axes;
@@ -95,7 +95,8 @@ class AutoKernel:
 
     def choose(self, D: Dims) -> dict[str, int]:
         """Launch parameters via the standard dispatch chain."""
-        return choose_or_default(self.name, D, self.defaults)
+        return choose_or_default(self.name, D, self.defaults,
+                                 spec=self.spec)
 
     def probe_data(self, sizes: Sequence[int] = (256, 512, 1024)
                    ) -> list[dict[str, int]]:
@@ -111,8 +112,10 @@ class AutoKernel:
                       **build_kwargs) -> DriverProgram:
         """The registered driver, or one built against ``device`` (None:
         ``CudaEventTimer`` on the card) on ``probe_data()`` unless the
-        caller passes its own.  There is no artifact cache yet, so every
-        process without a registered driver builds anew."""
+        caller passes its own.  The build goes through the driver cache
+        (``core/cache.py``), whose key folds in the derived spec's
+        ``source_fingerprint``: a process finds a driver an earlier one
+        built for the same kernel code and settings, and probes nothing."""
         drv = registry.get(self.name)
         if drv is not None:
             return drv

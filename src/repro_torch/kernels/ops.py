@@ -144,7 +144,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         y = F.pad(y, (0, np_ - n, 0, kp - k))
     x2, y2 = x2.contiguous(), y.contiguous()
     cfg = choose_or_default(kernel, {"m": mp, "n": np_, "k": kp},
-                            _DEFAULTS[kernel])
+                            _DEFAULTS[kernel], spec=_gemm_spec(kernel))
     out = matmul_kernel(x2, y2, **_fit_gemm(kernel, cfg,
                                             {"bm": mp, "bn": np_, "bk": kp}),
                         out_dtype=out_dtype)
@@ -180,7 +180,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if (kp, np_) != (k, n):
         w = F.pad(w, (0, np_ - n, 0, kp - k))
     cfg = choose_or_default(kernel, {"e": e, "g": gp, "k": kp, "n": np_},
-                            _DEFAULTS[kernel])
+                            _DEFAULTS[kernel], spec=_gemm_spec(kernel))
     out = moe_gmm_kernel(x.contiguous(), w.contiguous(),
                          **_fit_gemm(kernel, cfg,
                                      {"bg": gp, "bn": np_, "bk": kp}))
@@ -196,11 +196,16 @@ def flash_kernel_name(head_dim: int, causal: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def _flash_spec(head_dim: int, causal: bool, dtype_bytes: int):
+    return flash_attention_spec(head_dim, causal, dtype_bytes)
+
+
+@functools.lru_cache(maxsize=None)
 def _flash_tile_fits(head_dim: int, causal: bool, dtype_bytes: int,
                      bq: int, bkv: int) -> bool:
     """Whether tiles (bq, bkv) satisfy the flash spec of this dtype (a
     driver tuned in bf16 may pick a tile whose f32 stage is too large)."""
-    spec = flash_attention_spec(head_dim, causal, dtype_bytes)
+    spec = _flash_spec(head_dim, causal, dtype_bytes)
     one = CandidateTable.from_rows(spec.program_params,
                                    [{"bq": bq, "bkv": bkv}])
     D = {"bh": 1, "sq": 1, "skv": 1}
@@ -234,7 +239,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bh, sq, d = q.shape
     cfg = choose_or_default(flash_kernel_name(d, causal),
                             {"bh": bh, "sq": sq, "skv": k.shape[1]},
-                            FLASH_DEFAULT)
+                            FLASH_DEFAULT,
+                            spec=_flash_spec(d, causal, q.element_size()))
     if not _flash_tile_fits(d, causal, q.element_size(), cfg["bq"],
                             cfg["bkv"]):
         cfg = FLASH_DEFAULT
@@ -251,12 +257,17 @@ def ssd_kernel_name(head_dim: int, d_state: int) -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def _ssd_spec(head_dim: int, d_state: int, dtype_bytes: int):
+    return ssd_scan_spec(head_dim, d_state, dtype_bytes)
+
+
+@functools.lru_cache(maxsize=None)
 def _ssd_chunk(head_dim: int, d_state: int, dtype_bytes: int,
                chunk: int) -> int:
     """``chunk`` if the SSD spec of this dtype takes it, else the largest
     smaller candidate it takes (a driver tuned in bf16, or the default, may
     name a chunk whose f32 stage is too large)."""
-    spec = ssd_scan_spec(head_dim, d_state, dtype_bytes)
+    spec = _ssd_spec(head_dim, d_state, dtype_bytes)
     D = {"bh": 1, "s": 1, "chunkflops": 1}
     fits = spec.candidates(D)["chunk"]
     below = fits[fits <= chunk]
@@ -280,7 +291,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     bh, s, dh = x.shape
     n = B.shape[-1]
     cfg = choose_or_default(ssd_kernel_name(dh, n),
-                            {"bh": bh, "s": s, "chunkflops": 1}, SSD_DEFAULT)
+                            {"bh": bh, "s": s, "chunkflops": 1}, SSD_DEFAULT,
+                            spec=_ssd_spec(dh, n, x.element_size()))
     chunk = _ssd_chunk(dh, n, x.element_size(), int(cfg["chunk"]))
     dt, A = dt.float().contiguous(), A.float().contiguous()
     tensors = (x, dt, B, C, A)
@@ -322,8 +334,7 @@ def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"layernorm takes x (r, c); got {tuple(x.shape)}")
     r, c = x.shape
     ak = _layernorm_auto(c, x.element_size(), float(eps), x.device.type)
-    cfg = ak.fit_config(choose_or_default(ak.name, {"r": r}, ak.defaults),
-                        {"r": r})
+    cfg = ak.fit_config(ak.choose({"r": r}), {"r": r})
     return layernorm_kernel(x.contiguous(), res.contiguous(), gamma, beta,
                             br=cfg["br"], eps=eps)
 
@@ -347,16 +358,16 @@ def blocked_colsum(x: torch.Tensor) -> torch.Tensor:
     if cp != c:
         x = F.pad(x, (0, cp - c))
     D = {"r": r, "c": cp}
-    cfg = ak.fit_config(choose_or_default(ak.name, D, ak.defaults), D)
+    cfg = ak.fit_config(ak.choose(D), D)
     out = colsum_kernel(x.contiguous(), br=cfg["br"], bc=cfg["bc"])
     return out[:c] if cp != c else out
 
 
 def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
-                   seed: int) -> Callable[[Mapping[str, int]], None]:
+                   seed: int) -> Callable[[Mapping[str, int]], torch.Tensor]:
     """Bind seeded inputs of kernel ``kernel`` at data size D on ``device``
-    and return ``launch(P)``, which runs the kernel once at tiles P --
-    what ``CudaEventTimer`` times.
+    and return ``launch(P)``, which runs the kernel once at tiles P and
+    returns its output -- what ``CudaEventTimer`` times.
 
     Flash attention is probed in bf16 (the models' dtype) with one kv head
     per q head (D carries no head counts) and the spec's causality; the SSD
@@ -374,9 +385,10 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
                    for shape, dt in ak.grid_spec.make_args(D)]
         static = dict(ak.grid_spec.call_kwargs)
 
-        def launch_auto(P: Mapping[str, int]) -> None:
-            ak.kernel.launch(*tensors, **static,
-                             **{p: int(P[p]) for p in ak.spec.program_params})
+        def launch_auto(P: Mapping[str, int]) -> torch.Tensor:
+            return ak.kernel.launch(
+                *tensors, **static,
+                **{p: int(P[p]) for p in ak.spec.program_params})
 
         return launch_auto
     ssd = _SSD_NAME.match(kernel)
@@ -396,8 +408,8 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
         Cm = (randn(1, s, n) * 0.3).to(torch.bfloat16)
         A = -0.5 - rand(bh)
 
-        def launch_ssd(P: Mapping[str, int]) -> None:
-            ssd_scan_kernel(x, dt, Bm, Cm, A, chunk=int(P["chunk"]))
+        def launch_ssd(P: Mapping[str, int]) -> torch.Tensor:
+            return ssd_scan_kernel(x, dt, Bm, Cm, A, chunk=int(P["chunk"]))
 
         return launch_ssd
     flash = _FLASH_NAME.match(kernel)
@@ -411,10 +423,10 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
         v = torch.randn(bh, skv, d, generator=gen, device=device
                         ).to(torch.bfloat16)
 
-        def launch_flash(P: Mapping[str, int]) -> None:
-            flash_attention_kernel(q, k, v, num_q_heads=bh, num_kv_heads=bh,
-                                   bq=int(P["bq"]), bkv=int(P["bkv"]),
-                                   causal=causal)
+        def launch_flash(P: Mapping[str, int]) -> torch.Tensor:
+            return flash_attention_kernel(
+                q, k, v, num_q_heads=bh, num_kv_heads=bh, bq=int(P["bq"]),
+                bkv=int(P["bkv"]), causal=causal)
 
         return launch_flash
     if kernel in _GMM_KERNELS.values():
@@ -423,9 +435,9 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
         xg = torch.randn(e, g, k, generator=gen, device=device).to(dtype)
         wg = torch.randn(e, k, n, generator=gen, device=device).to(dtype)
 
-        def launch_gmm(P: Mapping[str, int]) -> None:
-            moe_gmm_kernel(xg, wg, bg=int(P["bg"]), bn=int(P["bn"]),
-                           bk=int(P["bk"]))
+        def launch_gmm(P: Mapping[str, int]) -> torch.Tensor:
+            return moe_gmm_kernel(xg, wg, bg=int(P["bg"]), bn=int(P["bn"]),
+                                  bk=int(P["bk"]))
 
         return launch_gmm
     if kernel not in _MATMUL_KERNELS.values():
@@ -434,8 +446,8 @@ def probe_launcher(kernel: str, D: Mapping[str, int], device: torch.device,
     x = torch.randn(D["m"], D["k"], generator=gen, device=device).to(dtype)
     y = torch.randn(D["k"], D["n"], generator=gen, device=device).to(dtype)
 
-    def launch(P: Mapping[str, int]) -> None:
-        matmul_kernel(x, y, bm=int(P["bm"]), bn=int(P["bn"]),
-                      bk=int(P["bk"]))
+    def launch(P: Mapping[str, int]) -> torch.Tensor:
+        return matmul_kernel(x, y, bm=int(P["bm"]), bn=int(P["bn"]),
+                             bk=int(P["bk"]))
 
     return launch

@@ -217,3 +217,31 @@ def test_cuda_colsum_kernel_matches_plain():
             assert torch.equal(out, cs.colsum_kernel(x, br=br, bc=bc))
         xu = torch.randn(99, 13, generator=gen, device="cuda").to(dtype)
         _close(ops.blocked_colsum(xu), cs.colsum_plain(xu), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_polybench_probe_launcher():
+    """A PolyBench matmul row (gemm) is timed as the f32 SIMT matmul: its
+    timed spec is ``matmul_b32``, whose probe launcher runs the kernel on
+    seeded inputs and matches the plain version; syr2k, whose spec counts
+    two products per point, is timed as itself and has no launcher."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.benchmarks.common import timed_spec
+
+    dev = torch.device("cuda")
+    D = {"m": 256, "n": 512, "k": 256}
+    spec = timed_spec("gemm", dev)
+    assert spec.name == "matmul_b32"
+    launch = ops.probe_launcher(spec.name, D, dev, 3)
+    before = MATMUL_LAUNCHES.count
+    out = launch({"bm": 64, "bn": 128, "bk": 32})
+    assert MATMUL_LAUNCHES.count == before + 1
+    assert out.dtype == torch.float32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(D["m"], D["k"], generator=gen, device=dev)
+    y = torch.randn(D["k"], D["n"], generator=gen, device=dev)
+    torch.testing.assert_close(out, matmul_plain(x, y), atol=2e-4, rtol=2e-4)
+    assert timed_spec("syr2k", dev).name == "syr2k"
+    with pytest.raises(ValueError, match="no probe launcher"):
+        ops.probe_launcher("syr2k", D, dev, 3)

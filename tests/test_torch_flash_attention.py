@@ -335,7 +335,7 @@ def flash_build():
     registry.clear()
     oracle = HopperModel(noise=0.04, seed=3)
     spec = flash_attention_spec(64, causal=True, dtype_bytes=2)
-    build = Klaraptor(oracle, device="cpu").build_driver(
+    build = Klaraptor(oracle, device="cpu", cache=False).build_driver(
         spec, probe_data=flash_probe_data(), repeats=2,
         max_configs_per_size=12)
     yield spec, oracle, build

@@ -63,8 +63,8 @@ def built_pairs(pairs):
         probes = gmm_probe_data() if name.startswith("moe_gmm") else None
         drivers = []
         for spec in (hand, intro):
-            drivers.append(Klaraptor(HopperModel(noise=0.03, seed=3)
-                                     ).build_driver(
+            drivers.append(Klaraptor(HopperModel(noise=0.03, seed=3),
+                                     cache=False).build_driver(
                 spec, probe_data=probes, repeats=2, max_configs_per_size=12,
                 register=False).driver)
         out[name] = tuple(drivers)
@@ -598,7 +598,7 @@ class TestLayernormChoiceOnTheCard:
         for probes, per_size in (
                 (_RecordedCard(H100_LAYERNORM_NO_FLUSH_US),
                  AUTO_PROBES_PER_SIZE), (cold, 8)):
-            drv = Klaraptor(probes, device="cpu").build_driver(
+            drv = Klaraptor(probes, device="cpu", cache=False).build_driver(
                 ak.spec, probe_data=ak.probe_data(), repeats=2,
                 max_configs_per_size=per_size, register=False).driver
             assert drv.choose(sizes[0]) == {"br": 32}

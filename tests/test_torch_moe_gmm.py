@@ -177,7 +177,7 @@ def built():
     registry.clear()
     oracle = HopperModel(noise=0.04, seed=11)
     spec = moe_gmm_spec(dtype_bytes=2)
-    build = Klaraptor(oracle, device="cpu").build_driver(
+    build = Klaraptor(oracle, device="cpu", cache=False).build_driver(
         spec, probe_data=gmm_probe_data(), repeats=2,
         max_configs_per_size=24)
     yield spec, oracle, build

@@ -33,7 +33,7 @@ def built():
     registry.clear()
     oracle = HopperModel(noise=0.04, seed=7)
     spec = matmul_spec(dtype_bytes=2)
-    build = Klaraptor(oracle, device="cpu").build_driver(
+    build = Klaraptor(oracle, device="cpu", cache=False).build_driver(
         spec, repeats=2, max_configs_per_size=24)
     yield spec, oracle, build
     registry.clear()
@@ -119,7 +119,7 @@ def test_tuned_cpu_matmul_matches_reference_tuned_matmul():
     prev = ref_registry.get("matmul_b32")
     RefKlaraptor(V5eSimulator(seed=1), cache=False).build_driver(
         ref_matmul_spec(dtype_bytes=4), repeats=1, max_configs_per_size=8)
-    Klaraptor(HopperModel(seed=1), device="cpu").build_driver(
+    Klaraptor(HopperModel(seed=1), device="cpu", cache=False).build_driver(
         matmul_spec(dtype_bytes=4), repeats=1, max_configs_per_size=8)
     try:
         rng = np.random.RandomState(21)
@@ -169,5 +169,5 @@ print(" ".join(sorted(m for m in sys.modules if m.startswith("repro_torch"))))
     walked = set(proc.stdout.split())
     assert len(walked) >= 30
     for sub in ("core", "search", "kernels", "models", "configs", "launch",
-                "serving", "introspect"):
+                "serving", "introspect", "benchmarks", "examples"):
         assert f"repro_torch.{sub}" in walked, sub

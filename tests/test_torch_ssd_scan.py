@@ -184,7 +184,7 @@ def ssd_build():
     registry.clear()
     oracle = HopperModel(noise=0.04, seed=5)
     spec = ssd_scan_spec(64, 128, dtype_bytes=2)
-    build = Klaraptor(oracle, device="cpu").build_driver(
+    build = Klaraptor(oracle, device="cpu", cache=False).build_driver(
         spec, probe_data=ssd_probe_data(), repeats=2)
     yield spec, oracle, build
     registry.clear()

@@ -14,14 +14,16 @@ block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
-     kernel's registers and spills against its cap (every wgmma tile with
-     no spill), and the HGMMA (wgmma) instructions in each library's SASS
+     kernel's registers and spills against its cap (every wgmma tile and
+     the f32 SIMT mainloop of the matmul and the grouped matmul with no
+     spill), and the HGMMA (wgmma) instructions in each library's SASS
      (``cuobjdump -sass``): the matmul, the grouped matmul and flash
      attention must have some;
   3. the kernel against its plain PyTorch version on the card: every
      compiled bf16 wgmma tile with each output type (f32, bf16, f16) at k
-     1024 (the 4-slot ring wraps), a sweep of the f32 SIMT tiles, and both
-     at the five GEMM shapes;
+     1024 (the 4-slot ring wraps), every feasible f32 SIMT tile at k 1024
+     (the 3-slot cp.async ring wraps) and at k = bk (one k step), f32 in
+     with bf16 and f16 out, and both at the five GEMM shapes;
   4. KLARAPTOR on the card: probes of the real kernel (CUDA events) at
      m, n, k <= 1024, the SVD fit and the generated driver;
   5. the tuned launch through ``ops.matmul`` at the five shapes, with kernel
@@ -72,9 +74,9 @@ block:
      so that is the one request where the two must agree).
 
  15. the grouped-matmul kernel against its plain version, bf16 (every
-     compiled wgmma tile) and f32 (every feasible SIMT tile), at a small
-     shape whose k steps wrap the ring, and at an unaligned shape through
-     ``ops.moe_gmm`` (zero-padded);
+     compiled wgmma tile) and f32 (every feasible SIMT tile, each also at
+     k = bk), at a small shape whose k steps wrap the rings, and at an
+     unaligned shape through ``ops.moe_gmm`` (zero-padded);
  16. KLARAPTOR on the card for ``moe_gmm_b16``: probes at e <= 4 and g, k,
      n <= 1024, the fit, then tuned launches through ``ops.moe_gmm`` at
      qwen3-moe-235b's expert width (d_model 4096, expert d_ff 1536) with 8
@@ -82,7 +84,9 @@ block:
      down (k 1536 -> n 4096) product; each held against the plain version,
      timed (TFLOP/s, % of bound) against ``torch.bmm`` (yardstick only) and
      the bound, and the selection ratio against exhaustive search (printed,
-     not gated);
+     not gated); then KLARAPTOR on ``moe_gmm_b32`` (the same probes) and a
+     tuned f32 launch through ``ops.moe_gmm`` at the up product, timed
+     against ``torch.bmm`` in f32 (TF32 off) and the FP32 bound;
  17. introspection on the card: ``layernorm_c2048_b16`` (llama3.2-1b's
      d_model) and ``colsum_b16`` derived from the compiled kernels (grid,
      operands with their dependences, constraints, compiled registers
@@ -115,7 +119,9 @@ block:
      one spec, ``matmul_b32``, so one build and one driver on the card
      (``CudaEventTimer``), with Fig. 1 at N 2048 and Table I at N 1024 and
      2048 -- the card's exhaustive best, the chosen config and the ratio,
-     from one exhaustive pass per N; the f32 matmul at N 2048
+     from one exhaustive pass per N, each beside the driver's predicted
+     time and the rank each side gives the other's pick; the f32 matmul at
+     N 2048
      with the chosen tile against its plain version, ``torch.matmul`` in f32
      (TF32 off) and the FP32 bound; (c) Fig. 3 for gemm, measured: the
      build's wall seconds and those of the exhaustive pass over N 32-2048,
@@ -125,9 +131,10 @@ block:
      ``CudaEventTimer``" are gated.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
-12-13 (SSD scan), 16 (grouped matmul), 18 (layernorm and column sum; 19
-is the entry point, read the same way) and 20 (b) (the f32 SIMT matmul:
-the suite's probes and exhaustive passes): each launch counter is set to 0
+12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
+column sum; 19 is the entry point, read the same way) and 20 (b) (the f32
+SIMT matmul: the suite's probes and exhaustive passes): each launch
+counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  The
 driver cache (``$KLARAPTOR_CACHE_DIR``) is an empty temporary directory
@@ -479,6 +486,15 @@ def run(caches: list) -> int:
             raise AssertionError(
                 f"kernel uses {attrs['num_regs']} registers; the spec "
                 f"assumes {MATMUL.regs_cap_for(dt)}")
+    for kern in (MATMUL, MOE_GMM):
+        attrs = kern.attributes(torch.float32)
+        cap = kern.regs_cap_for(torch.float32)
+        print(f"  {kern.source} f32 SIMT mainloop (gemm_simt.cuh): "
+              f"{attrs['num_regs']} registers per thread (cap {cap}), "
+              f"{attrs['local_bytes']} local (spill) bytes")
+        if attrs["num_regs"] > cap or attrs["local_bytes"]:
+            raise AssertionError(f"{kern.source} f32: {attrs} against the "
+                                 f"cap {cap}, no spills")
     flash_ptxas = [ln.strip() for ln in
                    _build.build_log("flash_attention").splitlines()
                    if "registers" in ln or "spill" in ln]
@@ -567,17 +583,28 @@ def run(caches: list) -> int:
     print(f"  bf16 {D}: {len(SM90_TILES)} compiled wgmma tiles x "
           f"{len(OUT_DTYPES)} output types, max_abs_err={max(errs):.3e} ok",
           flush=True)
-    D = {"m": 512, "n": 1024, "k": 512}
+    D = {"m": 512, "n": 1024, "k": 1024}
     table = matmul_spec(4).candidates(D, hw)
     x, y = inputs(D["m"], D["n"], D["k"], torch.float32)
     plain = matmul_plain(x, y)
-    picks = sorted(set(range(0, len(table), max(len(table) // 12, 1)))
-                   | {len(table) - 1})
-    for i in picks:
+    errs = []
+    for i in range(len(table)):
         P = table.row(i)
-        out = matmul_kernel(x, y, **P)
-        worst = max(worst, check(out, plain, torch.float32,
-                                 f"{torch.float32} sweep {D} {P}"))
+        errs.append(check(matmul_kernel(x, y, **P), plain, torch.float32,
+                          f"f32 SIMT {D} {P}", quiet=True))
+        xs, ys = x[:, :P["bk"]].contiguous(), y[:P["bk"]].contiguous()
+        errs.append(check(matmul_kernel(xs, ys, **P), matmul_plain(xs, ys),
+                          torch.float32, f"f32 SIMT k = bk {P}",
+                          quiet=True))
+    for od in (torch.bfloat16, torch.float16):
+        out = matmul_kernel(x, y, bm=64, bn=128, bk=32, out_dtype=od)
+        errs.append(check(out, plain, torch.bfloat16,
+                          f"f32 SIMT -> {od}", quiet=True))
+    worst = max([worst] + errs)
+    print(f"  f32 SIMT: every feasible tile ({len(table)}) at {D} (k / bk "
+          f"4-128: the 3-slot ring wraps) and at k = bk (one k step), and "
+          f"f32 -> bf16 / f16 outputs: {len(errs)} launches, "
+          f"max_abs_err={max(errs):.3e} ok", flush=True)
     kept = {}
     for name, m, n, k in SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -709,13 +736,14 @@ def run(caches: list) -> int:
     }
     flash_row = flash_phases(dev, hw, gen, check, time_ms, phase_done)
     ssd_row = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
-    gmm_row = gmm_phases(dev, hw, gen, check, time_ms, phase_done)
+    gmm32_row, gmm_row = gmm_phases(dev, hw, gen, check, time_ms,
+                                    phase_done)
     introspect_phase(hw, phase_done)
     ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done,
                                  caches)
     simt_row = paper_phase(dev, hw, check, time_ms, phase_done, caches)
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
-                                  ln_row, cs_row, simt_row],
+                                  ln_row, cs_row, simt_row, gmm32_row],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1343,9 +1371,11 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     }
 
 
-def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
-    """Phases 15-16: the grouped-matmul kernel and KLARAPTOR on it.
-    Returns the kernel's entry of the ``kernels`` line."""
+def gmm_phases(dev, hw, gen, check, time_ms,
+               phase_done) -> tuple[dict, dict]:
+    """Phases 15-16: the grouped-matmul kernel and KLARAPTOR on it, bf16
+    and f32.  Returns the f32 and the bf16 entries of the ``kernels``
+    line."""
     import torch
 
     from repro_torch.core import (CudaEventTimer, Klaraptor, gmm_probe_data,
@@ -1363,9 +1393,9 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     # -- 15. the grouped-matmul kernel against its plain version --------------
     print("[15] grouped-matmul kernel vs plain (tolerance: 2e-2 bf16, 2e-4 "
           "f32, atol=rtol, the repo's kernel-test tolerances)", flush=True)
-    worst = 0.0
+    worst = worst32 = 0.0
     n_checked = 0
-    D = {"e": 4, "g": 256, "k": 1024, "n": 512}   # the ring wraps
+    D = {"e": 4, "g": 256, "k": 1024, "n": 512}   # the rings wrap
     for dtype, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
         table = moe_gmm_spec(nbytes).candidates(D, hw)
         x, w = inputs(D["e"], D["g"], D["k"], D["n"], dtype)
@@ -1373,14 +1403,30 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         errs = [check(moe_gmm_kernel(x, w, **table.row(i)), plain, dtype,
                       f"{dtype} {D} {table.row(i)}", quiet=True)
                 for i in range(len(table))]
+        if dtype == torch.float32:      # and each tile at k = bk: one k step
+            for i in range(len(table)):
+                P = table.row(i)
+                xs = x[:, :, :P["bk"]].contiguous()
+                ws = w[:, :P["bk"]].contiguous()
+                errs.append(check(moe_gmm_kernel(xs, ws, **P),
+                                  moe_gmm_plain(xs, ws), dtype,
+                                  f"f32 k = bk {P}", quiet=True))
         n_checked += len(errs)
-        worst = max([worst] + errs)
-        print(f"  {dtype} {D}: {len(errs)} feasible tiles, max_abs_err="
-              f"{max(errs):.3e} ok", flush=True)
+        if dtype == torch.float32:
+            worst32 = max([worst32] + errs)
+        else:
+            worst = max([worst] + errs)
+        print(f"  {dtype} {D}: {len(table)} feasible tiles"
+              f"{' (and each at k = bk)' if dtype == torch.float32 else ''}"
+              f", max_abs_err={max(errs):.3e} ok", flush=True)
         xu, wu = inputs(3, 100, 77, 50, dtype)
-        worst = max(worst, check(ops.moe_gmm(xu, wu), moe_gmm_plain(xu, wu),
-                                 dtype, f"{dtype} ops.moe_gmm at the "
-                                 f"unaligned (e, g, k, n) (3, 100, 77, 50)"))
+        err = check(ops.moe_gmm(xu, wu), moe_gmm_plain(xu, wu), dtype,
+                    f"{dtype} ops.moe_gmm at the unaligned (e, g, k, n) "
+                    f"(3, 100, 77, 50)")
+        if dtype == torch.float32:
+            worst32 = max(worst32, err)
+        else:
+            worst = max(worst, err)
     print(f"  {n_checked} sweep launches agree with the plain version")
     phase_done(15)
 
@@ -1465,11 +1511,64 @@ def gmm_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
               f"ratio {ratio['ratio']:.3f} ({time.perf_counter() - t0:.1f} "
               f"s)", flush=True)
         torch.cuda.empty_cache()
+    # -- 16 (f32). KLARAPTOR for moe_gmm_b32 (the f32 grouped matmul) -----
+    LAUNCHES.reset()
+    spec32 = moe_gmm_spec(dtype_bytes=4)
+    build32 = Klaraptor(timer).build_driver(
+        spec32, probe_data=gmm_probe_data(), repeats=2,
+        max_configs_per_size=24)
+    name, k, n = GMM_SHAPES[0]
+    Dn = {"e": GMM_E, "g": GMM_G, "k": k, "n": n}
+    x, w = inputs(GMM_E, GMM_G, k, n, torch.float32)
+    before = LAUNCHES.count
+    out = ops.moe_gmm(x, w)
+    if LAUNCHES.count != before + 1 or out.dtype != torch.float32:
+        raise AssertionError("ops.moe_gmm on f32 did not launch the kernel")
+    launches32 = LAUNCHES.count      # the f32 grouped matmul's path ends
+    cfg = build32.driver.choose(Dn)
+    plain = moe_gmm_plain(x, w)
+    err32 = check(out, plain, torch.float32,
+                  f"f32 {name} {Dn} tuned {cfg} vs plain")
+    flops = 2.0 * GMM_E * GMM_G * k * n
+    t_ops = flops / PEAK_F32
+    t_bytes = GMM_E * (GMM_G * k + k * n + GMM_G * n) * 4 / HBM_BW
+    r32 = {
+        "shape": f"{name} f32", **Dn, "config": cfg,
+        "ms": time_ms(lambda: moe_gmm_kernel(x, w, **cfg)),
+        "library_ms": time_ms(lambda: torch.bmm(x, w)),
+        "plain_ms": time_ms(lambda: moe_gmm_plain(x, w), max_iters=1),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    r32["tflops"] = flops / (r32["ms"] * 1e-3) / 1e12
+    r32["pct_of_bound"] = 100.0 * r32["bound_ms"] / r32["ms"]
+    print(f"[16, f32] KLARAPTOR build on the card for {spec32.name}, then "
+          f"ops.moe_gmm in f32 at {Dn}: main-path launches {launches32} "
+          f"(probes, warm-ups, the tuned call); chosen {cfg} "
+          f"{r32['ms']:.4f} ms ({r32['tflops']:.2f} TFLOP/s, "
+          f"{r32['pct_of_bound']:.1f} % of the FP32 bound "
+          f"{r32['bound_ms']:.4f} ms, {r32['bound_by']}) | torch.bmm f32, "
+          f"TF32 off {r32['library_ms']:.4f} ms "
+          f"({r32['ms'] / r32['library_ms']:.2f}x) | plain "
+          f"{r32['plain_ms']:.2f} ms", flush=True)
+    del x, w, out, plain
+    torch.cuda.empty_cache()
     phase_done(16)
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                          "default_ms")}
-    return {
+    gmm32_row = {
+        "name": "moe_gmm_b32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:46",
+        "launches": launches32,
+        "max_abs_err": max(err32, worst32),
+        **{key: r32[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "shapes": [r32],
+    }
+    return gmm32_row, {
         "name": "moe_gmm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
@@ -1894,18 +1993,29 @@ def paper_phase(dev, hw, check, time_ms, phase_done, caches) -> dict:
           f"({', '.join(str(len(passes[n][1])) for n in table1_ns)} "
           f"configurations at N {list(table1_ns)}); f32 SIMT matmul launches "
           f"{launches} (probes, warm-ups, exhaustive passes)", flush=True)
-    ratios = {}
+    ratios, predicted = {}, {}
     for n in table1_ns:
         D, table, times = passes[n]
         best = int(np.argmin(times))
         chosen = driver.choose(D)
         i = next(j for j in range(len(table)) if table.row(j) == chosen)
         ratios[n] = float(times[best] / times[i])
+        # the driver's E(D, P) beside the card's time, for the chosen tile
+        # and the card's best: which one misleads the choice
+        est = driver.estimate_batch(D, table.columns)
+        predicted[n] = {"chosen_ms": float(est[i]) * 1e3,
+                        "best_ms": float(est[best]) * 1e3,
+                        "driver_best": table.row(int(np.argmin(est)))}
         print(f"  {'fig1' if n == fig1_n else 'table1'}/{spec.name}@N{n} "
               f"(the nine rows): card best {table.row(best)} "
-              f"{times[best] * 1e3:.4f} ms, chosen {chosen} "
-              f"{times[i] * 1e3:.4f} ms, ratio {ratios[n]:.3f} "
-              f"(CudaEventTimer; printed, not gated)", flush=True)
+              f"{times[best] * 1e3:.4f} ms (predicted "
+              f"{predicted[n]['best_ms']:.4f} ms), chosen {chosen} "
+              f"{times[i] * 1e3:.4f} ms (predicted "
+              f"{predicted[n]['chosen_ms']:.4f} ms), ratio {ratios[n]:.3f} "
+              f"(CudaEventTimer; printed, not gated); the card ranks the "
+              f"chosen tile {int(np.sum(times < times[i])) + 1} of "
+              f"{len(table)}, the driver ranks the card's best "
+              f"{int(np.sum(est < est[best])) + 1}", flush=True)
     print(f"  fig1 card kernels at N {fig1_n}: {spec.name} ratio "
           f"{ratios[fig1_n]:.3f}, {int(ratios[fig1_n] >= 0.85)}/1 >= 0.85 "
           f"(CudaEventTimer)", flush=True)
@@ -1975,6 +2085,7 @@ def paper_phase(dev, hw, check, time_ms, phase_done, caches) -> dict:
         "config": cfg,
         "fig1_ratio": ratios[fig1_n],
         "table1_ratios": {str(n): ratios[n] for n in table1_ns},
+        "table1_predicted": {str(n): predicted[n] for n in table1_ns},
         "fig3_measured_s": {"build": f3["measured_build_s"],
                             "exhaustive": f3["measured_exhaustive_s"]},
     }

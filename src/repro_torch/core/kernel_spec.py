@@ -51,8 +51,9 @@ __all__ = [
     "Operand", "GridAxis", "KernelSpec", "CandidateTable", "SpecError",
     "POLYBENCH_LAUNCH_ALIASES", "POLYBENCH_SUITE",
     "flash_attention_spec", "flash_probe_data", "gmm_probe_data",
-    "matmul_spec", "moe_gmm_spec", "polybench_suite", "sm90_smem_bytes",
-    "ssd_probe_data", "ssd_scan_spec", "ssd_uses_sm90", "substitute",
+    "matmul_spec", "moe_gmm_spec", "polybench_suite", "simt_smem_bytes",
+    "sm90_smem_bytes", "ssd_probe_data", "ssd_scan_spec", "ssd_uses_sm90",
+    "substitute",
 ]
 
 Dims = Mapping[str, int]
@@ -437,10 +438,25 @@ class KernelSpec:
 # Concrete specs for the port's CUDA kernels in src/repro_torch/kernels/
 # ---------------------------------------------------------------------------
 
-# kernels/csrc/matmul.cu, f32: each thread owns an 8 x 8 block of C in
-# registers, and __launch_bounds__(512) caps it at 128 registers per thread.
+# kernels/csrc/gemm_simt.cuh, the f32 matmul and grouped matmul: each thread
+# owns an 8 x 8 block of the output in registers (bm * bn / 64 threads), and
+# __launch_bounds__(512) caps it at 128 registers per thread; the k tiles
+# stream through a ring of SIMT_STAGES slots, each a (bm, bk) x tile whose
+# rows are padded by SIMT_PAD f32 words and a (bk, bn) y tile.
 MATMUL_MICRO_TILE = 8
 MATMUL_REGS_PER_THREAD = 128
+SIMT_STAGES = 3
+SIMT_PAD = 4
+SIMT_GRANULE = 8
+SIMT_CANDIDATES = {"m": (16, 32, 64, 128, 256, 512),
+                   "n": (16, 32, 64, 128, 256, 512),
+                   "k": (8, 16, 32, 64, 128, 256)}
+
+
+def simt_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of one f32 SIMT CTA: the ring's slots."""
+    return SIMT_STAGES * (bm * (bk + SIMT_PAD) + bk * bn) * 4
+
 
 # kernels/csrc/gemm_sm90.cuh, the bf16 matmul and grouped matmul: one
 # consumer warpgroup per 64 rows of the tile (2 * bm threads), wgmma's
@@ -505,6 +521,48 @@ def _sm90_gemm_spec(name: str, data_params: tuple[str, ...], rows: str,
     )
 
 
+def _simt_gemm_spec(name: str, data_params: tuple[str, ...], rows: str,
+                    grid: tuple[GridAxis, ...], lhs: str, rhs: str,
+                    batch: tuple[str, ...], dtype_bytes: int) -> KernelSpec:
+    """The f32 SIMT kernel's spec.  Operands: the staged x and y tiles of one
+    k step, the output, and as scratch the ring's other SIMT_STAGES - 1
+    slots and the x rows' padding in every slot (shared memory that moves
+    no bytes of its own)."""
+    params = (rows, "bn", "bk")
+    ring = SIMT_STAGES - 1
+    tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
+    return KernelSpec(
+        name=name,
+        data_params=data_params,
+        program_params=params,
+        grid=grid,
+        operands=(
+            Operand(lhs, (rows, "bk"), (*batch, "i", "l"), dtype_bytes,
+                    staged=True),
+            Operand(rhs, ("bk", "bn"), (*batch, "l", "j"), dtype_bytes,
+                    staged=True),
+            Operand("out", (rows, "bn"), (*batch, "i", "j"), dtype_bytes,
+                    is_output=True),
+            Operand(f"{lhs}_ring", (ring, rows, "bk"), (), dtype_bytes,
+                    scratch=True),
+            Operand(f"{rhs}_ring", (ring, "bk", "bn"), (), dtype_bytes,
+                    scratch=True),
+            Operand(f"{lhs}_pad", (SIMT_STAGES, rows, SIMT_PAD), (),
+                    dtype_bytes, scratch=True),
+        ),
+        flops_per_point=2.0,  # one FMA per point of the domain
+        threads=var(rows) * var("bn") / const(tile),
+        regs_per_thread=MATMUL_REGS_PER_THREAD,
+        # 8 x 8 micro-tiles and 16-byte cp.async copies along k and n; bk %
+        # 8 also keeps the reads of the padded x rows conflict-free.
+        constraints=tuple(f"{p} % {SIMT_GRANULE} == 0" for p in params),
+        param_candidates={rows: SIMT_CANDIDATES["m"],
+                          "bn": SIMT_CANDIDATES["n"],
+                          "bk": SIMT_CANDIDATES["k"]},
+        fit_vars={m: params for m in ("mem_step", "cmp_step", "ovh_step")},
+    )
+
+
 def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
     """C[m,n] = A[m,k] @ B[k,n]: CTAs over (i, j), a loop over k inside.
 
@@ -512,48 +570,19 @@ def matmul_spec(dtype_bytes: int = 2) -> KernelSpec:
     2 * bm threads, the nine compiled (bm, bn, bk) tiles (``SM90_TILES``),
     granules of 64, and shared memory for a ring of ``SM90_STAGES`` slots,
     of which the traffic counts one fetch per k step.  f32 runs the SIMT
-    body: (bm, bn) is the thread-block shape, bm * bn / 64 threads, one
-    8 x 8 micro-tile each.  A (bm, bk) and B (bk, bn) tiles are staged in
-    shared memory; the f32 accumulators are registers and move no bytes.
+    mainloop: (bm, bn) is the thread-block shape, bm * bn / 64 threads, one
+    8 x 8 micro-tile each, granules of 8, and shared memory for a cp.async
+    ring of ``SIMT_STAGES`` slots of a padded (bm, bk) A tile and a (bk, bn)
+    B tile (``simt_smem_bytes``); the f32 accumulators are registers and
+    move no bytes.
     """
     grid = (GridAxis("i", "m", "bm"), GridAxis("j", "n", "bn"),
             GridAxis("l", "k", "bk", sequential=True))
     if dtype_bytes == 2:
         return _sm90_gemm_spec("matmul_b16", ("m", "n", "k"), "bm", grid,
                                "lhs", "rhs", ())
-    tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
-    return KernelSpec(
-        name=f"matmul_b{dtype_bytes * 8}",
-        data_params=("m", "n", "k"),
-        program_params=("bm", "bn", "bk"),
-        grid=grid,
-        operands=(
-            Operand("lhs", ("bm", "bk"), ("i", "l"), dtype_bytes, staged=True),
-            Operand("rhs", ("bk", "bn"), ("l", "j"), dtype_bytes, staged=True),
-            Operand("out", ("bm", "bn"), ("i", "j"), dtype_bytes,
-                    is_output=True),
-        ),
-        flops_per_point=2.0,  # over the (m, n, k) domain: one FMA per point
-        threads=var("bm") * var("bn") / const(tile),
-        regs_per_thread=MATMUL_REGS_PER_THREAD,
-        # 8 x 8 micro-tiles, and 16-byte vector loads along k and n.
-        constraints=("bm % 8 == 0", "bn % 8 == 0", "bk % 8 == 0"),
-        param_candidates={
-            "bm": (16, 32, 64, 128, 256, 512),
-            "bn": (16, 32, 64, 128, 256, 512),
-            "bk": (8, 16, 32, 64, 128, 256),
-        },
-        fit_vars={
-            "mem_step": ("bm", "bn", "bk"),
-            "cmp_step": ("bm", "bn", "bk"),
-            "ovh_step": ("bm", "bn", "bk"),
-        },
-    )
-
-
-# kernels/csrc/moe_gmm.cu, f32: csrc/matmul.cu's SIMT body with the expert
-# on blockIdx.z, the same 8 x 8 micro-tiles and __launch_bounds__(512).
-GMM_REGS_PER_THREAD = 128
+    return _simt_gemm_spec(f"matmul_b{dtype_bytes * 8}", ("m", "n", "k"),
+                           "bm", grid, "lhs", "rhs", (), dtype_bytes)
 
 
 def moe_gmm_spec(dtype_bytes: int = 2) -> KernelSpec:
@@ -562,10 +591,10 @@ def moe_gmm_spec(dtype_bytes: int = 2) -> KernelSpec:
 
     bf16 runs the wgmma mainloop with the expert on blockIdx.z, as
     ``matmul_spec(2)`` states it: 2 * bg threads, the compiled tiles,
-    granules of 64 and the ring's shared memory.  f32 runs the SIMT body:
-    (bg, bn) is the thread-block shape, bg * bn / 64 threads, one 8 x 8
-    micro-tile each.  Token (bg, bk) and weight (bk, bn) tiles are staged in
-    shared memory; the f32 accumulators are registers.  The TPU rules of
+    granules of 64 and the ring's shared memory.  f32 runs the SIMT
+    mainloop of ``matmul_spec(4)``, per expert: bg * bn / 64 threads, the
+    ring of token (bg, bk) and weight (bk, bn) slots in shared memory, the
+    f32 accumulators in registers.  The TPU rules of
     the reference spec (``bg <= 8 * g``, ``bn % 128``) do not carry over:
     the kernel's granules plus the Hopper shared-memory, thread and register
     limits replace them.
@@ -576,35 +605,9 @@ def moe_gmm_spec(dtype_bytes: int = 2) -> KernelSpec:
     if dtype_bytes == 2:
         return _sm90_gemm_spec("moe_gmm_b16", ("e", "g", "k", "n"), "bg",
                                grid, "tokens", "weights", ("ex",))
-    tile = float(MATMUL_MICRO_TILE * MATMUL_MICRO_TILE)
-    return KernelSpec(
-        name=f"moe_gmm_b{dtype_bytes * 8}",
-        data_params=("e", "g", "k", "n"),
-        program_params=("bg", "bn", "bk"),
-        grid=grid,
-        operands=(
-            Operand("tokens", ("bg", "bk"), ("ex", "i", "l"), dtype_bytes,
-                    staged=True),
-            Operand("weights", ("bk", "bn"), ("ex", "l", "j"), dtype_bytes,
-                    staged=True),
-            Operand("out", ("bg", "bn"), ("ex", "i", "j"), dtype_bytes,
-                    is_output=True),
-        ),
-        flops_per_point=2.0,  # over the (e, g, n, k) domain
-        threads=var("bg") * var("bn") / const(tile),
-        regs_per_thread=GMM_REGS_PER_THREAD,
-        constraints=("bg % 8 == 0", "bn % 8 == 0", "bk % 8 == 0"),
-        param_candidates={
-            "bg": (16, 32, 64, 128, 256, 512),
-            "bn": (16, 32, 64, 128, 256, 512),
-            "bk": (8, 16, 32, 64, 128, 256),
-        },
-        fit_vars={
-            "mem_step": ("bg", "bn", "bk"),
-            "cmp_step": ("bg", "bn", "bk"),
-            "ovh_step": ("bg", "bn", "bk"),
-        },
-    )
+    return _simt_gemm_spec(f"moe_gmm_b{dtype_bytes * 8}",
+                           ("e", "g", "k", "n"), "bg", grid, "tokens",
+                           "weights", ("ex",), dtype_bytes)
 
 
 def gmm_probe_data(experts: Sequence[int] = (2, 4),

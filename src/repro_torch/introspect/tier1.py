@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.kernel_spec import SM90_CANDIDATES
+from ..core.kernel_spec import SIMT_CANDIDATES, SM90_CANDIDATES
 from .gridspec import GridSpec
 
 __all__ = ["EQUIV_SHAPES", "matmul_grid_spec", "moe_gmm_grid_spec",
@@ -59,9 +59,8 @@ def _candidates(rows: str, dtype_bytes: int) -> dict[str, tuple[int, ...]]:
     if dtype_bytes == 2:
         return {rows: SM90_CANDIDATES["m"], "bn": SM90_CANDIDATES["n"],
                 "bk": SM90_CANDIDATES["k"]}
-    return {rows: (16, 32, 64, 128, 256, 512),
-            "bn": (16, 32, 64, 128, 256, 512),
-            "bk": (8, 16, 32, 64, 128, 256)}
+    return {rows: SIMT_CANDIDATES["m"], "bn": SIMT_CANDIDATES["n"],
+            "bk": SIMT_CANDIDATES["k"]}
 
 
 def _defaults(rows: str, dtype_bytes: int) -> dict[str, int]:

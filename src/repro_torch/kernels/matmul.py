@@ -6,9 +6,10 @@ package's ``matmul_pallas``) with launch parameters (bm, bn, bk): a grid of
 bf16 or f32, accumulation is f32, and the result is cast to ``out_dtype``
 (bf16, f16 or f32).  bf16 runs the wgmma + TMA-ring mainloop of
 ``csrc/gemm_sm90.cuh``: 2 * bm threads, a ring of ``SM90_STAGES`` slots, and
-only the compiled tiles ``SM90_TILES``.  f32 runs the SIMT body: (bm / 8) *
-(bn / 8) threads, any 8-granular tile within the thread and shared-memory
-limits.
+only the compiled tiles ``SM90_TILES``.  f32 runs the SIMT mainloop of
+``csrc/gemm_simt.cuh``: (bm / 8) * (bn / 8) threads, a cp.async ring of
+``SIMT_STAGES`` slots, any 8-granular tile within the thread and
+shared-memory limits.
 
 ``matmul_plain`` computes the same function in plain PyTorch, accumulating
 in f32 as a sum of outer products over k.  The tests use it, and the wrapper
@@ -26,22 +27,23 @@ import functools
 import torch
 
 from ..core.kernel_spec import (MATMUL_MICRO_TILE, MATMUL_REGS_PER_THREAD,
+                                SIMT_GRANULE, SIMT_PAD, SIMT_STAGES,
                                 SM90_GRANULE, SM90_REGS_PER_THREAD,
                                 SM90_SMEM_EXTRA, SM90_STAGES, SM90_TILES,
-                                sm90_smem_bytes)
+                                simt_smem_bytes, sm90_smem_bytes)
 from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
 from ._build import load
 
 __all__ = ["IN_DTYPES", "LAUNCHES", "MATMUL", "OUT_DTYPES", "LaunchCounter",
            "kernel_attributes", "matmul_kernel", "matmul_launch",
-           "matmul_plain", "sm90_operands", "tile_attributes"]
+           "matmul_plain", "simt_operands", "sm90_operands",
+           "tile_attributes"]
 
 IN_DTYPES = (torch.float32, torch.bfloat16)
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-GRANULE = 8             # micro-tile edge and 16-byte vector width (bf16)
-MAX_THREADS = 512       # the kernel's __launch_bounds__
+MAX_THREADS = 512       # the SIMT body's __launch_bounds__
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
 MAX_GRID_Y = 65535
 _PLAIN_CHUNK_ELEMS = 1 << 24   # f32 elements of one outer-product chunk
@@ -144,14 +146,33 @@ def sm90_operands(deps: tuple[tuple[int, ...], ...], batch: tuple[int, ...],
     )
 
 
+def simt_operands(deps: tuple[tuple[int, ...], ...], batch: tuple[int, ...],
+                  rows: int, bn: int, bk: int, dt: torch.dtype,
+                  out_dt: torch.dtype) -> tuple[OperandLaunch, ...]:
+    """The operands of an f32 SIMT launch: x, y and the output (their axis
+    dependences ``deps``, their tiles led by ``batch``), then the ring's
+    other SIMT_STAGES - 1 slots and every slot's x-row padding as
+    shared-memory scratch."""
+    ring = SIMT_STAGES - 1
+    return (
+        OperandLaunch((*batch, rows, bk), deps[0], dt, staged=True),
+        OperandLaunch((*batch, bk, bn), deps[1], dt, staged=True),
+        OperandLaunch((*batch, rows, bn), deps[2], out_dt, is_output=True),
+        OperandLaunch((ring, rows, bk), (), dt, scratch=True),
+        OperandLaunch((ring, bk, bn), (), dt, scratch=True),
+        OperandLaunch((SIMT_STAGES, rows, SIMT_PAD), (), dt, scratch=True),
+    )
+
+
 def matmul_launch(args, *, bm: int, bn: int, bk: int,
                   out_dtype: torch.dtype | None = None) -> LaunchDescription:
     """The launch ``matmul_kernel`` makes on tensors of the ``(shape,
     dtype)`` pairs ``args`` = (x, y): grid (m / bm, n / bn), a loop over
     k / bk, x and y tiles staged in shared memory.  bf16: 2 * bm threads on
     the tensor cores, the ring of SM90_STAGES slots in shared memory, tiles
-    in multiples of 64.  f32: (bm / 8) * (bn / 8) threads of FP32 FMAs, one
-    buffer per tile.  Arithmetic only."""
+    in multiples of 64.  f32: (bm / 8) * (bn / 8) threads of FP32 FMAs, the
+    cp.async ring of SIMT_STAGES padded slots in shared memory, tiles in
+    multiples of 8.  Arithmetic only."""
     (xs, dt), (ys, _) = args
     m, k = xs
     n = ys[1]
@@ -165,18 +186,12 @@ def matmul_launch(args, *, bm: int, bn: int, bk: int,
             flops=2.0 * m * n * k, dtype=dt, granule=SM90_GRANULE,
             compute_unit="bf16")
     return LaunchDescription(
-        grid=grid,
-        loops=(-(-k // bk),),
+        grid=grid, loops=(-(-k // bk),),
         threads=(bm // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
-        smem_bytes=(bm + bn) * bk * dt.itemsize,
-        operands=(
-            OperandLaunch((bm, bk), (0, 2), dt, staged=True),
-            OperandLaunch((bk, bn), (1, 2), dt, staged=True),
-            OperandLaunch((bm, bn), (0, 1), out_dtype or dt, is_output=True),
-        ),
-        flops=2.0 * m * n * k,
-        dtype=dt,
-    )
+        smem_bytes=simt_smem_bytes(bm, bn, bk),
+        operands=simt_operands(((0, 2), (1, 2), (0, 1)), (), bm, bn, bk, dt,
+                               out_dtype or dt),
+        flops=2.0 * m * n * k, dtype=dt, granule=SIMT_GRANULE)
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
@@ -199,7 +214,7 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
     m, k = x.shape
     n = y.shape[1]
     sm90 = x.dtype == torch.bfloat16
-    granule = SM90_GRANULE if sm90 else GRANULE
+    granule = SM90_GRANULE if sm90 else SIMT_GRANULE
     for name, t, size in (("bm", bm, m), ("bn", bn, n), ("bk", bk, k)):
         if not isinstance(t, int) or t <= 0 or t % granule:
             raise ValueError(f"{name}={t!r} must be a positive multiple "
@@ -215,9 +230,9 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
         raise ValueError(f"bm * bn / 64 = {d.threads} threads exceeds the "
                          f"kernel's {MAX_THREADS}")
     if d.smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
-                         f"memory, more than the {SMEM_LIMIT} a block can "
-                         f"have")
+        raise ValueError(f"tile {(bm, bn, bk)} needs {d.smem_bytes} bytes "
+                         f"of shared memory for its ring, more than the "
+                         f"{SMEM_LIMIT} a block can have")
     # grid.y holds m / bm in the SIMT body, n / bn in the wgmma body
     if d.grid[1 if sm90 else 0] > MAX_GRID_Y or max(m, n, k) >= 2**31:
         raise ValueError(f"shape ({m}, {n}, {k}) exceeds the launch grid")

@@ -8,7 +8,9 @@ k) and w (e, k, n) are bf16 or f32 of one type, accumulation is f32 and out
 (e, g, n) has x's type: the capacity-padded per-expert product of an MoE
 layer.  bf16 runs the wgmma + TMA-ring mainloop of ``csrc/gemm_sm90.cuh``
 with the expert on blockIdx.z: 2 * bg threads and only the compiled tiles
-``SM90_TILES``.  f32 runs the SIMT body: (bg / 8) * (bn / 8) threads.
+``SM90_TILES``.  f32 runs the SIMT mainloop of ``csrc/gemm_simt.cuh`` the
+f32 matmul runs too, with the expert on blockIdx.z: (bg / 8) * (bn / 8)
+threads and a cp.async ring of ``SIMT_STAGES`` slots.
 
 ``moe_gmm_plain`` computes the same function in plain PyTorch, per expert in
 f32 as a sum of outer products over chunks of k.  The tests use it, and the
@@ -25,12 +27,13 @@ import functools
 
 import torch
 
-from ..core.kernel_spec import (GMM_REGS_PER_THREAD, MATMUL_MICRO_TILE,
-                                SM90_GRANULE, SM90_REGS_PER_THREAD,
-                                SM90_TILES, sm90_smem_bytes)
-from ..introspect.trace import CudaKernel, LaunchDescription, OperandLaunch
+from ..core.kernel_spec import (MATMUL_MICRO_TILE, MATMUL_REGS_PER_THREAD,
+                                SIMT_GRANULE, SM90_GRANULE,
+                                SM90_REGS_PER_THREAD, SM90_TILES,
+                                simt_smem_bytes, sm90_smem_bytes)
+from ..introspect.trace import CudaKernel, LaunchDescription
 from ._build import load
-from .matmul import LaunchCounter, sm90_operands
+from .matmul import LaunchCounter, simt_operands, sm90_operands
 
 __all__ = ["DTYPES", "LAUNCHES", "MOE_GMM", "kernel_attributes",
            "moe_gmm_kernel", "moe_gmm_launch", "moe_gmm_plain",
@@ -39,8 +42,7 @@ __all__ = ["DTYPES", "LAUNCHES", "MOE_GMM", "kernel_attributes",
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-GRANULE = 8             # micro-tile edge and 16-byte vector width (bf16)
-MAX_THREADS = 512       # the kernel's __launch_bounds__
+MAX_THREADS = 512       # the SIMT body's __launch_bounds__
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
 MAX_GRID_YZ = 65535
 _PLAIN_CHUNK_ELEMS = 1 << 24   # f32 elements of one outer-product chunk
@@ -117,12 +119,12 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def moe_gmm_launch(args, *, bg: int, bn: int, bk: int) -> LaunchDescription:
     """The launch ``moe_gmm_kernel`` makes on tensors of the ``(shape,
     dtype)`` pairs ``args`` = (x, w): grid (e, g / bg, n / bn), a loop over
-    k / bk, x and w tiles staged in shared memory; for bf16 the wgmma
-    launch ``matmul_launch`` states, per expert.  Arithmetic only."""
+    k / bk, x and w tiles staged in shared memory; per expert the launch
+    ``matmul_launch`` states, wgmma for bf16 and the SIMT ring for f32.
+    Arithmetic only."""
     (xs, dt), (ws, _) = args
     e, g, k = xs
     n = ws[2]
-    elem = dt.itemsize
     grid = (e, -(-g // bg), -(-n // bn))
     if dt == torch.bfloat16:
         return LaunchDescription(
@@ -133,18 +135,12 @@ def moe_gmm_launch(args, *, bg: int, bn: int, bk: int) -> LaunchDescription:
             flops=2.0 * e * g * n * k, dtype=dt, granule=SM90_GRANULE,
             compute_unit="bf16")
     return LaunchDescription(
-        grid=grid,
-        loops=(-(-k // bk),),
+        grid=grid, loops=(-(-k // bk),),
         threads=(bg // MATMUL_MICRO_TILE) * (bn // MATMUL_MICRO_TILE),
-        smem_bytes=(bg + bn) * bk * elem,
-        operands=(
-            OperandLaunch((1, bg, bk), (0, 1, 3), dt, staged=True),
-            OperandLaunch((1, bk, bn), (0, 2, 3), dt, staged=True),
-            OperandLaunch((1, bg, bn), (0, 1, 2), dt, is_output=True),
-        ),
-        flops=2.0 * e * g * n * k,
-        dtype=dt,
-    )
+        smem_bytes=simt_smem_bytes(bg, bn, bk),
+        operands=simt_operands(((0, 1, 3), (0, 2, 3), (0, 1, 2)), (1,), bg,
+                               bn, bk, dt, dt),
+        flops=2.0 * e * g * n * k, dtype=dt, granule=SIMT_GRANULE)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
@@ -165,7 +161,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
     e, g, k = x.shape
     n = w.shape[2]
     sm90 = x.dtype == torch.bfloat16
-    granule = SM90_GRANULE if sm90 else GRANULE
+    granule = SM90_GRANULE if sm90 else SIMT_GRANULE
     for name, t, size in (("bg", bg, g), ("bn", bn, n), ("bk", bk, k)):
         if not isinstance(t, int) or t <= 0 or t % granule:
             raise ValueError(f"{name}={t!r} must be a positive multiple "
@@ -181,9 +177,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, bg: int, bn: int,
         raise ValueError(f"bg * bn / 64 = {d.threads} threads exceeds the "
                          f"kernel's {MAX_THREADS}")
     if d.smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"tiles need {d.smem_bytes} bytes of shared "
-                         f"memory, more than the {SMEM_LIMIT} a block can "
-                         f"have")
+        raise ValueError(f"tile {(bg, bn, bk)} needs {d.smem_bytes} bytes "
+                         f"of shared memory for its ring, more than the "
+                         f"{SMEM_LIMIT} a block can have")
     # SIMT: (n / bn, g / bg, e) on (x, y, z); wgmma: (g / bg, n / bn, e)
     yz = (d.grid[0], d.grid[2]) if sm90 else d.grid[:2]
     if max(yz) > MAX_GRID_YZ \
@@ -218,5 +214,5 @@ def moe_gmm_kernel(x: torch.Tensor, w: torch.Tensor, *, bg: int, bn: int,
 
 MOE_GMM = CudaKernel(source="moe_gmm", describe=moe_gmm_launch,
                      launch=moe_gmm_kernel, attributes=kernel_attributes,
-                     regs_cap={torch.float32: GMM_REGS_PER_THREAD,
+                     regs_cap={torch.float32: MATMUL_REGS_PER_THREAD,
                                torch.bfloat16: SM90_REGS_PER_THREAD})

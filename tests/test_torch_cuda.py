@@ -23,6 +23,7 @@ from repro_torch.kernels import reduce as cs
 from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
+from repro_torch.core import H100, matmul_spec, moe_gmm_spec
 from repro_torch.core.kernel_spec import (FLASH_SM90_TILES, SM90_TILES,
                                           flash_uses_sm90, ssd_scan_spec)
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
@@ -38,10 +39,18 @@ VARIANTS = {
 }
 
 
+def _f32_tiles(spec, D):
+    """Every tile of the f32 SIMT spec feasible at D, as keyword dicts."""
+    table = spec.candidates(D, H100)
+    return [table.row(i) for i in range(len(table))]
+
+
 @pytest.mark.cuda
 def test_cuda_matmul_kernel_matches_plain():
     """Every compiled bf16 wgmma tile with each output type, at k 1024 (8
-    or 16 k steps: the 4-slot ring wraps), and the f32 SIMT kernel."""
+    or 16 k steps: the 4-slot ring wraps), and every feasible f32 SIMT tile
+    at k 1024 (4-128 k steps: the 3-slot cp.async ring wraps) and at k = bk
+    (one k step)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -52,7 +61,9 @@ def test_cuda_matmul_kernel_matches_plain():
              ).to(dtype)
         plain = matmul_plain(x, y, torch.float32)
         runs = ([(t, o) for t in SM90_TILES for o in OUT_DTYPES]
-                if dtype == torch.bfloat16 else [((64, 128, 32), dtype)])
+                if dtype == torch.bfloat16 else
+                [((P["bm"], P["bn"], P["bk"]), dtype) for P in _f32_tiles(
+                    matmul_spec(4), {"m": 256, "n": 512, "k": 1024})])
         for (bm, bn, bk), out_dtype in runs:
             before = MATMUL_LAUNCHES.count
             out = matmul_kernel(x, y, bm=bm, bn=bn, bk=bk,
@@ -61,8 +72,21 @@ def test_cuda_matmul_kernel_matches_plain():
             assert out.dtype == out_dtype
             torch.testing.assert_close(out.float(), plain, atol=tol,
                                        rtol=tol)
+            if dtype == torch.float32:
+                xs, ys = x[:, :bk].contiguous(), y[:bk].contiguous()
+                torch.testing.assert_close(
+                    matmul_kernel(xs, ys, bm=bm, bn=bn, bk=bk),
+                    matmul_plain(xs, ys), atol=tol, rtol=tol)
         torch.testing.assert_close(ops.matmul(x, y).float(), plain,
                                    atol=tol, rtol=tol)
+    # f32 in, bf16 and f16 out through the SIMT epilogue's 8-byte stores
+    x, y = torch.randn(128, 256, generator=gen, device="cuda"), \
+        torch.randn(256, 128, generator=gen, device="cuda") / 16
+    plain = matmul_plain(x, y)
+    for out_dtype in (torch.bfloat16, torch.float16):
+        out = matmul_kernel(x, y, bm=64, bn=64, bk=32, out_dtype=out_dtype)
+        assert out.dtype == out_dtype
+        torch.testing.assert_close(out.float(), plain, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -152,7 +176,8 @@ def test_cuda_moe_gmm_kernel_matches_plain():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         # bf16: every compiled wgmma tile at k 768 (6 or 12 k steps: the
-        # ring wraps); f32: SIMT tiles
+        # ring wraps); f32: every feasible SIMT tile at k 256 (1-32 k
+        # steps), and one whose thread grid (2 x 24) takes no 4 x 8 warps
         k, n = (768, 256) if dtype == torch.bfloat16 else (256, 192)
         x = torch.randn(4, 128, k, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(4, k, n, generator=gen, device="cuda")
@@ -160,9 +185,8 @@ def test_cuda_moe_gmm_kernel_matches_plain():
         plain = gmm.moe_gmm_plain(x, w)
         tiles = ([dict(zip(("bg", "bn", "bk"), t)) for t in SM90_TILES]
                  if dtype == torch.bfloat16
-                 else ({"bg": 64, "bn": 64, "bk": 32},
-                       {"bg": 16, "bn": 192, "bk": 8},
-                       {"bg": 128, "bn": 32, "bk": 256}))
+                 else [{"bg": 16, "bn": 192, "bk": 8}] + _f32_tiles(
+                     moe_gmm_spec(4), {"e": 4, "g": 128, "k": k, "n": n}))
         for P in tiles:
             before = gmm.LAUNCHES.count
             out = gmm.moe_gmm_kernel(x, w, **P)

@@ -251,6 +251,40 @@ class TestDerivation:
         assert not any(c.startswith("nt %") for c in spec.constraints)
         assert spec.threads == _expected_toy_threads()
 
+    @pytest.mark.parametrize("which", ["matmul", "moe_gmm"])
+    def test_f32_derived_spec_is_the_simt_hand_spec(self, which):
+        """The f32 launch descriptions state the SIMT ring: the spec derived
+        from them has the hand spec's threads, scratch tiles (the ring's
+        other slots, the x-row padding), granules and register cap, and
+        the same candidates, stage bytes and traffic at the equivalence
+        shapes."""
+        from repro_torch.core import moe_gmm_spec
+        from repro_torch.kernels.moe_gmm import MOE_GMM
+        kernel, gs, hand = ((MATMUL, matmul_grid_spec(4), matmul_spec(4))
+                            if which == "matmul" else
+                            (MOE_GMM, moe_gmm_grid_spec(4), moe_gmm_spec(4)))
+        intro = spec_from_kernel(kernel, gs, device="cpu")
+        assert intro.threads == hand.threads
+        assert intro.regs_per_thread == hand.regs_per_thread == 128
+        assert intro.compute_unit == hand.compute_unit == "f32"
+        assert [op.tile for op in intro.operands if op.scratch] == \
+            [op.tile for op in hand.operands if op.scratch]
+        for p in hand.program_params:
+            assert intro.alignment(p) == hand.alignment(p) == 8
+        for D in EQUIV_SHAPES[f"{which}_b16"]:
+            th, ti = hand.candidates(D, H100), intro.candidates(D, H100)
+            assert len(th) == len(ti) > 0
+            for p in th.params:
+                np.testing.assert_array_equal(th[p], ti[p])
+            tth, tti = hand.traffic_table(D, th), intro.traffic_table(D, ti)
+            for f in ("ctas", "seq_iters", "threads", "stage_bytes",
+                      "blocks_per_sm", "grid_steps", "flops_total"):
+                np.testing.assert_array_equal(getattr(tth, f),
+                                              getattr(tti, f), err_msg=f)
+            assert len(tth.operands) == len(tti.operands) == 3
+            for oh, oi in zip(tth.operands, tti.operands):
+                np.testing.assert_array_equal(oh.bytes(), oi.bytes())
+
     def test_p_dependent_flops_need_hint(self):
         gs = _toy_grid_spec()
         kernel = _toy_kernel(flops=lambda m, bm: 2.0 * m * bm)

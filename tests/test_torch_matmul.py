@@ -21,11 +21,11 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref
 from repro.kernels.matmul import matmul_pallas
 
-from repro_torch.core import H100, HopperModel, matmul_spec, moe_gmm_spec
+from repro_torch.core import (H100, CandidateTable, HopperModel, matmul_spec,
+                              moe_gmm_spec)
 from repro_torch.core.device_model import roofline_times
 from repro_torch.core.kernel_spec import (SM90_SMEM_EXTRA, SM90_STAGES,
-                                          SM90_TILES, Operand,
-                                          sm90_smem_bytes)
+                                          SM90_TILES, sm90_smem_bytes)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import matmul as port_matmul
 from repro_torch.kernels.matmul import LAUNCHES, matmul_kernel, matmul_plain
@@ -71,11 +71,12 @@ def test_plain_and_ops_match_reference(m, n, k, name):
 
 
 @pytest.mark.parametrize("name,bm,bn,bk", [
-    *[("float32", *t) for t in [(8, 128, 128), (32, 256, 128),
-                                (64, 128, 256), (128, 128, 128)]],
+    *[("float32", *t) for t in [(8, 128, 128), (32, 256, 32),
+                                (64, 128, 64), (128, 128, 64)]],
     *[("bfloat16", *t) for t in SM90_TILES]])
 def test_kernel_wrapper_cpu_block_sweep(name, bm, bn, bk):
-    """The f32 SIMT tiles as before, and every compiled bf16 wgmma tile."""
+    """f32 SIMT tiles whose ring fits, and every compiled bf16 wgmma
+    tile."""
     xa, ya = _inputs(7, (128, 256), (256, 256))
     (xj, xt), (yj, yt) = _both(xa, name), _both(ya, name)
     expected = matmul_pallas(xj, yj, bm=bm, bn=bn, bk=bk, interpret=True)
@@ -195,42 +196,129 @@ def test_bf16_spec_is_the_compiled_table(make, rows):
     assert SM90_SMEM_EXTRA == 1024 + 2 * SM90_STAGES * 8
 
 
-def _pr14_simt_spec(name, rows, data, grid, ops_):
-    """The f32 specs exactly as the SIMT kernel had them before the bf16
-    redesign."""
-    from repro_torch.core.kernel_spec import KernelSpec
+SIMT_HEADER = (port_matmul.__file__.rsplit("/", 1)[0]
+               + "/csrc/gemm_simt.cuh")
+F32_TILES = [(16, 128, 8), (32, 64, 128), (64, 64, 32), (64, 256, 16),
+             (128, 128, 32), (256, 128, 8)]
+
+
+@pytest.mark.parametrize("make,rows", [(matmul_spec, "bm"),
+                                       (moe_gmm_spec, "bg")])
+def test_f32_specs_state_the_simt_ring(make, rows):
+    """The f32 spec is the SIMT mainloop of gemm_simt.cuh: bm * bn / 64
+    threads on the CUDA cores under its 128-register cap, the staged x and
+    y tiles of one k step, the ring's other SIMT_STAGES - 1 slots and every
+    slot's x-row padding as scratch, granules of 8, and the candidate grid
+    of before; its feasible set is exactly the tiles whose ring fits a
+    block's shared memory."""
+    import itertools
+    import re
+    from repro_torch.core.kernel_spec import (SIMT_CANDIDATES, SIMT_PAD,
+                                              SIMT_STAGES, simt_smem_bytes)
     from repro_torch.core.rational_program import const, var
-    return KernelSpec(
-        name=name, data_params=data, program_params=(rows, "bn", "bk"),
-        grid=grid, operands=ops_, flops_per_point=2.0,
-        threads=var(rows) * var("bn") / const(64.0), regs_per_thread=128,
-        constraints=(f"{rows} % 8 == 0", "bn % 8 == 0", "bk % 8 == 0"),
-        param_candidates={rows: (16, 32, 64, 128, 256, 512),
-                          "bn": (16, 32, 64, 128, 256, 512),
-                          "bk": (8, 16, 32, 64, 128, 256)},
-        fit_vars={m: (rows, "bn", "bk")
-                  for m in ("mem_step", "cmp_step", "ovh_step")})
+    spec = make(4)
+    assert spec.compute_unit == "f32" and spec.regs_per_thread == 128
+    assert spec.threads == var(rows) * var("bn") / const(64.0)
+    assert spec.program_params == (rows, "bn", "bk")
+    assert spec.constraints == tuple(f"{p} % 8 == 0"
+                                     for p in spec.program_params)
+    assert spec.param_candidates == {rows: (16, 32, 64, 128, 256, 512),
+                                     "bn": (16, 32, 64, 128, 256, 512),
+                                     "bk": (8, 16, 32, 64, 128, 256)}
+    assert SIMT_CANDIDATES == {"m": spec.param_candidates[rows],
+                               "n": spec.param_candidates["bn"],
+                               "k": spec.param_candidates["bk"]}
+    scratch = [(op.tile, op.dtype_bytes) for op in spec.operands
+               if op.scratch]
+    assert scratch == [((SIMT_STAGES - 1, rows, "bk"), 4),
+                       ((SIMT_STAGES - 1, "bk", "bn"), 4),
+                       ((SIMT_STAGES, rows, SIMT_PAD), 4)]
+    staged = [op.tile for op in spec.operands if op.staged]
+    assert staged == [(rows, "bk"), ("bk", "bn")]
+    # the header's constants are the spec's
+    text = open(SIMT_HEADER).read()
+    for const_, val in (("kStages", SIMT_STAGES), ("kPad", SIMT_PAD),
+                        ("kMicro", 8), ("kMaxThreads", 512)):
+        assert re.search(rf"constexpr int {const_} = {val};", text), const_
+    D = ({"m": 2048, "n": 2048, "k": 2048} if rows == "bm"
+         else {"e": 4, "g": 2048, "k": 2048, "n": 2048})
+    table = spec.candidates(D, H100)
+    tt = spec.traffic_table(D, table, H100)
+    np.testing.assert_array_equal(
+        tt.stage_bytes, [simt_smem_bytes(*t) for t in zip(
+            table[rows], table["bn"], table["bk"])])
+    np.testing.assert_array_equal(tt.threads,
+                                  table[rows] * table["bn"] // 64)
+    assert tt.compute_unit == "f32"
+    want = sorted(t for t in itertools.product(*spec.param_candidates.values())
+                  if 32 <= t[0] * t[1] // 64 <= 512
+                  and simt_smem_bytes(*t) <= H100.smem_per_block_optin)
+    got = sorted(zip(*(table[p].tolist() for p in spec.program_params)))
+    assert got == want
+    # the traffic counts one fetch of each input tile per k step
+    ins = [op for op in tt.operands if not op.is_output]
+    assert [op.name for op in ins] == [spec.operands[0].name,
+                                       spec.operands[1].name]
+    for op in ins:
+        np.testing.assert_array_equal(op.fetches, tt.ctas * tt.seq_iters)
 
 
-def test_f32_specs_are_unchanged():
-    from repro_torch.core.kernel_spec import GridAxis
-    mm = _pr14_simt_spec(
-        "matmul_b32", "bm", ("m", "n", "k"),
-        (GridAxis("i", "m", "bm"), GridAxis("j", "n", "bn"),
-         GridAxis("l", "k", "bk", sequential=True)),
-        (Operand("lhs", ("bm", "bk"), ("i", "l"), 4, staged=True),
-         Operand("rhs", ("bk", "bn"), ("l", "j"), 4, staged=True),
-         Operand("out", ("bm", "bn"), ("i", "j"), 4, is_output=True)))
-    gmm = _pr14_simt_spec(
-        "moe_gmm_b32", "bg", ("e", "g", "k", "n"),
-        (GridAxis("ex", "e", None), GridAxis("i", "g", "bg"),
-         GridAxis("j", "n", "bn"), GridAxis("l", "k", "bk", sequential=True)),
-        (Operand("tokens", ("bg", "bk"), ("ex", "i", "l"), 4, staged=True),
-         Operand("weights", ("bk", "bn"), ("ex", "l", "j"), 4, staged=True),
-         Operand("out", ("bg", "bn"), ("ex", "i", "j"), 4, is_output=True)))
-    assert matmul_spec(4) == mm
-    assert moe_gmm_spec(4) == gmm
-    assert mm.compute_unit == gmm.compute_unit == "f32"
+@pytest.mark.parametrize("tile", F32_TILES)
+@pytest.mark.parametrize("kind", ["matmul", "moe_gmm"])
+def test_f32_launch_states_the_spec(kind, tile):
+    """``matmul_launch`` / ``moe_gmm_launch`` for f32 state the spec's
+    threads, the ring's shared-memory bytes (SIMT_STAGES padded slots) and
+    grid at each tile, as the C launcher computes them."""
+    from repro_torch.core.kernel_spec import simt_smem_bytes
+    from repro_torch.kernels import moe_gmm as port_gmm
+    bm, bn, bk = tile
+    if kind == "matmul":
+        D = {"m": 1024, "n": 512, "k": 512}
+        spec, P = matmul_spec(4), {"bm": bm, "bn": bn, "bk": bk}
+        d = port_matmul.matmul_launch(
+            (((1024, 512), torch.float32), ((512, 512), torch.float32)), **P)
+        grid = (1024 // bm, 512 // bn)
+    else:
+        D = {"e": 3, "g": 1024, "k": 512, "n": 512}
+        spec, P = moe_gmm_spec(4), {"bg": bm, "bn": bn, "bk": bk}
+        d = port_gmm.moe_gmm_launch(
+            (((3, 1024, 512), torch.float32), ((3, 512, 512), torch.float32)),
+            **P)
+        grid = (3, 1024 // bm, 512 // bn)
+    one = CandidateTable.from_rows(spec.program_params, [P])
+    assert spec.feasible_mask(D, one, H100)[0]
+    tt = spec.traffic_table(D, one, H100)
+    assert d.threads == bm * bn // 64 == tt.threads[0]
+    assert d.smem_bytes == simt_smem_bytes(bm, bn, bk) == tt.stage_bytes[0]
+    assert d.smem_bytes == 3 * (bm * (bk + 4) + bk * bn) * 4
+    assert d.grid == grid and d.loops == (512 // bk,)
+    assert d.granule == 8 and d.compute_unit == "f32"
+    assert sum(op.scratch for op in d.operands) == 3
+
+
+@pytest.mark.parametrize("tile", [(128, 128, 128), (32, 256, 128),
+                                  (64, 128, 256), (128, 32, 256)])
+@pytest.mark.parametrize("kind", ["matmul", "moe_gmm"])
+def test_f32_wrappers_reject_a_tile_whose_ring_does_not_fit(kind, tile):
+    """Tiles the single-buffered SIMT body took ((bm + bn) * bk * 4 bytes
+    fit) but whose three padded ring slots exceed a block's shared memory:
+    both f32 wrappers raise on the CPU too, before the plain version runs,
+    and count no launch."""
+    from repro_torch.kernels import moe_gmm as port_gmm
+    bm, bn, bk = tile
+    assert (bm + bn) * bk * 4 <= port_matmul.SMEM_LIMIT
+    if kind == "matmul":
+        x, y = torch.zeros(256, 256), torch.zeros(256, 256)
+        launches, call = LAUNCHES, lambda: matmul_kernel(x, y, bm=bm, bn=bn,
+                                                         bk=bk)
+    else:
+        x, w = torch.zeros(2, 256, 256), torch.zeros(2, 256, 256)
+        launches = port_gmm.LAUNCHES
+        call = lambda: port_gmm.moe_gmm_kernel(x, w, bg=bm, bn=bn, bk=bk)
+    before = launches.count
+    with pytest.raises(ValueError, match="shared memory for its ring"):
+        call()
+    assert launches.count == before
 
 
 def test_roofline_uses_the_tensor_core_peak_for_bf16():
@@ -312,3 +400,17 @@ def test_wrapper_raises_and_never_falls_back(monkeypatch, tmp_path):
         _build.load.cache_clear()
         port_matmul._lib.cache_clear()
     assert LAUNCHES.count == 0
+
+
+def test_smem_load_probe_source_instantiates_every_pattern():
+    """The shared-memory load probe behind the SIMT layout
+    (``repro_torch.benchmarks.smem_loads``, card only) builds one
+    instantiation per access pattern, at the width each names, and selects
+    its lane mapping; import and source generation need no card."""
+    from repro_torch.benchmarks import smem_loads
+    src = smem_loads.source()
+    for i, (name, width, expr) in enumerate(smem_loads.PATTERNS):
+        assert f"run<{width}, {i}>()" in src, name
+        assert f"P == {i} ? ({expr})" in src, name
+        assert name.startswith(f"{width} B, ")
+    assert src.count("printf(") == len(smem_loads.PATTERNS)

@@ -23,7 +23,8 @@ from repro.kernels.moe_gmm import moe_gmm_pallas
 from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
                               choose_or_default, gmm_probe_data, moe_gmm_spec,
                               registry, selection_ratio)
-from repro_torch.core.kernel_spec import SM90_TILES, sm90_smem_bytes
+from repro_torch.core.kernel_spec import (SM90_TILES, simt_smem_bytes,
+                                          sm90_smem_bytes)
 from repro_torch.kernels import moe_gmm as port_gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels.moe_gmm import (LAUNCHES, moe_gmm_kernel,
@@ -153,8 +154,8 @@ def test_spec_feasibility_is_the_kernels_limits(elem):
         assert (takes and threads[i] >= 32) == bool(mask[i]), (P, takes)
         if takes and elem == 2:     # the wgmma kernel's ring
             assert stage[i] == sm90_smem_bytes(P["bg"], P["bn"], P["bk"])
-        elif takes:
-            assert stage[i] == (P["bg"] + P["bn"]) * P["bk"] * elem
+        elif takes:                 # the SIMT kernel's cp.async ring
+            assert stage[i] == simt_smem_bytes(P["bg"], P["bn"], P["bk"])
     table = spec.candidates(D, H100)
     tt = spec.traffic_table(D, table, H100)
     assert np.all(tt.ctas == 2 * (512 // table["bg"]) * (512 // table["bn"]))

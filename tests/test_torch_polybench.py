@@ -128,6 +128,26 @@ def test_matmul_rows_are_the_f32_simt_matmul():
     assert REF["corr"].mxu_fraction != REF["gemm"].mxu_fraction
 
 
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_matmul_rows_candidates_follow_the_simt_ring(n):
+    """The nine card-timed rows tune the SIMT kernel's whole feasible grid:
+    every (bm, bn, bk) of the candidate grid with 32-512 threads whose
+    three padded ring slots fit a block's shared memory (prints the
+    count)."""
+    import itertools
+    from repro_torch.core.kernel_spec import simt_smem_bytes
+    spec = PORT["gemm"]
+    D = polybench.eval_points(spec, sizes=(n,))[0]
+    table = spec.candidates(D, H100)
+    want = sorted(t for t in itertools.product(*spec.param_candidates.values())
+                  if 32 <= t[0] * t[1] // 64 <= 512
+                  and simt_smem_bytes(*t) <= H100.smem_per_block_optin
+                  and all(D[d] % v == 0 for d, v in zip("mnk", t)))
+    got = sorted(zip(*(table[p].tolist() for p in spec.program_params)))
+    print(f"gemm@N{n}: {len(got)} candidates of the SIMT ring")
+    assert got == want and len(got) >= 8
+
+
 def test_launch_aliases():
     """The nine rows whose spec is the f32 matmul's, FLOPs included, launch
     ``matmul_b32`` on the card, timed as that kernel (the matmul spec under

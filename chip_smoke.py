@@ -128,13 +128,33 @@ block:
      beside the reference's modeled formula; (d) the suite's other 19 rows on
      ``HopperModel`` at the card's parameters, labelled so.  The ratios are
      printed, not gated; the cache read and "every card row ran on
-     ``CudaEventTimer``" are gated.
+     ``CudaEventTimer``" are gated;
+ 21. KLARAPTOR's launch plans on the card: (a) ``precompile_plans`` into an
+     empty driver cache for ``matmul_b16``, ``flash_attn_d64_causal`` and
+     ``ssd_scan_h64_n128``, from the drivers phases 4, 8 and 12 built, over
+     envelopes that hold the GEMM shapes of phase 5 and the prefill shapes
+     of phases 9 and 13 (every plan entry must be the driver's ``choose``
+     at that shape), then ``ops.matmul`` at two GEMM shapes decided by the
+     plan; (b) a fresh ``python`` process warm-starts from that cache: the
+     drivers and plans load with no kernel launched, the plans equal (a)'s,
+     and its first tuned flash launch is decided by the plan; a third
+     process, from a copy of the cache whose flash plan claims other kernel
+     code, must not install that plan; (c) / (d) the llama3.2-1b and
+     mamba2-130m prefills of phases 9 and 13 under a step plan built from
+     ``decode_kernel_requests``: 16 flash / 24 SSD launches, the registry
+     untouched (``stats()``, the decision memo), logits bit-identical to the
+     same step resolved through the registry; (e) the host microseconds of
+     one decision at llama's prefill shape (decision memo, the chain behind
+     it with the memo off, which a plan serves, plan probe, step plan,
+     driver ``choose``, default, a bare dict probe), beside the tuned
+     flash launch's card time from phase 9 (printed, not gated).
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
-column sum; 19 is the entry point, read the same way) and 20 (b) (the f32
-SIMT matmul: the suite's probes and exhaustive passes): each launch
-counter is set to 0
+column sum; 19 is the entry point, read the same way), 20 (b) (the f32
+SIMT matmul: the suite's probes and exhaustive passes) and 21 (the bf16
+matmul, flash attention and the SSD under launch and step plans): each
+launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  The
 driver cache (``$KLARAPTOR_CACHE_DIR``) is an empty temporary directory
@@ -734,14 +754,22 @@ def run(caches: list) -> int:
                                       "plain_ms", "bound_ms", "bound_by")}
                    for r in rows],
     }
-    flash_row = flash_phases(dev, hw, gen, check, time_ms, phase_done)
-    ssd_row = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
+    flash_row, flash_ctx = flash_phases(dev, hw, gen, check, time_ms,
+                                        phase_done)
+    ssd_row, ssd_ctx = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
     gmm32_row, gmm_row = gmm_phases(dev, hw, gen, check, time_ms,
                                     phase_done)
     introspect_phase(hw, phase_done)
     ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done,
                                  caches)
     simt_row = paper_phase(dev, hw, check, time_ms, phase_done, caches)
+    plan_launches = plan_phase(
+        dev, hw, gen, check, phase_done, caches, card,
+        {"matmul": (spec, build.driver), "flash": flash_ctx,
+         "ssd": ssd_ctx})
+    for row, name in ((matmul_row, "matmul"), (flash_row, "flash"),
+                      (ssd_row, "ssd")):
+        row["plan_path_launches"] = plan_launches[name]
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
                                   ln_row, cs_row, simt_row, gmm32_row],
                       "card": card}))
@@ -754,7 +782,8 @@ def run(caches: list) -> int:
 def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     """Phases 7-10: the flash-attention kernel, KLARAPTOR on it, the
     llama3.2-1b prefill step and the serving engine.  Returns the kernel's
-    entry of the ``kernels`` line."""
+    entry of the ``kernels`` line, and the driver, model and prefill inputs
+    phase 21 reuses."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1006,6 +1035,9 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         print(line)
     phase_done(10)
 
+    ctx = {"spec": spec, "driver": build.driver, "cfg": cfg, "model": model,
+           "params": params, "tokens": tokens,
+           "launch_ms": total["ms"] / len(layers)}
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1026,13 +1058,14 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         "prefill_warm_ms": prefill_warm_ms,
         "prefill_flash_share": share,
         "layers": layers,
-    }
+    }, ctx
 
 
 def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     """Phases 11-14: the SSD chunked-scan kernel, KLARAPTOR on it, the
     mamba2-130m prefill step and the serving engine.  Returns the kernel's
-    entry of the ``kernels`` line."""
+    entry of the ``kernels`` line, and the driver, model and prefill inputs
+    phase 21 reuses."""
     import numpy as np
     import torch
 
@@ -1349,6 +1382,8 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
           f"{total['bound_per_head_ms']:.4f} ms with B and C per head), "
           f"plain {total['plain_ms']:.2f} ms, chunk {chunk}, {ctas} CTAs, "
           f"selection ratio {ratio['ratio']:.3f}", flush=True)
+    ctx = {"spec": spec, "driver": build.driver, "cfg": cfg, "model": model,
+           "params": params, "tokens": tokens}
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1368,7 +1403,7 @@ def ssd_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
         "selection_ratio": ratio["ratio"],
         "chunk_sweep_ms": sweep,
         "layers": layers,
-    }
+    }, ctx
 
 
 def gmm_phases(dev, hw, gen, check, time_ms,
@@ -2089,6 +2124,307 @@ def paper_phase(dev, hw, check, time_ms, phase_done, caches) -> dict:
         "fig3_measured_s": {"build": f3["measured_build_s"],
                             "exhaustive": f3["measured_exhaustive_s"]},
     }
+
+
+# Phase 21's envelopes: the GEMM shapes of phase 5, llama3.2-1b's attention
+# (32 q heads at B 1 and 4) and mamba2-130m's SSD (24 heads at B 1) at the
+# decode length 1 and prefill lengths up to phases 9 and 13's 4096.
+PLAN_SEQS = [1, 512, 1024, 2048, PREFILL_S]
+PLAN_ENVELOPES = {
+    "matmul_b16": {"m": [4096], "n": [512, 2048, 8192, 128256],
+                   "k": [2048, 8192]},
+    "flash_attn_d64_causal": {"bh": [32, 128], "sq": PLAN_SEQS,
+                              "skv": PLAN_SEQS},
+    "ssd_scan_h64_n128": {"bh": [24], "s": PLAN_SEQS, "chunkflops": [1]},
+}
+PLAN_MATMULS = ("q_o_proj", "k_v_proj")
+
+# A fresh process of phase 21 (b): warm-start from the driver cache, report
+# what it loaded and the launch counters, and with "launch" make one tuned
+# flash launch at llama3.2-1b's prefill shape.
+_PLAN_READER = """
+import json, sys
+import torch
+from repro_torch.core import (flash_attention_spec, local_hw, matmul_spec,
+                              registry, set_choice_listener, ssd_scan_spec,
+                              warm_start_from_cache)
+from repro_torch.kernels import flash_attention, matmul, ops, ssd_scan
+specs = [matmul_spec(2), flash_attention_spec(64, True, 2),
+         ssd_scan_spec(64, 128, 2)]
+summary = warm_start_from_cache(specs)
+hw = local_hw()
+out = {"summary": summary.as_dict(), "hw": hw.name,
+       "launches": [m.LAUNCHES.count
+                    for m in (matmul, flash_attention, ssd_scan)],
+       "plans": {s.name: sorted(
+           [sorted(a.items()), sorted(b.items())]
+           for a, b in registry.plan(s.name, hw.name).entries())
+           for s in specs if registry.plan(s.name, hw.name) is not None}}
+if sys.argv[1] == "launch":
+    events = []
+    set_choice_listener(events.append)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(h, %d, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (32, 8, 8))
+    ops.flash_attention(q, k, v, num_q_heads=32, num_kv_heads=8)
+    torch.cuda.synchronize()
+    out["first"] = {"source": events[0].source, "config": events[0].config,
+                    "D": events[0].D}
+    out["flash_launches"] = flash_attention.LAUNCHES.count
+print(json.dumps(out))
+""" % PREFILL_S
+
+
+def _host_us(fn, n: int) -> float:
+    """Mean host microseconds of fn() over n calls."""
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter_ns() - t0) / n / 1e3
+
+
+def plan_phase(dev, hw, gen, check, phase_done, caches, card: str,
+               paths: dict) -> dict:
+    """Phase 21: KLARAPTOR's launch plans and step plans on the card (see
+    the module docstring).  ``paths`` holds phase 4's (spec, driver) and
+    phases 8-9's and 12-13's drivers, models and prefill inputs.  Returns
+    each kernel's launches on this path."""
+    import torch
+
+    from repro_torch.core import (DriverCache, PlanEntry, code_digest,
+                                  choose_or_default, default_cache,
+                                  memo_key, precompile_plans, registry,
+                                  set_choice_listener, set_decision_memo)
+    from repro_torch.core.step_plan import build_step_plan, use_step_plan
+    from repro_torch.kernels import flash_attention, matmul, ops, ssd_scan
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    print(f"[21] KLARAPTOR's launch plans on the card ({card})", flush=True)
+    t_phase = time.perf_counter()
+    mm_spec, mm_drv = paths["matmul"]
+    specs = {mm_spec.name: (mm_spec, mm_drv)}
+    for key in ("flash", "ssd"):
+        specs[paths[key]["spec"].name] = (paths[key]["spec"],
+                                          paths[key]["driver"])
+    if set(specs) != set(PLAN_ENVELOPES):
+        raise AssertionError(f"phase 21 has drivers of {sorted(specs)}")
+    counters = {"matmul": matmul.LAUNCHES, "flash": flash_attention.LAUNCHES,
+                "ssd": ssd_scan.LAUNCHES}
+    for c in counters.values():         # this path's launches start here
+        c.reset()
+
+    # -- (a) plans into an empty cache, from the earlier phases' drivers ----
+    built_in = DriverCache(caches[0])
+    fresh = fresh_cache(caches)
+    store = default_cache()
+    registry.clear()
+    for name, (spec, drv) in specs.items():
+        # phase 17 wrote drivers of the same specs built on HopperModel
+        entry = built_in.lookup_latest(name, hw_name=hw.name,
+                                       code=code_digest(spec),
+                                       source_hash=drv.source_hash)
+        if entry is None:
+            raise AssertionError(f"{name}: the driver phase 4/8/12 built "
+                                 f"is not in the first driver cache")
+        store.put(entry)
+        registry.register(drv)
+    t0 = time.perf_counter()
+    summary = precompile_plans(PLAN_ENVELOPES, hw=hw)
+    compile_s = time.perf_counter() - t0
+    if sorted(summary["compiled"]) != sorted(PLAN_ENVELOPES):
+        raise AssertionError(f"precompile_plans: {summary}")
+    plans = {name: registry.plan(name, hw.name) for name in specs}
+    for name, plan in plans.items():
+        drv = specs[name][1]
+        for shape, cfg in plan.entries():
+            drv.namespace["_HISTORY"].clear()
+            if drv.choose(shape) != cfg:
+                raise AssertionError(f"{name} plan at {shape}: {cfg}, the "
+                                     f"driver chooses {drv.choose(shape)}")
+        if plan.source_hash != drv.source_hash or plan.code != \
+                code_digest(specs[name][0]):
+            raise AssertionError(f"{name}: the plan is not stamped with "
+                                 f"its driver and code")
+    print(f"  (a) precompile_plans into an empty cache: "
+          + ", ".join(f"{n} {len(p)} entries" for n, p in plans.items())
+          + f" in {compile_s * 1e3:.2f} ms wall; every entry is the "
+          f"driver's choose at its shape", flush=True)
+    events = []
+    set_choice_listener(events.append)
+    for name, m, n, k in SHAPES:
+        if name not in PLAN_MATMULS:
+            continue
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        y = (torch.randn(k, n, generator=gen, device=dev) / 32
+             ).to(torch.bfloat16)
+        out = ops.matmul(x, y)
+        check(out, matmul.matmul_plain(x, y), torch.bfloat16,
+              f"ops.matmul {name} ({m},{n},{k}) under the plan "
+              f"{events[-1].config}")
+        if events[-1].source != "plan":
+            raise AssertionError(f"{name}: decided by {events[-1].source}")
+        del x, y, out
+    set_choice_listener(None)
+
+    # -- (b) a fresh process warm-starts; a third one from edited code -----
+    tampered = tempfile.mkdtemp(prefix="klaraptor-cache-")
+    caches.append(tampered)
+    shutil.copytree(fresh, tampered, dirs_exist_ok=True)
+    bad = DriverCache(tampered)
+    entry = bad.lookup_latest_plan("flash_attn_d64_causal", hw_name=hw.name)
+    bad.put_plan(PlanEntry(kernel=entry.kernel, key=entry.key,
+                           hw_name=entry.hw_name,
+                           plan={**entry.plan, "code": "0" * 64},
+                           created_at=entry.created_at,
+                           tuning_version=entry.tuning_version))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PLAN_READER, arg], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), KLARAPTOR_CACHE_DIR=d))
+        for arg, d in (("launch", fresh), ("warm", tampered))]
+    results = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"a plan reader failed:\n{stderr}")
+        results.append(json.loads(stdout.strip().splitlines()[-1]))
+    child_s = time.perf_counter() - t0
+    second, third = results
+    names = list(specs)
+    want_plans = {n: sorted([sorted(a.items()), sorted(b.items())]
+                            for a, b in p.entries())
+                  for n, p in plans.items()}
+    want_plans = json.loads(json.dumps(want_plans))
+    D = {"bh": 32, "sq": PREFILL_S, "skv": PREFILL_S}
+    first = second.get("first", {})
+    print(f"  (b) a fresh process ({child_s:.2f} s for both, their starts "
+          f"included; card {second['hw']}): drivers "
+          f"{second['summary']['loaded']}, plans "
+          f"{second['summary']['plans_loaded']}, launches during the warm "
+          f"start {second['launches']}, plans "
+          f"{'identical' if second['plans'] == want_plans else 'DIFFER'}; "
+          f"its first tuned flash launch: source {first.get('source')} "
+          f"config {first.get('config')} ({second['flash_launches']} "
+          f"launch)", flush=True)
+    if sorted(second["summary"]["loaded"]) != sorted(names) \
+            or sorted(second["summary"]["plans_loaded"]) != sorted(names) \
+            or second["launches"] != [0, 0, 0] \
+            or second["plans"] != want_plans or second["hw"] != hw.name:
+        raise AssertionError(f"the fresh process: {second}")
+    if first.get("source") != "plan" or first.get("D") != D \
+            or first.get("config") != plans[
+                "flash_attn_d64_causal"].lookup(D) \
+            or second["flash_launches"] != 1:
+        raise AssertionError(f"the first flash launch: {first}")
+    print(f"      a process from a copy whose flash plan claims other "
+          f"kernel code: drivers {third['summary']['loaded']}, plans "
+          f"{third['summary']['plans_loaded']}", flush=True)
+    if sorted(third["summary"]["loaded"]) != sorted(names) or sorted(
+            third["summary"]["plans_loaded"]) != sorted(
+            n for n in names if n != "flash_attn_d64_causal"):
+        raise AssertionError(f"the plan of other code was installed: "
+                             f"{third}")
+
+    # -- (c), (d) the prefills under step plans ----------------------------
+    step_plans = {}
+    for key, kernel in (("flash", "flash_attn_d64_causal"),
+                        ("ssd", "ssd_scan_h64_n128")):
+        ctx = paths[key]
+        cfg, params, tokens = ctx["cfg"], ctx["params"], ctx["tokens"]
+        step = make_prefill_step(ctx["model"])
+        t0 = time.perf_counter()
+        want = step(params, tokens)          # resolved through the registry
+        torch.cuda.synchronize()
+        reg_ms = (time.perf_counter() - t0) * 1e3
+        sp = build_step_plan(T.decode_kernel_requests(
+            cfg, batch=tokens.shape[0], max_seq=tokens.shape[1]), hw=hw)
+        step_plans[key] = sp
+        stats, memo = registry.stats(), registry.memo_size()
+        hits = registry.memo_hits()
+        set_choice_listener(events.append)
+        events.clear()
+        before = counters[key].count
+        t0 = time.perf_counter()
+        with use_step_plan(sp):
+            got = step(params, tokens)
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t0) * 1e3
+        set_choice_listener(None)
+        n = counters[key].count - before
+        same = torch.equal(got, want)
+        untouched = (registry.stats() == stats
+                     and registry.memo_size() == memo
+                     and registry.memo_hits() == hits and not events)
+        print(f"  ({'c' if key == 'flash' else 'd'}) {cfg.name} prefill "
+              f"(B {tokens.shape[0]}, S {tokens.shape[1]}) under a step "
+              f"plan {sp.describe()['sources']}: {n} {kernel} launches, "
+              f"registry untouched: {untouched}, logits bit-identical to "
+              f"the registry-resolved step: {same} (wall {sp_ms:.2f} ms; "
+              f"through the registry {reg_ms:.2f} ms)", flush=True)
+        if n != cfg.n_layers or not untouched or not same:
+            raise AssertionError(f"{cfg.name} under a step plan: {n} "
+                                 f"launches, untouched {untouched}, "
+                                 f"equal {same}")
+        del want, got
+
+    # -- (e) host microseconds per decision --------------------------------
+    kernel = "flash_attn_d64_causal"
+    drv = specs[kernel][1]
+    choose_or_default(kernel, D, ops.FLASH_DEFAULT)      # memoized
+    table = plans[kernel]
+    sp = step_plans["flash"]
+    bare = {memo_key(kernel, hw.name, D): ops.FLASH_DEFAULT}
+    bare_key = memo_key(kernel, hw.name, D)
+
+    def driver_choose():
+        drv.namespace["_HISTORY"].clear()
+        drv.choose(D)
+
+    reps = 20000
+    prev = set_decision_memo(False)     # the chain behind the memo
+    try:
+        behind = _host_us(
+            lambda: choose_or_default(kernel, D, ops.FLASH_DEFAULT), reps)
+    finally:
+        set_decision_memo(prev)
+    us = {
+        "memo hit": _host_us(
+            lambda: choose_or_default(kernel, D, ops.FLASH_DEFAULT), reps),
+        "plan decision, memo off": behind,
+        "plan probe (registry)": _host_us(
+            lambda: registry.plan_lookup(kernel, hw.name, D), reps),
+        "plan probe (table)": _host_us(lambda: table.lookup(D), reps),
+        "step-plan resolve": _host_us(lambda: sp.resolve(kernel, D), reps),
+        "driver choose": _host_us(driver_choose, 200),
+        "default": _host_us(lambda: choose_or_default(
+            "untuned_kernel", D, ops.FLASH_DEFAULT), reps),
+        "bare dict probe": _host_us(lambda: bare.get(bare_key), reps),
+    }
+    if sp.stale():
+        raise AssertionError("the llama step plan went stale")
+    print(f"  (e) host us per decision for {kernel} at {D} (printed, not "
+          f"gated): " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+          + f"; the tuned flash launch takes {paths['flash']['launch_ms']:.4f}"
+          f" ms on the card (phase 9)", flush=True)
+
+    launches = {k: c.count for k, c in counters.items()}   # path ends here
+    print(f"  launches on this path: {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the plan path never launched: "
+                             f"{launches}")
+    registry.clear()
+    phase_done(21)
+    print(json.dumps({"plans": {"entries": {n: len(p)
+                                            for n, p in plans.items()},
+                                "compile_ms": compile_s * 1e3,
+                                "host_us": us, "card": card}}))
+    return launches
 
 
 if __name__ == "__main__":

@@ -29,10 +29,18 @@ level keeps the port's entries apart from the JAX package's, which live at
 ``<root>/<kernel>/`` under the same root and share kernel names
 (``matmul_b16``): neither package ever reads the other's drivers.
 
+A second kind of entry, ``PlanEntry`` (``<kernel>/<key>.plan.json``),
+stores a compiled launch plan (core/plan.py): the (shape -> config) table a
+driver's ``choose_many`` gave over a traffic envelope, stamped with that
+driver's ``source_hash`` and code digest.  Plan entries carry the same
+content hash and ``tuning_version`` order as driver entries, and
+``invalidate(below_version=...)`` evicts both kinds together: a plan is
+frozen output of its fit generation and must not outlive it.
+
 ``Klaraptor.build_driver`` writes through this store; ``core.driver``
 reads through it (``get_driver``, ``warm_start_from_cache``, and
 ``choose_or_default`` when no driver is registered and the caller passes
-its spec).
+its spec), installing the newest plan of the driver it serves.
 """
 
 from __future__ import annotations
@@ -50,9 +58,9 @@ from .device_model import HardwareParams, kernel_sources_digest
 from .kernel_spec import KernelSpec
 from .rational_program import Expr
 
-__all__ = ["CacheEntry", "DriverCache", "PORT_DIR", "cache_key",
-           "code_digest", "default_cache", "default_cache_dir",
-           "spec_fingerprint"]
+__all__ = ["CacheEntry", "DriverCache", "PORT_DIR", "PlanEntry",
+           "cache_key", "code_digest", "default_cache", "default_cache_dir",
+           "driver_source_hash", "spec_fingerprint"]
 
 # Version of the entry layout and of the key's recipe: a change to either
 # must never find an older entry.
@@ -88,6 +96,12 @@ def _write_json_atomic(path: str, raw: Any) -> None:
         except OSError:
             pass
         raise
+
+
+def driver_source_hash(source: str) -> str:
+    """Identity of a generated driver module (``DriverProgram.source_hash``;
+    compiled plans carry it)."""
+    return hashlib.sha256(source.encode()).hexdigest()[:16]
 
 
 def _sha(payload: Any) -> str:
@@ -161,8 +175,30 @@ class CacheEntry:
                      "tuning_version": self.tuning_version})
 
 
+@dataclass
+class PlanEntry:
+    """One compiled launch plan (``LaunchPlanTable.to_json``)."""
+
+    kernel: str
+    key: str
+    hw_name: str
+    plan: dict                      # the LaunchPlanTable payload
+    created_at: float
+    tuning_version: int = 0
+
+    @property
+    def code(self) -> str:
+        """The code digest of the driver the plan was compiled from."""
+        return self.plan.get("code", "")
+
+    def content_hash(self) -> str:
+        return _sha({"plan": self.plan,
+                     "tuning_version": self.tuning_version})
+
+
 class DriverCache:
-    """On-disk, content-addressed store of the port's generated drivers."""
+    """On-disk, content-addressed store of the port's generated drivers
+    and their compiled launch plans."""
 
     def __init__(self, root: str | None = None):
         self.root = os.path.join(root or default_cache_dir(), PORT_DIR)
@@ -173,22 +209,30 @@ class DriverCache:
     def path(self, kernel: str, key: str) -> str:
         return os.path.join(self._kernel_dir(kernel), f"{key}.json")
 
+    def plan_path(self, kernel: str, key: str) -> str:
+        return os.path.join(self._kernel_dir(kernel), f"{key}.plan.json")
+
     # -- read ----------------------------------------------------------------
     def get(self, kernel: str, key: str) -> CacheEntry | None:
         """The entry of an exact build key, or None (missing or stale)."""
         return self._load(self.path(kernel, key), expect_key=key)
 
     def lookup_latest(self, kernel: str, hw_name: str | None = None,
-                      code: str | None = None) -> CacheEntry | None:
+                      code: str | None = None,
+                      source_hash: str | None = None) -> CacheEntry | None:
         """The newest valid entry of a kernel (the read-through path, whose
         caller knows the kernel's name but not the build's settings): the
         highest ``tuning_version``, then the latest build.  With ``hw_name``
         only entries tuned for that card count: launch parameters that are
         best on one device are in general not on another.  With ``code``
         only entries of that ``code_digest`` count: a driver built for
-        other kernel code may name tiles the kernel no longer takes."""
+        other kernel code may name tiles the kernel no longer takes.  With
+        ``source_hash`` only entries of that driver module count (the
+        ``DriverProgram.source_hash`` of one build)."""
         best: CacheEntry | None = None
         for entry in self._entries(kernel, hw_name, code):
+            if source_hash not in (None, driver_source_hash(entry.source)):
+                continue
             if best is None or (entry.tuning_version, entry.created_at) > \
                     (best.tuning_version, best.created_at):
                 best = entry
@@ -202,7 +246,7 @@ class DriverCache:
             return []
         out = []
         for f in names:
-            if not f.endswith(".json"):
+            if not f.endswith(".json") or f.endswith(".plan.json"):
                 continue
             entry = self._load(os.path.join(self._kernel_dir(kernel), f))
             if entry is not None and hw_name in (None, entry.hw_name) \
@@ -235,6 +279,83 @@ class DriverCache:
             return None
         return entry
 
+    # -- compiled launch plans (core/plan.py) --------------------------------
+    def get_plan(self, kernel: str, key: str) -> PlanEntry | None:
+        """The plan of an exact plan key, or None (missing or stale)."""
+        return self._load_plan(self.plan_path(kernel, key), expect_key=key)
+
+    def lookup_latest_plan(self, kernel: str, hw_name: str | None = None,
+                           code: str | None = None,
+                           source_hash: str | None = None
+                           ) -> PlanEntry | None:
+        """The newest valid plan of a kernel, ordered as ``lookup_latest``
+        orders drivers.  With ``code`` only plans compiled for that kernel
+        code count, and with ``source_hash`` only plans of that driver."""
+        best: PlanEntry | None = None
+        for entry in self._plan_entries(kernel, hw_name):
+            if code not in (None, entry.code) or source_hash not in (
+                    None, entry.plan.get("source_hash", "")):
+                continue
+            if best is None or (entry.tuning_version, entry.created_at) > \
+                    (best.tuning_version, best.created_at):
+                best = entry
+        return best
+
+    def _plan_entries(self, kernel: str,
+                      hw_name: str | None = None) -> list[PlanEntry]:
+        try:
+            names = sorted(os.listdir(self._kernel_dir(kernel)))
+        except OSError:
+            return []
+        out = []
+        for f in names:
+            if not f.endswith(".plan.json"):
+                continue
+            entry = self._load_plan(os.path.join(self._kernel_dir(kernel), f))
+            if entry is not None and hw_name in (None, entry.hw_name):
+                out.append(entry)
+        return out
+
+    def _load_plan(self, path: str,
+                   expect_key: str | None = None) -> PlanEntry | None:
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+            entry = PlanEntry(
+                kernel=raw["kernel"], key=raw["key"],
+                hw_name=raw.get("hw_name", ""), plan=raw["plan"],
+                created_at=raw.get("created_at", 0.0),
+                tuning_version=int(raw.get("tuning_version", 0)))
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+        # The same rule as ``_load``: a tampered or misplaced plan is
+        # deleted and read as a miss.
+        if raw.get("version") != _ENTRY_VERSION or \
+                raw.get("content_hash") != entry.content_hash() or \
+                (expect_key is not None and entry.key != expect_key):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return None
+        return entry
+
+    def put_plan(self, entry: PlanEntry) -> str:
+        """Write a plan atomically; returns its path."""
+        os.makedirs(self._kernel_dir(entry.kernel), exist_ok=True)
+        path = self.plan_path(entry.kernel, entry.key)
+        _write_json_atomic(path, {
+            "version": _ENTRY_VERSION,
+            "kernel": entry.kernel,
+            "key": entry.key,
+            "hw_name": entry.hw_name,
+            "plan": entry.plan,
+            "created_at": entry.created_at or time.time(),
+            "tuning_version": entry.tuning_version,
+            "content_hash": entry.content_hash(),
+        })
+        return path
+
     # -- write ---------------------------------------------------------------
     def put(self, entry: CacheEntry) -> str:
         """Write ``entry`` atomically; returns its path."""
@@ -257,16 +378,20 @@ class DriverCache:
     # -- maintenance ---------------------------------------------------------
     def invalidate(self, kernel: str, hw_name: str | None = None,
                    below_version: int | None = None) -> int:
-        """Delete a kernel's entries (those of ``hw_name`` only, when given;
-        with ``below_version``, only older generations); returns how many
-        went."""
+        """Delete a kernel's drivers and plans (those of ``hw_name`` only,
+        when given; with ``below_version``, only older generations): a
+        plan goes with the fit generation it was compiled from.  Returns
+        how many went."""
         removed = 0
-        for entry in self._entries(kernel, hw_name):
-            if below_version is not None and \
-                    entry.tuning_version >= below_version:
+        doomed = [(self.path(kernel, e.key), e.tuning_version)
+                  for e in self._entries(kernel, hw_name)] + \
+            [(self.plan_path(kernel, e.key), e.tuning_version)
+             for e in self._plan_entries(kernel, hw_name)]
+        for path, version in doomed:
+            if below_version is not None and version >= below_version:
                 continue
             try:
-                os.remove(self.path(kernel, entry.key))
+                os.remove(path)
                 removed += 1
             except OSError:
                 pass            # another process removed it first

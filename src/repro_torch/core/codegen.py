@@ -11,14 +11,19 @@ program -- with:
     grid steps), each a rational expression emitted in ndarray form,
   * ``estimate(**DP)``: the full piecewise rational program E(D, P),
     ndarray-polymorphic: scalars in -> scalar out, columns in -> column out,
-  * ``candidates(**D)``: the feasible configuration enumerator, generated
-    from the spec's parameter grids, its Python-syntax constraint strings
-    (the user-written configuration files of Section V-A) and the Hopper
-    launch limits that ``KernelSpec.feasible_mask`` applies, as vectorized
-    masks over a columnar table,
-  * ``choose(**D)``: steps 4-6's runtime selection -- evaluate E once over
-    the whole candidate table, argmin + the occupancy tie-break heuristic
-    in numpy, memoized into a decision history.
+  * ``_feasible``: the one feasibility mask, generated from the spec's
+    parameter grids, its Python-syntax constraint strings (the
+    user-written configuration files of Section V-A) and the Hopper launch
+    limits that ``KernelSpec.feasible_mask`` applies, as vectorized masks
+    over S shapes x a columnar candidate table; ``candidates(**D)`` is its
+    one-shape case,
+  * ``choose_many(**D_columns)``: steps 4-6's selection for S shapes at
+    once (the launch-plan compiler, core/plan.py) -- evaluate E once over
+    shapes x candidates, argmin + the occupancy tie-break heuristic as
+    masked reductions in numpy, chosen rows memoized into a decision
+    history,
+  * ``choose(**D)``: the runtime selection, the decision history's entry
+    for D, else ``choose_many`` on that one shape.
 
 The generated source has no imports beyond ``numpy`` and no dependency on
 this package.
@@ -94,15 +99,18 @@ def _fn_source(name: str, rf: RationalFunction) -> str:
 
 
 def _constraint_vectorizable(c: str, spec: KernelSpec) -> bool:
-    """Whether a constraint string evaluates cleanly with ndarray columns
-    (boolean `and`/`or` and chained comparisons break on arrays whatever
-    the values, so probing with dummy columns decides)."""
+    """Whether a constraint string evaluates cleanly with program
+    parameters as (C,) columns and data parameters as (S, 1) columns, as
+    ``_feasible`` binds them (boolean `and`/`or`, chained comparisons and
+    ``min(m, 1024)`` break on arrays whatever the values, so probing with
+    dummy columns decides)."""
     env: dict = {p: np.array([8, 16], dtype=np.int64)
                  for p in spec.program_params}
-    env.update({d: 64 for d in spec.data_params})
+    env.update({d: np.array([[64], [128]], dtype=np.int64)
+                for d in spec.data_params})
     try:
         res = eval(c, {"__builtins__": {}, "math": math, "np": np}, env)
-        np.broadcast_to(np.asarray(res, dtype=bool), (2,))
+        np.broadcast_to(np.asarray(res, dtype=bool), (2, 2))
         return True
     except Exception:
         return False
@@ -164,71 +172,131 @@ def generate_driver_source(
             return np.where(res >= 2, overlapped, serialized)
         '''))
 
-    # candidates(): columnar feasible-set enumeration, mirroring
-    # KernelSpec.feasible_mask line for line.
+    # _feasible(): the one feasibility mask, (S, C) over S shapes x the
+    # candidate table, mirroring KernelSpec.feasible_mask line for line.
+    # D columns are reshaped to (S, 1) so every D-only subexpression is
+    # evaluated once per shape; a constraint that resists those columns is
+    # evaluated row by row.  candidates() is its one-shape case.
     d_sig = ", ".join(spec.data_params)
     p_names = list(spec.program_params)
     unpack = "\n".join(f"    {p} = cols[{p!r}]" for p in p_names)
-    scalars = "{" + ", ".join(f"{d!r}: {d}" for d in spec.data_params) + "}"
-    mask_srcs = [
-        f"    mask &= ({c})" if _constraint_vectorizable(c, spec)
-        else f"    mask &= _row_mask({i}, {scalars}, cols)"
-        for i, c in enumerate(spec.constraints)]
+    d_unpack = "\n".join(f"    {d} = _d_flat[{i}].reshape(-1, 1)"
+                         for i, d in enumerate(spec.data_params))
+    row_idx = [i for i, c in enumerate(spec.constraints)
+               if not _constraint_vectorizable(c, spec)]
+    feas_srcs = [f"    feas &= ({c})" for i, c in enumerate(spec.constraints)
+                 if i not in row_idx]
     for a in spec.grid:
         if a.block is not None and isinstance(a.data, str) and not a.ragged:
-            mask_srcs.append(f"    mask &= ({a.block} <= {a.data}) & "
+            feas_srcs.append(f"    feas &= ({a.block} <= {a.data}) & "
                              f"({a.data} % {a.block} == 0)")
-    mask_lines = "\n".join(mask_srcs)
-    parts.append(textwrap.dedent(f'''\
-        def candidates({d_sig}):
-            """Columnar feasible configuration table: one int64 ndarray per
-            program parameter, constraints applied as vectorized masks."""
+    feas_lines = "\n".join(feas_srcs)
+    row_scalars = "{" + ", ".join(
+        f"{d!r}: int(_d_flat[{i}][_s])"
+        for i, d in enumerate(spec.data_params)) + "}"
+    row_block = "" if not row_idx else f'''\
+    for _ci in {tuple(row_idx)!r}:
+        for _s in range(feas.shape[0]):
+            feas[_s] &= _row_mask(_ci, {row_scalars}, cols)
+'''
+    parts.append(textwrap.dedent('''\
+        def _table():
+            """The full candidate table: one int64 column per program
+            parameter, the cross product of PARAM_CANDIDATES."""
             grids = np.meshgrid(
                 *[np.asarray(PARAM_CANDIDATES[p], dtype=np.int64)
                   for p in PROGRAM_PARAMS], indexing="ij")
-            cols = {{p: g.reshape(-1) for p, g in zip(PROGRAM_PARAMS, grids)}}
-        ''') + unpack + f'''
-    mask = np.ones({p_names[0]}.shape, dtype=bool)
-''' + (mask_lines + "\n" if mask_lines else "") + f'''\
+            return {p: g.reshape(-1) for p, g in zip(PROGRAM_PARAMS, grids)}
+
+
+        def _shape_columns(*D):
+            """Data parameters (scalars or 1-D arrays, broadcast) as S-long
+            int64 columns."""
+            return np.broadcast_arrays(*[
+                np.asarray(_x, dtype=np.int64).reshape(-1) for _x in D])
+        '''))
+    parts.append(f'''\
+def _feasible(_d_flat, cols):
+    """(S, C) feasibility of every candidate at S shapes: the spec's
+    constraints, divisibility of non-ragged tiles, shared memory, threads
+    and registers."""
+{d_unpack}
+{unpack}
+    feas = np.ones((_d_flat[0].shape[0], {p_names[0]}.shape[0]), dtype=bool)
+''' + (feas_lines + "\n" if feas_lines else "") + row_block + f'''\
     t = np.rint(threads({sig}))
-    mask &= np.rint(stage_bytes({sig})) <= SMEM_PER_BLOCK
-    mask &= (t >= WARP_SIZE) & (t <= MAX_THREADS_PER_BLOCK)
-    mask &= t * REGS_PER_THREAD <= REGS_PER_SM
-    mask &= REGS_PER_THREAD <= MAX_REGS_PER_THREAD
+    feas &= np.rint(stage_bytes({sig})) <= SMEM_PER_BLOCK
+    feas &= (t >= WARP_SIZE) & (t <= MAX_THREADS_PER_BLOCK)
+    feas &= t * REGS_PER_THREAD <= REGS_PER_SM
+    feas &= REGS_PER_THREAD <= MAX_REGS_PER_THREAD
+    return feas
+
+
+def candidates({d_sig}):
+    """Columnar feasible configuration table at one shape: one int64
+    ndarray per program parameter."""
+    cols = _table()
+    mask = _feasible(_shape_columns({d_sig}), cols)[0]
     return {{p: c[mask] for p, c in cols.items()}}
 ''')
 
-    # choose(): steps 4-6 -- one vectorized evaluation of E over the table,
-    # argmin + tie-break via lexsort, memoized decision history.
-    parts.append(textwrap.dedent(f'''\
-        def choose({d_sig}, margin=0.02):
-            """Select optimal launch parameters for data parameters D.
+    # choose_many(): steps 4-6 batched over S shapes -- one (S, C)
+    # evaluation of E, then per shape the near-optimal rows (all feasible
+    # rows when none is near, as when the minimum is NaN), most blocks per
+    # SM, fewest grid steps, lowest candidate index, as masked reductions.
+    # choose() is its one-shape case behind the decision history.
+    parts.append(f'''\
+def choose_many({d_sig}, margin=0.02):
+    """Select launch parameters for S shapes in one (S, C) pass.
 
-            Evaluates E once over the whole candidate table, keeps configs
-            within ``margin`` of the minimum, and breaks ties by occupancy:
-            most blocks per SM, then fewest grid steps (the secondary metric
-            of Section IV step 5).  Memoized per D.
-            """
-            key = ({d_sig},)
-            hit = _HISTORY.get(key)
-            if hit is not None:
-                return dict(zip(PROGRAM_PARAMS, hit))
-            cols = candidates({d_sig})
-        ''') + unpack + f'''
-    if {p_names[0]}.size == 0:
+    Each data parameter is a 1-D array of S values (scalars broadcast).
+    Returns ``(configs, ok)``: ``configs`` maps each program parameter to
+    an (S,) int64 column, ``ok`` flags the shapes with a feasible
+    configuration (rows with ``ok`` False hold zeros).  Every chosen row
+    joins the decision history.
+    """
+    _d_flat = _shape_columns({d_sig})
+    cols = _table()
+    feas = _feasible(_d_flat, cols)
+{d_unpack}
+{unpack}
+    ok = feas.any(axis=1)
+    # infeasible candidates may divide by zero; their values are masked
+    with np.errstate(all="ignore"):
+        est = np.broadcast_to(np.asarray(estimate({sig}),
+                                         dtype=np.float64), feas.shape)
+        blocks = np.broadcast_to(np.asarray(blocks_per_sm({sig}),
+                                            dtype=np.float64), feas.shape)
+        steps = np.broadcast_to(np.asarray(grid_steps({sig}),
+                                           dtype=np.float64), feas.shape)
+        low = np.where(feas, est, np.inf).min(axis=1, keepdims=True)
+        near = feas & (est <= low * (1.0 + margin))
+    near = np.where(near.any(axis=1, keepdims=True), near, feas)
+    tie = np.where(near & ~np.isnan(blocks), blocks, -np.inf)
+    near &= tie == tie.max(axis=1, keepdims=True)
+    tie = np.where(near & ~np.isnan(steps), steps, np.inf)
+    near &= tie == tie.min(axis=1, keepdims=True)
+    pick = np.argmax(near, axis=1)
+    out = {{p: np.where(ok, c[pick], 0).astype(np.int64)
+           for p, c in cols.items()}}
+    for _s in np.flatnonzero(ok):
+        _HISTORY[tuple(int(a[_s]) for a in _d_flat)] = \\
+            tuple(int(out[p][_s]) for p in PROGRAM_PARAMS)
+    return out, ok
+
+
+def choose({d_sig}, margin=0.02):
+    """Select optimal launch parameters for data parameters D: E over the
+    whole candidate table, configs within ``margin`` of the minimum, ties
+    broken by occupancy -- most blocks per SM, then fewest grid steps (the
+    secondary metric of Section IV step 5).  Memoized per D."""
+    hit = _HISTORY.get(({d_sig},))
+    if hit is not None:
+        return dict(zip(PROGRAM_PARAMS, hit))
+    out, ok = choose_many({d_sig}, margin=margin)
+    if not ok[0]:
         raise ValueError("no feasible launch configuration")
-    est = np.asarray(estimate({sig}), dtype=np.float64)
-    near = est <= float(np.min(est)) * (1.0 + margin)
-    blocks = np.broadcast_to(blocks_per_sm({sig}), est.shape)
-    steps = np.broadcast_to(grid_steps({sig}), est.shape)
-    # lexsort: last key is primary -- near-optimal first, then most blocks
-    # per SM, then fewest grid steps.
-    order = np.lexsort((np.asarray(steps, dtype=np.float64),
-                        -np.asarray(blocks, dtype=np.float64), ~near))
-    pick = int(order[0])
-    cfg = tuple(int(cols[p][pick]) for p in PROGRAM_PARAMS)
-    _HISTORY[key] = cfg
-    return dict(zip(PROGRAM_PARAMS, cfg))
+    return {{p: int(out[p][0]) for p in PROGRAM_PARAMS}}
 ''')
 
     return "\n\n".join(parts)

@@ -167,7 +167,7 @@ class Klaraptor:
             if entry is not None:
                 driver = DriverProgram.from_source(
                     spec.name, entry.source, self.hw,
-                    tuning_version=entry.tuning_version)
+                    tuning_version=entry.tuning_version, code=entry.code)
                 if register:
                     register_driver(driver)
                 return BuildResult(
@@ -192,7 +192,8 @@ class Klaraptor:
         source = generate_driver_source(
             spec, {m: f.function for m, f in fits.items()}, self.hw)
         driver = DriverProgram.from_source(spec.name, source, self.hw,
-                                           tuning_version=cache_version)
+                                           tuning_version=cache_version,
+                                           code=code_digest(spec))
         if register:
             register_driver(driver)
         if key is not None:

@@ -6,18 +6,20 @@ KLARAPTOR pipeline serves it": it introspects the kernel into a
 process-wide table.  The AutoKernel is the glue the other layers use:
 
   * ``choose(D)``        -- launch parameters through the standard
-    ``choose_or_default`` dispatch (override > driver > default), the same
-    path ``kernels/ops.py`` uses for hand-specced kernels;
-  * ``ensure_driver``    -- the registered driver, else a collect -> fit
-    -> codegen build against a device oracle (``CudaEventTimer`` on the
-    card, ``HopperModel`` on the CPU) through the driver cache, which hands
-    back a driver an earlier process built with the same kernel code and
-    settings;
+    ``choose_or_default`` dispatch (memo > override > plan > driver >
+    default), the same path ``kernels/ops.py`` uses for hand-specced
+    kernels;
+  * ``ensure_driver``    -- the registered driver, else one from the
+    driver cache (for this kernel code; for the named oracle when the
+    caller names one), else a collect -> fit -> codegen build against a
+    device oracle (``CudaEventTimer`` on the card, ``HopperModel`` on the
+    CPU), written through to the cache;
   * ``fit_config``       -- snap a chosen config onto an actual shape with
     the *derived* granularities (parsed back out of the synthesized
     ``"p % g == 0"`` constraints) and the derived ragged axes;
-  * ``plan_envelope``    -- a traffic lattice over the data parameters, for
-    the launch plans the port does not have yet.
+  * ``plan_envelope``    -- a traffic lattice over the data parameters,
+    the envelope ``core.plan.precompile_plans`` compiles a launch plan
+    over.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ..core.device_model import DeviceModel
 from ..core.driver import (DriverProgram, choose_or_default, fit_tile,
-                           registry)
+                           get_driver)
 from ..core.kernel_spec import KernelSpec
 from .derive import derive_kernel
 from .gridspec import GridSpec
@@ -110,13 +112,15 @@ class AutoKernel:
 
     def ensure_driver(self, device: DeviceModel | None = None,
                       **build_kwargs) -> DriverProgram:
-        """The registered driver, or one built against ``device`` (None:
+        """The registered driver; else, with no ``device``, the newest one
+        the driver cache holds for this kernel code (``get_driver`` with
+        the derived spec, whose ``source_fingerprint`` is the compiled
+        kernel's); else one built against ``device`` (None:
         ``CudaEventTimer`` on the card) on ``probe_data()`` unless the
-        caller passes its own.  The build goes through the driver cache
-        (``core/cache.py``), whose key folds in the derived spec's
-        ``source_fingerprint``: a process finds a driver an earlier one
-        built for the same kernel code and settings, and probes nothing."""
-        drv = registry.get(self.name)
+        caller passes its own.  That build reads the cache first under its
+        own key, which folds in the oracle's fingerprint and the settings:
+        a driver another oracle built is never returned for ``device``."""
+        drv = get_driver(self.name, self.spec if device is None else None)
         if drv is not None:
             return drv
         from ..core.tuner import Klaraptor
@@ -127,8 +131,10 @@ class AutoKernel:
 
     def plan_envelope(self, sizes: Sequence[int] = (256, 512, 1024, 2048,
                                                     4096)) -> dict:
-        """Per-data-param value lists over which plans would be compiled:
-        the GridSpec's probe hints where it has them, else ``sizes``."""
+        """Per-data-param value lists for ``precompile_plans``: the
+        GridSpec's probe hints where it has them, else ``sizes``.
+        Infeasible lattice points are dropped when the plan is compiled,
+        so a wide envelope costs only table entries."""
         env = {}
         for d in self.spec.data_params:
             hint = self.grid_spec.probe_hints.get(d)

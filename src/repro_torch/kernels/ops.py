@@ -14,6 +14,14 @@ first dispatch their kernel is introspected (``repro_torch.introspect``
 derives the spec, including the granularities ``fit_config`` snaps to), and
 launch parameters flow through the same ``choose_or_default`` chain.
 
+Each op takes its config from a step plan first (``plan=``, else the
+ambient one of ``core.step_plan.use_step_plan``): a hit makes no registry
+traffic, a miss or a stale plan falls through to ``choose_or_default``.  The
+key is the D the op resolves at -- for the matmul and the grouped matmul
+the shape padded to the kernel's granule (``gemm_dims``) -- so a step plan
+or launch plan must be built at that D to hit.  A resolved config may be
+shared (a memo or plan entry): the ops never change it.
+
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
 """
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.driver import choose_or_default, fit_tile
+from ..core.step_plan import StepPlan, active_step_plan
 from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
                                 matmul_spec, moe_gmm_spec, ssd_scan_spec)
 from ..introspect import AutoKernel, auto_register, get_auto
@@ -41,8 +50,9 @@ from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 __all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "GMM_DEFAULT_F32",
            "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "SSD_DEFAULT",
            "blocked_colsum", "flash_attention", "flash_kernel_name",
-           "gmm_kernel_name", "layernorm", "matmul", "matmul_kernel_name",
-           "moe_gmm", "probe_launcher", "ssd_kernel_name", "ssd_scan"]
+           "gemm_dims", "gmm_kernel_name", "layernorm", "matmul",
+           "matmul_kernel_name", "moe_gmm", "probe_launcher",
+           "ssd_kernel_name", "ssd_scan"]
 
 # Static heuristic defaults (what a programmer would hard-code).  The bf16
 # matmul defaults are compiled wgmma tiles, the f32 ones SIMT tiles; the
@@ -95,6 +105,33 @@ def _alignments(kernel: str) -> dict[str, int]:
     return {p: spec.alignment(p) for p in spec.program_params}
 
 
+def gemm_dims(kernel: str, D: Mapping[str, int]) -> dict[str, int]:
+    """The data parameters ``ops.matmul`` / ``ops.moe_gmm`` resolve their
+    tiles at: each tiled extent of D rounded up to the granule of its tile
+    (64 in bf16, 8 in f32), in D's key order.  Step plans and launch plans
+    of these kernels must be built at these D to hit."""
+    spec, align = _gemm_spec(kernel), _alignments(kernel)
+    tile_of = {a.data: a.block for a in spec.grid if a.block is not None}
+    return {d: _round_up(int(v), align[tile_of[d]]) if d in tile_of
+            else int(v) for d, v in D.items()}
+
+
+def _resolve(kernel: str, D: dict, default: dict, plan: StepPlan | None,
+             spec=None) -> dict:
+    """The launch config of one op call: the explicit ``plan``, else the
+    ambient step plan; on a miss or a stale plan, ``choose_or_default``
+    (which reads the driver cache through when given the ``spec``).  A
+    pinned override outranks a step plan, since pinning it makes every
+    step plan stale."""
+    if plan is None:
+        plan = active_step_plan()
+    if plan is not None:
+        cfg = plan.resolve(kernel, D)
+        if cfg is not None:
+            return cfg
+    return choose_or_default(kernel, D, default, spec=spec)
+
+
 def _fit_gemm(kernel: str, cfg: Mapping[str, int],
               sizes: Mapping[str, int]) -> dict[str, int]:
     """Tiles of ``cfg`` snapped to the (padded) shape: the bf16 wgmma
@@ -114,7 +151,8 @@ def _round_up(v: int, a: int) -> int:
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
-           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+           out_dtype: torch.dtype | None = None,
+           plan: StepPlan | None = None) -> torch.Tensor:
     """Tuned x @ y over the last two dims of x; leading dims are batched.
 
     ``y`` is one (k, n) matrix shared by every batch entry, so the batch
@@ -134,17 +172,15 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"matmul runs on cuda or cpu tensors, not {x.device}")
     kernel = matmul_kernel_name(x.dtype)
-    align = _alignments(kernel)
     m = x2.shape[0]
-    mp, np_, kp = (_round_up(m, align["bm"]), _round_up(n, align["bn"]),
-                   _round_up(k, align["bk"]))
+    D = gemm_dims(kernel, {"m": m, "n": n, "k": k})
+    mp, np_, kp = D["m"], D["n"], D["k"]
     if (mp, kp) != (m, k):
         x2 = F.pad(x2, (0, kp - k, 0, mp - m))
     if (kp, np_) != (k, n):
         y = F.pad(y, (0, np_ - n, 0, kp - k))
     x2, y2 = x2.contiguous(), y.contiguous()
-    cfg = choose_or_default(kernel, {"m": mp, "n": np_, "k": kp},
-                            _DEFAULTS[kernel], spec=_gemm_spec(kernel))
+    cfg = _resolve(kernel, D, _DEFAULTS[kernel], plan, _gemm_spec(kernel))
     out = matmul_kernel(x2, y2, **_fit_gemm(kernel, cfg,
                                             {"bm": mp, "bn": np_, "bk": kp}),
                         out_dtype=out_dtype)
@@ -153,7 +189,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     return out.reshape(*lead, n)
 
 
-def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
+            plan: StepPlan | None = None) -> torch.Tensor:
     """Tuned grouped matmul: x (e, g, k) @ w (e, k, n) -> (e, g, n) in x's
     type, f32 accumulation.
 
@@ -170,17 +207,15 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"moe_gmm takes x (e, g, k) and w (e, k, n); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     kernel = gmm_kernel_name(x.dtype)
-    align = _alignments(kernel)
     e, g, k = x.shape
     n = w.shape[2]
-    gp, np_, kp = (_round_up(g, align["bg"]), _round_up(n, align["bn"]),
-                   _round_up(k, align["bk"]))
+    D = gemm_dims(kernel, {"e": e, "g": g, "k": k, "n": n})
+    gp, np_, kp = D["g"], D["n"], D["k"]
     if (gp, kp) != (g, k):
         x = F.pad(x, (0, kp - k, 0, gp - g))
     if (kp, np_) != (k, n):
         w = F.pad(w, (0, np_ - n, 0, kp - k))
-    cfg = choose_or_default(kernel, {"e": e, "g": gp, "k": kp, "n": np_},
-                            _DEFAULTS[kernel], spec=_gemm_spec(kernel))
+    cfg = _resolve(kernel, D, _DEFAULTS[kernel], plan, _gemm_spec(kernel))
     out = moe_gmm_kernel(x.contiguous(), w.contiguous(),
                          **_fit_gemm(kernel, cfg,
                                      {"bg": gp, "bn": np_, "bk": kp}))
@@ -218,7 +253,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_q_heads: int, num_kv_heads: int, causal: bool = True,
                     window: int | None = None, softcap: float | None = None,
                     scale: float | None = None,
-                    q_chunk: int | None = None) -> torch.Tensor:
+                    q_chunk: int | None = None,
+                    plan: StepPlan | None = None) -> torch.Tensor:
     """(b*hq, sq, d) x (b*hkv, skv, d)^2 -> (b*hq, sq, d), tuned tiles.
 
     CPU tensors take ``flash_attention_plain`` (streamed over ``q_chunk``
@@ -237,10 +273,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
     bh, sq, d = q.shape
-    cfg = choose_or_default(flash_kernel_name(d, causal),
-                            {"bh": bh, "sq": sq, "skv": k.shape[1]},
-                            FLASH_DEFAULT,
-                            spec=_flash_spec(d, causal, q.element_size()))
+    cfg = _resolve(flash_kernel_name(d, causal),
+                   {"bh": bh, "sq": sq, "skv": k.shape[1]}, FLASH_DEFAULT,
+                   plan, _flash_spec(d, causal, q.element_size()))
     if not _flash_tile_fits(d, causal, q.element_size(), cfg["bq"],
                             cfg["bkv"]):
         cfg = FLASH_DEFAULT
@@ -277,7 +312,8 @@ def _ssd_chunk(head_dim: int, d_state: int, dtype_bytes: int,
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+             C: torch.Tensor, A: torch.Tensor, *,
+             plan: StepPlan | None = None) -> torch.Tensor:
     """Mamba-2 SSD scan with the tuned chunk length: x (bh, s, dh), dt
     (bh, s), B, C (bh / h, s, n) each shared by h consecutive rows of x (h
     = 1: one copy per row), A (bh,) -> y (bh, s, dh) in x's dtype.
@@ -290,9 +326,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     """
     bh, s, dh = x.shape
     n = B.shape[-1]
-    cfg = choose_or_default(ssd_kernel_name(dh, n),
-                            {"bh": bh, "s": s, "chunkflops": 1}, SSD_DEFAULT,
-                            spec=_ssd_spec(dh, n, x.element_size()))
+    cfg = _resolve(ssd_kernel_name(dh, n),
+                   {"bh": bh, "s": s, "chunkflops": 1}, SSD_DEFAULT, plan,
+                   _ssd_spec(dh, n, x.element_size()))
     chunk = _ssd_chunk(dh, n, x.element_size(), int(cfg["chunk"]))
     dt, A = dt.float().contiguous(), A.float().contiguous()
     tensors = (x, dt, B, C, A)
@@ -319,7 +355,8 @@ def _colsum_auto(dtype_bytes: int, device: str) -> AutoKernel:
 
 
 def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
-              beta: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+              beta: torch.Tensor, *, eps: float = 1e-6,
+              plan: StepPlan | None = None) -> torch.Tensor:
     """Fused layernorm + residual of x, res (r, c) with an
     introspection-tuned row tile.
 
@@ -334,12 +371,14 @@ def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"layernorm takes x (r, c); got {tuple(x.shape)}")
     r, c = x.shape
     ak = _layernorm_auto(c, x.element_size(), float(eps), x.device.type)
-    cfg = ak.fit_config(ak.choose({"r": r}), {"r": r})
+    cfg = ak.fit_config(_resolve(ak.name, {"r": r}, ak.defaults, plan,
+                                 ak.spec), {"r": r})
     return layernorm_kernel(x.contiguous(), res.contiguous(), gamma, beta,
                             br=cfg["br"], eps=eps)
 
 
-def blocked_colsum(x: torch.Tensor) -> torch.Tensor:
+def blocked_colsum(x: torch.Tensor, *,
+                   plan: StepPlan | None = None) -> torch.Tensor:
     """Column sums of x (r, c) as (c,) f32 with introspection-tuned (br, bc)
     tiles.
 
@@ -358,7 +397,7 @@ def blocked_colsum(x: torch.Tensor) -> torch.Tensor:
     if cp != c:
         x = F.pad(x, (0, cp - c))
     D = {"r": r, "c": cp}
-    cfg = ak.fit_config(ak.choose(D), D)
+    cfg = ak.fit_config(_resolve(ak.name, D, ak.defaults, plan, ak.spec), D)
     out = colsum_kernel(x.contiguous(), br=cfg["br"], bc=cfg["bc"])
     return out[:c] if cp != c else out
 

@@ -21,7 +21,8 @@ tunes each against the card (``CudaEventTimer``; ``HopperModel`` only with
 ``--device cpu``) and prints one line per kernel before serving.  The JAX
 launcher's ``--telemetry``, ``--plans``, ``--trace``, ``--ledger``,
 ``--dash``, ``--async`` and ``--buckets`` wait for their modules (ROADMAP
-Queue A, 'Rest of the serving slice').
+Queue A, 'Rest of the serving slice'); ``default_plan_envelope`` is the
+envelope ``--plans`` will compile.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..models import Model
 from ..models.config import ModelConfig
 from ..serving.engine import Request, ServingEngine
 
-__all__ = ["build_auto_kernels", "build_engine", "main"]
+__all__ = ["build_auto_kernels", "build_engine", "default_plan_envelope",
+           "main"]
 
 
 def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
@@ -50,6 +52,31 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
         params = model.init(seed)
     return ServingEngine(model, params, batch=batch, max_seq=max_seq,
                          eos_id=eos_id, seed=seed)
+
+
+def default_plan_envelope(batch: int, max_seq: int) -> dict:
+    """The serving traffic envelope of the tier-1 kernels, as per-data-param
+    value lists (what ``core.plan.precompile_plans`` compiles in one
+    ``choose_many`` pass per kernel): the JAX package's lattice, with the
+    matmul's m rounded up to the bf16 kernel's granule, as ``ops.matmul``
+    pads it before it resolves (``ops.gemm_dims``), so the plan's shapes
+    are the ones the op asks for.  Infeasible points are dropped when the
+    plan is compiled, so a wide envelope costs only table entries."""
+    from ..kernels.ops import gemm_dims
+
+    seqs = [s for s in (128, 256, 512, 1024, 2048, 4096)
+            if s <= max_seq] or [max_seq]
+    dims = [1024, 2048, 4096]
+    heads = sorted({max(1, batch) * h for h in (8, 16, 32)})
+    ms = sorted({gemm_dims("matmul_b16", {"m": m})["m"]
+                 for m in (max(8, batch), 128, 1024)})
+    return {
+        "matmul_b16": {"m": ms, "n": dims, "k": dims},
+        "flash_attn_d128_causal": {"bh": heads, "sq": seqs, "skv": seqs},
+        "moe_gmm_b16": {"e": [8], "g": [256, 512, 1024],
+                        "k": [1024, 2048], "n": [1024, 2048]},
+        "ssd_scan_h64_n128": {"bh": heads, "s": seqs, "chunkflops": [1]},
+    }
 
 
 # Configurations probed at each probe size of an auto kernel: all nine of the

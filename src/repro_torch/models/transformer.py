@@ -11,7 +11,6 @@ decode cache carries the same leading axis and is updated in place.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -20,7 +19,7 @@ from .config import BlockDesc, ModelConfig
 from .module import ParamSpec, spec_tree_map
 
 __all__ = [
-    "KernelRequest", "decode_kernel_requests", "decode_step", "embed_tokens",
+    "decode_kernel_requests", "decode_step", "embed_tokens",
     "forward", "init_cache_specs", "model_specs", "stack_specs", "unembed",
 ]
 
@@ -155,31 +154,26 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
 # kernel-launch manifest
 # ---------------------------------------------------------------------------
 
-class KernelRequest(NamedTuple):
-    """One tuned-kernel launch a step makes: spec name, data size, default."""
-
-    kernel: str
-    D: dict
-    default: dict
-
-
 def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
                            seqs: tuple[int, ...] | None = None
-                           ) -> list[KernelRequest]:
+                           ) -> list:
     """The tuned-kernel launches this model's forward makes at serving
-    shapes: the flash attention of each distinct attention block, or the
-    SSD scan of each distinct Mamba-2 block, at each sequence length in
-    ``seqs`` (default ``(1, max_seq)``).  Derived from the config alone,
-    with the key and shape arithmetic the layers use when they call
-    ``ops.flash_attention`` (heads folded into the batch axis) and
-    ``ops.ssd_scan`` (mamba heads folded into it).
+    shapes, as ``core.step_plan.KernelRequest``s: the flash attention of
+    each distinct attention block, or the SSD scan of each distinct Mamba-2
+    block, at each sequence length in ``seqs`` (default ``(1, max_seq)``).
+    Derived from the config alone, with the key and shape arithmetic the
+    layers use when they call ``ops.flash_attention`` (heads folded into
+    the batch axis) and ``ops.ssd_scan`` (mamba heads folded into it), so
+    ``build_step_plan`` over them resolves the configs the step's ops
+    would ask the registry for.
     """
+    from ..core.step_plan import KernelRequest
     from ..kernels.ops import (FLASH_DEFAULT, SSD_DEFAULT, flash_kernel_name,
                                ssd_kernel_name)
 
     if seqs is None:
         seqs = (1, max_seq)
-    reqs: list[KernelRequest] = []
+    reqs: list = []
     seen = set()
     for desc in cfg.block_pattern:
         key = (desc.kind, bool(desc.cross_attn))
@@ -188,21 +182,21 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
         seen.add(key)
         for s in seqs:
             if desc.kind == "attn":
-                reqs.append(KernelRequest(
+                reqs.append(KernelRequest.make(
                     flash_kernel_name(cfg.head_dim, cfg.causal),
                     {"bh": batch * cfg.n_heads, "sq": s, "skv": s},
-                    dict(FLASH_DEFAULT)))
+                    FLASH_DEFAULT))
             else:
-                reqs.append(KernelRequest(
+                reqs.append(KernelRequest.make(
                     ssd_kernel_name(cfg.mamba_head_dim, cfg.ssm_state),
                     {"bh": batch * cfg.mamba_heads, "s": s, "chunkflops": 1},
-                    dict(SSD_DEFAULT)))
+                    SSD_DEFAULT))
             if desc.cross_attn:
                 skv = cfg.encoder_seq if cfg.encoder_seq else s
-                reqs.append(KernelRequest(
+                reqs.append(KernelRequest.make(
                     flash_kernel_name(cfg.head_dim, False),
                     {"bh": batch * cfg.n_heads, "sq": s, "skv": skv},
-                    dict(FLASH_DEFAULT)))
+                    FLASH_DEFAULT))
     return reqs
 
 

@@ -269,3 +269,42 @@ def test_cuda_polybench_probe_launcher():
     assert timed_spec("syr2k", dev).name == "syr2k"
     with pytest.raises(ValueError, match="no probe launcher"):
         ops.probe_launcher("syr2k", D, dev, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_llama_prefill_under_a_step_plan(tmp_path, monkeypatch):
+    """llama3.2-1b at full width cut to 2 layers, S 512, under a step plan
+    from ``decode_kernel_requests``: the flash kernel launches once per
+    layer, the registry is not touched (``stats()`` and the memo) and the
+    logits are the bits of the same step resolved through the registry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.core.step_plan import build_step_plan, use_step_plan
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as T
+
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    registry.clear()
+    cfg = get_config("llama3.2-1b").replace(n_layers=2)
+    model = Model(cfg)
+    params = model.init(0)
+    S = 512
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda")
+    step = make_prefill_step(model)
+    want = step(params, tokens)
+    plan = build_step_plan(T.decode_kernel_requests(cfg, batch=1, max_seq=S,
+                                                    seqs=(S,)))
+    stats, memo = registry.stats(), registry.memo_size()
+    before = FLASH_LAUNCHES.count
+    with use_step_plan(plan):
+        got = step(params, tokens)
+    torch.cuda.synchronize()
+    assert FLASH_LAUNCHES.count - before == cfg.n_layers
+    assert registry.stats() == stats and registry.memo_size() == memo
+    assert torch.equal(got, want)
+    registry.clear()

@@ -99,14 +99,15 @@ def test_choose_or_default_precedence(built):
     assert choose_or_default(kernel, {"m": 12, "n": 20, "k": 36},
                              default) == default
     pinned = {"bm": 64, "bn": 64, "bk": 64}
-    registry.note_override(kernel, D, pinned)
+    registry.note_override(kernel, H100.name, D, pinned)
     try:
         assert choose_or_default(kernel, D, default) == pinned
         other = {"m": 1024, "n": 1024, "k": 1024}
         assert choose_or_default(kernel, other, default) == \
             build.driver.choose(other)
     finally:
-        registry._overrides.clear()
+        registry.invalidate_kernel(kernel)
+        registry.register(build.driver)
 
 
 def test_tuned_cpu_matmul_matches_reference_tuned_matmul():

@@ -6,10 +6,11 @@ item that ports them.  ``polybench`` is the paper's own kernel-suite workload
 (not a language model), exported as the JAX package exports it.
 """
 
-from . import llama3_2_1b, mamba2_130m, polybench
+from . import llama3_2_1b, mamba2_130m, polybench, qwen3_moe_235b
 from .base import SHAPES, ShapePreset, shape_applicable
 
-REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b, mamba2_130m)}
+REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b, mamba2_130m,
+                                    qwen3_moe_235b)}
 ARCH_IDS = tuple(REGISTRY)
 
 # The JAX package's architectures the port cannot run yet.
@@ -20,7 +21,6 @@ PENDING = {
     "jamba-1.5-large-398b": "ROADMAP Queue A, 'Other architectures'",
     "internvl2-76b": "ROADMAP Queue A, 'Other architectures'",
     "whisper-medium": "ROADMAP Queue A, 'Other architectures'",
-    "qwen3-moe-235b-a22b": "ROADMAP Queue A, 'Other architectures'",
     "grok-1-314b": "ROADMAP Queue A, 'Other architectures'",
 }
 

@@ -15,25 +15,28 @@ import torch
 
 from ..models import transformer as T
 from ..models.api import Model
-from ..models.layers import AttnOp, SsdOp
+from ..models.layers import AttnOp, GmmOp, SsdOp
 
 __all__ = ["make_prefill_step"]
 
 
 def make_prefill_step(model: Model, attn_op: AttnOp | None = None,
-                      ssd_op: SsdOp | None = None
+                      ssd_op: SsdOp | None = None,
+                      gmm_op: GmmOp | None = None
                       ) -> Callable[[dict, torch.Tensor], torch.Tensor]:
     """``step(params, tokens (B, S)) -> logits (B, V)`` of the last position.
 
-    Every attention layer calls ``ops.flash_attention`` and every Mamba-2
-    layer ``ops.ssd_scan`` (the tuned kernels on the card) unless
-    ``attn_op`` / ``ssd_op`` names another function of its signature.
+    Every attention layer calls ``ops.flash_attention``, every Mamba-2
+    layer ``ops.ssd_scan`` and every MoE layer ``ops.moe_gmm`` (the tuned
+    kernels on the card) unless ``attn_op`` / ``ssd_op`` / ``gmm_op`` names
+    another function of its signature.
     """
     cfg = model.cfg
 
     def prefill_step(params: dict, tokens: torch.Tensor) -> torch.Tensor:
         x = T.embed_tokens(cfg, params, tokens)
-        hidden, _ = T.forward(cfg, params, x, attn_op=attn_op, ssd_op=ssd_op)
+        hidden, _ = T.forward(cfg, params, x, attn_op=attn_op, ssd_op=ssd_op,
+                              gmm_op=gmm_op)
         return T.unembed(cfg, params, hidden[:, -1])
 
     return prefill_step

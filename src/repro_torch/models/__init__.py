@@ -1,4 +1,5 @@
-"""The port's models: the dense decoder LM of the JAX package's model zoo.
+"""The port's models: the decoder LMs of the JAX package's model zoo (dense
+and MoE attention stacks, the Mamba-2 stack).
 
 Plain functions over nested dicts of tensors (``layers``, ``transformer``),
 the ``Model`` API, and ``convert.params_from_reference`` to load JAX weights.

@@ -1,10 +1,11 @@
 """The model API: ``Model(cfg)`` for the decoder-only stacks.
 
-The JAX package's ``models/api.py`` for ``arch_kind`` "lm" (dense
-attention) and "ssm" (attention-free Mamba-2): parameters, the decode cache,
-one decode step, and the sequential prefill through decode steps.  The other
-kinds (vlm, encdec) raise and name their ROADMAP item.  A ``Model`` lives on one device, the card unless the caller
-passes ``device="cpu"``; without a card it raises.
+The JAX package's ``models/api.py`` for ``arch_kind`` "lm" (attention,
+with dense or MoE MLPs) and "ssm" (attention-free Mamba-2): parameters,
+the decode cache, one decode step, and the sequential prefill through
+decode steps.  The other kinds (vlm, encdec) raise and name their ROADMAP
+item.  A ``Model`` lives on one device, the card unless the caller passes
+``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations

@@ -1,24 +1,25 @@
-"""Model layers: RMS norm, RoPE, GQA attention, the dense MLP and the
-Mamba-2 (SSD) mixer.
+"""Model layers: RMS norm, RoPE, GQA attention, the dense MLP, the MoE MLP
+and the Mamba-2 (SSD) mixer.
 
 The JAX package's ``models/layers.py`` as plain functions over dicts of
 tensors.  Full-sequence attention (prefill) routes through
-``kernels.ops.flash_attention`` and the full-sequence Mamba-2 mixer through
-``kernels.ops.ssd_scan`` -- the tuned CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors -- unless the caller passes another
-``attn_op`` / ``ssd_op`` of the same signature (a reference run does).
-One-token decode (attention over the KV cache, the Mamba-2 recurrence on its
-conv and SSM states) is plain PyTorch, as the JAX package computes it outside
-any kernel.  The projections are ``@`` (``torch.matmul``), as they are ``@``
-in JAX.  The JAX functions' ``sharder`` argument is dropped: the port runs on
-one device.
-
-The MoE MLP is not ported yet: its spec and layer functions raise and name
-their ROADMAP item.
+``kernels.ops.flash_attention``, the full-sequence Mamba-2 mixer through
+``kernels.ops.ssd_scan`` and the MoE layer's three expert products (in
+prefill and decode alike) through ``kernels.ops.moe_gmm`` -- the tuned CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors -- unless the
+caller passes another ``attn_op`` / ``ssd_op`` / ``gmm_op`` of the same
+signature (a reference run does).  The JAX MoE layer computes its expert
+products with ``einsum``; the port's goes through the tuned grouped matmul,
+which the JAX package tunes for serving but calls from no layer.  One-token
+decode attention and the Mamba-2 recurrence are plain PyTorch, as the JAX
+package computes them outside any kernel.  The projections and the router
+are ``@`` (``torch.matmul``), as they are ``@`` / ``einsum`` in JAX.  The
+JAX functions' ``sharder`` argument is dropped: the port runs on one device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -29,17 +30,16 @@ from .config import BlockDesc, ModelConfig
 from .module import ParamSpec
 
 __all__ = [
-    "AttnOp", "SsdOp", "attention", "attention_decode", "mamba",
-    "mamba_decode", "mlp", "moe", "rmsnorm", "rope", "spec_attention",
-    "spec_mamba", "spec_mlp", "spec_moe",
+    "AttnOp", "GmmOp", "SsdOp", "attention", "attention_decode", "mamba",
+    "mamba_decode", "mlp", "moe", "moe_capacity", "moe_groups", "moe_route",
+    "rmsnorm", "rope", "spec_attention", "spec_mamba", "spec_mlp",
+    "spec_moe",
 ]
 
 f32 = torch.float32
 AttnOp = Callable[..., torch.Tensor]
 SsdOp = Callable[..., torch.Tensor]
-
-MOE_TODO = ("MoE layers are not ported yet (ROADMAP Queue A, 'Other "
-            "architectures')")
+GmmOp = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +233,130 @@ def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MoE MLP (top-k router, sort-based capacity dispatch, grouped expert FFN)
+# ---------------------------------------------------------------------------
+
+def spec_moe(cfg: ModelConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+    return {
+        "mlp_norm": ParamSpec((d,), f32, (None,), "zeros"),
+        "router": ParamSpec((d, E), f32, ("embed", None), "scaled"),
+        "we_gate": ParamSpec((E, d, f), cfg.dtype,
+                             ("experts", "embed", "mlp"), "scaled"),
+        "we_up": ParamSpec((E, d, f), cfg.dtype,
+                           ("experts", "embed", "mlp"), "scaled"),
+        "we_down": ParamSpec((E, f, d), cfg.dtype,
+                             ("experts", "mlp", "embed"), "scaled"),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert for a group of ``n_tokens``: the capacity factor's
+    share, rounded up to a multiple of 8, at least 8."""
+    cap = math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor
+                    / cfg.n_experts)
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def moe_groups(cfg: ModelConfig, n_tokens: int) -> tuple[int, int, int]:
+    """(groups G, tokens per group, slots per expert per group C) of a MoE
+    layer over ``n_tokens``: the expert products run at G * C rows per
+    expert."""
+    size = min(cfg.moe_group, n_tokens)
+    if n_tokens % size:
+        raise ValueError(f"{n_tokens} tokens do not split into MoE groups "
+                         f"of {size}")
+    return n_tokens // size, size, moe_capacity(cfg, size)
+
+
+def moe_route(cfg: ModelConfig, p: dict, xg: torch.Tensor):
+    """The router over token groups xg (G, g, d): logits of xg and the
+    router in xg's dtype, summed in f32; softmax; the top-k experts and
+    their gates renormalised to sum 1 (floor 1e-9).  Returns (probs (G, g,
+    E), gate (G, g, k), expert (G, g, k)), f32, f32 and int64."""
+    logits = xg.float() @ p["router"].to(xg.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert = torch.topk(probs, cfg.top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, expert
+
+
+def moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
+        gmm_op: GmmOp | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE over x (B, S, d): grouped local dispatch into capacity
+    slots, the expert FFN as three grouped matmuls, the gated combine.
+
+    Tokens are split into groups of ``moe_group``.  Each group sorts its
+    (token, choice) pairs stably by expert; a pair's rank among its
+    expert's pairs picks its slot ``expert * C + rank``, and pairs of rank
+    >= C are dropped (their token keeps only its other choices, and the
+    residual).  The slots of every group are gathered into (E, G * C, d),
+    and ``gmm_op`` (default ``ops.moe_gmm``, the tuned grouped matmul) runs
+    the gate, up and down products on it.
+
+    The combine gathers each token's k slot outputs into (T, k, d),
+    multiplies each by its gate in x's dtype (as JAX does), and sums the k
+    terms in f32 before one cast.  The JAX layer scatter-adds the terms in
+    x's dtype instead; in bf16 that rounds after every add, so the two sit
+    up to k - 1 bf16 roundings apart, and in f32 they differ by the order
+    of the sum.  The gather form needs no atomics and gives the same bits
+    on every run.  Dispatch writes each kept pair into its own slot (the
+    slots are unique) and reads zeros for empty slots, so it equals the
+    JAX scatter-add exactly.
+
+    Returns (y (B, S, d), the Switch load-balance aux loss of the top-1
+    choices, f32).
+    """
+    gmm_op = gmm_op or ops.moe_gmm
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G, g_size, C = moe_groups(cfg, T)
+    dev = x.device
+    xg = x.reshape(G, g_size, d)
+    probs, gate, expert = moe_route(cfg, p, xg)
+
+    gk = g_size * k
+    flat_e = expert.reshape(G, gk)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(1, order)                        # sorted experts
+    st = order // k                                     # their tokens
+    starts = torch.searchsorted(
+        se, torch.arange(E, device=dev).expand(G, E).contiguous())
+    rank = torch.arange(gk, device=dev) - starts.gather(1, se)
+    keep = rank < C
+    slot = se * C + torch.where(keep, rank, 0)
+
+    # dispatch: the token of every slot (g_size, a zero row, where none)
+    rows = torch.arange(G, device=dev)[:, None]
+    src = torch.full((G, E * C + 1), g_size, dtype=torch.long, device=dev)
+    src.scatter_(1, torch.where(keep, slot, E * C), st)   # drops -> spare
+    xz = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
+    buf = xz[rows, src[:, :E * C]]                      # (G, E * C, d)
+
+    # the expert FFN: (G, E, C, d) -> (E, G * C, d), three grouped matmuls
+    xe = buf.view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    h = _act(cfg, gmm_op(xe, p["we_gate"])) * gmm_op(xe, p["we_up"])
+    out = gmm_op(h.to(x.dtype), p["we_down"])
+    out = out.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+
+    # combine: each pair's slot, back in (token, choice) order
+    pair_slot = torch.empty_like(slot).scatter_(1, order, slot)
+    pair_keep = torch.empty_like(keep).scatter_(1, order, keep)
+    w = gate.reshape(G, gk).to(out.dtype)[..., None]
+    terms = torch.where(pair_keep[..., None], out[rows, pair_slot] * w,
+                        torch.zeros((), dtype=out.dtype, device=dev))
+    y = terms.view(G, g_size, k, d).float().sum(2).to(x.dtype)
+
+    top1 = expert[..., 0].reshape(T)        # counts of whole tokens: exact
+    frac_tokens = torch.zeros(E, device=dev).index_add_(
+        0, top1, torch.ones(T, device=dev)) / T
+    mean_prob = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * mean_prob)
+    return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
 # Mamba-2 (SSD) mixer
 # ---------------------------------------------------------------------------
 
@@ -345,15 +469,3 @@ def mamba_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
     conv_state.copy_(full[:, 1:])
     ssm_state.copy_(new_state)
     return y @ p["out_proj"], conv_state, ssm_state
-
-
-# ---------------------------------------------------------------------------
-# not ported yet
-# ---------------------------------------------------------------------------
-
-def spec_moe(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(MOE_TODO)
-
-
-def moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    raise NotImplementedError(MOE_TODO)

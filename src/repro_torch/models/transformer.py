@@ -1,7 +1,7 @@
 """Decoder stack over block patterns: specs, forward, decode step, cache.
 
-The JAX package's ``models/transformer.py`` for the dense attention stack
-and the attention-free Mamba-2 stack.  Parameters for one pattern period are
+The JAX package's ``models/transformer.py`` for the attention stacks, dense
+or MoE, and the attention-free Mamba-2 stack.  Parameters for one pattern period are
 stacked along a leading "layers" axis (the same tree as JAX's, so weights
 convert one to one); where JAX ``lax.scan``s over the groups, the port loops
 over them in Python and runs each layer on views of the stacked leaves.  The
@@ -104,7 +104,10 @@ def _group(tree: dict, g: int) -> dict:
 
 def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, enc_out: torch.Tensor | None,
-                 causal: bool, attn_op, ssd_op) -> torch.Tensor:
+                 causal: bool, attn_op, ssd_op, gmm_op
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One block; returns (x, its MoE aux loss, None without a MoE MLP)."""
+    aux = None
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     if desc.kind == "attn":
         x = x + L.attention(cfg, p, h, desc, positions, causal=causal,
@@ -119,8 +122,12 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: dict, x: torch.Tensor,
                             prefix="x_", attn_op=attn_op)
     if desc.mlp:
         h = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
-        x = x + (L.moe(cfg, p, h) if desc.moe else L.mlp(cfg, p, h))
-    return x
+        if desc.moe:
+            y, aux = L.moe(cfg, p, h, gmm_op=gmm_op)
+        else:
+            y = L.mlp(cfg, p, h)
+        x = x + y
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -128,26 +135,32 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
             enc_out: torch.Tensor | None = None,
             causal: bool | None = None,
             attn_op: L.AttnOp | None = None,
-            ssd_op: L.SsdOp | None = None
+            ssd_op: L.SsdOp | None = None,
+            gmm_op: L.GmmOp | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the block stack on embedded inputs x (B, S, d).
 
-    Returns (hidden_states, moe_aux_loss); the aux loss is 0 (no MoE block
-    is ported).  ``attn_op`` replaces ``ops.flash_attention`` in every
-    attention layer (see ``layers.attention``), ``ssd_op`` ``ops.ssd_scan``
-    in every Mamba-2 layer (see ``layers.mamba``).
+    Returns (hidden_states, moe_aux_loss): the f32 sum of every MoE block's
+    aux loss (0 without MoE blocks).  ``attn_op`` replaces
+    ``ops.flash_attention`` in every attention layer (see
+    ``layers.attention``), ``ssd_op`` ``ops.ssd_scan`` in every Mamba-2
+    layer (see ``layers.mamba``) and ``gmm_op`` ``ops.moe_gmm`` in every
+    MoE layer (see ``layers.moe``).
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     causal = cfg.causal if causal is None else causal
+    aux = torch.zeros((), dtype=f32, device=x.device)
     for g in range(cfg.n_groups):
         for i, desc in enumerate(cfg.block_pattern):
             p = _group(params["blocks"][f"pos{i}"], g)
-            x = _apply_block(cfg, desc, p, x, positions, enc_out, causal,
-                             attn_op, ssd_op)
+            x, a = _apply_block(cfg, desc, p, x, positions, enc_out, causal,
+                                attn_op, ssd_op, gmm_op)
+            if a is not None:
+                aux = aux + a
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    return x, torch.zeros((), dtype=f32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -160,16 +173,23 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
     """The tuned-kernel launches this model's forward makes at serving
     shapes, as ``core.step_plan.KernelRequest``s: the flash attention of
     each distinct attention block, or the SSD scan of each distinct Mamba-2
-    block, at each sequence length in ``seqs`` (default ``(1, max_seq)``).
-    Derived from the config alone, with the key and shape arithmetic the
-    layers use when they call ``ops.flash_attention`` (heads folded into
-    the batch axis) and ``ops.ssd_scan`` (mamba heads folded into it), so
-    ``build_step_plan`` over them resolves the configs the step's ops
-    would ask the registry for.
+    block, at each sequence length in ``seqs`` (default ``(1, max_seq)``),
+    then, for a model with MoE blocks, the grouped matmul of the expert
+    FFN at each of them: one key for the gate and up products (they share
+    their shape) and one for the down product, at the rows per expert of
+    ``batch * s`` tokens, each distinct key once.  Derived from the config alone, with the key and
+    shape arithmetic the layers use when they call ``ops.flash_attention``
+    (heads folded into the batch axis), ``ops.ssd_scan`` (mamba heads
+    folded into it) and ``ops.moe_gmm`` (``layers.moe_groups``' rows, at
+    the granule-padded ``ops.gemm_dims``), so ``build_step_plan`` over them
+    resolves the configs the step's ops would ask the registry for.  The
+    JAX manifest has no grouped-matmul entries: its MoE layer computes the
+    expert products with ``einsum``.
     """
     from ..core.step_plan import KernelRequest
-    from ..kernels.ops import (FLASH_DEFAULT, SSD_DEFAULT, flash_kernel_name,
-                               ssd_kernel_name)
+    from ..kernels.ops import (FLASH_DEFAULT, GMM_DEFAULT, GMM_DEFAULT_F32,
+                               SSD_DEFAULT, flash_kernel_name, gemm_dims,
+                               gmm_kernel_name, ssd_kernel_name)
 
     if seqs is None:
         seqs = (1, max_seq)
@@ -197,6 +217,19 @@ def decode_kernel_requests(cfg: ModelConfig, batch: int, max_seq: int,
                     flash_kernel_name(cfg.head_dim, False),
                     {"bh": batch * cfg.n_heads, "sq": s, "skv": skv},
                     FLASH_DEFAULT))
+    if any(d.mlp and d.moe for d in cfg.block_pattern):
+        kernel = gmm_kernel_name(cfg.dtype)
+        default = GMM_DEFAULT if cfg.dtype == torch.bfloat16 \
+            else GMM_DEFAULT_F32
+        d, f, E = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+        shapes = []
+        for s in seqs:
+            G, _, C = L.moe_groups(cfg, batch * s)
+            for k, n in ((d, f), (f, d)):
+                D = gemm_dims(kernel, {"e": E, "g": G * C, "k": k, "n": n})
+                if D not in shapes:
+                    shapes.append(D)
+        reqs += [KernelRequest.make(kernel, D, default) for D in shapes]
     return reqs
 
 
@@ -264,6 +297,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 x = x + y
             if desc.mlp:
                 h = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
-                x = x + (L.moe(cfg, p, h) if desc.moe else L.mlp(cfg, p, h))
+                x = x + (L.moe(cfg, p, h)[0] if desc.moe
+                         else L.mlp(cfg, p, h))
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return unembed(cfg, params, x[:, 0]), cache

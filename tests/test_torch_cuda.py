@@ -308,3 +308,33 @@ def test_cuda_llama_prefill_under_a_step_plan(tmp_path, monkeypatch):
     assert registry.stats() == stats and registry.memo_size() == memo
     assert torch.equal(got, want)
     registry.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_the_plain_grouped_matmul():
+    """The smoke qwen3-moe MoE layer (bf16, 8 experts, top-2, d 128) on
+    the card: its three expert products launch the grouped-matmul kernel
+    through ``ops.moe_gmm``, and the output matches the same layer with
+    ``moe_gmm_plain`` (the routing is computed before either runs, so only
+    the products' roundings differ: 2e-2 of max |y|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    params = Model(cfg).init(0)
+    p = {k: v[0] for k, v in params["blocks"]["pos0"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 96, cfg.d_model, generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    before = gmm.LAUNCHES.count
+    y, aux = L.moe(cfg, p, x)
+    assert gmm.LAUNCHES.count == before + 3
+    want, want_aux = L.moe(cfg, p, x, gmm_op=gmm.moe_gmm_plain)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2 * scale,
+                               rtol=2e-2)
+    assert torch.equal(aux, want_aux)
+    assert torch.equal(y, L.moe(cfg, p, x)[0])

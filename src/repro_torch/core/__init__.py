@@ -6,6 +6,7 @@ fitting) are carried over from the JAX package unchanged; the hardware side
 an NVIDIA H100.
 """
 
+from .buckets import BucketLattice, pad_to, pow2_span
 from .cache import (CacheEntry, DriverCache, PlanEntry, cache_key,
                     code_digest, default_cache, default_cache_dir,
                     spec_fingerprint)
@@ -15,6 +16,8 @@ from .collect import (BatchShard, CollectedData, batch_seed, collect,
 from .device_model import (H100, CudaEventTimer, DeviceModel, HardwareParams,
                            HopperModel, ProbeBatch, RowProbe, TrafficOperand,
                            TrafficTable, roofline_times)
+from .device_plan import (BucketedDispatch, DevicePlanTable,
+                          build_bucketed_dispatch, pack_shape32)
 from .driver import (ChoiceEvent, DriverProgram, WarmStartSummary,
                      choose_or_default, dkey, fit_tile, get_choice_listener,
                      get_driver, local_hw, memo_key, register_driver,
@@ -40,6 +43,7 @@ from .tuner import (BuildResult, Klaraptor, exhaustive_search,
                     fitresult_from_json, selection_ratio)
 
 __all__ = [
+    "BucketLattice", "pad_to", "pow2_span",
     "CacheEntry", "DriverCache", "PlanEntry", "cache_key", "code_digest",
     "default_cache", "default_cache_dir", "spec_fingerprint",
     "BatchShard", "CollectedData", "batch_seed", "collect", "collect_batch",
@@ -47,6 +51,8 @@ __all__ = [
     "H100", "CudaEventTimer", "DeviceModel", "HardwareParams", "HopperModel",
     "ProbeBatch", "RowProbe", "TrafficOperand", "TrafficTable",
     "roofline_times",
+    "BucketedDispatch", "DevicePlanTable", "build_bucketed_dispatch",
+    "pack_shape32",
     "ChoiceEvent", "DriverProgram", "WarmStartSummary", "choose_or_default",
     "dkey", "fit_tile", "get_choice_listener", "get_driver", "local_hw",
     "memo_key", "register_driver", "registry", "set_choice_listener",

@@ -56,8 +56,19 @@ import torch
 __all__ = [
     "HardwareParams", "H100", "ProbeBatch", "RowProbe", "DeviceModel",
     "TrafficOperand", "TrafficTable", "HopperModel", "CudaEventTimer",
-    "kernel_sources_digest", "roofline_times",
+    "kernel_sources_digest", "resolve_device", "roofline_times",
 ]
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on cuda or cpu, not {device}")
+    return device
 
 
 @dataclass(frozen=True)

@@ -222,6 +222,14 @@ class LaunchPlanTable:
             ))
         return out
 
+    def to_device(self, device="cuda"):
+        """This table as a ``DevicePlanTable`` on ``device`` (see
+        core/device_plan.py), whose probe is torch ops with no host sync:
+        the card unless the caller passes ``"cpu"``."""
+        from .device_plan import DevicePlanTable
+
+        return DevicePlanTable.from_table(self, device=device)
+
     # -- persistence ---------------------------------------------------------
     def to_json(self) -> dict:
         """JSON-able payload: the dense rows, rebuilt into a probe table on

@@ -22,6 +22,21 @@ the shape padded to the kernel's granule (``gemm_dims``) -- so a step plan
 or launch plan must be built at that D to hit.  A resolved config may be
 shared (a memo or plan entry): the ops never change it.
 
+``matmul``, ``flash_attention``, ``layernorm`` and ``blocked_colsum`` also
+take ``in_graph=`` (a ``core.device_plan.BucketedDispatch``) and ``dims=``
+(the raw shape): the operands come padded to the bucket envelope
+(``core.buckets.pad_to``), the config is the branch the dispatch takes at
+the raw shape, fitted to the envelope shape, and the result has the
+envelope's shape (the caller slices it: zero padding is exact for the
+matmul and the column sum, causally masked for flash attention, and the
+layernorm's padded rows land in the tail).  These calls make no registry
+traffic.  The JAX package fetches the branch inside its compiled step
+(``lax.switch``); PyTorch launches from the host, so the op takes the
+branch from ``host_index``, the decision ``branch_index`` makes on the
+device, bit for bit.  Captured once per branch over the padded buffers
+(``serving.graphs.BranchGraphs``), a raw shape moves the branch index and
+never adds a capture.
+
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
 """
@@ -50,8 +65,8 @@ from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 __all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "GMM_DEFAULT_F32",
            "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "SSD_DEFAULT",
            "blocked_colsum", "flash_attention", "flash_kernel_name",
-           "gemm_dims", "gmm_kernel_name", "layernorm", "matmul",
-           "matmul_kernel_name", "moe_gmm", "probe_launcher",
+           "gemm_dims", "gmm_kernel_name", "kernel_spec", "layernorm",
+           "matmul", "matmul_kernel_name", "moe_gmm", "probe_launcher",
            "ssd_kernel_name", "ssd_scan"]
 
 # Static heuristic defaults (what a programmer would hard-code).  The bf16
@@ -132,6 +147,17 @@ def _resolve(kernel: str, D: dict, default: dict, plan: StepPlan | None,
     return choose_or_default(kernel, D, default, spec=spec)
 
 
+def _branch_config(disp, kernel: str, dims,
+                   envelope: Mapping[str, int]) -> dict[str, int]:
+    """The config of the branch ``disp`` takes at the raw ``dims`` (default
+    the envelope shape itself), as ``host_index`` decides it."""
+    if disp.table.kernel != kernel:
+        raise ValueError(f"a dispatch of {disp.table.kernel!r} cannot "
+                         f"launch {kernel!r}")
+    idx, _ = disp.host_index(envelope if dims is None else dims)
+    return disp.config_dicts()[idx]
+
+
 def _fit_gemm(kernel: str, cfg: Mapping[str, int],
               sizes: Mapping[str, int]) -> dict[str, int]:
     """Tiles of ``cfg`` snapped to the (padded) shape: the bf16 wgmma
@@ -152,7 +178,8 @@ def _round_up(v: int, a: int) -> int:
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
            out_dtype: torch.dtype | None = None,
-           plan: StepPlan | None = None) -> torch.Tensor:
+           plan: StepPlan | None = None, in_graph=None,
+           dims=None) -> torch.Tensor:
     """Tuned x @ y over the last two dims of x; leading dims are batched.
 
     ``y`` is one (k, n) matrix shared by every batch entry, so the batch
@@ -161,11 +188,32 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     f32) are zero-padded (exact for a product) and the result is sliced
     back.  CUDA tensors launch the kernel, CPU tensors take
     ``matmul_plain`` through the same wrapper.
+
+    With ``in_graph=`` (a ``BucketedDispatch``) the operands must be 2-D,
+    padded to the lattice envelope (a multiple of the granule), and
+    ``dims`` carries the raw ``{m, n, k}``; the result is envelope-shaped
+    -- the caller slices ``[:m, :n]`` (exact: padded k contributes zero
+    partial products, padded rows and columns land in the tail).
     """
     if x.ndim < 2 or y.ndim != 2 or x.shape[-1] != y.shape[0]:
         raise ValueError(f"matmul takes x (..., m, k) and y (k, n); got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
     out_dtype = out_dtype or x.dtype
+    if in_graph is not None:
+        if x.ndim != 2:
+            raise ValueError("in-graph matmul takes 2-D envelope-padded "
+                             f"operands, got x.ndim={x.ndim}")
+        kernel = matmul_kernel_name(x.dtype)
+        (M, K), N = x.shape, y.shape[1]
+        env = {"m": M, "n": N, "k": K}
+        if gemm_dims(kernel, env) != env:
+            raise ValueError(f"in-graph matmul takes operands padded to the "
+                             f"{kernel} granule; got (m, n, k) {M, N, K}")
+        cfg = _branch_config(in_graph, kernel, dims, env)
+        return matmul_kernel(x.contiguous(), y.contiguous(),
+                             **_fit_gemm(kernel, cfg,
+                                         {"bm": M, "bn": N, "bk": K}),
+                             out_dtype=out_dtype)
     lead = x.shape[:-1]
     k, n = y.shape
     x2 = x.reshape(-1, k)
@@ -254,7 +302,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None, softcap: float | None = None,
                     scale: float | None = None,
                     q_chunk: int | None = None,
-                    plan: StepPlan | None = None) -> torch.Tensor:
+                    plan: StepPlan | None = None, in_graph=None,
+                    dims=None) -> torch.Tensor:
     """(b*hq, sq, d) x (b*hkv, skv, d)^2 -> (b*hq, sq, d), tuned tiles.
 
     CPU tensors take ``flash_attention_plain`` (streamed over ``q_chunk``
@@ -262,7 +311,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through ``choose_or_default`` at D = (bh, sq, skv) and launch the
     kernel, which masks ragged tails, so no shape is padded; ``q_chunk``
     does not apply to the kernel, which streams by construction.
+
+    With ``in_graph=`` the operands are envelope-padded and ``dims``
+    carries the raw ``{bh, sq, skv}``.  Only causal self-attention with
+    aligned q/kv padding is safe here: a query row at position i attends
+    to kv positions <= i, so the zero rows of the padded kv tail are
+    masked out for every valid query row, and padded query rows land in
+    the tail the caller slices off.  The branch's tiles are taken as the
+    kernel takes ragged tails; a pair this dtype's kernel does not take
+    falls to ``FLASH_DEFAULT``, as on the tuned path.
     """
+    if in_graph is not None:
+        if not causal:
+            raise ValueError(
+                "in-graph flash attention requires causal=True: non-causal "
+                "attention would read the zero-padded kv tail")
+        BH, SQ, d = q.shape
+        cfg = _branch_config(in_graph, flash_kernel_name(d, causal), dims,
+                             {"bh": BH, "sq": SQ, "skv": k.shape[1]})
+        if not _flash_tile_fits(d, causal, q.element_size(), cfg["bq"],
+                                cfg["bkv"]):
+            cfg = FLASH_DEFAULT
+        return flash_attention_kernel(
+            q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+            bq=cfg["bq"], bkv=cfg["bkv"], causal=causal, window=window,
+            softcap=softcap, scale=scale)
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_plain(
@@ -283,6 +356,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
         bq=cfg["bq"], bkv=cfg["bkv"], causal=causal, window=window,
         softcap=softcap, scale=scale)
+
+
+def kernel_spec(kernel: str, dtype: torch.dtype = torch.bfloat16):
+    """The spec the ops resolve ``kernel`` under for inputs of ``dtype``
+    (what a driver-cache read for it must name): the GEMMs' by name, flash
+    attention's and the SSD scan's at the dtype's width (their names carry
+    no dtype), an auto-registered kernel's derived spec."""
+    if kernel in _DEFAULTS:
+        return _gemm_spec(kernel)
+    width = torch.empty((), dtype=dtype).element_size()
+    flash = _FLASH_NAME.match(kernel)
+    if flash:
+        return _flash_spec(int(flash.group(1)), bool(flash.group(2)), width)
+    ssd = _SSD_NAME.match(kernel)
+    if ssd:
+        return _ssd_spec(int(ssd.group(1)), int(ssd.group(2)), width)
+    ak = get_auto(kernel)
+    if ak is None:
+        raise ValueError(f"no spec for kernel {kernel!r}")
+    return ak.spec
 
 
 def ssd_kernel_name(head_dim: int, d_state: int) -> str:
@@ -356,7 +449,8 @@ def _colsum_auto(dtype_bytes: int, device: str) -> AutoKernel:
 
 def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
               beta: torch.Tensor, *, eps: float = 1e-6,
-              plan: StepPlan | None = None) -> torch.Tensor:
+              plan: StepPlan | None = None, in_graph=None,
+              dims=None) -> torch.Tensor:
     """Fused layernorm + residual of x, res (r, c) with an
     introspection-tuned row tile.
 
@@ -366,19 +460,29 @@ def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
     ragged (the kernel masks the last block), so br is kept, at most r
     rounded up to the derived granularity.  CUDA tensors launch the kernel,
     CPU tensors take ``layernorm_plain`` through the same wrapper.
+
+    With ``in_graph=`` the inputs are row-padded to the envelope and
+    ``dims`` carries the raw ``{r}``: padded rows normalize a zero row
+    (finite: eps keeps the rsqrt bounded) and land in the tail, so the
+    valid rows are unaffected.
     """
     if x.ndim != 2:
         raise ValueError(f"layernorm takes x (r, c); got {tuple(x.shape)}")
     r, c = x.shape
     ak = _layernorm_auto(c, x.element_size(), float(eps), x.device.type)
-    cfg = ak.fit_config(_resolve(ak.name, {"r": r}, ak.defaults, plan,
-                                 ak.spec), {"r": r})
+    if in_graph is not None:
+        cfg = ak.fit_config(_branch_config(in_graph, ak.name, dims,
+                                           {"r": r}), {"r": r})
+    else:
+        cfg = ak.fit_config(_resolve(ak.name, {"r": r}, ak.defaults, plan,
+                                     ak.spec), {"r": r})
     return layernorm_kernel(x.contiguous(), res.contiguous(), gamma, beta,
                             br=cfg["br"], eps=eps)
 
 
 def blocked_colsum(x: torch.Tensor, *,
-                   plan: StepPlan | None = None) -> torch.Tensor:
+                   plan: StepPlan | None = None, in_graph=None,
+                   dims=None) -> torch.Tensor:
     """Column sums of x (r, c) as (c,) f32 with introspection-tuned (br, bc)
     tiles.
 
@@ -387,12 +491,25 @@ def blocked_colsum(x: torch.Tensor, *,
     columns land in the sliced-off tail), and the resolved config is
     snapped to the shape by ``fit_config``.  CUDA tensors launch the
     kernel, CPU tensors take ``colsum_plain`` through the same wrapper.
+
+    With ``in_graph=`` the input is envelope-padded (c a multiple of the
+    ``bc`` granularity) and ``dims`` carries the raw ``{r, c}``; padded
+    rows add zero to every column sum and padded columns land in the
+    tail, so the result is exact.
     """
     if x.ndim != 2:
         raise ValueError(f"blocked_colsum takes x (r, c); got "
                          f"{tuple(x.shape)}")
     r, c = x.shape
     ak = _colsum_auto(x.element_size(), x.device.type)
+    if in_graph is not None:
+        if c % ak.alignments()["bc"]:
+            raise ValueError(f"in-graph column sum takes c padded to a "
+                             f"multiple of {ak.alignments()['bc']}; got {c}")
+        env = {"r": r, "c": c}
+        cfg = ak.fit_config(_branch_config(in_graph, ak.name, dims, env),
+                            env)
+        return colsum_kernel(x.contiguous(), br=cfg["br"], bc=cfg["bc"])
     cp = _round_up(c, ak.alignments()["bc"])
     if cp != c:
         x = F.pad(x, (0, cp - c))

@@ -18,11 +18,16 @@ From the command line (random weights from a seed):
 ``--auto-kernels`` introspects the auto-specced kernels (the fused
 layernorm + residual at the config's d_model and the blocked column sum),
 tunes each against the card (``CudaEventTimer``; ``HopperModel`` only with
-``--device cpu``) and prints one line per kernel before serving.  The JAX
-launcher's ``--telemetry``, ``--plans``, ``--trace``, ``--ledger``,
-``--dash``, ``--async`` and ``--buckets`` wait for their modules (ROADMAP
-Queue A, 'Rest of the serving slice'); ``default_plan_envelope`` is the
-envelope ``--plans`` will compile.
+``--device cpu``) and prints one line per kernel before serving.
+``--plans`` precompiles launch plans over ``default_plan_envelope``,
+``--no-step-plans`` turns the engine's per-step launch plan off,
+``--async`` serves through the async front-end (a scheduler thread and
+chunked prefill of ``--prefill-chunk`` tokens at most) and ``--buckets``
+counts the decode attention kernel's bucket hits and padding waste over
+``default_bucket_lattices``; each prints what the JAX launcher prints for
+it.  The JAX launcher's ``--telemetry``, ``--telemetry-json``,
+``--trace``, ``--ledger`` and ``--dash`` wait for their modules (ROADMAP
+Queue A item 5).
 """
 
 from __future__ import annotations
@@ -37,21 +42,50 @@ from ..models import Model
 from ..models.config import ModelConfig
 from ..serving.engine import Request, ServingEngine
 
-__all__ = ["build_auto_kernels", "build_engine", "default_plan_envelope",
-           "main"]
+__all__ = ["build_auto_kernels", "build_engine", "default_bucket_lattices",
+           "default_plan_envelope", "main", "pow2_seqs"]
 
 
 def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                  params: dict | None = None, seed: int = 0,
                  eos_id: int = 1,
-                 device: str | torch.device = "cuda") -> ServingEngine:
+                 device: str | torch.device = "cuda",
+                 plan_envelope=None, auto_kernels=None,
+                 step_plans: bool = True, prefill_chunk: int = 32,
+                 bucket_lattices=None) -> ServingEngine:
     """An engine over ``cfg`` with ``params`` (seeded random weights if
-    None) on ``device``."""
+    None) on ``device``; the other arguments are ``ServingEngine``'s."""
     model = Model(cfg, device=device)
     if params is None:
         params = model.init(seed)
     return ServingEngine(model, params, batch=batch, max_seq=max_seq,
-                         eos_id=eos_id, seed=seed)
+                         eos_id=eos_id, seed=seed,
+                         plan_envelope=plan_envelope,
+                         auto_kernels=auto_kernels, step_plans=step_plans,
+                         prefill_chunk=prefill_chunk,
+                         bucket_lattices=bucket_lattices)
+
+
+def default_bucket_lattices(cfg: ModelConfig, batch: int,
+                            max_seq: int) -> dict:
+    """Bucket lattices for the decode step's attention kernel: log2 seq
+    buckets up to ``max_seq``, fixed batch-heads axis.  The engine replays
+    these per step for hit/miss and padding-waste accounting (and they are
+    the lattices a bucketed attention step would pad to)."""
+    from ..core import BucketLattice
+    from ..kernels.ops import flash_kernel_name
+
+    key = flash_kernel_name(cfg.head_dim, cfg.causal)
+    return {key: BucketLattice.from_axes(key, {
+        "bh": [batch * cfg.n_heads],
+        "sq": pow2_seqs(max_seq),
+        "skv": pow2_seqs(max_seq),
+    })}
+
+
+def pow2_seqs(max_seq: int) -> list[int]:
+    from ..core import pow2_span
+    return list(pow2_span(1, max_seq))
 
 
 def default_plan_envelope(batch: int, max_seq: int) -> dict:
@@ -123,22 +157,44 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--plans", action="store_true",
+                    help="precompile launch plans for the default decode "
+                         "traffic envelope at warm start (O(1) dispatch)")
+    ap.add_argument("--no-step-plans", action="store_true",
+                    help="disable the per-step launch plan (every kernel "
+                         "dispatch of a step build goes through the "
+                         "registry instead of the engine's frozen per-step "
+                         "config table)")
     ap.add_argument("--auto-kernels", action="store_true",
                     help="introspect + tune the auto-specced kernels "
-                         "(layernorm fusion, blocked column reduction): "
-                         "zero hand-written spec code")
+                         "(layernorm fusion, blocked column reduction) and "
+                         "serve them through the engine: zero hand-written "
+                         "spec code")
+    ap.add_argument("--async", dest="run_async", action="store_true",
+                    help="serve through the async front-end (scheduler "
+                         "thread + chunked prefill) instead of the "
+                         "synchronous loop")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens advanced per prefill step on the "
+                         "async path (default 32)")
+    ap.add_argument("--buckets", action="store_true",
+                    help="enable per-step bucketed-dispatch accounting for "
+                         "the decode attention kernel (hit/miss + padding "
+                         "waste, printed after the run)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    auto = []
     if args.auto_kernels:
         from ..core.device_model import CudaEventTimer, HopperModel
 
         tune = (HopperModel() if torch.device(args.device).type == "cpu"
                 else CudaEventTimer(device=args.device))
-        for ak in build_auto_kernels(d_model=cfg.d_model, tune_device=tune,
-                                     device=args.device):
+        auto = build_auto_kernels(d_model=cfg.d_model, tune_device=tune,
+                                  device=args.device)
+        for ak in auto:
             cap = ak.capture
             print(f"auto kernel {ak.name}: "
                   f"{len(ak.spec.operands)} operands, "
@@ -147,15 +203,49 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
                   f"kernel hash {ak.spec.source_fingerprint}, "
                   f"registers {cap.num_regs} ({cap.attributes_source}; "
                   f"launch-bounds cap {cap.regs_cap})", flush=True)
-    engine = build_engine(cfg, args.batch, args.max_seq, device=args.device)
+    envelope = (default_plan_envelope(args.batch, args.max_seq)
+                if args.plans else None)
+    buckets = (default_bucket_lattices(cfg, args.batch, args.max_seq)
+               if args.buckets else None)
+    engine = build_engine(cfg, args.batch, args.max_seq, device=args.device,
+                          plan_envelope=envelope, auto_kernels=auto,
+                          step_plans=not args.no_step_plans,
+                          prefill_chunk=args.prefill_chunk,
+                          bucket_lattices=buckets)
+    ws = engine.warm_started
+    print(f"warm start: {len(ws)} driver(s) loaded {list(ws)}, "
+          f"{len(ws.plans_loaded)} plan(s), "
+          f"{ws.skipped_no_entry} without artifacts, "
+          f"{ws.skipped_bad} unloadable")
+    if args.plans:
+        ps = engine.plan_summary
+        print(f"launch plans: {len(ps['compiled'])} compiled, "
+              f"{len(ps['loaded'])} loaded from cache, "
+              f"{len(ps['skipped'])} skipped (no driver), "
+              f"{ps['entries']} plan entries")
+    if engine._step_plan is not None:
+        sp = engine._step_plan.describe()
+        print(f"step plan: {sp['entries']} kernel configs frozen at "
+              f"generation {sp['generation']} ({sp['sources']})")
     for i in range(args.requests):
         prompt = [2 + (i * 7 + j) % (cfg.vocab_size - 3)
                   for j in range(4 + i % 4)]
         engine.submit(Request(rid=i, prompt=prompt,
                               max_new_tokens=args.max_new))
-    finished = engine.run()
+    finished = engine.run_async() if args.run_async else engine.run()
     for r in sorted(finished, key=lambda r: r.rid):
         print(f"req {r.rid}: prompt={r.prompt} -> output={r.output}")
+    if args.run_async:
+        cc = engine.compile_counts
+        print(f"async front-end: {cc['decode_step']} decode-step compile(s), "
+              f"{cc['prefill_chunk']} prefill-chunk compile(s), "
+              f"chunk={engine.prefill_chunk}")
+    if args.buckets:
+        bs = engine.bucket_stats
+        n = bs["hits"] + bs["misses"]
+        frac = bs["waste_sum"] / n if n else 0.0
+        print(f"bucket dispatch: {bs['hits']} hits, {bs['misses']} misses "
+              f"over {bs['steps']} steps, mean padding waste {frac:.3f}")
     return finished
 
 

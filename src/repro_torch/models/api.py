@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device_model import resolve_device
 from . import transformer as T
 from .config import ModelConfig
 from .module import init_params, param_count
@@ -23,17 +24,6 @@ _KIND_TODO = {
     "vlm": "ROADMAP Queue A, 'Other architectures'",
     "encdec": "ROADMAP Queue A, 'Other architectures'",
 }
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain PyTorch versions on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the port runs on cuda or cpu, not {device}")
-    return device
 
 
 class Model:
@@ -66,9 +56,10 @@ class Model:
         return init_params(self.cache_specs(batch, max_seq), gen)
 
     def decode_step(self, params: dict, token: torch.Tensor,
-                    pos: torch.Tensor, cache: dict
-                    ) -> tuple[torch.Tensor, dict]:
-        return T.decode_step(self.cfg, params, token, pos, cache)
+                    pos: torch.Tensor, cache: dict, logits: bool = True
+                    ) -> tuple[torch.Tensor | None, dict]:
+        return T.decode_step(self.cfg, params, token, pos, cache,
+                             logits=logits)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict
                 ) -> tuple[torch.Tensor, dict]:

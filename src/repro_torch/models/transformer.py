@@ -271,11 +271,15 @@ def init_cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                pos: torch.Tensor, cache: dict
-                ) -> tuple[torch.Tensor, dict]:
+                pos: torch.Tensor, cache: dict, logits: bool = True
+                ) -> tuple[torch.Tensor | None, dict]:
     """One decode step: token (B,), pos (B,) -> (logits (B, V), cache).
 
-    The cache is updated in place and returned.
+    The cache is updated in place and returned.  ``logits=False`` stops
+    after the block stack and returns (None, cache): a step that only
+    advances the cache (a chunk of prefill) skips the final norm and the
+    unembedding, as XLA drops them from the JAX engine's prefill scan,
+    whose body discards the logits.
     """
     x = embed_tokens(cfg, params, token[:, None])              # (B, 1, d)
     for g in range(cfg.n_groups):
@@ -299,5 +303,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 h = L.rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
                 x = x + (L.moe(cfg, p, h)[0] if desc.moe
                          else L.mlp(cfg, p, h))
+    if not logits:
+        return None, cache
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return unembed(cfg, params, x[:, 0]), cache

@@ -338,3 +338,159 @@ def test_cuda_moe_layer_matches_the_plain_grouped_matmul():
                                rtol=2e-2)
     assert torch.equal(aux, want_aux)
     assert torch.equal(y, L.moe(cfg, p, x)[0])
+
+
+def _smoke_moe_engine(tmp_path, monkeypatch, **kw):
+    """An engine over the smoke qwen3-moe (bf16, 8 experts, top-2): its
+    decode step launches the grouped-matmul kernel three times per MoE
+    layer, inside the decode graph."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import registry
+    from repro_torch.launch import build_engine
+
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    registry.clear()
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
+    return cfg, build_engine(cfg, batch=2, max_seq=32, **kw)
+
+
+def _serve_two(engine, first_rid=0):
+    from repro_torch.serving import Request
+
+    for i in range(2):
+        engine.submit(Request(rid=first_rid + i, prompt=[3 + i, 7, 11, 5],
+                              max_new_tokens=4))
+    return engine.run()
+
+
+@pytest.mark.cuda
+def test_cuda_engine_graphed_decode_equals_eager(tmp_path, monkeypatch):
+    """The engine's decode step is one CUDA graph across the traffic, and
+    a replay gives the logits of the eager ``decode_step`` on the same
+    inputs and the same cache (restored between the two); the graph's
+    grouped-matmul launches are its replays times 3 per MoE layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    import numpy as np
+
+    cfg, engine = _smoke_moe_engine(tmp_path, monkeypatch)
+    done = _serve_two(engine)
+    assert len(done) == 2 and all(r.done for r in done)
+    assert engine.compile_counts["decode_step"] == 1
+    (graph,) = engine.captures()
+    assert graph.replays > 0
+    assert graph.launches == {"moe_gmm": 3 * cfg.n_layers}
+    assert engine.graph_launches() == {
+        "moe_gmm": 3 * cfg.n_layers * graph.replays}
+    tok = np.array([5, 9], np.int32)
+    pos = np.array([6, 3], np.int32)
+    saved = {k: {n: t.clone() for n, t in v.items()}
+             for k, v in engine.cache.items()}
+    torch.cuda.synchronize()
+    eager, _ = engine.model.decode_step(
+        engine.params, torch.tensor(tok, device="cuda"),
+        torch.tensor(pos, device="cuda"), engine.cache)
+    eager = eager.clone()
+    for k, v in saved.items():
+        for n, t in v.items():
+            engine.cache[k][n].copy_(t)
+    torch.cuda.synchronize()
+    graphed = engine._run_step(tok, pos).clone()
+    torch.cuda.synchronize()
+    assert engine.compile_counts["decode_step"] == 1
+    scale = float(eager.abs().max())
+    assert float((graphed - eager).abs().max()) <= 5e-2 * scale
+    from repro_torch.core import registry
+    registry.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_in_graph_one_capture_per_branch():
+    """``ops.matmul(in_graph=)`` over 8 raw bf16 shapes, captured once per
+    branch over padded buffers: captures <= branches, the sliced outputs
+    match the plain product, and the device ``branch_index`` equals
+    ``host_index`` on every shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    import numpy as np
+
+    from repro_torch.core import (BucketedDispatch, BucketLattice,
+                                  LaunchPlanTable)
+    from repro_torch.serving.graphs import BranchGraphs
+
+    lat = BucketLattice.from_axes("matmul_b16", {
+        "m": [64, 128, 256], "n": [256], "k": [256]})
+    table = LaunchPlanTable.build(
+        "matmul_b16", H100.name, ("m", "n", "k"), ("bm", "bn", "bk"),
+        {"m": np.array([64, 128]), "n": np.array([256, 256]),
+         "k": np.array([256, 256])},
+        {"bm": np.array([64, 128]), "bn": np.array([128, 256]),
+         "bk": np.array([64, 64])})
+    disp = BucketedDispatch.build(lat, table, ops.MATMUL_DEFAULT,
+                                  device="cuda")
+    xp = torch.zeros(256, 256, dtype=torch.bfloat16, device="cuda")
+    yp = torch.zeros(256, 256, dtype=torch.bfloat16, device="cuda")
+    graphs = BranchGraphs(
+        disp, lambda d: ops.matmul(xp, yp, in_graph=disp, dims=d), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = MATMUL_LAUNCHES.count
+    shapes = [(40, 200, 200), (64, 256, 256), (100, 130, 250),
+              (128, 256, 256), (7, 9, 11), (200, 256, 100),
+              (256, 256, 256), (33, 17, 255)]
+    for m, n, k in shapes:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        y = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+             ).to(torch.bfloat16)
+        xp.zero_()[:m, :k] = x
+        yp.zero_()[:k, :n] = y
+        D = {"m": m, "n": n, "k": k}
+        out = graphs(D)[:m, :n].float()
+        torch.testing.assert_close(out, matmul_plain(x, y).float(),
+                                   atol=2e-2, rtol=2e-2)
+        idx, hit = disp.branch_index(D)
+        assert (int(idx), bool(hit)) == disp.host_index(D), D
+    torch.cuda.synchronize()
+    assert graphs.captures == len(graphs.steps) <= disp.n_branches
+    assert graphs.captures == 3
+    # the eager first call of each branch counts in LAUNCHES, the replays
+    # in the graphs
+    replays = sum(s.replays for s in graphs.steps.values())
+    assert MATMUL_LAUNCHES.count - before == graphs.captures
+    assert graphs.launched() == {"matmul": replays}
+    assert replays + graphs.captures == len(shapes)
+
+
+@pytest.mark.cuda
+def test_cuda_stale_step_plan_recaptures(tmp_path, monkeypatch):
+    """A pinned override between two rounds of traffic makes the engine's
+    step plan stale: the next step rebuilds the plan and captures the
+    decode step again (+1 in ``compile_counts``), and its requests finish
+    with the override's tiles; the first graph is released, and its
+    launches still count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import registry
+
+    cfg, engine = _smoke_moe_engine(tmp_path, monkeypatch)
+    _serve_two(engine)
+    assert engine.compile_counts["decode_step"] == 1
+    first = engine.graph_launches()["moe_gmm"]
+    plan = engine._step_plan
+    key = next(k for k in plan.table if k[0] == "moe_gmm_b16"
+               and dict(k[1])["g"] == 64)
+    pinned = {"bg": 64, "bn": 64, "bk": 64}
+    assert plan.table[key] != pinned
+    registry.note_override(key[0], registry.hw_name(key[0]), dict(key[1]),
+                           pinned)
+    assert plan.stale()
+    done = _serve_two(engine, first_rid=2)
+    assert sorted(r.rid for r in done) == [0, 1, 2, 3]
+    assert all(r.done and 1 <= len(r.output) <= 4 for r in done)
+    assert engine.compile_counts["decode_step"] == 2
+    assert engine._step_plan is not plan and not engine._step_plan.stale()
+    assert engine._step_plan.table[key] == pinned
+    # the first graph is released; its replays' launches still count
+    (graph,) = engine.captures()
+    assert engine.graph_launches() == {
+        "moe_gmm": first + 3 * cfg.n_layers * graph.replays}
+    registry.clear()

@@ -334,6 +334,91 @@ class TestDecisionMemo:
 
 
 # ---------------------------------------------------------------------------
+# DevicePlanTable: the on-device form of a plan (core/device_plan.py)
+# ---------------------------------------------------------------------------
+
+def _device_row(dev, D):
+    """``dev.lookup`` (torch ops) at D, as ``lookup_dims`` returns it."""
+    row, found = dev.lookup([D[d] for d in dev.data_params])
+    if not bool(found):
+        return None
+    return dict(zip(dev.program_params, row.tolist()))
+
+
+class TestDevicePlanTable:
+    @pytest.mark.parametrize("name", sorted(SPECS))
+    def test_bit_identical_hits_and_misses(self, builds, name):
+        """The host probe (``lookup_dims``) and the device probe
+        (``lookup``, torch ops) give the source table's config for every
+        shape, hit or miss."""
+        driver = builds[name].driver
+        cols = lattice(ENVELOPES[name])
+        table = compile_plan(driver, cols)
+        dev = table.to_device("cpu")
+        assert len(dev) == len(table)
+        # every envelope point: identical config dict (hit for hit)
+        for D in _rows(driver, cols):
+            assert dev.lookup_dims(D) == table.lookup(D), (name, D)
+            assert _device_row(dev, D) == table.lookup(D), (name, D)
+            off = {d: v + 3 for d, v in D.items()}
+            assert _device_row(dev, off) == dev.lookup_dims(off) \
+                == table.lookup(off), (name, off)
+        # misses: perturbed shapes, missing data params, extra keys ignored
+        some = _rows(driver, cols)[0]
+        off = {d: v + 1 for d, v in some.items()}
+        assert dev.lookup_dims(off) == table.lookup(off)
+        partial = dict(list(some.items())[:-1])
+        assert dev.lookup_dims(partial) is None \
+            and table.lookup(partial) is None
+        extra = {**some, "zzz": 1}
+        assert dev.lookup_dims(extra) == table.lookup(extra)
+
+    def test_device_lookup_is_torch_ops(self, builds):
+        """``lookup`` takes a key tensor and returns tensors on the table's
+        device (no host value read): the row and the hit flag."""
+        driver = builds["matmul"].driver
+        table = compile_plan(driver, lattice(ENVELOPES["matmul"]))
+        dev = table.to_device("cpu")
+        row, found = dev.lookup(torch.tensor([1024, 2048, 512],
+                                             dtype=torch.int32))
+        assert row.dtype == torch.int32 and found.dtype == torch.bool
+        assert bool(found)
+        assert dict(zip(dev.program_params, row.tolist())) == \
+            table.lookup({"m": 1024, "n": 2048, "k": 512})
+        row, found = dev.lookup([999, 2048, 512])
+        assert not bool(found) and row.tolist() == [-1, -1, -1]
+
+    def test_pack_shape32_matches_reference(self):
+        """The host hash and the torch hash chain equal the JAX package's
+        ``pack_shape32`` over a sweep of shapes, signs and arities."""
+        import numpy as np
+        from repro.core.device_plan import pack_shape32 as ref_pack
+
+        from repro_torch.core import pack_shape32
+        from repro_torch.core.device_plan import _pack_shape32_t
+
+        rng = np.random.default_rng(0)
+        keys = [(), (0,), (1, 2, 3), (2**31 - 1, -2**31, -1)]
+        keys += [tuple(int(v) for v in rng.integers(
+            -2**31, 2**31 - 1, size=int(rng.integers(1, 5))))
+            for _ in range(500)]
+        for key in keys:
+            want = ref_pack(key)
+            assert pack_shape32(key) == want, key
+            got = _pack_shape32_t(torch.tensor(key, dtype=torch.int32))
+            assert int(got) == want, key
+
+    def test_empty_table(self):
+        from repro_torch.core import LaunchPlanTable
+
+        empty = LaunchPlanTable.build(
+            "k", H100.name, ("m",), ("bm",), {"m": []}, {"bm": []})
+        dev = empty.to_device("cpu")
+        assert len(dev) == 0 and dev.max_probe == 0
+        assert dev.lookup_dims({"m": 64}) is None
+
+
+# ---------------------------------------------------------------------------
 # The port's hazards: padded keys, shared configs, a model step
 # ---------------------------------------------------------------------------
 

@@ -8,10 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It drives KLARAPTOR's tune -> choose -> launch loop on the card for each of
 the port's six CUDA kernels, serves llama3.2-1b (16 layers, d_model 2048,
 32 q and 8 kv heads of dim 64, d_ff 8192, vocab 128256, bf16, seeded random
-weights), mamba2-130m and qwen3-moe-235b (full width, 4 of 94 layers)
-through the port's prefill step and serving engine (its steps as CUDA
-graphs), and derives kernel specs from the compiled kernels, one phase per
-printed block:
+weights), mamba2-130m, qwen3-moe-235b (full width, 4 of 94 layers) and the
+six other architectures that fit one card through the port's prefill step
+and serving engine (its steps as CUDA graphs), and derives kernel specs
+from the compiled kernels, one phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -201,7 +201,40 @@ printed block:
      over 16 decode calls and one re-capture after a pinned override
      (gated); then one JSON line ``{"engine": ...}``.  Every engine of
      phases 10, 14, 22 and 23 runs its steps as CUDA graphs and prints its
-     ``compile_counts`` and each capture's seconds and pool growth.
+     ``compile_counts`` and each capture's seconds and pool growth;
+ 24. the remaining architectures that fit the card, at the full width of
+     their configs with seeded random weights, every stacked matrix
+     rescaled to std 1 / sqrt(fan-in) (the reference's init takes the
+     stack's depth as the fan-in, which makes attention near one-hot and
+     two correct bf16 steps drift apart with depth): grok-1-314b (4 of 64
+     layers, MoE 8 experts top-2, softcaps 30), qwen3-14b (qk-norm),
+     internlm2-1.8b, gemma2-2b (head dim 256 on the flash kernel's SIMT
+     body, 4096-token windows on every other layer, softcap 50),
+     internvl2-76b (16 of 80 layers; 256 patch embeddings before the
+     tokens) and whisper-medium (the encoder over 1500 frame embeddings,
+     then the decoder over 448 tokens, cross-attending); jamba-1.5-large
+     does not fit one card.  First a ``flash_attn_d256_causal`` driver is
+     built on the card, written through the driver cache and read back
+     from it.  Per architecture: (a) the prefill step (B 1, S 4096; gemma2
+     8192; the launches of flash attention and the grouped matmul gated
+     exactly; warm wall ms and the profile's device-busy share); (b) the
+     engine (4 slots, max_seq 256, 4 requests; every request finishes, one
+     decode capture) and ms per graphed decode call, with its device ms,
+     beside the weight-read bound; (c) after the counters are read, the
+     eager decode step on the cache of one graphed call (graphed logits
+     bit-equal to it; gated), the prefill's logits within 5e-2 x max
+     |logit| of the same step with the plain attention and the plain
+     grouped matmul and grok-1's and gemma2's within their final softcap
+     (gated), then each distinct attention launch of the prefill at its
+     shape and with the tiles the path launched there (gemma2's local and
+     global layers, whisper's encoder, decoder self and cross attention)
+     against default / SDPA (where one SDPA call computes the same
+     function: no window, no softcap) / plain / bound, and grok-1's
+     grouped matmul at its prefill and decode shapes against ``torch.bmm``,
+     the plain version on the first rows of each expert, and the bound
+     (gated: the op times the tiles the path launched); the peak memory is
+     printed.  Then the d 256 driver's selection ratio
+     at gemma2's shape, and one JSON line ``{"archs": ...}``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -211,8 +244,9 @@ matmul, flash attention and the SSD under launch and step plans) and 22
 (flash attention and the grouped matmul in qwen3-moe's prefill and
 engine; the drivers' builds and reads come before the counters start) and
 23 (the grouped matmul in the engines' decode graphs; the matmul, flash
-attention, the layernorm and the column sum through ``in_graph=``): each
-launch counter is set to 0
+attention, the layernorm and the column sum through ``in_graph=``) and 24
+(flash attention and the grouped matmul in each architecture's prefill
+and engine, one path per architecture): each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
 wrapper counts the launches it makes eagerly; a CUDA graph records its
@@ -354,16 +388,25 @@ def _device_profile(fn, what: str,
     return {"wall_ms": wall_ms, "busy_ms": busy, **totals}
 
 
+def _visible_pairs(sq: int, skv: int, causal: bool,
+                   window: int | None = None) -> int:
+    """(query, key) pairs flash attention computes: key j visible to query
+    i when j <= i (causal) and i - j < window (a window)."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def _flash_bound_ms(bh: int, sq: int, skv: int, hkv_rows: int, d: int,
-                    causal: bool, elem: int) -> tuple[float, str]:
+                    causal: bool, elem: int,
+                    window: int | None = None) -> tuple[float, str]:
     """Least time of one flash-attention call on the card: q, k, v read
     once and the output written once, and 4 d FLOPs per visible (query,
-    key) pair (causal: the pairs on and below the diagonal) at the
-    tensor-core peak of bf16 inputs."""
-    if causal:
-        pairs = sum(min(i + 1, skv) for i in range(sq))
-    else:
-        pairs = sq * skv
+    key) pair (``_visible_pairs``) at the tensor-core peak of bf16
+    inputs."""
+    pairs = _visible_pairs(sq, skv, causal, window)
     t_ops = 4.0 * d * bh * pairs / PEAK_BF16
     t_bytes = (2 * bh * sq + 2 * hkv_rows * skv) * d * elem / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
@@ -855,6 +898,7 @@ def run(caches: list) -> int:
     for row, name in ((matmul_row, "matmul"), (flash_row, "flash"),
                       (ssd_row, "ssd")):
         row["plan_path_launches"] = plan_launches[name]
+    drivers = [flash_ctx["driver"]]
     del flash_ctx, ssd_ctx
     torch.cuda.empty_cache()
     moe = moe_phase(dev, hw, gen, check, time_ms, phase_done, caches, card,
@@ -868,7 +912,15 @@ def run(caches: list) -> int:
                                    moe["flash"]["max_abs_err"])
     eng = engine_phase(dev, hw, gen, check, phase_done, caches, card,
                        (spec, build.driver), moe)
+    drivers += moe["drivers"]
     del moe
+    archs = archs_phase(dev, hw, check, time_ms, phase_done, caches, card,
+                        drivers)
+    for row, name in ((flash_row, "flash_attention"), (gmm_row, "moe_gmm")):
+        row["archs_path_launches"] = archs["launches"][name]
+        row["archs"] = archs[name]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 archs["max_abs_err"][name])
     for row, name in ((matmul_row, "matmul"), (flash_row, "flash_attention"),
                       (ssd_row, "ssd_scan"), (gmm_row, "moe_gmm"),
                       (ln_row, "layernorm"), (cs_row, "colsum")):
@@ -2947,7 +2999,7 @@ def moe_phase(dev, hw, gen, check, time_ms, phase_done, caches, card: str,
     return {"launches": launches, "flash": frow, "moe_gmm": gmm_rows,
             "max_abs_err": worst, "cfg": cfg, "model": model,
             "params": params, "weight_bytes": weight_bytes,
-            "decode_ms_per_call": decode_ms}
+            "decode_ms_per_call": decode_ms, "drivers": [gdrv, fdrv]}
 
 
 # Phase 23: the engines' decode timing, and bench_serving's engine stage
@@ -3534,6 +3586,501 @@ def engine_phase(dev, hw, gen, check, phase_done, caches, card: str,
         "plans": plans, "launches": launches, "graph_launches": graphed,
         "card": card}}))
     return {"launches": launches, "graphed": graphed, "max_abs_err": errs}
+
+
+# Phase 24: the JAX package's other architectures that fit one card, at the
+# full width of their configs with seeded random weights: (arch, layers on
+# the card or None for the config's all, tokens of the prefill, its prefix
+# rows: patch embeddings of a vlm, frame embeddings of an encdec).  grok-1
+# and internvl2 are cut in depth to fit the card beside the run's other
+# buffers (4 of 64 layers, about 42.6 GB; 16 of 80, about 31.6 GB); gemma2
+# prefills its context length, 8192, so that its 4096-token windows mask;
+# whisper its 448-token decoder context after the encoder's 1500 frames.
+# jamba-1.5-large does not fit: one period of 8 layers is about 90 GB.
+ARCH_RUNS = (
+    ("grok-1-314b", 4, PREFILL_S, 0),
+    ("qwen3-14b", None, PREFILL_S, 0),
+    ("internlm2-1.8b", None, PREFILL_S, 0),
+    ("gemma2-2b", None, 8192, 0),
+    ("internvl2-76b", 16, PREFILL_S - 256, 256),
+    ("whisper-medium", None, 448, 1500),
+)
+ARCH_PROFILE_GROUPS = (
+    ("grouped matmul", ("gemm_sm90::",)),
+    ("flash", ("flash_",)),
+    ("cuBLAS", GEMM_NAMES),
+)
+ARCH_REQUESTS, ARCH_MAX_NEW = 4, 8
+EMBED_STD = 0.02           # the embedding table's init std
+
+
+def _fan_in_scaled(model, params: dict) -> None:
+    """Rescale, in place, every stacked "scaled" leaf of ``params`` to std
+    1 / sqrt(its fan-in).  The reference's init takes the stack's depth as
+    the fan-in; at that std attention is near one-hot and two correct bf16
+    steps drift apart with depth beyond the logit gate (whisper's by 0.9 of
+    max |logit|)."""
+    from repro_torch.models import spec_leaves
+    for path, spec in spec_leaves(model.specs()):
+        if spec.init == "scaled" and spec.axes[:1] == ("layers",):
+            leaf = functools.reduce(dict.__getitem__, path.split("/"),
+                                    params)
+            leaf.mul_(spec.shape[-2] ** -0.5 / spec.std())
+
+
+def _attn_label(cfg, kw: dict, sq: int, skv: int) -> str:
+    if cfg.arch_kind == "encdec":
+        return ("decoder self" if kw["causal"] else
+                "encoder" if sq == skv else "cross")
+    if kw.get("window") is not None:
+        return f"local (window {kw['window']})"
+    return "global" if cfg.period > 1 else "self"
+
+
+def archs_phase(dev, hw, check, time_ms, phase_done, caches, card: str,
+                drivers: list) -> dict:
+    """Phase 24: grok-1, qwen3-14b, internlm2-1.8b, gemma2-2b, internvl2-76b
+    and whisper-medium on the card (see the module docstring).  ``drivers``
+    are the drivers earlier phases built (registered here); a
+    ``flash_attn_d256_causal`` driver is built and read back through the
+    driver cache.  Returns this path's launches and the flash and grouped
+    matmul rows at each architecture's layer shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CudaEventTimer, Klaraptor,
+                                  flash_attention_spec, flash_probe_data,
+                                  get_driver, register_driver, registry,
+                                  selection_ratio)
+    from repro_torch.core.kernel_spec import flash_uses_sm90
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import build_engine, make_prefill_step
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, greedy
+
+    print(f"[24] the remaining architectures on the card ({card}): "
+          f"prefill at full width (seeded weights at std 1/sqrt(fan-in)) "
+          f"and the graphed engine, then the prefill with the plain kernels "
+          f"(logits gate {LOGIT_REL_TOL:g} x max|logit|)", flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_before = torch.cuda.max_memory_allocated(dev)
+    print(f"  memory: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated at the start (phase 22's qwen3-moe freed); peak of "
+          f"phases 1-23 {peak_before / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the drivers: those earlier phases built, and one for head dim 256
+    # (gemma2's), built as phase 8 builds head dim 64's, written through
+    # the driver cache and read back from it
+    fresh_cache(caches)
+    registry.clear()
+    t0 = time.perf_counter()
+    timer = CudaEventTimer(hw, warmup=1, timings=3, seed=SEED)
+    spec256 = flash_attention_spec(256, causal=True, dtype_bytes=2)
+    build = Klaraptor(timer).build_driver(
+        spec256, probe_data=flash_probe_data(), repeats=2,
+        max_configs_per_size=12)
+    registry.clear()
+    for drv in drivers:
+        register_driver(drv)
+    drv256 = get_driver(spec256.name, spec256, hw)
+    if drv256 is None or drv256.source_hash != build.driver.source_hash:
+        raise AssertionError("the d 256 driver did not read back from the "
+                             "driver cache")
+    cols = build.collected.columns
+    if int(cols["bh"].max()) > 64 or int(cols["sq"].max()) > 1024:
+        raise AssertionError("d 256 probes left bh <= 64, sq <= 1024")
+    print(f"  drivers: {sorted(d.kernel for d in drivers)} from earlier "
+          f"phases; {spec256.name} built on the card in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({build.collected.n_probe_executions} probe executions at "
+          f"bh <= 64, sq = skv <= 1024) and read back through the driver "
+          f"cache", flush=True)
+    print("  " + build.fit_report().replace("\n", "\n  "), flush=True)
+
+    counters = {"flash_attention": flash.LAUNCHES, "moe_gmm": gmm.LAUNCHES}
+    launches = {k: 0 for k in counters}
+    graphed_total: dict[str, int] = {}
+    rows: dict[str, dict] = {}
+    flash_rows: list[dict] = []
+    gmm_rows: list[dict] = []
+    worst = {"flash_attention": 0.0, "moe_gmm": 0.0}
+    ratio256 = None
+
+    def run_arch(arch: str, n_layers: int | None, n_tok: int,
+                 n_prefix: int) -> None:
+        """One architecture: its path (the tuned prefill and the engine),
+        then, after its counters are read, the comparisons with the eager
+        decode step and the plain-kernel prefill, and its layer shapes
+        timed at the tiles the path launched.  Every tensor it makes is
+        freed when it returns."""
+        nonlocal ratio256
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        V = cfg.vocab_size
+        model = Model(cfg)
+        params = model.init(SEED)
+        _fan_in_scaled(model, params)
+        torch.cuda.synchronize()
+        total_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(params))
+        # what a decode step reads: every weight but the encoder's and the
+        # embedding table, of which it gathers one row per sequence (a tied
+        # head reads the whole table)
+        weight_bytes = total_bytes - sum(
+            t.numel() * t.element_size()
+            for t in _leaves(params.get("encoder", {})))
+        if not cfg.tie_embeddings:
+            weight_bytes -= params["embed"].numel() * 2
+        agen = torch.Generator(device=dev).manual_seed(SEED)
+        tokens = torch.randint(0, V, (1, n_tok), generator=agen, device=dev)
+        extra = {}
+        if n_prefix:
+            prefix = (torch.randn(1, n_prefix, cfg.d_model, generator=agen,
+                                  device=dev) * EMBED_STD).to(cfg.dtype)
+            extra = {"patches" if cfg.arch_kind == "vlm" else "frames":
+                     prefix}
+        attn_layers = sum(d.kind == "attn" for d in cfg.block_pattern) \
+            + sum(d.cross_attn for d in cfg.block_pattern)
+        want = {"flash_attention": attn_layers * cfg.n_groups
+                + (cfg.encoder_layers if cfg.arch_kind == "encdec" else 0),
+                "moe_gmm": 3 * cfg.n_groups * sum(
+                    d.moe for d in cfg.block_pattern)}
+        depth = ("" if n_layers is None else
+                 f", {n_layers} of {get_config(arch).n_layers} layers")
+        what = "patch" if cfg.arch_kind == "vlm" else "frame"
+        inp = (f"B 1 x ({n_prefix} {what} embeddings + {n_tok} tokens)"
+               if n_prefix else f"B 1 x S {n_tok}")
+        print(f"  {arch} ({cfg.arch_kind}): d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"
+              + (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+                 f"{cfg.moe_d_ff}" if cfg.n_experts else
+                 f", d_ff {cfg.d_ff}")
+              + (f", softcaps {cfg.attn_softcap} / {cfg.final_softcap}"
+                 if cfg.attn_softcap else "")
+              + f", vocab {V}{depth}: {total_bytes / 1e9:.2f} GB of bf16 "
+              f"weights; prefill {inp}", flush=True)
+
+        # -- the path: the tuned prefill and the engine ---------------------
+        for c in counters.values():
+            c.reset()
+        step = make_prefill_step(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, tokens, **extra)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        per_step = {k: c.count for k, c in counters.items()}
+        if per_step != want:
+            raise AssertionError(f"{arch}: the prefill launched {per_step}, "
+                                 f"not {want}")
+        if tuple(logits.shape) != (1, cfg.padded_vocab) \
+                or not bool(torch.isfinite(logits[:, :V]).all()):
+            raise AssertionError(f"{arch}: prefill logits {logits.shape} "
+                                 f"not finite")
+        t0 = time.perf_counter()
+        step(params, tokens, **extra)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        prof = _device_profile(lambda: step(params, tokens, **extra),
+                               f"one {arch} prefill step",
+                               groups=ARCH_PROFILE_GROUPS, cpu=False)
+
+        engine = build_engine(cfg, batch=ENGINE_SLOTS,
+                              max_seq=ENGINE_MAX_SEQ, params=params,
+                              seed=SEED)
+        rng = np.random.RandomState(SEED)
+        prompts = [[int(t) for t in rng.randint(2, V, size=6 + 2 * i)]
+                   for i in range(ARCH_REQUESTS)]
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=p,
+                                  max_new_tokens=ARCH_MAX_NEW))
+        before_gmm = gmm.LAUNCHES.count
+        done = engine.run()
+        graphed = engine.graph_launches()
+        calls = engine.steps + sum(len(p) - 1 for p in prompts)
+        engine_gmm = gmm.LAUNCHES.count - before_gmm \
+            + graphed.get("moe_gmm", 0)
+        if sorted(r.rid for r in done) != list(range(ARCH_REQUESTS)) \
+                or not all(r.done and 1 <= len(r.output) <= ARCH_MAX_NEW
+                           for r in done):
+            raise AssertionError(f"{arch}: not every request finished")
+        if engine.compile_counts["decode_step"] != 1:
+            raise AssertionError(f"{arch}: {engine.compile_counts}")
+        if engine_gmm != want["moe_gmm"] * calls:
+            raise AssertionError(f"{arch}: {engine_gmm} grouped-matmul "
+                                 f"launches in {calls} decode steps")
+        tok = np.arange(ENGINE_SLOTS, dtype=np.int32) + 5
+        pos = np.arange(ENGINE_SLOTS, dtype=np.int32) + 64
+        saved = {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in engine.cache.items()}
+        got = engine._run_step(tok, pos)[:, :V].clone()
+
+        def graphed_call():
+            return greedy(engine._run_step(tok, pos)).cpu()
+
+        graphed_call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_CALLS):
+            graphed_call()
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / DECODE_CALLS * 1e3
+        dprof = _device_profile(
+            lambda: [graphed_call() for _ in range(DECODE_CALLS)],
+            f"{arch}, {DECODE_CALLS} graphed decode calls",
+            groups=ARCH_PROFILE_GROUPS, cpu=False)
+        decode_device_ms = (dprof["busy_ms"] / DECODE_CALLS if dprof
+                            else None)
+        graphed = engine.graph_launches()
+        for k, c in counters.items():        # this architecture's path ends
+            launches[k] += c.count + graphed.get(k, 0)
+            graphed_total[k] = graphed_total.get(k, 0) + graphed.get(k, 0)
+        tiles = {k: dict(c.tiles) for k, c in counters.items()}
+
+        # -- after the counters are read: the eager decode step on the
+        # graphed call's cache, and the prefill with the plain kernels -----
+        for k, v in saved.items():
+            for n, t in v.items():
+                engine.cache[k][n].copy_(t)
+        eager, _ = model.decode_step(params, torch.as_tensor(tok, device=dev),
+                                     torch.as_tensor(pos, device=dev),
+                                     engine.cache)
+        gdiff = float((got - eager[:, :V]).abs().max())
+        bound_ms = weight_bytes / HBM_BW * 1e3
+        print(f"    engine: {ENGINE_SLOTS} slots, max_seq {ENGINE_MAX_SEQ}, "
+              f"{len(done)} of {ARCH_REQUESTS} requests finished ({calls} "
+              f"decode-step calls); graphed {decode_ms:.3f} ms per call "
+              f"(step + greedy tokens to the host; device "
+              + (f"{decode_device_ms:.3f} ms" if decode_device_ms is not None
+                 else "time not measured")
+              + ") against a weight-read "
+              f"bound of {bound_ms:.3f} ms ({weight_bytes / 1e9:.2f} GB at "
+              f"{HBM_BW / 1e12:.2f} TB/s); graphed vs eager logits "
+              f"max|diff| {gdiff:.4e} (bit-equal: {gdiff == 0.0}); "
+              f"grouped-matmul launches {engine_gmm}", flush=True)
+        _print_captures(engine)
+        if gdiff != 0.0:
+            raise AssertionError(f"{arch}: graphed logits differ from the "
+                                 f"eager step's")
+        del engine, saved, eager, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        recorded: dict = {}
+        rec_gmm: list = []
+
+        def plain_attn(q, k, v, **kw):
+            key = (kw["causal"], kw.get("window"), q.shape[1], k.shape[1])
+            recorded.setdefault(key, (q, k, v, kw))
+            return flash.flash_attention_plain(q, k, v, **kw)
+
+        def plain_gmm(x, w):
+            if len(rec_gmm) < 3:
+                rec_gmm.append((x, w))
+            return gmm.moe_gmm_plain(x, w)
+
+        t0 = time.perf_counter()
+        ref = make_prefill_step(model, attn_op=plain_attn,
+                                gmm_op=plain_gmm)(params, tokens, **extra)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        scale = float(ref[:, :V].abs().max())
+        diff = float((logits[:, :V] - ref[:, :V]).abs().max())
+        agree = int(greedy(logits)[0]) == int(greedy(ref)[0])
+        capped = float(logits[:, :V].abs().max())
+        print(f"    prefill: first {first_ms:.2f} ms, warm {warm_ms:.2f} ms "
+              f"wall; launches {per_step} (gated); logits vs the plain "
+              f"step ({plain_s:.2f} s wall): max|diff| {diff:.4e}, "
+              f"max|logit| {scale:.4e}, ratio {diff / scale:.3e} (gated at "
+              f"{LOGIT_REL_TOL:g}); argmax agrees: {agree}"
+              + (f"; max|logit| {capped:.4f} within the final softcap "
+                 f"{cfg.final_softcap}" if cfg.final_softcap else ""),
+              flush=True)
+        if not diff <= LOGIT_REL_TOL * scale:
+            raise AssertionError(f"{arch}: logits disagree with the plain "
+                                 f"step")
+        if cfg.final_softcap and not capped <= cfg.final_softcap:
+            raise AssertionError(f"{arch}: a logit beyond the final softcap")
+        del ref, logits
+        torch.cuda.empty_cache()
+
+        # -- each distinct attention launch, at the tiles the path took --
+        for (causal, window, sq, skv), (q, k, v, kw) in recorded.items():
+            heads = dict(num_q_heads=kw["num_q_heads"],
+                         num_kv_heads=kw["num_kv_heads"])
+            fkw = dict(causal=causal, window=window, softcap=kw["softcap"],
+                       **heads)
+            d = q.shape[2]
+            D = {"bh": q.shape[0], "sq": sq, "skv": skv}
+            fcfg = tiles["flash_attention"][(D["bh"], sq, skv, d, causal)]
+            plain = flash.flash_attention_plain(
+                q, k, v, q_chunk=cfg.attn_chunk, **fkw)
+            label = _attn_label(cfg, kw, sq, skv)
+            err = check(flash.flash_attention_kernel(q, k, v, **fcfg, **fkw),
+                        plain, torch.bfloat16, f"{arch} {label}",
+                        quiet=True)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            pairs = _visible_pairs(sq, skv, causal, window)
+            bound, bound_by = _flash_bound_ms(D["bh"], sq, skv, k.shape[0],
+                                              d, causal, 2, window)
+            library = None
+            if window is None and kw["softcap"] is None:
+                q4 = q.view(1, heads["num_q_heads"], sq, d)
+                k4 = k.view(1, heads["num_kv_heads"], skv, d)
+                v4 = v.view(1, heads["num_kv_heads"], skv, d)
+                library = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, enable_gqa=True))
+            r = {
+                "arch": arch, "attention": label,
+                "shape": f"bh {D['bh']} (GQA {heads['num_q_heads']}/"
+                         f"{heads['num_kv_heads']}), sq {sq}, skv {skv}, "
+                         f"d {d}",
+                "causal": causal, "window": window, "softcap": kw["softcap"],
+                "body": "wgmma" if flash_uses_sm90(d, 2) else "SIMT",
+                "config": fcfg, "max_abs_err": err,
+                "ms": time_ms(lambda: flash.flash_attention_kernel(
+                    q, k, v, **fcfg, **fkw)),
+                "default_ms": time_ms(lambda: flash.flash_attention_kernel(
+                    q, k, v, **ops.FLASH_DEFAULT, **fkw)),
+                "library_ms": library,
+                "plain_ms": time_ms(lambda: flash.flash_attention_plain(
+                    q, k, v, q_chunk=cfg.attn_chunk, **fkw), max_iters=1),
+                "bound_ms": bound, "bound_by": bound_by,
+            }
+            r["pct_of_bound"] = 100.0 * r["bound_ms"] / r["ms"]
+            r["tflops"] = 4.0 * d * D["bh"] * pairs / (r["ms"] * 1e-3) / 1e12
+            if arch == "gemma2-2b" and ratio256 is None:
+                ratio256 = selection_ratio(spec256, timer, drv256, D, hw)
+                r["selection_ratio"] = ratio256["ratio"]
+            flash_rows.append(r)
+            lib = ("none (no SDPA call has its window or softcap)"
+                   if library is None else f"{library:.4f} ms")
+            print(f"    flash {label}: {r['shape']}"
+                  + (f", window {window}" if window else "")
+                  + (f", softcap {kw['softcap']}" if kw["softcap"] else "")
+                  + f", {r['body']} body: {fcfg} {r['ms']:.4f} ms "
+                  f"({r['tflops']:.2f} TFLOP/s, {r['pct_of_bound']:.1f} % "
+                  f"of bound) | default {r['default_ms']:.4f} ms | SDPA "
+                  f"{lib} | plain {r['plain_ms']:.2f} ms | bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | max_abs_err "
+                  f"{err:.3e}", flush=True)
+        if rec_gmm:
+            (xe, wg), _, (hh, wd) = rec_gmm
+            for label, x, w in (("prefill gate/up", xe, wg),
+                                ("prefill down", hh, wd),
+                                ("decode gate/up", xe[:, :8].contiguous(), wg),
+                                ("decode down", hh[:, :8].contiguous(), wd)):
+                e, g, kk = x.shape
+                n = w.shape[2]
+                Dg = ops.gemm_dims("moe_gmm_b16",
+                                   {"e": e, "g": g, "k": kk, "n": n})
+                gkey = (e, Dg["g"], Dg["k"], Dg["n"])
+                gcfg = tiles["moe_gmm"][gkey]
+                # at the output's scale, the form of phase 22 (c): against
+                # torch.bmm, and against the plain version on the first rows
+                # of each expert (all of a decode step's 8; all 1280 would
+                # take the plain version seconds)
+                def at_scale(out, ref, what):
+                    out, ref = out.float(), ref.float()
+                    diff = (out - ref).abs()
+                    if not bool(torch.isfinite(out).all()) or not bool(
+                            (diff <= 2e-2 * (float(ref.abs().max())
+                                             + ref.abs())).all()):
+                        raise AssertionError(f"{arch} {label}: the grouped "
+                                             f"matmul disagrees with {what}")
+                    return float(diff.max()), float(ref.abs().max())
+
+                err, gscale = at_scale(ops.moe_gmm(x, w), torch.bmm(x, w),
+                                       "torch.bmm")
+                xs = x[:, :min(g, 64)].contiguous()
+                perr, _ = at_scale(ops.moe_gmm(xs, w),
+                                   gmm.moe_gmm_plain(xs, w), "plain")
+                worst["moe_gmm"] = max(worst["moe_gmm"], perr)
+                t_ops = 2.0 * e * g * kk * n / PEAK_BF16
+                t_bytes = (e * g * kk + e * kk * n + e * g * n) * 2 / HBM_BW
+                r = {"arch": arch, "shape": label, "e": e, "g": g, "k": kk,
+                     "n": n, "padded_g": Dg["g"], "config": gcfg,
+                     "max_abs_err_vs_bmm": err, "max_abs_err": perr,
+                     "plain_rows": xs.shape[1],
+                     "ms": time_ms(lambda: ops.moe_gmm(x, w)),
+                     "library_ms": time_ms(lambda: torch.bmm(x, w)),
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": ("operations" if t_ops >= t_bytes
+                                  else "bytes")}
+                if gmm.LAUNCHES.tiles[gkey] != gcfg:
+                    raise AssertionError(f"{arch} {label}: timed at "
+                                         f"{gmm.LAUNCHES.tiles[gkey]}, the "
+                                         f"path launched {gcfg}")
+                r["pct_of_bound"] = 100.0 * r["bound_ms"] / r["ms"]
+                gmm_rows.append(r)
+                print(f"    grouped matmul {label} (e {e}, g {g} -> "
+                      f"{Dg['g']}, k {kk}, n {n}): {gcfg} {r['ms']:.4f} ms "
+                      f"({r['pct_of_bound']:.1f} % of bound) | torch.bmm "
+                      f"{r['library_ms']:.4f} ms | bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | vs "
+                      f"torch.bmm max_abs_err {err:.3e} at max|out| "
+                      f"{gscale:.4e} (tol 2e-2 of it); vs plain on "
+                      f"{xs.shape[1]} rows per expert {perr:.3e} (the plain "
+                      f"version takes seconds a call here: not timed)",
+                      flush=True)
+                del xs
+        peak = torch.cuda.max_memory_allocated(dev)
+        rows[arch] = {
+            "layers": cfg.n_layers, "weights_gb": total_bytes / 1e9,
+            "prefill_input": inp, "prefill_first_ms": first_ms,
+            "prefill_warm_ms": warm_ms, "launches_per_prefill": per_step,
+            "prefill_busy": (prof["busy_ms"] / prof["wall_ms"]
+                             if prof else None),
+            "prefill_device_ms": prof.get("busy_ms") if prof else None,
+            "logit_ratio": diff / scale, "argmax_agrees": agree,
+            "decode_device_ms": decode_device_ms,
+            "plain_step_s": plain_s, "decode_ms_per_call": decode_ms,
+            "decode_weight_bound_ms": bound_ms,
+            "decode_calls": calls, "peak_gb": peak / 1e9,
+            "wall_s": time.perf_counter() - t_arch,
+        }
+        print(f"    {arch}: peak memory {peak / 1e9:.2f} GB; wall "
+              f"{rows[arch]['wall_s']:.2f} s", flush=True)
+
+    for run in ARCH_RUNS:
+        run_arch(*run)
+        gc.collect()          # an engine and its graphs form a cycle
+        torch.cuda.empty_cache()
+
+    if ratio256 is not None:
+        print(f"  [after the path] {spec256.name} selection ratio at "
+              f"{ratio256['D']} (exhaustive: 1 warm-up + median of 3 timed "
+              f"launches per candidate; printed, not gated): chosen "
+              f"{ratio256['chosen']} {ratio256['chosen_time_s'] * 1e3:.4f} "
+              f"ms, best {ratio256['best']} "
+              f"{ratio256['best_time_s'] * 1e3:.4f} ms of "
+              f"{ratio256['n_configs']}, ratio {ratio256['ratio']:.3f}",
+              flush=True)
+    print(f"  launches on this path (eager calls + graph replays x launches "
+          f"per replay): {launches}; by graph replays: {graphed_total}; "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+          flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the phase-24 path never "
+                             f"launched: {launches}")
+    registry.clear()
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(24)
+    print(json.dumps({"archs": {"models": rows, "flash": flash_rows,
+                                "moe_gmm": gmm_rows,
+                                "flash_d256_selection": ratio256,
+                                "launches": launches, "card": card}}))
+    return {"launches": launches, "flash_attention": flash_rows,
+            "moe_gmm": gmm_rows, "max_abs_err": worst}
 
 
 if __name__ == "__main__":

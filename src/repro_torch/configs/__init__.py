@@ -1,39 +1,31 @@
-"""Architecture registry: the architectures the port can run.
+"""Architecture registry: ``--arch <id>`` resolution.
 
-Each module exposes ``full()`` and ``smoke()`` ModelConfigs.  The JAX
-package's other architectures are known by id and raise, naming the ROADMAP
-item that ports them.  ``polybench`` is the paper's own kernel-suite workload
-(not a language model), exported as the JAX package exports it.
+Each module exposes ``full()`` and ``smoke()`` ModelConfigs, one for every
+architecture of the JAX package (``ARCH_IDS`` in its order).  ``polybench``
+is the paper's own kernel-suite workload (not a language model), exported
+as the JAX package exports it.
 """
 
-from . import llama3_2_1b, mamba2_130m, polybench, qwen3_moe_235b
+from . import (gemma2_2b, grok1_314b, internlm2_1_8b, internvl2_76b,
+               jamba1_5_large, llama3_2_1b, mamba2_130m, polybench,
+               qwen3_14b, qwen3_moe_235b, whisper_medium)
 from .base import SHAPES, ShapePreset, shape_applicable
 
-REGISTRY = {m.ARCH_ID: m for m in (llama3_2_1b, mamba2_130m,
-                                    qwen3_moe_235b)}
-ARCH_IDS = tuple(REGISTRY)
+_MODULES = (
+    gemma2_2b, internlm2_1_8b, llama3_2_1b, qwen3_14b, jamba1_5_large,
+    internvl2_76b, mamba2_130m, whisper_medium, qwen3_moe_235b, grok1_314b,
+)
 
-# The JAX package's architectures the port cannot run yet.
-PENDING = {
-    "gemma2-2b": "ROADMAP Queue A, 'Other architectures'",
-    "internlm2-1.8b": "ROADMAP Queue A, 'Other architectures'",
-    "qwen3-14b": "ROADMAP Queue A, 'Other architectures'",
-    "jamba-1.5-large-398b": "ROADMAP Queue A, 'Other architectures'",
-    "internvl2-76b": "ROADMAP Queue A, 'Other architectures'",
-    "whisper-medium": "ROADMAP Queue A, 'Other architectures'",
-    "grok-1-314b": "ROADMAP Queue A, 'Other architectures'",
-}
+REGISTRY = {m.ARCH_ID: m for m in _MODULES}
+ARCH_IDS = tuple(REGISTRY)
 
 
 def get_config(arch: str, smoke: bool = False):
-    if arch in PENDING:
-        raise NotImplementedError(
-            f"{arch} is not ported yet ({PENDING[arch]})")
     if arch not in REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(REGISTRY)}")
     mod = REGISTRY[arch]
     return mod.smoke() if smoke else mod.full()
 
 
-__all__ = ["ARCH_IDS", "PENDING", "REGISTRY", "SHAPES", "ShapePreset",
-           "get_config", "polybench", "shape_applicable"]
+__all__ = ["ARCH_IDS", "REGISTRY", "SHAPES", "ShapePreset", "get_config",
+           "polybench", "shape_applicable"]

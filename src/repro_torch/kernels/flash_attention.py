@@ -22,7 +22,8 @@ and the Pallas kernel do (the JAX oracle casts them to v's dtype first,
 which is the same in f32 and within the bf16 tolerance in bf16).  The tests
 use it, and the wrapper takes it only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES.count`` counts kernel launches
-and nothing else.
+and nothing else; ``LAUNCHES.tiles[(bh, sq, skv, d, causal)]`` holds the
+(bq, bkv) of the last launch at that shape.
 """
 
 from __future__ import annotations
@@ -273,5 +274,5 @@ def flash_attention_kernel(
             _DTYPE_CODE[q.dtype], stream)
     if rc:
         _raise_cuda("flash attention kernel launch", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((bhq, sq, skv, d, bool(causal)), bq=bq, bkv=bkv)
     return out

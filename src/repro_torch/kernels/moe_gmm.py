@@ -16,7 +16,8 @@ threads and a cp.async ring of ``SIMT_STAGES`` slots.
 f32 as a sum of outer products over chunks of k.  The tests use it, and the
 wrapper takes it only for tensors on the CPU; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES.count`` counts kernel launches and nothing
-else.  ``moe_gmm_launch`` states a launch in numbers for introspection
+else; ``LAUNCHES.tiles[(e, g, k, n)]`` holds the (bg, bn, bk) of the last
+launch at that (padded) shape.  ``moe_gmm_launch`` states a launch in numbers for introspection
 (``repro_torch.introspect``), ``MOE_GMM`` bundles it with the wrapper.
 """
 
@@ -208,7 +209,7 @@ def moe_gmm_kernel(x: torch.Tensor, w: torch.Tensor, *, bg: int, bn: int,
             bk, _DTYPE_CODE[x.dtype], stream)
     if rc:
         _raise_cuda("moe_gmm kernel launch", rc)
-    LAUNCHES.count += 1
+    LAUNCHES.launched((e, g, k, n), bg=bg, bn=bn, bk=bk)
     return out
 
 

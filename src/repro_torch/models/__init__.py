@@ -1,5 +1,6 @@
-"""The port's models: the decoder LMs of the JAX package's model zoo (dense
-and MoE attention stacks, the Mamba-2 stack).
+"""The port's models: the JAX package's model zoo -- the decoder stacks
+(dense and MoE attention, Mamba-2, the attention / Mamba-2 hybrid), the vlm
+(patch embeddings as a prefix) and the encoder-decoder (cross-attention).
 
 Plain functions over nested dicts of tensors (``layers``, ``transformer``),
 the ``Model`` API, and ``convert.params_from_reference`` to load JAX weights.

@@ -25,6 +25,8 @@ import torch
 __all__ = ["ParamSpec", "init_params", "param_count", "spec_leaves",
            "spec_tree_map"]
 
+_DRAW_ELEMS = 1 << 32     # f32 elements a leaf draws at once (16 GiB)
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -57,9 +59,19 @@ class ParamSpec:
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
-        x = torch.randn(self.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * self.std()).to(self.dtype)
+        std = self.std()
+        if math.prod(self.shape) <= _DRAW_ELEMS or len(self.shape) < 2:
+            x = torch.randn(self.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            return x.mul_(std).to(self.dtype)
+        # too large to draw at once in f32 (grok-1's stacked experts): one
+        # slice of the leading (layers) axis at a time
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        for i in range(self.shape[0]):
+            out[i] = torch.randn(self.shape[1:], generator=generator,
+                                 device=device, dtype=torch.float32
+                                 ).mul_(std)
+        return out
 
 
 def spec_tree_map(fn: Callable, specs):

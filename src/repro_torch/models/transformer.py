@@ -1,11 +1,15 @@
 """Decoder stack over block patterns: specs, forward, decode step, cache.
 
-The JAX package's ``models/transformer.py`` for the attention stacks, dense
-or MoE, and the attention-free Mamba-2 stack.  Parameters for one pattern period are
-stacked along a leading "layers" axis (the same tree as JAX's, so weights
-convert one to one); where JAX ``lax.scan``s over the groups, the port loops
-over them in Python and runs each layer on views of the stacked leaves.  The
-decode cache carries the same leading axis and is updated in place.
+The JAX package's ``models/transformer.py``: the attention stacks, dense or
+MoE, the attention-free Mamba-2 stack, their hybrids (jamba's period of 8),
+and decoder blocks with cross-attention onto an encoder's output (whisper;
+the encoder is the same stack, run non-causal).  Parameters for one pattern
+period are stacked along a leading "layers" axis (the same tree as JAX's,
+so weights convert one to one); where JAX ``lax.scan``s over the groups,
+the port loops over them in Python and runs each layer on views of the
+stacked leaves.  The decode cache carries the same leading axis and is
+updated in place; its cross-attention k / v stay as initialised (zeros), as
+in the JAX package, where nothing fills them either.
 """
 
 from __future__ import annotations

@@ -115,6 +115,8 @@ def test_cuda_flash_kernel_matches_plain():
             out = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv, **heads,
                                          **kw)
             assert FLASH_LAUNCHES.count == before + 1
+            assert FLASH_LAUNCHES.tiles[(2 * hq, sq, skv, d, kw["causal"])] \
+                == {"bq": bq, "bkv": bkv}
             torch.testing.assert_close(out.float(), plain.float(), atol=atol,
                                        rtol=rtol)
         torch.testing.assert_close(
@@ -191,6 +193,7 @@ def test_cuda_moe_gmm_kernel_matches_plain():
             before = gmm.LAUNCHES.count
             out = gmm.moe_gmm_kernel(x, w, **P)
             assert gmm.LAUNCHES.count == before + 1
+            assert gmm.LAUNCHES.tiles[(4, 128, k, n)] == P
             _close(out, plain, dtype)
         xu = torch.randn(3, 37, 45, generator=gen, device="cuda").to(dtype)
         wu = torch.randn(3, 45, 29, generator=gen, device="cuda").to(dtype)
@@ -494,3 +497,81 @@ def test_cuda_stale_step_plan_recaptures(tmp_path, monkeypatch):
     assert engine.graph_launches() == {
         "moe_gmm": first + 3 * cfg.n_layers * graph.replays}
     registry.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4096, None], ids=["local", "global"])
+def test_cuda_gemma2_attention_layer_matches_plain(window):
+    """One gemma2-2b attention layer at full width (d_model 2304, 8 q / 4
+    kv heads of dim 256: the flash kernel's SIMT body in bf16, softcap 50)
+    on 5000 tokens, so the local layer's 4096-token window masks: one flash
+    launch, within 2e-2 of max |y| of the same layer with the plain
+    attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.models import BlockDesc, init_params
+    from repro_torch.models import layers as L
+
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(L.spec_attention(cfg), gen)
+    S = 5000
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    pos = torch.arange(S, device="cuda")[None]
+    desc = BlockDesc(kind="attn", window=window)
+    before = FLASH_LAUNCHES.count
+    y = L.attention(cfg, p, x, desc, pos)
+    assert FLASH_LAUNCHES.count == before + 1
+    want = L.attention(cfg, p, x, desc, pos, attn_op=flash_attention_plain)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2 * scale,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_encoder_layer_matches_plain():
+    """One whisper-medium encoder layer at full width (d_model 1024, 16
+    heads of dim 64, gelu) on its 1500 frames -- non-causal attention whose
+    kv tail no tile divides -- and one decoder layer cross-attending from
+    448 tokens onto the plain encoder's output: one flash launch each,
+    within 2e-2 of max |out| of the same layers with the plain attention.
+    The weights take std 1 / sqrt(fan-in): the reference's init rule takes
+    the fan-in of a one-layer stack as 1, and at std 1 the scores reach
+    10^3, where the two versions' f32 roundings already pick different
+    keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("whisper-medium").replace(n_layers=1, encoder_layers=1)
+    enc_cfg = Model(cfg, device="cpu").encoder_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    enc = init_params({"blocks": T.stack_specs(enc_cfg),
+                       "final_norm": Model(cfg, device="cpu").specs()[
+                           "encoder"]["final_norm"]}, gen)
+    dec = init_params({"blocks": T.stack_specs(cfg),
+                       "final_norm": T.model_specs(cfg)["final_norm"]}, gen)
+    for w in list(enc["blocks"]["pos0"].values()) \
+            + list(dec["blocks"]["pos0"].values()):
+        if w.ndim == 3:                      # (layers, fan-in, fan-out)
+            w.mul_(w.shape[1] ** -0.5)
+    frames = (torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen,
+                          device="cuda") * 0.02).to(torch.bfloat16)
+    x = (torch.randn(2, 448, cfg.d_model, generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    want_out, _ = T.forward(enc_cfg, enc, frames, causal=False,
+                            attn_op=flash_attention_plain)
+    want_h, _ = T.forward(cfg, dec, x, enc_out=want_out,
+                          attn_op=flash_attention_plain)
+    before = FLASH_LAUNCHES.count
+    out, _ = T.forward(enc_cfg, enc, frames, causal=False)
+    h, _ = T.forward(cfg, dec, x, enc_out=want_out)
+    assert FLASH_LAUNCHES.count == before + 3
+    for a, b in ((out, want_out), (h, want_h)):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2 * scale,
+                                   rtol=2e-2)

@@ -143,6 +143,20 @@ def test_ops_pads_to_the_kernels_granules(monkeypatch, name, padded):
         assert (kw["bm"], kw["bn"], kw["bk"]) in SM90_TILES
 
 
+def test_launch_counter_records_the_tiles_of_each_shape():
+    """``launched`` counts one launch and keeps the tiles of the last
+    launch at its shape; ``reset`` clears both."""
+    c = port_matmul.LaunchCounter()
+    c.launched((4, 128), bq=64, bkv=64)
+    c.launched((4, 256), bq=64, bkv=128)
+    c.launched((4, 128), bq=128, bkv=64)
+    assert c.count == 3
+    assert c.tiles == {(4, 128): {"bq": 128, "bkv": 64},
+                       (4, 256): {"bq": 64, "bkv": 128}}
+    c.reset()
+    assert (c.count, c.tiles) == (0, {})
+
+
 def test_bf16_wrapper_rejects_an_uncompiled_tile():
     """The bf16 kernel is a table of instantiations: a tile off the wgmma
     granules, or on them but not compiled (its ring would not fit), raises

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import get_config as ref_get_config
 from repro.distributed.sharding import Sharder
 from repro.models import Model as RefModel
@@ -30,7 +31,7 @@ from repro.models import init_params as ref_init_params
 from repro.models import layers as RL
 from repro.models import transformer as RT
 
-from repro_torch.configs import PENDING, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import make_prefill_step
 from repro_torch.models import (Model, init_params, params_from_reference,
                                 spec_leaves)
@@ -256,9 +257,6 @@ def test_configs_match_reference():
         assert mine.dtype == torch.bfloat16
     assert set(theirs.__dataclass_fields__) - \
         set(mine.__dataclass_fields__) == {"use_pallas"}
-    for arch in PENDING:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -276,8 +274,26 @@ def test_kernel_requests_and_cache_specs_match_reference():
         {"pos0/k": jc["pos0"]["k"].shape, "pos0/v": jc["pos0"]["v"].shape}
 
 
-def test_unported_layers_name_their_roadmap_item():
+def test_an_unknown_arch_kind_raises():
     cfg = get_config("llama3.2-1b", smoke=True)
-    for kind in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg.replace(arch_kind=kind), device="cpu")
+    with pytest.raises(ValueError, match="arch_kind"):
+        Model(cfg.replace(arch_kind="diffusion"), device="cpu")
+
+
+def test_get_config_raises_key_error_for_an_unknown_id():
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama3.2-1b-instruct")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch", smoke=True)
+
+
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
+def test_every_reference_arch_id_resolves(arch):
+    """Every architecture of the JAX package, full and smoke, and a model
+    of every kind (lm, ssm, vlm, encdec) on the CPU."""
+    assert arch in ARCH_IDS
+    full, smoke = get_config(arch), get_config(arch, smoke=True)
+    assert full.name == smoke.name == arch
+    assert full.arch_kind == ref_get_config(arch).arch_kind
+    model = Model(smoke, device="cpu")
+    assert model.cfg is smoke and model.param_count() > 0

@@ -37,7 +37,7 @@ from repro.models import transformer as RT
 from repro.serving.engine import Request as RefRequest
 from repro.serving.engine import ServingEngine as RefEngine
 
-from repro_torch.configs import PENDING, get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import (HopperModel, Klaraptor, gmm_probe_data,
                               moe_gmm_spec, register_driver, registry,
                               set_choice_listener)
@@ -159,7 +159,7 @@ def test_config_matches_reference(smoke):
     assert [b.__dict__ for b in mine.block_pattern] == \
         [b.__dict__ for b in theirs.block_pattern]
     assert mine.dtype == torch.bfloat16
-    assert ARCH not in PENDING
+    assert ARCH in REGISTRY
 
 
 def test_moe_config_fields_match_reference():

@@ -35,8 +35,7 @@ from the compiled kernels, one phase per printed block:
   7. the flash-attention kernel against its plain version, bf16 and f32,
      causal and not, GQA group 4 and 1, window 64, softcap 30, head dims
      64 / 128 / 256, at a ragged length, over every compiled wgmma tile
-     (bf16 at d 64 and 128) and every feasible SIMT tile (f32, bf16 at d
-     256);
+     (bf16, d 64 / 128 / 256) and every feasible SIMT tile (f32);
   8. KLARAPTOR on the card for ``flash_attn_d64_causal``: probes at
      bh <= 64 and sq = skv <= 1024, the fit, the choice at the prefill shape
      (bh 32, sq = skv = 4096) and, after phase 9, its selection ratio against
@@ -208,7 +207,7 @@ from the compiled kernels, one phase per printed block:
      stack's depth as the fan-in, which makes attention near one-hot and
      two correct bf16 steps drift apart with depth): grok-1-314b (4 of 64
      layers, MoE 8 experts top-2, softcaps 30), qwen3-14b (qk-norm),
-     internlm2-1.8b, gemma2-2b (head dim 256 on the flash kernel's SIMT
+     internlm2-1.8b, gemma2-2b (head dim 256 on the flash kernel's wgmma
      body, 4096-token windows on every other layer, softcap 50),
      internvl2-76b (16 of 80 layers; 256 patch embeddings before the
      tokens) and whisper-medium (the encoder over 1500 frame embeddings,
@@ -645,7 +644,7 @@ def run(caches: list) -> int:
                                  f"cap {cap}, no spills")
     flash_ptxas = [ln.strip() for ln in
                    _build.build_log("flash_attention").splitlines()
-                   if "registers" in ln or "spill" in ln]
+                   if "registers" in ln or "spill" in ln or "wgmma" in ln]
     print("  flash_attention ptxas:\n  " + "\n  ".join(flash_ptxas))
     for d in FLASH_SM90_HEAD_DIMS:
         for bq, bkv in FLASH_SM90_TILES[d]:
@@ -657,11 +656,10 @@ def run(caches: list) -> int:
                 raise AssertionError(
                     f"flash wgmma tile d={d} ({bq}, {bkv}): {attrs} against "
                     f"the cap {FLASH_SM90_REGS_PER_THREAD}, no spills")
-    for dt, d in [(torch.float32, d) for d in FLASH_HEAD_DIMS] \
-            + [(torch.bfloat16, 256)]:
+    for d in FLASH_HEAD_DIMS:
         for bkv in flash.BKV_TILES:
-            attrs = flash.kernel_attributes(dt, d, bkv)
-            print(f"  flash SIMT {dt} d={d} bkv={bkv}: {attrs}")
+            attrs = flash.kernel_attributes(torch.float32, d, bkv)
+            print(f"  flash SIMT f32 d={d} bkv={bkv}: {attrs}")
             if attrs["num_regs"] > flash_regs_per_thread(d):
                 raise AssertionError(
                     f"flash kernel d={d} bkv={bkv} uses "
@@ -965,8 +963,8 @@ def flash_phases(dev, hw, gen, check, time_ms, phase_done) -> dict:
     print("[7] flash kernel vs plain (tolerance: bf16 2e-2 abs and rel; f32 "
           "2e-3 abs / 1e-3 rel, tests/test_kernels.py's flash tolerance; "
           f"S = {FLASH_SWEEP_S}, batch 2): every compiled wgmma tile (bf16, "
-          "d 64 and 128) and every feasible SIMT tile (f32, and bf16 at d "
-          "256)", flush=True)
+          "d 64, 128 and 256) and every feasible SIMT tile (f32)",
+          flush=True)
     worst = 0.0
     n_checked = 0
     S = FLASH_SWEEP_S

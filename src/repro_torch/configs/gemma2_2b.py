@@ -2,7 +2,8 @@
 
 Local (4096-window) and global attention alternate, attention and final
 logit softcaps, tied embeddings scaled by sqrt(d_model).  Head dim 256: in
-bf16 its attention runs the flash kernel's SIMT body.  [arXiv:2408.00118; hf]
+bf16 its attention runs the flash kernel's wgmma body at bkv 64.
+[arXiv:2408.00118; hf]
 """
 
 from ..models.config import BlockDesc, ModelConfig

@@ -32,7 +32,7 @@ roofline ratio::
 The compute peak is that of the unit the kernel's arithmetic runs on, which
 its spec states (``KernelSpec.compute_unit``, carried by the traffic
 table).  The bf16 matmul and grouped matmul, bf16 flash attention at head
-dims 64 and 128 and the bf16 SSD scan at (64, 128) run wgmma on the tensor
+dims 64, 128 and 256 and the bf16 SSD scan at (64, 128) run wgmma on the tensor
 cores, so their rows take ``peak_flops_bf16``.  Every other kernel does its
 FLOPs as FP32 FMAs on the CUDA cores -- the f32 matmul's micro-tile
 products, the SIMT flash attention and SSD bodies (exp and tanh run on the

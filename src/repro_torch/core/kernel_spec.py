@@ -619,31 +619,31 @@ def gmm_probe_data(experts: Sequence[int] = (2, 4),
             for e in experts for g in sizes for k in sizes for n in sizes]
 
 
-# kernels/csrc/flash_attention.cu, f32 and bf16 at head dim 256 (the SIMT
-# body): a CTA of 4 * bq threads, each owning 4 query rows; __launch_bounds__
-# caps registers at 128 per thread for head dims up to 128 (512 threads) and
-# at 255 for head dim 256 (256 threads).
+# kernels/csrc/flash_attention.cu, f32 (the SIMT body): a CTA of 4 * bq
+# threads, each owning 4 query rows; __launch_bounds__ caps registers at 128
+# per thread for head dims up to 128 (512 threads) and at 255 for head dim
+# 256 (256 threads).
 FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_THREADS_PER_ROW = 4
 FLASH_PAD = 16      # f32 words of padding per row of the staged P tile
 
 
 def flash_regs_per_thread(head_dim: int) -> int:
-    """The register cap the SIMT flash kernel of ``head_dim`` is compiled
-    to."""
+    """The register cap the SIMT (f32) flash kernel of ``head_dim`` is
+    compiled to."""
     if head_dim not in FLASH_HEAD_DIMS:
         raise ValueError(f"no flash kernel for head dim {head_dim}; the "
                          f"kernel is built for {FLASH_HEAD_DIMS}")
     return 255 if head_dim == 256 else 128
 
 
-# kernels/csrc/flash_attention.cu, bf16 at head dims 64 and 128 (the wgmma
-# body): one consumer warpgroup per 64 query rows (2 * bq threads), the (bq,
-# d) Q tile and a ring of FLASH_SM90_STAGES (bkv, d) K and V slots in shared
+# kernels/csrc/flash_attention.cu, bf16 at every head dim (the wgmma body):
+# one consumer warpgroup per 64 query rows (2 * bq threads), the (bq, d) Q
+# tile and a ring of FLASH_SM90_STAGES (bkv, d) K and V slots in shared
 # memory, plus FLASH_SM90_SMEM_EXTRA bytes (the 1 KiB alignment and the full,
 # empty and Q barriers), and __launch_bounds__(256, 1), which caps registers
 # at 255 per thread.
-FLASH_SM90_HEAD_DIMS = (64, 128)
+FLASH_SM90_HEAD_DIMS = (64, 128, 256)
 FLASH_SM90_STAGES = 2
 FLASH_SM90_GRANULE = 64
 FLASH_SM90_SMEM_EXTRA = 1024 + (2 * FLASH_SM90_STAGES + 1) * 8
@@ -653,7 +653,8 @@ FLASH_SM90_CANDIDATES = {"bq": (64, 128), "bkv": (64, 128)}
 
 def flash_uses_sm90(head_dim: int, dtype_bytes: int) -> bool:
     """Whether flash attention at this head dim and input width runs the
-    wgmma body (bf16 at head dims 64 and 128) rather than the SIMT one."""
+    wgmma body (bf16 at head dims 64, 128 and 256) rather than the SIMT one
+    (f32)."""
     return dtype_bytes == 2 and head_dim in FLASH_SM90_HEAD_DIMS
 
 
@@ -666,7 +667,7 @@ def flash_sm90_smem_bytes(head_dim: int, bq: int, bkv: int) -> int:
 
 # The compiled tiles (FLASH_SM90_TILES in flash_attention.cu): every (bq,
 # bkv) candidate whose Q tile and ring fit the shared memory a block may
-# have, at each head dim.
+# have, at each head dim -- all four at d 64 and 128, bkv 64 only at d 256.
 FLASH_SM90_TILES = {
     d: tuple((bq, bkv) for bq in FLASH_SM90_CANDIDATES["bq"]
              for bkv in FLASH_SM90_CANDIDATES["bkv"]
@@ -684,15 +685,15 @@ def flash_attention_spec(head_dim: int = 128, causal: bool = True,
     (bh, sq, skv) point: 4 * d (QK^T and PV), halved when causal.  The
     kernel masks ragged q and kv tails, so tiles need not divide sq or skv.
 
-    bf16 at head dims 64 and 128 runs the wgmma body on the tensor cores,
-    as ``matmul_spec(2)`` states the GEMMs': 2 * bq threads, the compiled
-    (bq, bkv) tiles (``FLASH_SM90_TILES``), granules of 64, the register cap
-    255, and stage bytes of the Q tile and one K/V slot, with the ring's
-    other slots and its barriers as scratch; P lives in registers.  f32, and
-    bf16 at head dim 256, run the SIMT body: 4 * bq threads, Q, K and V
-    tiles staged in shared memory and so is the f32 probability tile (bq,
-    bkv) with 16 words of padding per row; m, l and the output accumulator
-    are registers.
+    bf16 at head dims 64, 128 and 256 runs the wgmma body on the tensor
+    cores, as ``matmul_spec(2)`` states the GEMMs': 2 * bq threads, the
+    compiled (bq, bkv) tiles (``FLASH_SM90_TILES``, of which the shared
+    memory rule keeps bkv 64 only at d 256), granules of 64, the register
+    cap 255, and stage bytes of the Q tile and one K/V slot, with the ring's
+    other slots and its barriers as scratch; P lives in registers.  f32
+    runs the SIMT body: 4 * bq threads, Q, K and V tiles staged in shared
+    memory and so is the f32 probability tile (bq, bkv) with 16 words of
+    padding per row; m, l and the output accumulator are registers.
     """
     name = f"flash_attn_d{head_dim}" + ("_causal" if causal else "")
     grid = (GridAxis("b", "bh", None),

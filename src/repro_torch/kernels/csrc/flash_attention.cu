@@ -15,7 +15,8 @@
 //
 // Two bodies, one C interface.
 //
-// bf16 at head dims 64 and 128 -- flash_sm90_kernel, the tensor-core design.
+// bf16 at head dims 64, 128 and 256 -- flash_sm90_kernel, the tensor-core
+// design.
 // One CTA per (b * hq, block of BQ query rows) with one consumer warpgroup
 // (128 threads) per 64 rows, so BQ = 64 or 128 means 1 or 2 warpgroups.
 //   * Thread 0 issues every TMA load (csrc/sm90.cuh): the (BQ, D) Q tile once,
@@ -23,7 +24,8 @@
 //     slots with full and empty mbarriers, the protocol of gemm_sm90.cuh.
 //     The tensor maps are 3-D, over (d, s, b * heads): a ragged q or kv tail
 //     is zero-filled at sq or skv, never read from the next head's rows.
-//     128-byte swizzle; a tile of D = 128 is two 64-wide boxes side by side.
+//     128-byte swizzle; a tile of D = 128 or 256 is two or four 64-wide
+//     boxes side by side.
 //   * S = Q K^T: wgmma.m64n{BKV}k16, D / 16 steps, both operands in shared
 //     memory.  Q is K-major for A; K stored (BKV, D) row-major is K-major for
 //     B too, so its descriptor has the transpose bit clear.
@@ -31,11 +33,13 @@
 //     t of a warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and eight below,
 //     BKV / 4 columns of each; the row max reduces over the 4 threads of a
 //     quad (__shfl_xor_sync 1 and 2), the row sum stays per thread until the
-//     end.  Scores are kept in the log2 domain (exp2f).
+//     end.  Scores are kept in the log2 domain (ex2 on the SFU).
 //   * O += P V: P is converted to bf16 in registers and fed as wgmma's A
 //     operand from registers (wgmma.m64n{D}k16, BKV / 16 steps), as two
 //     bf16 terms, P = hi + lo, each with V, so the product keeps P to about
-//     2^-17, as the Pallas kernel keeps it in f32.  No shuffle
+//     2^-17, as the Pallas kernel keeps it in f32.  At D = 256 that is
+//     wgmma.m64n256k16 (WgmmaRS<256>), V's four boxes in one descriptor
+//     whose leading byte offset steps from box to box.  No shuffle
 //     is needed: for 16-bit inputs the accumulator fragment of columns
 //     [16 kk, 16 kk + 16) -- s[8kk .. 8kk+7] = (row r, cols c, c+1), (r + 8,
 //     c, c+1), (r, c+8, c+9), (r + 8, c+8, c+9) with c = 16 kk + 2 (t % 4) --
@@ -57,10 +61,29 @@
 // caller dispatches from FLASH_SM90_TILES.  Warp specialisation (a producer
 // warp with setmaxnreg) and two consumer warpgroups ping-ponging softmax
 // against wgmma are later work.
+//   * Head dim 256 (gemma2) is the same body; registers and shared memory
+//     bound it.  Per thread of a consumer warpgroup at BKV = 64: O is
+//     64 x 256 f32 / 128 threads = 128 registers, S 64 x 64 / 128 = 32, and
+//     P's hi + lo A fragments BKV / 16 x 4 x 2 = 32, which replace S as it is
+//     split, so at most 160 hold data; with m, l, alpha, the row and key
+//     positions and the descriptors ptxas gives both tiles 251 of the 255
+//     that __launch_bounds__(256, 1) allows, with no spill (chip_smoke.py
+//     [2] gates it).  BKV = 128 would need 256 for O, S and P alone, and its
+//     two-slot ring, (BQ + 4 * 128) * 256 * 2 bytes, is over the 227 KiB a
+//     block may have; so at D = 256 the tiles are BQ 64 or 128 with BKV 64,
+//     164904 or 197672 bytes of shared memory and one CTA per SM.  Per kv
+//     step a warpgroup issues 16 m64n64k16 for S and 2 x 4 m64n256k16 for
+//     P V: the lo term makes PV twice the work the bound counts, so the
+//     tensor cores do 3 / 2 of the bound's operations.
+//   * The softmax's instructions sit between the two products of every kv
+//     step, so they are kept few: 2^x and 1 / x are single SFU instructions
+//     (ex2.approx.ftz, rcp.approx.ftz), the soft cap is tanh through them
+//     with its constants folded into one multiply and one FFMA, and O is
+//     rescaled only when a row's running max moved, which a long row's later
+//     kv steps seldom do.
 //
-// f32, and bf16 at head dim 256 -- flash_fwd_kernel, the SIMT body: wgmma
-// takes f32 only as TF32, and Q plus a K/V ring at d 256 leaves little shared
-// memory.  One CTA per (b * hq, block of bq query rows) loops over kv blocks
+// f32 -- flash_fwd_kernel, the SIMT body: wgmma takes f32 only as TF32.
+// One CTA per (b * hq, block of bq query rows) loops over kv blocks
 // of BKV rows with 4 * bq threads: 16 lanes across each group of 4 query rows,
 // so a thread owns 4 rows, BKV / 16 columns of the score tile and d / 16
 // columns of the output.  Q (bq, d) is staged in shared memory once, K and V
@@ -101,15 +124,9 @@ template <> struct Bounds<256> { static constexpr int kMaxThreads = 256; };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Copy rows [0, rows) of a row-major (rows, D) tile at src into dst[D][rows]
 // (transposed); rows at or past `valid` are zero.  Consecutive threads take
@@ -383,7 +400,7 @@ cudaError_t attributes_d(int d, int bkv, int* num_regs, int* max_threads,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 128: the wgmma + TMA-ring body
+// bf16, head dims 64, 128 and 256: the wgmma + TMA-ring body
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;             // K/V slots of the TMA ring
@@ -411,6 +428,19 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
+// 2^x and 1 / x on the special function unit, one instruction each (relative
+// error about 2^-22; denormals flush to 0, and 2^-inf is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Byte offset of the 16-byte chunk (row, chunk) of a [D / 64][rows][64] bf16
 // tile whose 128-byte rows hold their chunks XOR-permuted by row % 8.
 __device__ __forceinline__ int staged_chunk(int rows, int row, int chunk) {
@@ -429,7 +459,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                   float scale, int causal, int has_window, int window,
                   float softcap) {
   using namespace sm90;
-  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes, wgmma N <= 128");
+  static_assert(D % kAtom == 0 && D <= 256, "whole swizzle boxes, wgmma N <= 256");
   static_assert(BQ % 64 == 0 && BQ <= 128, "one warpgroup per 64 rows, at most two");
   static_assert(BKV % 64 == 0 && BKV <= 128, "wgmma N and the score registers");
   constexpr int kQBytes = BQ * D * 2;
@@ -488,11 +518,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, s);
   }
 
-  // Scores in the log2 domain: x = scale * s (soft-capped: softcap *
-  // tanh(scale * s / softcap)), times log2(e).
+  // Scores in the log2 domain: x = scale * s, or soft-capped softcap *
+  // tanh(scale * s / softcap), times log2(e).  The cap goes through
+  // tanh(y) = 1 - 2 / (2^(2 y log2(e)) + 1): x = post - 2 post / (2^(pre s)
+  // + 1), two SFU instructions and an FFMA, within a few 1e-7 of tanhf
+  // (times post); an overflowed 2^ gives x = post, the cap itself.
   const bool capped = softcap > 0.0f;
-  const float pre = capped ? scale / softcap : scale * kLog2e;
-  const float post = capped ? softcap * kLog2e : 1.0f;
+  const float pre = capped ? 2.0f * kLog2e * scale / softcap : scale * kLog2e;
+  const float post = softcap * kLog2e;
   const int qa = q0 + wg * 64;                          // this warpgroup's first row
   const int row0 = qa + (t / 32) * 16 + lane / 4;       // rows row0 and row0 + 8
 
@@ -535,8 +568,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float x = sc[4 * j + 2 * h + e];
-          x = capped ? post * tanhf(x * pre) : x * pre;
+          float x = sc[4 * j + 2 * h + e] * pre;
+          if (capped) x = fmaf(rcp(ex2(x) + 1.0f), -2.0f * post, post);
           if (masked) {
             const int kpos = k0 + 8 * j + 2 * (lane % 4) + e;
             bool vis = kpos < skv;
@@ -550,26 +583,30 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      alpha[h] = exp2f(m[h] - mx);                     // both finite: never NaN
+      alpha[h] = ex2(m[h] - mx);                       // both finite: never NaN
       m[h] = mx;
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(sc[4 * j + 2 * h + e] - mx);
+          const float p = ex2(sc[4 * j + 2 * h + e] - mx);
           sc[4 * j + 2 * h + e] = p;
           sum += p;
         }
       }
       l[h] = alpha[h] * l[h] + sum;
     }
+    // O's rescale (D / 2 multiplies) only where a row's max moved: once the
+    // running maxima settle, most kv steps of a long row skip it.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
     }
 
     // P = hi + lo, two bf16 A fragments: the PV product at f32 precision
@@ -661,11 +698,13 @@ cudaError_t sm90_attributes(int* num_regs, int* max_threads, int* local_bytes) {
   return cudaSuccess;
 }
 
-// The compiled wgmma tiles (D, BQ, BKV): BQ and BKV in {64, 128} at each
-// head dim (kernel_spec.FLASH_SM90_TILES).
+// The compiled wgmma tiles (D, BQ, BKV): BQ and BKV in {64, 128} at head
+// dims 64 and 128; at 256 only BKV 64, whose ring fits the shared memory
+// (kernel_spec.FLASH_SM90_TILES).
 #define FLASH_SM90_TILES(X)                                                    \
   X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128)                  \
-  X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 128, 128)
+  X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 128, 128)              \
+  X(256, 64, 64) X(256, 128, 64)
 
 // Launches the instantiation of (d, bq, bkv); cudaErrorInvalidValue for a
 // tile that is not compiled.
@@ -697,9 +736,9 @@ cudaError_t sm90_dispatch_attributes(int d, int bq, int bkv, int* num_regs,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); the
-// caller has checked shapes, dtypes, alignment, tiles and limits.  bf16 at
-// head dims 64 and 128 runs the wgmma body (bq, bkv a compiled tile); f32,
-// and bf16 at head dim 256, the SIMT body.
+// caller has checked shapes, dtypes, alignment, tiles and limits.  bf16
+// runs the wgmma body ((bq, bkv) a compiled tile of head dim d); f32 the
+// SIMT body.
 int klaraptor_flash_attention(const void* q, const void* k, const void* v, void* out,
                               int bh, int sq, int skv, int d, int hq, int hkv, int bq,
                               int bkv, float scale, int causal, int has_window,
@@ -710,10 +749,6 @@ int klaraptor_flash_attention(const void* q, const void* k, const void* v, void*
       return launch_d<float>(d, bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
                              causal, has_window, window, softcap, s);
     case kBF16:
-      if (d == 256)
-        return launch_bkv<__nv_bfloat16, 256>(bkv, q, k, v, out, bh, sq, skv, hq, hkv,
-                                              bq, scale, causal, has_window, window,
-                                              softcap, s);
       return sm90_dispatch(d, bq, bkv, q, k, v, out, bh, sq, skv, hq, hkv, scale,
                            causal, has_window, window, softcap, s);
     default: return cudaErrorInvalidValue;
@@ -721,16 +756,11 @@ int klaraptor_flash_attention(const void* q, const void* k, const void* v, void*
 }
 
 // Registers per thread, launch-bound thread limit and local (spill) bytes of
-// the SIMT instantiation for (dtype, head dim d, bkv): f32, or bf16 at d 256.
+// the SIMT instantiation for (dtype, head dim d, bkv): f32 only.
 int klaraptor_flash_attention_attributes(int dtype, int d, int bkv, int* num_regs,
                                          int* max_threads, int* local_bytes) {
-  switch (dtype) {
-    case kF32: return attributes_d<float>(d, bkv, num_regs, max_threads, local_bytes);
-    case kBF16:
-      if (d != 256) return cudaErrorInvalidValue;
-      return attributes_bkv<__nv_bfloat16, 256>(bkv, num_regs, max_threads, local_bytes);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  return attributes_d<float>(d, bkv, num_regs, max_threads, local_bytes);
 }
 
 // The same for the wgmma instantiation of bf16 tile (d, bq, bkv).

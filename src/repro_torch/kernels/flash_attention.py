@@ -7,12 +7,12 @@ blocks of bkv rows.  q is (b * hq, sq, d), k and v are (b * hkv, skv, d),
 bf16 or f32; q head ``bh`` reads kv head
 ``(bh // hq) * hkv + (bh % hq) // (hq // hkv)``.  The softmax, its running
 max and sum, and the output accumulator are f32; the output has q's dtype.
-bf16 at head dims 64 and 128 runs the wgmma + TMA-ring body: 2 * bq threads
-(one warpgroup per 64 query rows) and only the compiled tiles
+bf16 (head dims 64, 128 and 256) runs the wgmma + TMA-ring body: 2 * bq
+threads (one warpgroup per 64 query rows) and only the compiled tiles
 ``FLASH_SM90_TILES[d]``; its PV product takes P as two bf16 terms (hi +
-lo), as exact as an f32 P to about 2^-17.  f32, and bf16 at head dim 256,
-run the SIMT body: 4 * bq threads, any bq that is a multiple of 16 within
-the limits and bkv in ``BKV_TILES``.
+lo), as exact as an f32 P to about 2^-17.  f32 runs the SIMT body: 4 * bq
+threads, any bq that is a multiple of 16 within the limits and bkv in
+``BKV_TILES``.
 
 ``flash_attention_plain`` computes the same function in plain PyTorch, as
 the JAX package's ``flash_attention_ref`` does: the full score tensor per
@@ -91,15 +91,15 @@ def _attributes(fn, *args) -> dict[str, int]:
 def kernel_attributes(dtype: torch.dtype, head_dim: int,
                       bkv: int) -> dict[str, int]:
     """Registers per thread, thread limit and spilled local bytes of the
-    SIMT kernel compiled for (dtype, head_dim, bkv): f32, or bf16 at head
-    dim 256 (builds it if needed)."""
+    SIMT kernel compiled for (dtype, head_dim, bkv): f32 only (builds it if
+    needed)."""
     return _attributes(_lib().klaraptor_flash_attention_attributes,
                        _DTYPE_CODE[dtype], head_dim, bkv)
 
 
 def tile_attributes(head_dim: int, bq: int, bkv: int) -> dict[str, int]:
-    """The same for the bf16 wgmma kernel of tile (bq, bkv) at head dim 64
-    or 128."""
+    """The same for the bf16 wgmma kernel of tile (bq, bkv) at head dim 64,
+    128 or 256."""
     return _attributes(_lib().klaraptor_flash_attention_tile_attributes,
                        head_dim, bq, bkv)
 

@@ -91,10 +91,10 @@ def test_cuda_matmul_kernel_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_flash_kernel_matches_plain():
-    """bf16 at d 64 and 128: every compiled wgmma tile; f32, and bf16 at
-    d 256: the SIMT tile (32, 64).  Causal, full, window and soft-cap, GQA
-    group 4 and 1, and ragged lengths (sq = skv = 200, sq 77 < skv 333,
-    sq 333 > skv 130) that no tile divides."""
+    """bf16 at d 64, 128 and 256: every compiled wgmma tile (at d 256 the
+    two of bkv 64); f32: the SIMT tile (32, 64).  Causal, full, window and
+    soft-cap, GQA group 4 and 1, and ragged lengths (sq = skv = 200, sq 77
+    < skv 333, sq 333 > skv 130) that no tile divides."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -503,7 +503,7 @@ def test_cuda_stale_step_plan_recaptures(tmp_path, monkeypatch):
 @pytest.mark.parametrize("window", [4096, None], ids=["local", "global"])
 def test_cuda_gemma2_attention_layer_matches_plain(window):
     """One gemma2-2b attention layer at full width (d_model 2304, 8 q / 4
-    kv heads of dim 256: the flash kernel's SIMT body in bf16, softcap 50)
+    kv heads of dim 256: the flash kernel's wgmma body in bf16, softcap 50)
     on 5000 tokens, so the local layer's 4096-token window masks: one flash
     launch, within 2e-2 of max |y| of the same layer with the plain
     attention."""

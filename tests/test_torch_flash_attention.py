@@ -145,8 +145,8 @@ def test_spec_feasibility_is_the_kernels_limits(d, elem, causal):
     """A tile is feasible in the Hopper spec exactly when the kernel's
     argument check takes it, and the spec's stage bytes are the kernel's
     dynamic shared memory.  Each case is on one of the kernel's two bodies:
-    bf16 at d 64 and 128 is the wgmma body (2 * bq threads, the compiled
-    tiles), the rest the SIMT body (4 * bq threads)."""
+    bf16 is the wgmma body (2 * bq threads, the compiled tiles), f32 the
+    SIMT body (4 * bq threads)."""
     spec = flash_attention_spec(d, causal, elem)
     wgmma = elem == 2 and d in FLASH_SM90_HEAD_DIMS
     dtype = torch.bfloat16 if elem == 2 else torch.float32
@@ -182,18 +182,31 @@ def test_spec_feasibility_is_the_kernels_limits(d, elem, causal):
     assert [op.name for op in tt.operands] == ["q", "k", "v", "out"]
 
 
+# The wgmma tiles flash_attention.cu compiles (its FLASH_SM90_TILES macro):
+# bq and bkv in {64, 128} at d 64 and 128; at d 256 a two-slot ring of bkv
+# 128 is over the shared memory a block may have, so bkv 64 only.
+COMPILED_SM90_TILES = {
+    64: {(64, 64), (64, 128), (128, 64), (128, 128)},
+    128: {(64, 64), (64, 128), (128, 64), (128, 128)},
+    256: {(64, 64), (128, 64)},
+}
+
+
 @pytest.mark.parametrize("d", sorted(FLASH_SM90_HEAD_DIMS))
 def test_bf16_spec_is_the_compiled_table(d):
-    """bf16 at d 64 and 128: the candidates are exactly the compiled wgmma
-    tiles, FLASH_DEFAULT is one of them, every tile's shared memory fits,
-    and the spec states the wgmma body (2 * bq threads, the register cap
-    255, the tensor-core peak, a K/V ring as scratch, no P tile)."""
+    """bf16 at d 64, 128 and 256: the candidates are exactly the compiled
+    wgmma tiles, FLASH_DEFAULT is one of them, every tile's shared memory
+    fits, and the spec states the wgmma body (2 * bq threads, the register
+    cap 255, the tensor-core peak, a K/V ring as scratch, no P tile)."""
+    assert FLASH_SM90_HEAD_DIMS == (64, 128, 256)
+    assert flash_attention_spec(d, True, 2).name == \
+        f"flash_attn_d{d}_causal"
     for causal in (True, False):
         spec = flash_attention_spec(d, causal, 2)
         table = spec.candidates({"bh": 32, "sq": 4096, "skv": 4096}, H100)
         tiles = sorted(zip(table["bq"].tolist(), table["bkv"].tolist()))
         assert tiles == sorted(FLASH_SM90_TILES[d])
-        assert {(64, 64), (64, 128), (128, 64), (128, 128)} <= set(tiles)
+        assert set(tiles) == COMPILED_SM90_TILES[d]
         assert (ops.FLASH_DEFAULT["bq"], ops.FLASH_DEFAULT["bkv"]) in tiles
         assert all(flash_sm90_smem_bytes(d, bq, bkv) <= 227 * 1024
                    for bq, bkv in tiles)
@@ -205,11 +218,12 @@ def test_bf16_spec_is_the_compiled_table(d):
         assert {"k_ring", "v_ring", "ring_barriers"} <= set(names)
 
 
-def test_f32_and_d256_specs_are_unchanged():
-    """f32 at every head dim and bf16 at d 256 keep the SIMT body's spec:
-    4 * bq threads, the padded f32 P tile, the SIMT candidates and
-    constraints, FMAs on the CUDA cores."""
-    for d, elem in [(64, 4), (128, 4), (256, 4), (256, 2)]:
+def test_f32_specs_are_unchanged():
+    """f32 at every head dim keeps the SIMT body's spec: 4 * bq threads,
+    the padded f32 P tile, the SIMT candidates and constraints, FMAs on the
+    CUDA cores (bf16 at d 256 is on the wgmma spec,
+    test_bf16_spec_is_the_compiled_table)."""
+    for d, elem in [(64, 4), (128, 4), (256, 4)]:
         spec = flash_attention_spec(d, True, elem)
         assert spec.param_candidates == {"bq": (16, 32, 64, 128),
                                          "bkv": (32, 64, 128)}
@@ -232,16 +246,18 @@ def test_f32_and_d256_specs_are_unchanged():
 
 
 def test_wrapper_rejects_an_uncompiled_tile():
-    """bf16 at d 64 and 128 takes only the compiled wgmma tiles, on the CPU
-    too (where the wrapper then computes the plain version), and launches
-    nothing; f32 at the same shape still takes a SIMT tile."""
+    """bf16 at d 64, 128 and 256 takes only the compiled wgmma tiles, on
+    the CPU too (where the wrapper then computes the plain version), and
+    launches nothing; f32 at the same shape still takes a SIMT tile."""
     LAUNCHES.reset()
     heads = dict(num_q_heads=4, num_kv_heads=1)
     for d in sorted(FLASH_SM90_HEAD_DIMS):
         q, k, v = _qkv(d, 8, 2, 70, 70, d)
         tq, tk, tv = (t.to(torch.bfloat16) for t in _t(q, k, v))
-        for bq, bkv in ((32, 64), (64, 32), (16, 128), (256, 64),
-                        (128, 256)):
+        rejected = [(32, 64), (64, 32), (16, 128), (256, 64), (128, 256)]
+        if d == 256:            # bkv 128's ring does not fit at d 256
+            rejected += [(64, 128), (128, 128)]
+        for bq, bkv in rejected:
             with pytest.raises(ValueError, match="compiled tile"):
                 flash_attention_kernel(tq, tk, tv, bq=bq, bkv=bkv, **heads)
         for bq, bkv in FLASH_SM90_TILES[d]:
@@ -251,12 +267,14 @@ def test_wrapper_rejects_an_uncompiled_tile():
     assert LAUNCHES.count == 0
 
 
-def _attention_p_bf16(q, k, v, hq, hkv, causal, bkv=64, split=False):
+def _attention_p_bf16(q, k, v, hq, hkv, causal, bkv=64, split=False,
+                      softcap=None, window=None):
     """The wgmma kernel's online softmax in torch, f32 but for P: kv blocks
     of bkv keys, a running max and sum in f32, and each block's
     unnormalised probabilities rounded to bf16 before the PV product; with
     ``split`` as the kernel feeds them, hi = bf16(p) plus lo = bf16(p -
-    hi)."""
+    hi).  As in the kernel, the soft cap applies before the mask and a
+    masked probability is exactly 0 (the score is -inf)."""
     bhq, sq, d = q.shape
     group = hq // hkv
     kvh = [(i // hq) * hkv + (i % hq) // group for i in range(bhq)]
@@ -269,8 +287,12 @@ def _attention_p_bf16(q, k, v, hq, hkv, causal, bkv=64, split=False):
     qpos = torch.arange(sq)[:, None]
     for k0 in range(0, skv, bkv):
         s = q @ kk[:, k0:k0 + bkv].transpose(1, 2) * d ** -0.5
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
         kpos = k0 + torch.arange(s.shape[2])[None, :]
         vis = (qpos >= kpos) if causal else torch.ones_like(s[0], dtype=bool)
+        if window is not None:
+            vis = vis & (qpos - kpos < window)
         s = s.masked_fill(~vis, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
@@ -316,6 +338,38 @@ def test_p_in_bf16_matches_the_oracle_and_diverges_from_pallas(causal):
     np.testing.assert_allclose(mine, oracle, atol=2e-2, rtol=2e-2)
     split = _attention_p_bf16(q, k, v, hq, hkv, causal, split=True)
     assert float(np.abs(split - pallas).max()) < 2e-5
+
+
+def test_d256_gemma2_variant_matches_pallas():
+    """Head dim 256 with gemma2-2b's attention (soft cap 50, a sliding
+    window, GQA group 2), the shape the wgmma body now takes at d 256: the
+    plain version and the kernel's blocked hi + lo recomputation
+    (``_attention_p_bf16(split=True)``, kv blocks of 64 as the d 256 tiles
+    have) against the Pallas kernel in interpret mode and the JAX oracle,
+    on bf16 inputs held as f32.  The plain version within the f32 flash
+    tolerance (2e-3 / 1e-3); the recomputation, whose P is exact to about
+    2^-17, within 2e-5 of the Pallas kernel (1.6e-6 at this seed, outputs
+    up to 0.96), where P rounded to bf16 once is 9.0e-4 off."""
+    hq, hkv, s, d = 4, 2, 256, 256
+    kw = dict(causal=True, window=96, softcap=50.0)
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+               for a in _qkv(26, 2 * hq, 2 * hkv, s, s, d))
+    heads = dict(num_q_heads=hq, num_kv_heads=hkv)
+    pallas = np.asarray(flash_attention_pallas(
+        q, k, v, bq=64, bkv=64, interpret=True, **heads, **kw))
+    oracle = np.asarray(ref.flash_attention_ref(q, k, v, **heads, **kw))
+    _close(flash_attention_plain(*_t(q, k, v), **heads, **kw), pallas)
+    _close(flash_attention_plain(*_t(q, k, v), **heads, **kw), oracle)
+    split = _attention_p_bf16(q, k, v, hq, hkv, True, split=True,
+                              softcap=50.0, window=96)
+    assert float(np.abs(split - pallas).max()) < 2e-5
+    once = _attention_p_bf16(q, k, v, hq, hkv, True, softcap=50.0, window=96)
+    assert float(np.abs(once - pallas).max()) > 1e-4
+    # rows that see the window's edge mask keys the causal mask alone keeps
+    assert not np.allclose(
+        pallas, np.asarray(flash_attention_pallas(
+            q, k, v, bq=64, bkv=64, interpret=True, causal=True,
+            softcap=50.0, **heads)), atol=1e-3)
 
 
 def test_spec_matches_reference_interface():

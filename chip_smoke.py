@@ -10,8 +10,9 @@ the port's six CUDA kernels, serves llama3.2-1b (16 layers, d_model 2048,
 32 q and 8 kv heads of dim 64, d_ff 8192, vocab 128256, bf16, seeded random
 weights), mamba2-130m, qwen3-moe-235b (full width, 4 of 94 layers) and the
 six other architectures that fit one card through the port's prefill step
-and serving engine (its steps as CUDA graphs), and derives kernel specs
-from the compiled kernels, one phase per printed block:
+and serving engine (its steps as CUDA graphs), derives kernel specs from
+the compiled kernels, and runs the budgeted online search on the card, one
+phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -86,7 +87,9 @@ from the compiled kernels, one phase per printed block:
      the bound, and the selection ratio against exhaustive search (printed,
      not gated); then KLARAPTOR on ``moe_gmm_b32`` (the same probes) and a
      tuned f32 launch through ``ops.moe_gmm`` at the up product, timed
-     against ``torch.bmm`` in f32 (TF32 off) and the FP32 bound;
+     against ``torch.bmm`` in f32 (TF32 off) and the FP32 bound, and its
+     selection ratio against one exhaustive pass on the card (printed, not
+     gated; phase 25 searches on the same pass);
  17. introspection on the card: ``layernorm_c2048_b16`` (llama3.2-1b's
      d_model) and ``colsum_b16`` derived from the compiled kernels (grid,
      operands with their dependences, constraints, compiled registers
@@ -233,7 +236,27 @@ from the compiled kernels, one phase per printed block:
      the plain version on the first rows of each expert, and the bound
      (gated: the op times the tiles the path launched); the peak memory is
      printed.  Then the d 256 driver's selection ratio
-     at gemma2's shape, and one JSON line ``{"archs": ...}``.
+     at gemma2's shape, and one JSON line ``{"archs": ...}``;
+ 25. KLARAPTOR's budgeted online search (``search.run_search``) on the
+     card, every probe timed by ``CudaEventTimer`` (a warm-up launch, an
+     L2 flush and a ~100 us spin before each timed one): (a) for the f32
+     SIMT matmul at N 2048 (one exhaustive pass before the path's
+     counters start, its summed medians the exhaustive device-seconds)
+     and the f32 grouped matmul at phase 16's up product (phase 16's
+     pass), each of ``random``, ``lhs``,
+     ``successive_halving`` and ``surrogate`` under 25 % of those
+     device-seconds, and ``random`` under ``default_budget``: the chosen
+     tile, its ratio against the pass's best, executions, accounted
+     device-seconds and their fraction, wall seconds and wall over
+     device-seconds, and the rows probed but cut after the probe (gated:
+     no run over its executions or device-seconds, every run finds a
+     feasible tile; the 0.85 bar printed only); (b) four builds of
+     ``matmul_b32``, one per strategy, into an empty driver cache, with
+     probe executions, device-seconds and the Fig. 1 ratio at N 2048
+     against (a)'s pass (gated: halving probes fewer distinct tiles at
+     every later probe size than at its first, each build misses the
+     cache, a repeat of the first hits it); then one JSON line
+     ``{"search": ...}``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -245,7 +268,9 @@ engine; the drivers' builds and reads come before the counters start) and
 23 (the grouped matmul in the engines' decode graphs; the matmul, flash
 attention, the layernorm and the column sum through ``in_graph=``) and 24
 (flash attention and the grouped matmul in each architecture's prefill
-and engine, one path per architecture): each launch counter is set to 0
+and engine, one path per architecture) and 25 (a) and (b) (the f32 matmul
+and grouped matmul under the online search and the strategies' builds):
+each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
 wrapper counts the launches it makes eagerly; a CUDA graph records its
@@ -328,6 +353,9 @@ SSD_LOGIT_REL_TOL = 5e-2
 # (benchmarks/bench_telemetry.py); (name, k, n) of the up and down product.
 GMM_E, GMM_G = 8, 4096
 GMM_SHAPES = (("up", 4096, 1536), ("down", 1536, 4096))
+# Phase 25: the f32 SIMT matmul's search size (Fig. 1's N); the grouped
+# matmul's is phase 16's up product.
+SEARCH_N = 2048
 # Phase 18: llama3.2-1b's d_model and the reference's auto-kernel shapes
 # (benchmarks/bench_introspect.py), plus a row count no multiple of 8
 # divides (the layernorm's masked last row block).
@@ -885,6 +913,7 @@ def run(caches: list) -> int:
     ssd_row, ssd_ctx = ssd_phases(dev, hw, gen, check, time_ms, phase_done)
     gmm32_row, gmm_row, gmm_ctx = gmm_phases(dev, hw, gen, check, time_ms,
                                              phase_done)
+    gmm32_pass = gmm_ctx.pop("f32_pass")
     introspect_phase(hw, phase_done)
     ln_row, cs_row = auto_phases(dev, hw, gen, check, time_ms, phase_done,
                                  caches)
@@ -919,6 +948,9 @@ def run(caches: list) -> int:
         row["archs"] = archs[name]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  archs["max_abs_err"][name])
+    search = search_phase(hw, phase_done, caches, gmm32_pass)
+    for row in (simt_row, gmm32_row):
+        row["search_path_launches"] = search["launches"][row["name"]]
     for row, name in ((matmul_row, "matmul"), (flash_row, "flash_attention"),
                       (ssd_row, "ssd_scan"), (gmm_row, "moe_gmm"),
                       (ln_row, "layernorm"), (cs_row, "colsum")):
@@ -1573,11 +1605,14 @@ def gmm_phases(dev, hw, gen, check, time_ms,
                phase_done) -> tuple[dict, dict, dict]:
     """Phases 15-16: the grouped-matmul kernel and KLARAPTOR on it, bf16
     and f32.  Returns the f32 and the bf16 entries of the ``kernels``
-    line, and the bf16 spec, driver and timer phase 22 reuses."""
+    line, the bf16 spec, driver and timer phase 22 reuses, and the f32
+    exhaustive pass phase 25 reuses."""
+    import numpy as np
     import torch
 
-    from repro_torch.core import (CudaEventTimer, Klaraptor, gmm_probe_data,
-                                  moe_gmm_spec, selection_ratio)
+    from repro_torch.core import (CudaEventTimer, Klaraptor, exhaustive_pass,
+                                  gmm_probe_data, moe_gmm_spec,
+                                  selection_ratio)
     from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gmm import (LAUNCHES, moe_gmm_kernel,
                                              moe_gmm_plain)
@@ -1751,6 +1786,20 @@ def gmm_phases(dev, hw, gen, check, time_ms,
           f"{r32['plain_ms']:.2f} ms", flush=True)
     del x, w, out, plain
     torch.cuda.empty_cache()
+    # the f32 driver's choice against every feasible tile on the card (its
+    # choice moved between runs); phase 25 searches on this same pass
+    t0 = time.perf_counter()
+    table32, times32 = exhaustive_pass(spec32, timer, Dn, hw)
+    best = int(np.argmin(times32))
+    i = next(j for j in range(len(table32)) if table32.row(j) == cfg)
+    r32["selection_ratio"] = float(times32[best] / times32[i])
+    print(f"  [16, f32, after the main path] selection ratio at {Dn} "
+          f"(exhaustive: 1 warm-up + median of 3 timed launches per "
+          f"candidate; printed, not gated): chosen {cfg} "
+          f"{times32[i] * 1e3:.4f} ms, best {table32.row(best)} "
+          f"{times32[best] * 1e3:.4f} ms of {len(table32)}, ratio "
+          f"{r32['selection_ratio']:.3f} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     phase_done(16)
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -1781,7 +1830,8 @@ def gmm_phases(dev, hw, gen, check, time_ms,
         "library_ms": total["library_ms"],
         "default_ms": total["default_ms"],
         "shapes": rows,
-    }, {"spec": spec, "driver": build.driver, "timer": timer}
+    }, {"spec": spec, "driver": build.driver, "timer": timer,
+        "f32_pass": (table32, times32)}
 
 
 def introspect_phase(hw, phase_done) -> None:
@@ -4079,6 +4129,141 @@ def archs_phase(dev, hw, check, time_ms, phase_done, caches, card: str,
                                 "launches": launches, "card": card}}))
     return {"launches": launches, "flash_attention": flash_rows,
             "moe_gmm": gmm_rows, "max_abs_err": worst}
+
+
+def search_phase(hw, phase_done, caches: list, gmm32_pass) -> dict:
+    """Phase 25: KLARAPTOR's budgeted online search on the card (see the
+    module docstring).  Returns the path's launches of the f32 matmul and
+    grouped matmul."""
+    import numpy as np
+
+    from repro_torch.benchmarks.bench_search import (BUDGET_FRACTION,
+                                                     GOOD_RATIO, score)
+    from repro_torch.core import (CudaEventTimer, Klaraptor, exhaustive_pass,
+                                  matmul_spec, moe_gmm_spec)
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.search import STRATEGIES, SearchBudget, default_budget
+
+    print("[25] KLARAPTOR's budgeted online search on the card: run_search "
+          "with each strategy on the f32 SIMT kernels", flush=True)
+    t_phase = time.perf_counter()
+    timer = CudaEventTimer(hw, warmup=1, timings=3, seed=SEED)
+    mm_spec, mm_D = matmul_spec(4), {"m": SEARCH_N, "n": SEARCH_N,
+                                     "k": SEARCH_N}
+    _, k, n = GMM_SHAPES[0]
+    # the matmul's exhaustive pass times every tile, so it runs before the
+    # path's counters start, as phase 16's pass of the grouped matmul does
+    t0 = time.perf_counter()
+    mm_pass = exhaustive_pass(mm_spec, timer, mm_D, hw)
+    mm_wall = time.perf_counter() - t0
+    cases = ((mm_spec, mm_D, mm_pass, f"{mm_wall:.2f} s wall"),
+             (moe_gmm_spec(4), {"e": GMM_E, "g": GMM_G, "k": k, "n": n},
+              gmm32_pass, "phase 16's"))
+    mm.LAUNCHES.reset()
+    gmm.LAUNCHES.reset()                # this phase's path starts
+    rows, passes = [], {}
+    for spec, D, (table, times), origin in cases:
+        feasible = [table.row(i) for i in range(len(table))]
+        passes[spec.name] = (feasible, times)
+        total, best = float(np.sum(times)), int(np.argmin(times))
+        print(f"  (a) {spec.name} at {D}: one exhaustive pass over "
+              f"{len(table)} tiles (1 warm-up + median of 3 timed launches "
+              f"each; {origin}): best {feasible[best]} "
+              f"{times[best] * 1e3:.4f} ms; summed medians (the exhaustive "
+              f"device-seconds) {total:.4f} s", flush=True)
+        runs = [(name, f"{BUDGET_FRACTION:.0%} of them",
+                 SearchBudget(max_device_seconds=BUDGET_FRACTION * total))
+                for name in sorted(STRATEGIES)]
+        runs.append(("random", "default_budget",
+                     default_budget(len(table))))
+        for name, what, budget in runs:
+            r = score(spec, timer, D, hw, times, name, budget, SEED)
+            cap_e, cap_s = budget.max_executions, budget.max_device_seconds
+            r["budget_label"] = what
+            r["wall_per_device_second"] = r["search_wall_seconds"] / max(
+                r["probe_device_seconds"], 1e-300)
+            rows.append(r)
+            chosen = r["chosen"]
+            print(f"    {name:>18} under {what}"
+                  f" ({cap_e if cap_e is not None else cap_s:.6g}"
+                  f"{' executions' if cap_e is not None else ' s'}): "
+                  f"chosen {chosen} ratio {r['ratio']:.3f}; executions "
+                  f"{r['n_probe_executions']}, device-seconds "
+                  f"{r['probe_device_seconds']:.4f} "
+                  f"({r['device_seconds_fraction']:.3f} of exhaustive); "
+                  f"wall {r['search_wall_seconds']:.3f} s "
+                  f"({r['wall_per_device_second']:.2f} x the device-seconds);"
+                  f" rows probed {r['n_probed_rows'] + r['n_cut_rows']}, of "
+                  f"them cut after the probe {r['n_cut_rows']}", flush=True)
+            if chosen is None or chosen not in feasible:
+                raise AssertionError(f"{spec.name} {name} under {what}: "
+                                     f"chose {chosen}, not a feasible tile")
+            if cap_e is not None and r["n_probe_executions"] > cap_e or \
+                    cap_s is not None and r["probe_device_seconds"] > cap_s:
+                raise AssertionError(f"{spec.name} {name} under {what}: "
+                                     f"spent over the budget {budget}")
+        quarter = [r["ratio"] for r in rows[-len(runs):-1]]
+        print(f"    best ratio within {BUDGET_FRACTION:.0%}: "
+              f"{max(quarter):.3f} (the bar {GOOD_RATIO}: printed, not gated "
+              f"here; the CPU tests gate it on HopperModel)", flush=True)
+
+    # -- (b) four builds of matmul_b32, one per strategy -----------------------
+    fresh_cache(caches)
+    feasible, times = passes[mm_spec.name]
+    print(f"  (b) Klaraptor(CudaEventTimer).build_driver({mm_spec.name}, "
+          f"strategy=...) into an empty driver cache; Fig. 1 ratio at N "
+          f"{SEARCH_N} against (a)'s pass", flush=True)
+    first = None
+    for name in sorted(STRATEGIES):
+        t0 = time.perf_counter()
+        b = Klaraptor(timer).build_driver(mm_spec, strategy=name)
+        wall = time.perf_counter() - t0
+        if b.from_cache:
+            raise AssertionError(f"the {name} build hit the cache: another "
+                                 f"strategy's driver was taken")
+        chosen = b.driver.choose(mm_D)
+        cols = b.collected.columns
+        sizes = []                      # distinct tiles per probe size
+        for D in dict.fromkeys(zip(*(cols[d].tolist() for d in "mnk"))):
+            at = np.all([cols[d] == v for d, v in zip("mnk", D)], axis=0)
+            sizes.append(len(set(zip(*(cols[p][at].tolist()
+                                       for p in mm_spec.program_params)))))
+        print(f"    {name:>18}: probe executions "
+              f"{b.collected.n_probe_executions}, device-seconds "
+              f"{b.probe_device_seconds:.4f}, build wall {wall:.2f} s; "
+              f"chosen at N {SEARCH_N} {chosen}, ratio "
+              f"{float(np.min(times)) / times[feasible.index(chosen)]:.3f}; "
+              f"distinct tiles per probe size (first 6 of {len(sizes)}) "
+              f"{sizes[:6]}", flush=True)
+        if name == "successive_halving":
+            print(f"      survivors carried: {sizes[0]} tiles at the first "
+                  f"size, at most {max(sizes[1:])} at each later one",
+                  flush=True)
+            if not max(sizes[1:]) < sizes[0]:
+                raise AssertionError(f"halving probed {sizes}: not fewer "
+                                     f"tiles after its first size")
+        first = first or (name, chosen)
+    again = Klaraptor(timer).build_driver(mm_spec, strategy=first[0])
+    print(f"    {first[0]} again: from_cache={again.from_cache}, probe "
+          f"executions {again.collected.n_probe_executions}, chosen "
+          f"{again.driver.choose(mm_D)}", flush=True)
+    if not again.from_cache or again.collected.n_probe_executions or \
+            again.driver.choose(mm_D) != first[1]:
+        raise AssertionError("the repeated build did not hit the cache")
+    launches = {"matmul_b32": mm.LAUNCHES.count,
+                "moe_gmm_b32": gmm.LAUNCHES.count}    # the path ends here
+    print(f"  launches on this path (the searches' and the builds' probes "
+          f"and their warm-ups): {launches}", flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the phase-25 path never "
+                             f"launched: {launches}")
+
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(25)
+    print(json.dumps({"search": {"runs": rows, "launches": launches}},
+                     default=str))
+    return {"launches": launches}
 
 
 if __name__ == "__main__":

@@ -39,8 +39,9 @@ from .rational_program import (BinOp, Ceil, Const, Expr, Fitted, Floor, Max,
                                const, floor_div, specialize_expr, var)
 from .step_plan import (KernelRequest, StepPlan, active_step_plan,
                         build_step_plan, use_step_plan)
-from .tuner import (BuildResult, Klaraptor, exhaustive_search,
-                    fitresult_from_json, selection_ratio)
+from .tuner import (BuildResult, Klaraptor, exhaustive_pass,
+                    exhaustive_search, fitresult_from_json, search_best,
+                    selection_ratio)
 
 __all__ = [
     "BucketLattice", "pad_to", "pow2_span",
@@ -73,6 +74,6 @@ __all__ = [
     "specialize_expr", "var",
     "KernelRequest", "StepPlan", "active_step_plan", "build_step_plan",
     "use_step_plan",
-    "BuildResult", "Klaraptor", "exhaustive_search", "fitresult_from_json",
-    "selection_ratio",
+    "BuildResult", "Klaraptor", "exhaustive_pass", "exhaustive_search",
+    "fitresult_from_json", "search_best", "selection_ratio",
 ]

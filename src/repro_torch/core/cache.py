@@ -8,17 +8,18 @@ key*, the SHA-256 of
   * the driver's *code digest* (``code_digest``): the spec's fingerprint
     (``spec_fingerprint``: its grid, operands, FLOPs, threads, registers,
     compute unit, constraints, candidates and, for a derived spec, the
-    compiled kernel's ``source_fingerprint``) and the hash of the kernel
-    library's CUDA sources (``device_model.kernel_sources_digest``),
+    compiled kernel's ``source_fingerprint``), the hash of the kernel
+    library's CUDA sources (``device_model.kernel_sources_digest``) and
+    the hash of the fitter's source (``fitter_digest``),
   * the hardware parameters (``dataclasses.asdict(hw)``), and
   * the build's hyperparameters, among them the oracle's ``fingerprint()``,
 
-so any change to the spec, the kernel code, the card or the tuning settings
-misses by construction.  Each entry also stores its code digest: the
+so any change to the spec, the kernel code, the fitter, the card or the
+tuning settings misses by construction.  Each entry also stores its code digest: the
 read-through (``lookup_latest`` with ``code``), whose caller knows a kernel
 by name but not the build's settings, takes only an entry whose digest is
 that of the caller's spec under the current sources, so a driver tuned for
-an edited spec or ``.cu`` is never served.  A second hash, ``content_hash``
+an edited spec or ``.cu``, or fitted by another fitter, is never served.  A second hash, ``content_hash``
 over the stored driver source, fits and code digest, is checked on every
 read; an entry that fails it (a partial or edited file) is deleted and read
 as a miss.  Writes are atomic.
@@ -52,6 +53,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Mapping
 
 from .device_model import HardwareParams, kernel_sources_digest
@@ -60,7 +62,7 @@ from .rational_program import Expr
 
 __all__ = ["CacheEntry", "DriverCache", "PORT_DIR", "PlanEntry",
            "cache_key", "code_digest", "default_cache", "default_cache_dir",
-           "driver_source_hash", "spec_fingerprint"]
+           "driver_source_hash", "fitter_digest", "spec_fingerprint"]
 
 # Version of the entry layout and of the key's recipe: a change to either
 # must never find an older entry.
@@ -137,11 +139,20 @@ def spec_fingerprint(spec: KernelSpec) -> dict:
     }
 
 
+def fitter_digest() -> str:
+    """SHA-256 of the fitter's source (``core/fitting.py``): the same probes
+    fitted by an edited fitter may give other fits, and so other choices."""
+    return hashlib.sha256(
+        (Path(__file__).parent / "fitting.py").read_bytes()).hexdigest()
+
+
 def code_digest(spec: KernelSpec) -> str:
     """The code a driver of ``spec`` serves: the spec's fingerprint and the
-    hash of the kernel library's sources as they are now."""
+    hashes of the kernel library's sources and of the fitter as they are
+    now."""
     return _sha({"spec": spec_fingerprint(spec),
-                 "sources": kernel_sources_digest()})
+                 "sources": kernel_sources_digest(),
+                 "fitter": fitter_digest()})
 
 
 def cache_key(spec: KernelSpec, hw: HardwareParams,

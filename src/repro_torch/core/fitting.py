@@ -26,7 +26,14 @@ value -- the SVD method.  We additionally:
    every sample point over a zero denominator solves the system exactly,
    and the SVD returns that 0/0 instead of a fit.  A kernel compiled for a
    few tile sizes (the bf16 wgmma matmul's nine tiles, which miss three
-   corners of their 2 x 3 x 2 grid) is sampled at only those points.
+   corners of their 2 x 3 x 2 grid) is sampled at only those points.  The
+   check applies to the fit on all the samples, the one ``fit_auto``
+   returns: a cross-validation fold that drops points may be
+   rank-deficient where the whole set is not, and its fit is scored as the
+   JAX package scores it (a 0/0 fold fit fails its held-out points);
+ * give the polynomial fallback no more monomials than there are distinct
+   sample points, so it cannot interpolate them and report that as its
+   error.
 """
 
 from __future__ import annotations
@@ -111,10 +118,6 @@ def fit_rational(
     den_exps = monomial_exponents(den_bounds, total_degree)
     if len(num_exps) + len(den_exps) > X.shape[0] + 1:
         return None  # underdetermined even before noise; skip
-    points = np.unique(Xs, axis=0)
-    for exps in (num_exps, den_exps):
-        if np.linalg.matrix_rank(design_matrix(points, exps)) < len(exps):
-            return None  # the samples do not determine these monomials
     weights = 1.0 / np.maximum(np.abs(y), 1e-12)
     alpha_s, beta_s, cond = _solve_svd(Xs, y, num_exps, den_exps, weights)
     alpha = _unscale_coeffs(alpha_s, num_exps, scale)
@@ -201,6 +204,14 @@ def _cv_error(
     return float(np.median(errs)) if errs else float("inf")
 
 
+def _identified(points: np.ndarray, bounds: Sequence[int],
+                total_degree: int | None) -> bool:
+    """Whether the distinct (scaled) sample ``points`` determine every
+    monomial within ``bounds``: a full-rank design on them."""
+    exps = monomial_exponents(bounds, total_degree)
+    return np.linalg.matrix_rank(design_matrix(points, exps)) == len(exps)
+
+
 def fit_auto(
     X: np.ndarray,
     y: np.ndarray,
@@ -215,17 +226,22 @@ def fit_auto(
     Tries uniform per-variable bounds (u, v) for u in 1..max_num_degree and
     v in 0..max_den_degree, scores each by k-fold CV plus a parsimony penalty
     per parameter, refits the winner on all data, and falls back to a plain
-    polynomial fit if every rational candidate has an unstable denominator.
+    polynomial fit if every rational candidate has an unstable denominator
+    or monomials the samples do not determine.
     """
     X = np.atleast_2d(np.asarray(X, dtype=np.float64))
     y = np.asarray(y, dtype=np.float64)
     nv = X.shape[1]
+    points = np.unique(_scale_vars(X)[0], axis=0)
     best: FitResult | None = None
     best_score = float("inf")
     for u, v in itertools.product(
         range(1, max_num_degree + 1), range(0, max_den_degree + 1)
     ):
         nb, db = (u,) * nv, (v,) * nv
+        if not (_identified(points, nb, total_degree)
+                and _identified(points, db, total_degree)):
+            continue
         cv = _cv_error(X, y, var_names, nb, db, total_degree)
         if not np.isfinite(cv):
             continue
@@ -237,6 +253,10 @@ def fit_auto(
             res.cv_error = cv
             best, best_score = res, score
     if best is None:
-        best = fit_polynomial(X, y, var_names, (max_num_degree,) * nv, total_degree)
+        u = max_num_degree
+        while u > 0 and len(monomial_exponents((u,) * nv, total_degree)) \
+                > len(points):
+            u -= 1
+        best = fit_polynomial(X, y, var_names, (u,) * nv, total_degree)
         best.cv_error = best.rel_error
     return best

@@ -9,7 +9,8 @@ stored driver back without one probe.
 
 ``exhaustive_search`` is the paper's comparison baseline (Table I "Best
 Config." column): time *every* feasible configuration at the actual data
-size in one batched oracle pass and take the argmin.  ``selection_ratio``
+size in one batched oracle pass and take the argmin; ``search_best`` is its
+budgeted online alternative (``search.run_search``).  ``selection_ratio``
 scores a driver the way Fig. 1 does: best_time / chosen_time (>= 0.85 is
 "good").
 """
@@ -35,8 +36,8 @@ from .kernel_spec import CandidateTable, KernelSpec
 from .perf_model import LOW_LEVEL_METRICS
 from .rational import RationalFunction
 
-__all__ = ["BuildResult", "Klaraptor", "exhaustive_search",
-           "fitresult_from_json", "selection_ratio"]
+__all__ = ["BuildResult", "Klaraptor", "exhaustive_pass", "exhaustive_search",
+           "fitresult_from_json", "search_best", "selection_ratio"]
 
 logger = logging.getLogger(__name__)
 
@@ -226,6 +227,20 @@ class Klaraptor:
                     spec.name)
 
 
+def exhaustive_pass(
+    spec: KernelSpec,
+    device: DeviceModel,
+    D: Dims,
+    hw: HardwareParams,
+):
+    """Every feasible config's time at data size D in one batched oracle
+    pass: (candidate table, times).  Raises ValueError on an empty table."""
+    table = spec.candidates(D, hw)
+    if not len(table):
+        raise ValueError(f"no feasible configuration for {spec.name} at {D}")
+    return table, device.true_time_batch(spec.traffic_table(D, table, hw))
+
+
 def exhaustive_search(
     spec: KernelSpec,
     device: DeviceModel,
@@ -234,16 +249,42 @@ def exhaustive_search(
 ) -> tuple[dict[str, int], float, int, float]:
     """Ground-truth argmin over every feasible config at data size D.
 
-    One batched oracle evaluation over the whole candidate table.  Returns
-    (best_P, best_time, n_evaluations, total_device_seconds).
+    One batched oracle evaluation over the whole candidate table
+    (``exhaustive_pass``).  Returns (best_P, best_time, n_evaluations,
+    total_device_seconds).
     """
-    table = spec.candidates(D, hw)
-    if not len(table):
-        raise ValueError(f"no feasible configuration for {spec.name} at {D}")
-    times = device.true_time_batch(spec.traffic_table(D, table, hw))
+    table, times = exhaustive_pass(spec, device, D, hw)
     best = int(np.argmin(times))
     return (table.row(best), float(times[best]), len(table),
             float(np.sum(times)))
+
+
+def search_best(
+    spec: KernelSpec,
+    device: DeviceModel | None,
+    D: Dims,
+    strategy=None,
+    budget=None,
+    hw: HardwareParams | None = None,
+    seed: int = 0,
+):
+    """Budget-aware online search at the actual data size D.
+
+    The cheap alternative to ``exhaustive_search`` for untuned kernels: a
+    search strategy (name or instance; default stratified ``random``)
+    probes the candidate table under a hard ``SearchBudget`` (default ~25%
+    of a one-repeat exhaustive pass) and the observed argmin is returned as
+    a ``SearchResult`` (``.best_config`` is the chosen P).  ``device`` is
+    the oracle: None times the port's kernel on the card
+    (``CudaEventTimer``, which raises without one); on the CPU a caller
+    passes one (``HopperModel``).  ``hw`` defaults to the oracle's.
+    """
+    from ..search import run_search
+
+    if device is None:
+        device = CudaEventTimer(hw)
+    return run_search(spec, device, D, strategy=strategy, budget=budget,
+                      hw=hw, seed=seed)
 
 
 def selection_ratio(

@@ -1,10 +1,14 @@
-"""The budget-enforcing search loop over one candidate table.
+"""The budget-enforcing search driver.
 
-``search_table`` enumerates nothing itself: given the full feasible
-``CandidateTable`` at one data size, it loops the strategy's ask/tell
+``run_search`` is the single entry point every consumer goes through
+(Kernel Tuner's ``tune``/``minimize`` shape): enumerate the full feasible
+``CandidateTable`` at the data size, then loop the strategy's ask/tell
 against the batched device oracle until the budget is spent or the strategy
-is done.  Strategies propose *row indices*; the loop evaluates them with
-one ``traffic_table``/``probe_rows`` pass per proposal.
+is done.  Strategies propose *row indices*; the driver evaluates them with
+one ``traffic_table``/``probe_rows`` pass per proposal -- no scalar config
+ever reaches a strategy or leaves the columnar path.  Without ``hw`` the
+search takes the oracle's own hardware parameters (``device.hw``): the
+card's for ``CudaEventTimer``, the model's for ``HopperModel``.
 
 Budget enforcement models a deadline-checking sequential runner: within a
 proposal, rows are charged in the order the strategy asked for them and the
@@ -13,31 +17,75 @@ device-seconds, so the *accounted* spend never exceeds either limit.  A
 pre-probe cut by **predicted** per-row spend (the analytic roofline hint,
 calibrated online against observed spend) keeps a real oracle from
 physically running rows the budget cannot pay for; a post-probe cut by
-observed spend makes the accounting exact.
+observed spend makes the accounting exact.  On a card-timed oracle the
+rows the post-probe cut drops were run all the same: the physically
+probed but discarded tail is bounded by the calibration error of a single
+batch.
 
-``collect`` (core/collect.py) drives it once per probe size with a shared
-strategy and an observer that records the probe metrics for the fitter.
+``search_table`` is the per-table inner loop; ``collect``
+(core/collect.py) drives it once per probe size with a shared strategy and
+an observer that records the probe metrics for the fitter.  The
+reference's ``Prober`` / ``prober_factory`` hooks, which shard probe
+execution into fleet row-shard jobs, come with the fleet module and are
+not here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from dataclasses import dataclass
 from typing import Callable, Mapping
 
 import numpy as np
 
-from ..core.device_model import (H100, DeviceModel, HardwareParams, RowProbe,
+from ..core.device_model import (DeviceModel, HardwareParams, RowProbe,
                                  TrafficTable, roofline_times)
 from ..core.kernel_spec import CandidateTable, KernelSpec
-from .budget import BudgetLedger
-from .strategy import Ask, SearchContext, Strategy
+from .budget import BudgetLedger, SearchBudget
+from .strategy import Ask, SearchContext, Strategy, resolve_strategy
 
-__all__ = ["analytic_cost_hint", "search_table"]
+__all__ = ["SearchResult", "TableSearchStats", "analytic_cost_hint",
+           "default_budget", "run_search", "search_table"]
 
 Dims = Mapping[str, int]
 
 # observer(indices, probe): collect() hooks this to record fit targets.
 Observer = Callable[[np.ndarray, RowProbe], None]
+
+
+@dataclass
+class TableSearchStats:
+    """Per-table outcome of one strategy pass (run_search aggregates these)."""
+
+    best_index: int | None = None
+    best_observed_time_s: float = float("inf")
+    n_rounds: int = 0
+    n_probed_rows: int = 0
+
+
+@dataclass
+class SearchResult:
+    """What a budgeted online search found, and what it cost."""
+
+    kernel: str
+    D: dict
+    strategy: dict                      # strategy fingerprint
+    budget: dict                        # budget fingerprint
+    best_index: int | None
+    best_config: dict | None
+    best_observed_time_s: float
+    n_candidates: int
+    n_probed_rows: int
+    n_probe_executions: int
+    probe_device_seconds: float
+    n_rounds: int
+    wall_seconds: float
+
+
+def default_budget(n_candidates: int) -> SearchBudget:
+    """Default online budget: ~25% of a one-repeat exhaustive pass."""
+    return SearchBudget(max_executions=max(8, n_candidates // 4))
 
 
 def analytic_cost_hint(tt: TrafficTable, hw: HardwareParams) -> np.ndarray:
@@ -128,13 +176,16 @@ def search_table(
     strategy: Strategy,
     ledger: BudgetLedger,
     rng: np.random.RandomState,
-    hw: HardwareParams = H100,
+    hw: HardwareParams | None = None,
     default_repeats: int = 1,
     observer: Observer | None = None,
-) -> None:
-    """Run one strategy pass over one candidate table under ``ledger``."""
+) -> TableSearchStats:
+    """Run one strategy pass over one candidate table under ``ledger``
+    (``hw``: default the oracle's)."""
+    stats = TableSearchStats()
     if not len(table):
-        return
+        return stats
+    hw = hw if hw is not None else device.hw
     tt = spec.traffic_table(D, table, hw)
     cost_hint = analytic_cost_hint(tt, hw)
     calib = _CostCalibration()
@@ -161,3 +212,63 @@ def search_table(
         if observer is not None:
             observer(idx, probe)
         strategy.tell(idx, probe.total_time_s)
+        best = int(np.argmin(probe.total_time_s))
+        if probe.total_time_s[best] < stats.best_observed_time_s:
+            stats.best_observed_time_s = float(probe.total_time_s[best])
+            stats.best_index = int(idx[best])
+        stats.n_rounds += 1
+        stats.n_probed_rows += int(idx.size)
+    return stats
+
+
+def run_search(
+    spec: KernelSpec,
+    device: DeviceModel,
+    D: Dims,
+    strategy: "str | Strategy | None" = None,
+    budget: SearchBudget | None = None,
+    hw: HardwareParams | None = None,
+    seed: int = 0,
+    default_repeats: int = 1,
+    observer: Observer | None = None,
+) -> SearchResult:
+    """Budgeted search for the best launch parameters at one data size.
+
+    The cheap online alternative to ``exhaustive_search``: same argmin
+    contract, but probe spend is capped by ``budget`` (default: ~25% of a
+    one-repeat exhaustive pass over the feasible set).  ``hw`` defaults to
+    the oracle's (``device.hw``).
+    """
+    t0 = time.perf_counter()
+    strategy = resolve_strategy(strategy)
+    strategy.begin_run()
+    if budget is not None and not isinstance(budget, SearchBudget):
+        raise TypeError(
+            f"budget must be a repro_torch.search.SearchBudget, got "
+            f"{type(budget).__name__}")
+    hw = hw if hw is not None else device.hw
+    table = spec.candidates(D, hw)
+    if not len(table):
+        raise ValueError(f"no feasible configuration for {spec.name} at {D}")
+    budget = budget if budget is not None else default_budget(len(table))
+    ledger = budget.ledger()
+    rng = np.random.RandomState(seed)
+    stats = search_table(spec, device, D, table, strategy, ledger, rng,
+                         hw=hw, default_repeats=default_repeats,
+                         observer=observer)
+    return SearchResult(
+        kernel=spec.name,
+        D=dict(D),
+        strategy=strategy.fingerprint(),
+        budget=budget.fingerprint(),
+        best_index=stats.best_index,
+        best_config=(table.row(stats.best_index)
+                     if stats.best_index is not None else None),
+        best_observed_time_s=stats.best_observed_time_s,
+        n_candidates=len(table),
+        n_probed_rows=stats.n_probed_rows,
+        n_probe_executions=ledger.spent_executions,
+        probe_device_seconds=ledger.spent_device_seconds,
+        n_rounds=stats.n_rounds,
+        wall_seconds=time.perf_counter() - t0,
+    )

@@ -29,6 +29,7 @@ from repro_torch.core import (H100, CacheEntry, DriverCache, HopperModel,
                               code_digest, default_cache, get_driver,
                               matmul_spec, registry, spec_fingerprint,
                               warm_start_from_cache)
+from repro_torch.core import cache as cache_mod
 from repro_torch.core import device_model as dm
 from repro_torch.core import tuner as tuner_mod
 from repro_torch.kernels import _build as kernel_build
@@ -221,13 +222,14 @@ def test_choose_or_default_reads_through(cache_dir):
     assert warm_start_from_cache([spec, matmul_spec(4)], hw=other) == []
 
 
-@pytest.mark.parametrize("edit", ["source", "spec"])
+@pytest.mark.parametrize("edit", ["source", "spec", "fitter"])
 def test_read_through_ignores_drivers_of_other_code(cache_dir, monkeypatch,
                                                     edit):
     """A driver built before the kernel's ``.cu`` (here a patched
-    ``source_bytes``) or its spec changed is never served by the
-    read-through: ``choose_or_default`` falls back to the default, and
-    ``warm_start_from_cache`` loads nothing."""
+    ``source_bytes``), its spec or the fitter (a patched ``fitter_digest``)
+    changed is never served by the read-through: ``choose_or_default``
+    falls back to the default, and ``warm_start_from_cache`` loads
+    nothing."""
     default = {"bm": -1, "bn": -1, "bk": -1}
     D = {"m": 4096, "n": 4096, "k": 4096}
     spec = matmul_spec()
@@ -241,6 +243,10 @@ def test_read_through_ignores_drivers_of_other_code(cache_dir, monkeypatch,
         monkeypatch.setattr(kernel_build, "source_bytes",
                             lambda name, csrc=None: real(name, csrc) + (
                                 b"// edited" if name == "matmul" else b""))
+    elif edit == "fitter":
+        real_fitter = cache_mod.fitter_digest()
+        monkeypatch.setattr(cache_mod, "fitter_digest",
+                            lambda: real_fitter[::-1])
     else:
         spec = dataclasses.replace(spec, regs_per_thread=200)
     assert code_digest(spec) != before

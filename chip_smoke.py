@@ -11,8 +11,9 @@ the port's six CUDA kernels, serves llama3.2-1b (16 layers, d_model 2048,
 weights), mamba2-130m, qwen3-moe-235b (full width, 4 of 94 layers) and the
 six other architectures that fit one card through the port's prefill step
 and serving engine (its steps as CUDA graphs), derives kernel specs from
-the compiled kernels, and runs the budgeted online search on the card, one
-phase per printed block:
+the compiled kernels, runs the budgeted online search on the card, and
+serves with the search escalation, the telemetry loop and a tracer
+installed, one phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -256,7 +257,39 @@ phase per printed block:
      against (a)'s pass (gated: halving probes fewer distinct tiles at
      every later probe size than at its first, each build misses the
      cache, a repeat of the first hits it); then one JSON line
-     ``{"search": ...}``.
+     ``{"search": ...}``;
+ 26. the observed serving path: (a) ``choose_or_default``'s search
+     escalation on ``matmul_b32`` at N 2048 from an empty cache and
+     registry (``spec=`` and ``device=CudaEventTimer``, a budget of 25 %
+     of phase 25's pass): a feasible tile and its ratio against that pass
+     (the 0.85 bar printed), a repeat served by the memo with no probe, a
+     halved budget searching again and ``spec=`` alone probing nothing
+     (counted by a wrapping oracle; gated), then
+     ``ServingEngine.tune_for_shape`` for ``flash_attn_d64_causal`` at
+     llama3.2-1b's prefill shape past a matmul driver registered under
+     its name (a ``{bq, bkv}`` tile, gated); (b) the telemetry loop over
+     ``CudaEventTimer`` with a ``matmul_b32`` driver fitted on
+     ``HopperModel`` at three times the card's memory rate and peaks
+     under the card's name: decisions at N 2048 until a refit runs (gated:
+     one drift, the refit within its executions and device-seconds, the
+     driver swapped, a fresh registry's warm start at ``tuning_version``
+     1; the drift's EWMA, probe and refit device-seconds and wall, and
+     the swapped driver's and the served tile's ratios against phase
+     25's pass printed beside the 0.90 bar); then a ``StepGraph`` over
+     ``ops.matmul`` with the loop installed: the capture's decision
+     queues its probe, which runs after the capture (gated, with the
+     replay bit-equal to the eager call); (c) llama3.2-1b at full width,
+     phase 10's slots and requests, served plainly and with ``trace=`` a
+     ``Tracer`` and ``telemetry=`` the loop over the model's kernel specs
+     and ``CudaEventTimer`` (a ledger in a temporary file): greedy tokens
+     bit-equal and the same captures (gated), every probe queued during a
+     capture run after it (gated), decisions by source, shadow probes,
+     re-captures, spans by name, graphed decode ms per call without a
+     tracer, with one and with the phase's, which writes each span to the
+     ledger (six rounds each on the observed engine, the order reversed
+     every other round), and the Chrome trace and the ledger read back;
+     then
+     one JSON line ``{"observed": ...}``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -269,7 +302,10 @@ engine; the drivers' builds and reads come before the counters start) and
 attention, the layernorm and the column sum through ``in_graph=``) and 24
 (flash attention and the grouped matmul in each architecture's prefill
 and engine, one path per architecture) and 25 (a) and (b) (the f32 matmul
-and grouped matmul under the online search and the strategies' builds):
+and grouped matmul under the online search and the strategies' builds)
+and 26 (the f32 matmul under the escalation's search, the telemetry
+loop's probes and refit and the captured step, flash attention under
+``tune_for_shape``'s search):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -951,6 +987,16 @@ def run(caches: list) -> int:
     search = search_phase(hw, phase_done, caches, gmm32_pass)
     for row in (simt_row, gmm32_row):
         row["search_path_launches"] = search["launches"][row["name"]]
+    observed = observed_phase(hw, phase_done, caches, card,
+                              search["mm_pass"])
+    # the phase launches no bf16 matmul or grouped matmul: the matmul and
+    # grouped-matmul counters' launches are the f32 rows'
+    for row, name in ((matmul_row, None), (flash_row, "flash_attention"),
+                      (ssd_row, "ssd_scan"), (gmm_row, None),
+                      (ln_row, "layernorm"), (cs_row, "colsum"),
+                      (simt_row, "matmul"), (gmm32_row, "moe_gmm")):
+        row["telemetry_path_launches"] = \
+            observed["launches"][name] if name else 0
     for row, name in ((matmul_row, "matmul"), (flash_row, "flash_attention"),
                       (ssd_row, "ssd_scan"), (gmm_row, "moe_gmm"),
                       (ln_row, "layernorm"), (cs_row, "colsum")):
@@ -4263,6 +4309,406 @@ def search_phase(hw, phase_done, caches: list, gmm32_pass) -> dict:
     phase_done(25)
     print(json.dumps({"search": {"runs": rows, "launches": launches}},
                      default=str))
+    return {"launches": launches, "mm_pass": passes[mm_spec.name]}
+
+
+# Phase 26: the observed serving path.  The closed loop's corrupted driver
+# is fitted on HopperModel over the card's parameters with three times its
+# memory rate and peaks, under the card's name (the reference's
+# v5p-as-v5e build, tests/test_telemetry.py::_corrupted_build).
+OFF_PHYSICS_FACTOR = 3.0
+ESCALATION_FRACTION = 0.25      # of phase 25's exhaustive device-seconds
+ESCALATION_BAR = 0.85           # the paper's bar, printed
+REFIT_BAR = 0.90                # tests/test_telemetry.py's recovery bar
+TRACER_COST_BAR = 0.02          # the tracer's sync, of a graphed decode
+TRACER_ROUNDS = 6
+
+
+def observed_phase(hw, phase_done, caches: list, card: str,
+                   mm_pass: tuple) -> dict:
+    """Phase 26: the search escalation of ``choose_or_default`` and
+    ``tune_for_shape``, the telemetry loop (drift, refit, hot swap) and the
+    engine observed by a tracer and the telemetry loop (see the module
+    docstring).  ``mm_pass`` is phase 25's exhaustive pass of
+    ``matmul_b32`` at N 2048: (feasible tiles, seconds).  Returns the
+    path's launches per kernel counter."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CudaEventTimer, DriverCache, DriverProgram,
+                                  HopperModel, Klaraptor,
+                                  flash_attention_spec, matmul_spec,
+                                  register_driver, registry,
+                                  warm_start_from_cache)
+    from repro_torch.core.driver import choose_or_default, set_choice_listener
+    from repro_torch.kernels import ops
+    from repro_torch.launch import build_engine
+    from repro_torch.models import Model
+    from repro_torch.search import SearchBudget
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ServingEngine, model_kernel_specs
+    from repro_torch.serving.graphs import (LAUNCH_COUNTERS, StepGraph,
+                                            launch_counts)
+    from repro_torch.telemetry import Telemetry, TelemetryConfig
+    from repro_torch.trace import Ledger, Tracer, read_ledger, set_tracer
+
+    class CountingTimer(CudaEventTimer):
+        """The card's oracle, counting its probe calls."""
+
+        calls = 0
+
+        def probe_rows(self, table, rng, repeats=1):
+            self.calls += 1
+            return super().probe_rows(table, rng, repeats)
+
+    print(f"[26] the observed serving path on the card ({card}): "
+          f"choose_or_default's search escalation, tune_for_shape, the "
+          f"telemetry loop's drift -> refit -> hot swap, and the engine "
+          f"under a tracer and the telemetry loop", flush=True)
+    t_phase = time.perf_counter()
+    feasible, times = mm_pass
+    best_s, pass_s = float(np.min(times)), float(np.sum(times))
+    D = {"m": SEARCH_N, "n": SEARCH_N, "k": SEARCH_N}
+    spec32 = matmul_spec(4)
+    default = dict(ops.MATMUL_DEFAULT_F32)
+
+    def ratio(cfg) -> float:
+        return best_s / float(times[feasible.index(cfg)])
+
+    for c in LAUNCH_COUNTERS.values():     # the phase-26 path starts here
+        c.reset()
+    parts = {}
+    last = [launch_counts()]
+
+    def part_done(name: str) -> None:
+        now = launch_counts()
+        parts[name] = {k: now[k] - last[0][k] for k in now
+                       if now[k] != last[0][k]}
+        last[0] = now
+
+    # -- (a) the search escalation ------------------------------------------
+    fresh_cache(caches)
+    registry.clear()
+    timer = CountingTimer(hw, seed=SEED)
+    budget = SearchBudget(max_device_seconds=ESCALATION_FRACTION * pass_s)
+    events = []
+    set_choice_listener(events.append)
+    t0 = time.perf_counter()
+    found = choose_or_default(spec32.name, D, default, spec=spec32,
+                              device=timer, budget=budget)
+    wall = time.perf_counter() - t0
+    n_first = timer.calls
+    again = choose_or_default(spec32.name, D, default, spec=spec32,
+                              device=timer, budget=budget)
+    n_again = timer.calls - n_first
+    other = choose_or_default(spec32.name, D, default, spec=spec32,
+                              device=timer,
+                              budget=SearchBudget(max_device_seconds=0.5
+                                                  * budget.max_device_seconds))
+    n_other = timer.calls - n_first - n_again
+    before = timer.calls
+    alone = choose_or_default(spec32.name, D, default, spec=spec32)
+    n_alone = timer.calls - before
+    set_choice_listener(None)
+    print(f"  (a) choose_or_default({spec32.name}, N {SEARCH_N}, default "
+          f"{default}, spec=, device=CudaEventTimer, budget=max_device_"
+          f"seconds {budget.max_device_seconds:.4f} s "
+          f"({ESCALATION_FRACTION:.0%} of phase 25's pass, {pass_s:.4f} "
+          f"s)): {found} in {wall:.3f} s "
+          f"wall, {n_first} probe calls; ratio against the pass's best "
+          f"{ratio(found):.3f} (the bar {ESCALATION_BAR}: printed, not "
+          f"gated); again: {again}, {n_again} probe calls; half the budget:"
+          f" {other}, {n_other} probe calls; spec= alone: {alone}, {n_alone}"
+          f" probe calls; listener sources {[e.source for e in events]}",
+          flush=True)
+    if found not in feasible or not n_first:
+        raise AssertionError(f"the escalation returned {found}")
+    if again != found or n_again or not n_other or alone != default \
+            or n_alone:
+        raise AssertionError("the escalation's memo or opt-in misbehaved")
+    if [e.source for e in events][:2] != ["search", "search_memo"]:
+        raise AssertionError(f"listener sources {events}")
+    # tune_for_shape past a driver of other data parameters
+    mm_build = Klaraptor(HopperModel(hw, noise=0.03, seed=5), hw=hw,
+                         cache=False).build_driver(
+        spec32, repeats=2, max_configs_per_size=16, register=False)
+    fspec = flash_attention_spec(64, causal=True)
+    register_driver(DriverProgram(kernel=fspec.name,
+                                  source=mm_build.driver.source,
+                                  namespace=mm_build.driver.namespace,
+                                  hw=hw))
+    fD = {"bh": 32, "sq": PREFILL_S, "skv": PREFILL_S}
+    before = timer.calls
+    t0 = time.perf_counter()
+    tile = ServingEngine.__new__(ServingEngine).tune_for_shape(
+        fspec, fD, timer)
+    print(f"    tune_for_shape({fspec.name}, {fD}) with a matmul driver "
+          f"registered under its name: {tile} in "
+          f"{time.perf_counter() - t0:.3f} s, {timer.calls - before} probe "
+          f"calls ({len(fspec.candidates(fD, hw))} tiles, default_budget)",
+          flush=True)
+    if set(tile) != {"bq", "bkv"}:
+        raise AssertionError(f"tune_for_shape returned {tile}")
+    part_done("escalation")
+
+    # -- (b) the closed loop: drift -> refit -> hot swap -> version 1 ------
+    fresh_cache(caches)
+    registry.clear()
+    off = dataclasses.replace(
+        hw, hbm_bw=OFF_PHYSICS_FACTOR * hw.hbm_bw,
+        peak_flops_f32=OFF_PHYSICS_FACTOR * hw.peak_flops_f32,
+        peak_flops_bf16=OFF_PHYSICS_FACTOR * hw.peak_flops_bf16)
+    corrupted = Klaraptor(HopperModel(off, noise=0.04, seed=7), hw=off
+                          ).build_driver(spec32, repeats=2,
+                                         max_configs_per_size=16, seed=7)
+    refit_budget = SearchBudget(max_executions=160, max_device_seconds=pass_s)
+    probe_timer = CudaEventTimer(hw, seed=SEED)
+    tel = Telemetry([spec32], probe_timer, seed=3, config=TelemetryConfig(
+        probe_every=2, refit_budget=refit_budget)).install()
+    tracer = Tracer().install()
+    decisions = 0
+    t0 = time.perf_counter()
+    try:
+        for _ in range(24):
+            choose_or_default(spec32.name, D, default)
+            decisions += 1
+            if tel.refits:
+                break
+    finally:
+        tel.uninstall()
+        tracer.uninstall()
+    loop_wall = time.perf_counter() - t0
+    spans = {r["name"]: r for r in tracer.summary()}
+    c = tel.counters
+    print(f"  (b) a driver fitted on HopperModel at {OFF_PHYSICS_FACTOR:g}x "
+          f"the card's memory rate and peaks, named {off.name}; "
+          f"Telemetry([{spec32.name}], CudaEventTimer, probe_every=2, "
+          f"refit_budget={refit_budget.fingerprint()}): {decisions} "
+          f"decisions in {loop_wall:.3f} s wall, {c.shadow_probes_total} "
+          f"shadow probes, {c.probe_device_seconds_total:.6f} device-s, "
+          f"{spans.get('telemetry.shadow_probe', {}).get('total_s', 0):.4f}"
+          f" s wall", flush=True)
+    if len(tel.drift_events) != 1 or len(tel.refits) != 1:
+        raise AssertionError(f"{len(tel.drift_events)} drift events, "
+                             f"{len(tel.refits)} refits")
+    drift, r = tel.drift_events[0], tel.refits[0]
+    swapped = registry.get(spec32.name)
+    served = choose_or_default(spec32.name, D, default)
+    chosen = swapped.choose(D)
+    print(f"    drift: rel_error_ewma {drift.rel_error_ewma:.3f} over "
+          f"{drift.n_samples} probes (predicted {drift.predicted_s * 1e3:.4f}"
+          f" ms, observed {drift.observed_s * 1e3:.4f} ms)", flush=True)
+    print(f"    refit: succeeded {r.succeeded}, error {r.error}; executions "
+          f"{r.total_executions} (search {r.search_executions}, fit "
+          f"{r.fit_executions}, validation {r.validation_executions}) of "
+          f"{refit_budget.max_executions}; device-seconds "
+          f"{r.total_device_seconds:.6f} of "
+          f"{refit_budget.max_device_seconds:.6f}; wall "
+          f"{r.wall_seconds:.3f} s "
+          f"({r.wall_seconds / max(r.total_device_seconds, 1e-300):.2f} x "
+          f"the device-seconds); searched {r.searched_config}, the new "
+          f"driver's choice {chosen} (ratio {ratio(chosen):.3f}), override "
+          f"{r.override}; served now {served} (ratio {ratio(served):.3f}; "
+          f"the reference test's bar {REFIT_BAR}: printed, not gated)",
+          flush=True)
+    fresh = DriverCache()
+    version = fresh.latest_version(spec32.name, hw.name)
+    registry.clear()
+    loaded = warm_start_from_cache([spec32], hw=hw)
+    read_back = registry.get(spec32.name)
+    print(f"    cache: latest tuning_version {version}; a fresh registry's "
+          f"warm start loads {list(loaded)} at tuning_version "
+          f"{read_back.tuning_version if read_back else None}", flush=True)
+    if not r.succeeded or swapped is None or \
+            swapped.source == corrupted.driver.source:
+        raise AssertionError("the refit swapped no driver in")
+    if r.total_executions > refit_budget.max_executions or \
+            r.total_device_seconds > refit_budget.max_device_seconds:
+        raise AssertionError(f"the refit spent over its budget: {r}")
+    if version != 1 or read_back is None or read_back.tuning_version != 1 \
+            or read_back.source != swapped.source:
+        raise AssertionError("a fresh registry did not read tuning_version 1")
+    part_done("closed loop")
+
+    # -- (b') a decision inside a capture defers its probe ------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(SEARCH_N, SEARCH_N, generator=gen, device="cuda")
+    y = torch.randn(SEARCH_N, SEARCH_N, generator=gen, device="cuda")
+    capture_tel = Telemetry([spec32], probe_timer, seed=3, cache=False,
+                            config=TelemetryConfig(probe_every=1,
+                                                   refit_enabled=False))
+    capture_tel.install()
+    try:
+        step = StepGraph(lambda: ops.matmul(x, y), torch.device("cuda"))
+        eager = step().clone()            # eager call, then the capture
+        probes_in = capture_tel.counters.shadow_probes_total
+        queued = capture_tel.deferred_total
+        with torch.cuda.stream(step.stream):
+            ran = capture_tel.drain_deferred()
+        replay = step().clone()
+    finally:
+        capture_tel.uninstall()
+    torch.cuda.synchronize()
+    print(f"    a StepGraph over ops.matmul ({spec32.name}, N {SEARCH_N}) "
+          f"with the loop installed (probe_every=1): shadow probes before "
+          f"the drain {probes_in} (the eager call's), queued during the "
+          f"capture {queued}, run after it {ran} (on the capture's stream);"
+          f" the graph's launches per replay {step.launches}; replay "
+          f"bit-equal to the eager call: {torch.equal(replay, eager)}",
+          flush=True)
+    if queued < 1 or ran != queued or capture_tel._deferred \
+            or step.launches != {"matmul": 1} \
+            or not torch.equal(replay, eager):
+        raise AssertionError("a probe ran inside the capture, or the "
+                             "graph does not replay the eager call")
+    del step, x, y, eager, replay
+    registry.clear()
+    part_done("capture")
+
+    # -- (c) the engine, observed, at full width ----------------------------
+    fresh_cache(caches)
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg)
+    params = model.init(SEED)
+    rng = np.random.RandomState(SEED)
+    prompts = [[int(t) for t in rng.randint(2, cfg.vocab_size,
+                                            size=8 + 32 * i // 7)]
+               for i in range(N_REQUESTS)]
+    tok = np.arange(ENGINE_SLOTS, dtype=np.int32) + 5
+    pos = np.arange(ENGINE_SLOTS, dtype=np.int32) + 64
+    out_dir = Path(tempfile.mkdtemp(prefix="observed-"))
+    caches.append(str(out_dir))
+
+    def serve(**kw):
+        engine = build_engine(cfg, batch=ENGINE_SLOTS,
+                              max_seq=ENGINE_MAX_SEQ, params=params,
+                              seed=SEED, **kw)
+        for i, p in enumerate(prompts):
+            engine.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW,
+                                  temperature=0.0 if i % 2 == 0 else 0.8))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return engine, {r.rid: list(r.output) for r in done}, wall
+
+    def decode_ms(engine) -> float:
+        """ms per graphed decode call: the step and its greedy tokens to
+        the host, as phase 23 (a) times it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_CALLS):
+            engine._run_step(tok, pos).argmax(-1).cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DECODE_CALLS * 1e3
+
+    plain_engine, plain_out, plain_wall = serve()
+    plain_cc = dict(plain_engine.compile_counts)
+    del plain_engine
+    ledger = Ledger(out_dir / "ledger.jsonl")
+    tracer = Tracer(ledger=ledger)
+    tel = Telemetry(model_kernel_specs(cfg, ENGINE_SLOTS, ENGINE_MAX_SEQ),
+                    CudaEventTimer(hw, seed=SEED), seed=SEED, ledger=ledger)
+    # the tracer's cost: one engine, rounds without a tracer, with one and
+    # with the phase's (which writes each span to the ledger), the order
+    # reversed every other round
+    modes = {"plain": None, "tracer": Tracer(), "tracer + ledger": tracer}
+    rounds = {m: [] for m in modes}
+    try:
+        engine, out, wall = serve(trace=tracer, telemetry=tel)
+        decode_ms(engine)
+        for i in range(TRACER_ROUNDS):
+            for mode in list(modes)[::1 if i % 2 == 0 else -1]:
+                set_tracer(modes[mode])
+                rounds[mode].append(decode_ms(engine))
+    finally:
+        tel.uninstall()
+        tracer.uninstall()
+        set_tracer(None)
+    median = {m: float(np.median(v)) for m, v in rounds.items()}
+    plain_ms, traced_ms = median["plain"], median["tracer"]
+    cc = dict(engine.compile_counts)
+    n_spans = tracer.write_chrome_trace(str(out_dir / "trace.json"))
+    ledger.close()
+    chrome = json.loads((out_dir / "trace.json").read_text())
+    lines = read_ledger(out_dir / "ledger.jsonl")
+    greedy_ids = [i for i in range(N_REQUESTS) if i % 2 == 0]
+    same_greedy = all(out[i] == plain_out[i] for i in greedy_ids)
+    c = tel.counters
+    spans = tracer.summary()
+    print(f"  (c) {cfg.name} at full width, {ENGINE_SLOTS} slots, max_seq "
+          f"{ENGINE_MAX_SEQ}, {N_REQUESTS} requests (phase 10's), twice: "
+          f"plain {plain_wall:.2f} s, with trace= and telemetry= (specs "
+          f"{sorted(tel.specs)} over CudaEventTimer) {wall:.2f} s; greedy "
+          f"tokens bit-equal: {same_greedy}, all tokens equal: "
+          f"{out == plain_out}", flush=True)
+    print(f"    decisions by source {dict(c.choices_by_source)} (the "
+          f"model's serving steps launch no tuned kernel: its decode "
+          f"attention and projections are PyTorch ops); shadow probes "
+          f"{c.shadow_probes_total}, {c.probe_device_seconds_total:.6f} "
+          f"device-s; probes queued during a capture {tel.deferred_total},"
+          f" run after it {tel.deferred_run_total}; refits "
+          f"{c.refits_total}; compile_counts {cc} (plain {plain_cc}), "
+          f"re-captures {cc['decode_step'] - 1}", flush=True)
+    print("    spans: " + "; ".join(
+        f"{s['name']} {s['count']} x, {s['total_s'] * 1e3:.3f} ms"
+        for s in spans), flush=True)
+    cost = traced_ms / plain_ms - 1.0
+    print(f"    graphed decode per call, medians of {TRACER_ROUNDS} rounds "
+          f"of {DECODE_CALLS} calls each (the step and its greedy tokens to "
+          f"the host): {plain_ms:.3f} ms without a tracer, {traced_ms:.3f} "
+          f"ms with one (its span and the stream synchronize): "
+          f"{cost:+.2%} (the bar {TRACER_COST_BAR:.0%}: printed, not "
+          f"gated), {median['tracer + ledger']:.3f} ms with the ledger "
+          f"written per span ({median['tracer + ledger'] / plain_ms - 1:+.2%}"
+          f"); rounds " + "; ".join(
+              f"{m} {[round(v, 3) for v in r]}" for m, r in rounds.items())
+          + "; PR 24's graphed decode 6.264 ms", flush=True)
+    print(f"    Chrome trace: {n_spans} spans written, "
+          f"{len(chrome['traceEvents'])} events read back; ledger: "
+          f"{len(lines)} lines read back "
+          f"({sorted({e['type'] for e in lines})})", flush=True)
+    if not same_greedy:
+        raise AssertionError("greedy tokens differ with the tracer and the "
+                             "telemetry loop installed")
+    if tel.deferred_run_total != tel.deferred_total or tel._deferred:
+        raise AssertionError("a probe queued during a capture never ran")
+    if cc != plain_cc or n_spans != len(tracer.spans()) or \
+            not {"engine.step", "engine.decode", "engine.prefill",
+                 "warm_start", "build_step_plan"} <= {s["name"]
+                                                      for s in spans}:
+        raise AssertionError(f"the observed engine: compile_counts {cc}, "
+                             f"spans {[s['name'] for s in spans]}")
+    del engine, params, model
+    registry.clear()
+    part_done("engine")
+
+    launches = launch_counts()              # the path ends here
+    print(f"  launches on this path by part: {parts}; in all {launches}",
+          flush=True)
+    if not (launches["matmul"] and launches["flash_attention"]):
+        raise AssertionError(f"a kernel of the phase-26 path never "
+                             f"launched: {launches}")
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(26)
+    print(json.dumps({"observed": {
+        "escalation": {"config": found, "ratio": ratio(found),
+                       "flash_tile": tile},
+        "refit": {"drift_rel_error_ewma": drift.rel_error_ewma,
+                  "executions": r.total_executions,
+                  "device_seconds": r.total_device_seconds,
+                  "wall_seconds": r.wall_seconds,
+                  "served": served, "served_ratio": ratio(served),
+                  "driver_choice": chosen,
+                  "driver_ratio": ratio(chosen)},
+        "capture": {"queued": queued, "ran": ran},
+        "engine": {"decode_ms": median, "rounds": rounds,
+                   "spans": {s["name"]: s["count"] for s in spans}},
+        "launches": launches, "card": card}}, default=str))
     return {"launches": launches}
 
 

@@ -249,6 +249,13 @@ class DriverCache:
                 best = entry
         return best
 
+    def latest_version(self, kernel: str, hw_name: str | None = None,
+                       code: str | None = None) -> int:
+        """Highest tuning generation stored for a kernel (0 if none): a
+        refit writes the next one (telemetry/refit.py)."""
+        return max((e.tuning_version
+                    for e in self._entries(kernel, hw_name, code)), default=0)
+
     def _entries(self, kernel: str, hw_name: str | None = None,
                  code: str | None = None) -> list[CacheEntry]:
         try:

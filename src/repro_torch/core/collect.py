@@ -38,6 +38,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
+from ..trace import trace_span
 from .device_model import H100, DeviceModel, HardwareParams
 from .kernel_spec import KernelSpec
 
@@ -222,31 +223,37 @@ def collect_batch(
     steps_blocks: list[np.ndarray] = []
     stage_blocks: list[np.ndarray] = []
 
-    table = spec.candidates(D, hw)
-    if len(table):
-        def record(indices: np.ndarray, probe) -> None:
-            n = int(indices.size)
-            t_tot = probe.total_time_s
-            t_mem = probe.mem_time_s
-            t_cmp = probe.compute_time_s
-            steps = np.maximum(probe.grid_steps, 1)
-            res = np.maximum(probe.blocks_resident, 1)
-            skeleton = np.where(res >= 2, np.maximum(t_mem, t_cmp),
-                                t_mem + t_cmp)
-            ovh = np.maximum((t_tot - skeleton) / steps, 1e-9)
-            for d, v in D.items():
-                col_blocks[d].append(np.full(n, int(v), dtype=np.int64))
-            for p in spec.program_params:
-                col_blocks[p].append(table[p][indices])
-            met_blocks["total_time_s"].append(t_tot)
-            met_blocks["mem_step"].append(t_mem / (steps * res))
-            met_blocks["cmp_step"].append(t_cmp / (steps * res))
-            met_blocks["ovh_step"].append(ovh)
-            steps_blocks.append(steps)
-            stage_blocks.append(probe.stage_bytes)
+    with trace_span("collect.batch", kernel=spec.name, D=dict(D),
+                    batch_index=batch_index,
+                    strategy=dict(strategy.fingerprint())) as bsp:
+        table = spec.candidates(D, hw)
+        if len(table):
+            def record(indices: np.ndarray, probe) -> None:
+                n = int(indices.size)
+                t_tot = probe.total_time_s
+                t_mem = probe.mem_time_s
+                t_cmp = probe.compute_time_s
+                steps = np.maximum(probe.grid_steps, 1)
+                res = np.maximum(probe.blocks_resident, 1)
+                skeleton = np.where(res >= 2, np.maximum(t_mem, t_cmp),
+                                    t_mem + t_cmp)
+                ovh = np.maximum((t_tot - skeleton) / steps, 1e-9)
+                for d, v in D.items():
+                    col_blocks[d].append(np.full(n, int(v), dtype=np.int64))
+                for p in spec.program_params:
+                    col_blocks[p].append(table[p][indices])
+                met_blocks["total_time_s"].append(t_tot)
+                met_blocks["mem_step"].append(t_mem / (steps * res))
+                met_blocks["cmp_step"].append(t_cmp / (steps * res))
+                met_blocks["ovh_step"].append(ovh)
+                steps_blocks.append(steps)
+                stage_blocks.append(probe.stage_bytes)
 
-        search_table(spec, device, D, table, strategy, ledger, rng,
-                     hw=hw, default_repeats=repeats, observer=record)
+            search_table(spec, device, D, table, strategy, ledger, rng,
+                         hw=hw, default_repeats=repeats, observer=record)
+        bsp.set(n_candidates=len(table),
+                executions=ledger.spent_executions,
+                device_seconds=ledger.spent_device_seconds)
 
     return BatchShard(
         batch_index=int(batch_index),
@@ -321,10 +328,18 @@ def collect(
     strategy.begin_run()
     budgets = batch_budgets(len(probe_data), budget,
                             max_configs_per_size, repeats)
-    shards = [collect_batch(spec, device, D, hw=hw, repeats=repeats,
-                            max_configs_per_size=max_configs_per_size,
-                            seed=seed, batch_index=i, budget=b,
-                            strategy=strategy)
-              for i, (D, b) in enumerate(zip(probe_data, budgets))]
+    budget_fp = dict(budget.fingerprint()) if budget is not None else None
+    with trace_span("collect", kernel=spec.name, n_batches=len(probe_data),
+                    strategy=dict(strategy.fingerprint()),
+                    budget=budget_fp) as csp:
+        shards = [collect_batch(spec, device, D, hw=hw, repeats=repeats,
+                                max_configs_per_size=max_configs_per_size,
+                                seed=seed, batch_index=i, budget=b,
+                                strategy=strategy)
+                  for i, (D, b) in enumerate(zip(probe_data, budgets))]
+        csp.set(n_probe_executions=sum(s.n_probe_executions for s in shards),
+                probe_device_seconds=float(
+                    np.sum([s.probe_device_seconds for s in shards])
+                    if shards else 0.0))
     return merge_shards(spec, shards,
                         collect_wall_seconds=time.perf_counter() - t0)

@@ -18,6 +18,12 @@ Only entries tuned for the hardware at hand and built for that spec under
 the current kernel sources (the entry's ``code_digest``) are read, and a
 kernel the cache does not hold is remembered as missing until the registry
 changes.
+
+Opt-in, ``choose_or_default(..., spec=, device=)`` escalates an undecided
+shape to a budgeted online search on the ``device`` oracle (``search/``),
+memoized per search configuration.  ``spec=`` alone only reads the driver
+cache through: the port's ``spec=`` names the read-through key, so the
+search needs the oracle as well.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from .codegen import compile_driver_module
 from .device_model import H100, HardwareParams
 from .kernel_spec import KernelSpec
 from .plan import LaunchPlanTable
+from ..trace import trace_span
 
 __all__ = ["ChoiceEvent", "DriverProgram", "WarmStartSummary",
            "choose_or_default", "dkey", "fit_tile", "get_choice_listener",
@@ -81,11 +88,12 @@ class ChoiceEvent:
 
     ``source`` names the path that gave the config: ``"driver"``,
     ``"override"`` (a pinned per-shape config), ``"plan"`` (a compiled
-    launch plan) or ``"default"``.  ``predicted_s`` is the driver's
-    estimate for the returned config, computed only when a listener is
-    installed.  ``n_coalesced`` > 1 marks one sampled event standing for
-    that many decision-memo hits past the per-entry full window.
-    ``t_ns`` is ``time.monotonic_ns()`` at emission.
+    launch plan), ``"search"`` / ``"search_memo"`` (the opt-in search
+    escalation, then its memo) or ``"default"``.  ``predicted_s`` is the
+    driver's estimate for the returned config, computed only when a
+    listener is installed.  ``n_coalesced`` > 1 marks one sampled event
+    standing for that many decision-memo hits past the per-entry full
+    window.  ``t_ns`` is ``time.monotonic_ns()`` at emission.
     """
 
     kernel: str
@@ -285,6 +293,10 @@ class DriverProgram:
         return out, ok
 
 
+# Distinguishes "never searched" from "searched and failed" in the memo.
+_MISS = object()
+
+
 def _fresh_stats() -> dict[str, int]:
     return {"disk_cache_hits": 0, "disk_cache_misses": 0,
             "plan_hits": 0, "plan_misses": 0,
@@ -305,6 +317,9 @@ class _Registry:
         self._drivers: dict[str, DriverProgram] = {}
         self._overrides: dict[tuple, dict[str, int]] = {}
         self._cache_misses: set[tuple[str, str]] = set()
+        # (kernel, hw name, D, strategy, budget) -> the searched config, or
+        # None for a failed search (see ``choose_or_default``)
+        self._searched: dict[tuple, dict[str, int] | None] = {}
         # (kernel, hw name) -> plan, and the per-shape fills of driver
         # decisions outside its envelope.
         self._plans: dict[tuple[str, str], LaunchPlanTable] = {}
@@ -387,6 +402,21 @@ class _Registry:
 
     def known_cache_miss(self, kernel: str, hw_name: str) -> bool:
         return (kernel, hw_name) in self._cache_misses
+
+    # -- the search escalation's memo ---------------------------------------
+    # Searching costs device time, so a (kernel, hw, D, strategy, budget) is
+    # searched at most once per process; ``config=None`` records a failed
+    # search (infeasible D, a budget too small for one probe), which would
+    # otherwise be paid again at every launch.
+    def note_searched(self, key: tuple,
+                      config: dict[str, int] | None) -> None:
+        with self._lock:
+            self._searched[key] = config
+
+    def searched(self, key: tuple):
+        """The stored config, None for a memoized failure, ``_MISS`` if
+        never searched."""
+        return self._searched.get(key, _MISS)
 
     def note_disk_cache(self, hit: bool) -> None:
         with self._lock:
@@ -475,14 +505,17 @@ class _Registry:
             return dict(self._stats)
 
     def invalidate_kernel(self, kernel: str) -> None:
-        """Forget the kernel's driver, cache-miss memo, overrides and plans
-        (with their fills): the path by which a corrected driver replaces
-        one, none of which may outlive the fit it came from."""
+        """Forget the kernel's driver, cache-miss memo, searched shapes,
+        overrides and plans (with their fills): the path by which a
+        corrected driver replaces one, none of which may outlive the fit
+        it came from."""
         with self._lock:
             self._drivers.pop(kernel, None)
             self._hw_names.pop(kernel, None)
             self._cache_misses = {m for m in self._cache_misses
                                   if m[0] != kernel}
+            self._searched = {k: v for k, v in self._searched.items()
+                              if k[0] != kernel}
             self._overrides = {k: v for k, v in self._overrides.items()
                                if k[0] != kernel}
             self._drop_plans_locked(kernel)
@@ -494,6 +527,7 @@ class _Registry:
             self._hw_names.clear()
             self._overrides.clear()
             self._cache_misses.clear()
+            self._searched.clear()
             self._plans.clear()
             self._plan_fills.clear()
             self._bump_generation_locked()
@@ -655,33 +689,39 @@ def warm_start_from_cache(specs: Sequence[KernelSpec],
 
     cache = default_cache()
     summary = WarmStartSummary()
-    for spec in specs:
-        drv = registry.get(spec.name)
-        # a registered driver's plans are those of its own hardware
-        khw = hw or (drv.hw if drv is not None else local_hw())
-        entry = None if drv is not None else cache.lookup_latest(
-            spec.name, hw_name=khw.name, code=code_digest(spec))
-        if drv is not None:
-            summary.already_registered += 1
-        elif entry is None:
-            summary.skipped_no_entry += 1
-        else:
-            drv = _driver_from_entry(entry, khw)
-            if drv is None:
-                summary.skipped_bad += 1
+    with trace_span("warm_start", hw=(hw or local_hw()).name) as sp:
+        for spec in specs:
+            drv = registry.get(spec.name)
+            # a registered driver's plans are those of its own hardware
+            khw = hw or (drv.hw if drv is not None else local_hw())
+            entry = None if drv is not None else cache.lookup_latest(
+                spec.name, hw_name=khw.name, code=code_digest(spec))
+            if drv is not None:
+                summary.already_registered += 1
+            elif entry is None:
+                summary.skipped_no_entry += 1
             else:
-                registry.register(drv)
-                summary.append(spec.name)
-        if registry.plan(spec.name, khw.name) is not None:
-            continue
-        if _install_plan_if_matching(spec, drv, khw, cache):
-            summary.plans_loaded.append(spec.name)
+                drv = _driver_from_entry(entry, khw)
+                if drv is None:
+                    summary.skipped_bad += 1
+                else:
+                    registry.register(drv)
+                    summary.append(spec.name)
+            if registry.plan(spec.name, khw.name) is not None:
+                continue
+            if _install_plan_if_matching(spec, drv, khw, cache):
+                summary.plans_loaded.append(spec.name)
+        sp.set(loaded=len(summary), plans_loaded=len(summary.plans_loaded),
+               skipped_no_entry=summary.skipped_no_entry,
+               skipped_bad=summary.skipped_bad)
     return summary
 
 
 def choose_or_default(kernel: str, D: Dims, default: dict[str, int],
                       spec: KernelSpec | None = None,
-                      hw: HardwareParams | None = None) -> dict[str, int]:
+                      hw: HardwareParams | None = None, *,
+                      device=None, strategy="surrogate",
+                      budget=None) -> dict[str, int]:
     """Launch parameters for ``kernel`` at data size D.
 
     Order: the decision memo serves a (kernel, hw, D) already decided in
@@ -703,6 +743,22 @@ def choose_or_default(kernel: str, D: Dims, default: dict[str, int],
     the cache is read for ``local_hw()``.  Each decision is reported to the
     choice listener, when one is installed, with the driver's estimate for
     the returned config.
+
+    The search escalation is opt-in: given ``device`` (an oracle:
+    ``CudaEventTimer`` on the card, ``HopperModel`` on the CPU) and the
+    kernel's ``spec``, a shape that no override, plan or driver decides --
+    or whose driver raises on it -- is searched with ``search_best`` under
+    ``strategy`` and ``budget`` (a ``SearchBudget``; None for
+    ``default_budget``) on ``hw`` (default the oracle's), and the observed
+    argmin is returned.  The result is memoized per (kernel, hw, D,
+    strategy fingerprint, budget fingerprint), so a shape is searched once
+    per search configuration, and a failed search (no feasible config, or
+    a budget too small for one probe) is memoized as the default.  The
+    listener sees ``"search"``, then ``"search_memo"``.  ``spec`` alone
+    never searches (it is the read-through key); ``device`` without
+    ``spec`` raises ``ValueError``, an unknown strategy name raises
+    ``ValueError`` and a budget that is not a ``SearchBudget`` raises
+    ``TypeError``, before anything is probed.
     """
     hw_name = hw.name if hw is not None else registry.hw_name(kernel)
     # The memo key keeps D's insertion order: a sort costs about as much
@@ -752,8 +808,56 @@ def choose_or_default(kernel: str, D: Dims, default: dict[str, int],
                 _notify(kernel, D, cfg, "driver", _predicted(drv, D, cfg),
                         hw_name)
             return cfg
-    # Not memoized: the default is the call site's, and two call sites
-    # with different defaults must each get their own.
-    if _choice_listener is not None:
-        _notify(kernel, D, default, "default", None, hw_name)
-    return dict(default)
+    if device is None:
+        # Not memoized: the default is the call site's, and two call sites
+        # with different defaults must each get their own.
+        if _choice_listener is not None:
+            _notify(kernel, D, default, "default", None, hw_name)
+        return dict(default)
+    return _search_escalation(kernel, D, default, spec, hw, device,
+                              strategy, budget)
+
+
+def _search_escalation(kernel: str, D: Dims, default: dict[str, int],
+                       spec: KernelSpec | None, hw: HardwareParams | None,
+                       device, strategy, budget) -> dict[str, int]:
+    """``choose_or_default``'s opt-in search (see there)."""
+    if spec is None:
+        # half an opt-in is a caller's bug, which running untuned would hide
+        raise ValueError("choose_or_default search escalation needs BOTH "
+                         "spec and device; got only device")
+    from ..search import SearchBudget, resolve_strategy
+    from .tuner import search_best
+
+    hw = hw if hw is not None else device.hw
+    # A typo'd strategy name is a configuration error: it raises here, not
+    # inside the search's fallback.
+    strategy = resolve_strategy(strategy)
+    if budget is not None and not isinstance(budget, SearchBudget):
+        raise TypeError(f"budget must be a repro_torch.search.SearchBudget, "
+                        f"got {type(budget).__name__}")
+    # Scoped by strategy and budget: a failure under a tiny budget, or a
+    # weak strategy's result, must not serve a caller asking for another
+    # search.
+    key = (kernel, hw.name, dkey(D),
+           dkey(strategy.fingerprint()),
+           dkey(budget.fingerprint()) if budget is not None else None)
+    hit = registry.searched(key)
+    if hit is not _MISS:
+        if hit is None:
+            _notify(kernel, D, default, "default", None, hw.name)
+            return dict(default)
+        _notify(kernel, D, hit, "search_memo", None, hw.name)
+        return dict(hit)
+    try:
+        result = search_best(spec, device, D, strategy=strategy,
+                             budget=budget, hw=hw)
+    except ValueError:          # infeasible D: nothing to search
+        result = None
+    cfg = result.best_config if result is not None else None
+    registry.note_searched(key, cfg)
+    if cfg is None:             # infeasible, or no probe fit the budget
+        _notify(kernel, D, default, "default", None, hw.name)
+        return dict(default)
+    _notify(kernel, D, cfg, "search", None, hw.name)
+    return dict(cfg)

@@ -37,6 +37,7 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 
+from ..trace import trace_span
 from .device_model import HardwareParams
 
 __all__ = ["LaunchPlanTable", "compile_plan", "lattice", "pack_shape",
@@ -305,14 +306,19 @@ def compile_plan(driver, D_table: Mapping[str, Sequence[int]],
     """
     cols = {d: np.asarray(D_table[d], dtype=np.int64).reshape(-1)
             for d in driver.data_params}
-    configs, ok = driver.choose_many(cols, margin=margin)
-    return LaunchPlanTable.build(
-        kernel=driver.kernel, hw_name=(hw or driver.hw).name,
-        data_params=driver.data_params,
-        program_params=driver.program_params,
-        shapes=cols, configs=configs, ok=ok,
-        tuning_version=driver.tuning_version,
-        source_hash=driver.source_hash, code=driver.code)
+    with trace_span("compile_plan", kernel=driver.kernel) as sp:
+        configs, ok = driver.choose_many(cols, margin=margin)
+        table = LaunchPlanTable.build(
+            kernel=driver.kernel, hw_name=(hw or driver.hw).name,
+            data_params=driver.data_params,
+            program_params=driver.program_params,
+            shapes=cols, configs=configs, ok=ok,
+            tuning_version=driver.tuning_version,
+            source_hash=driver.source_hash, code=driver.code)
+        sp.set(n_shapes=int(cols[driver.data_params[0]].shape[0])
+               if driver.data_params else 0,
+               n_entries=len(table))
+    return table
 
 
 def precompile_plans(envelopes: Mapping[str, Mapping[str, Sequence[int]]],
@@ -341,41 +347,47 @@ def precompile_plans(envelopes: Mapping[str, Mapping[str, Sequence[int]]],
     store = default_cache() if cache else None
     summary: dict[str, Any] = {"compiled": [], "loaded": [], "skipped": [],
                                "entries": 0}
-    for kernel, axes in envelopes.items():
-        driver = get_driver(kernel)
-        if driver is None:
-            summary["skipped"].append(kernel)
-            continue
-        khw = hw or driver.hw
-        key = plan_key(kernel, khw.name, axes, driver.tuning_version,
-                       driver.source_hash, driver.code)
-        plan = None
-        if store is not None:
-            entry = store.get_plan(kernel, key)
-            if entry is not None:
-                try:
-                    plan = LaunchPlanTable.from_json(entry.plan)
-                    summary["loaded"].append(kernel)
-                except (KeyError, ValueError, TypeError):
-                    plan = None
-        if plan is None:
-            plan = compile_plan(driver, lattice(axes), margin=margin, hw=khw)
-            summary["compiled"].append(kernel)
+    with trace_span("precompile_plans", n_kernels=len(envelopes)) as sp:
+        for kernel, axes in envelopes.items():
+            driver = get_driver(kernel)
+            if driver is None:
+                summary["skipped"].append(kernel)
+                continue
+            khw = hw or driver.hw
+            key = plan_key(kernel, khw.name, axes, driver.tuning_version,
+                           driver.source_hash, driver.code)
+            plan = None
             if store is not None:
-                try:
-                    store.put_plan(PlanEntry(
-                        kernel=kernel, key=key, hw_name=khw.name,
-                        plan=plan.to_json(), created_at=time.time(),
-                        tuning_version=driver.tuning_version))
-                except OSError as e:
-                    if not _plan_write_warned:
-                        _plan_write_warned = True
-                        logger.warning(
-                            "launch-plan artifact write failed (%s) for "
-                            "kernel %s; plans will not persist, so every "
-                            "process compiles its envelope anew (point "
-                            "KLARAPTOR_CACHE_DIR at a writable directory)",
-                            e, kernel)
-        registry.register_plan(plan)
-        summary["entries"] += len(plan)
+                entry = store.get_plan(kernel, key)
+                if entry is not None:
+                    try:
+                        plan = LaunchPlanTable.from_json(entry.plan)
+                        summary["loaded"].append(kernel)
+                    except (KeyError, ValueError, TypeError):
+                        plan = None
+            if plan is None:
+                plan = compile_plan(driver, lattice(axes), margin=margin,
+                                    hw=khw)
+                summary["compiled"].append(kernel)
+                if store is not None:
+                    try:
+                        store.put_plan(PlanEntry(
+                            kernel=kernel, key=key, hw_name=khw.name,
+                            plan=plan.to_json(), created_at=time.time(),
+                            tuning_version=driver.tuning_version))
+                    except OSError as e:
+                        if not _plan_write_warned:
+                            _plan_write_warned = True
+                            logger.warning(
+                                "launch-plan artifact write failed (%s) for "
+                                "kernel %s; plans will not persist, so "
+                                "every process compiles its envelope anew "
+                                "(point KLARAPTOR_CACHE_DIR at a writable "
+                                "directory)", e, kernel)
+            registry.register_plan(plan)
+            summary["entries"] += len(plan)
+        sp.set(compiled=len(summary["compiled"]),
+               loaded=len(summary["loaded"]),
+               skipped=len(summary["skipped"]),
+               entries=summary["entries"])
     return summary

@@ -35,6 +35,7 @@ from typing import Iterable, Mapping
 
 import numpy as np
 
+from ..trace import trace_span
 from .device_model import HardwareParams
 from .driver import Dims, dkey, get_driver, registry
 
@@ -112,6 +113,15 @@ def build_step_plan(requests: Iterable[KernelRequest],
     that lands meanwhile makes the plan stale from birth.
     """
     generation = registry.generation
+    reqs = list(requests)
+    with trace_span("build_step_plan", n_requests=len(reqs)) as span:
+        plan = _build_step_plan(reqs, hw, generation)
+        span.set(entries=len(plan.table), generation=plan.generation)
+    return plan
+
+
+def _build_step_plan(requests: list, hw: HardwareParams | None,
+                     generation: int) -> StepPlan:
     table: dict = {}
     sources: dict = {}
     pending: dict[str, list[KernelRequest]] = {}

@@ -35,6 +35,7 @@ from .fitting import FitResult, fit_auto
 from .kernel_spec import CandidateTable, KernelSpec
 from .perf_model import LOW_LEVEL_METRICS
 from .rational import RationalFunction
+from ..trace import trace_span
 
 __all__ = ["BuildResult", "Klaraptor", "exhaustive_pass", "exhaustive_search",
            "fitresult_from_json", "search_best", "selection_ratio"]
@@ -164,13 +165,16 @@ class Klaraptor:
                 "budget": budget.fingerprint() if budget is not None
                 else None,
             })
-            entry = self.cache.get(spec.name, key) if use_cache else None
+        with trace_span("build_driver", kernel=spec.name) as bsp:
+            entry = self.cache.get(spec.name, key) \
+                if key is not None and use_cache else None
             if entry is not None:
                 driver = DriverProgram.from_source(
                     spec.name, entry.source, self.hw,
                     tuning_version=entry.tuning_version, code=entry.code)
                 if register:
                     register_driver(driver)
+                bsp.set(from_cache=True)
                 return BuildResult(
                     driver=driver,
                     fits=fitresult_from_json(entry.fits),
@@ -179,33 +183,40 @@ class Klaraptor:
                     probe_device_seconds=0.0,
                     from_cache=True,
                 )
-        data = collect(spec, self.oracle, probe_data=probe_data, hw=self.hw,
-                       repeats=repeats,
-                       max_configs_per_size=max_configs_per_size, seed=seed,
-                       strategy=strategy, budget=budget)
-        fits: dict[str, FitResult] = {}
-        for metric in LOW_LEVEL_METRICS:
-            vars_ = spec.metric_fit_vars(metric)
-            X, y = data.matrix(metric, vars_)
-            fits[metric] = fit_auto(X, y, vars_,
-                                    max_num_degree=max_num_degree,
-                                    max_den_degree=max_den_degree)
-        source = generate_driver_source(
-            spec, {m: f.function for m, f in fits.items()}, self.hw)
-        driver = DriverProgram.from_source(spec.name, source, self.hw,
-                                           tuning_version=cache_version,
-                                           code=code_digest(spec))
-        if register:
-            register_driver(driver)
-        if key is not None:
-            self._cache_put(spec, key, source, fits, cache_version)
-        return BuildResult(
-            driver=driver,
-            fits=fits,
-            collected=data,
-            build_wall_seconds=time.perf_counter() - t0,
-            probe_device_seconds=data.probe_device_seconds,
-        )
+            data = collect(spec, self.oracle, probe_data=probe_data,
+                           hw=self.hw, repeats=repeats,
+                           max_configs_per_size=max_configs_per_size,
+                           seed=seed, strategy=strategy, budget=budget)
+            fits: dict[str, FitResult] = {}
+            with trace_span("fit", kernel=spec.name,
+                            n_samples=len(data)) as fsp:
+                for metric in LOW_LEVEL_METRICS:
+                    vars_ = spec.metric_fit_vars(metric)
+                    X, y = data.matrix(metric, vars_)
+                    fits[metric] = fit_auto(X, y, vars_,
+                                            max_num_degree=max_num_degree,
+                                            max_den_degree=max_den_degree)
+                fsp.set(rel_error={m: round(f.rel_error, 6)
+                                   for m, f in fits.items()})
+            with trace_span("codegen", kernel=spec.name):
+                source = generate_driver_source(
+                    spec, {m: f.function for m, f in fits.items()}, self.hw)
+                driver = DriverProgram.from_source(
+                    spec.name, source, self.hw, tuning_version=cache_version,
+                    code=code_digest(spec))
+            if register:
+                register_driver(driver)
+            if key is not None:
+                self._cache_put(spec, key, source, fits, cache_version)
+            bsp.set(from_cache=False,
+                    probe_device_seconds=data.probe_device_seconds)
+            return BuildResult(
+                driver=driver,
+                fits=fits,
+                collected=data,
+                build_wall_seconds=time.perf_counter() - t0,
+                probe_device_seconds=data.probe_device_seconds,
+            )
 
     def _cache_put(self, spec: KernelSpec, key: str, source: str,
                    fits: dict[str, FitResult], tuning_version: int) -> None:

@@ -60,6 +60,7 @@ import torch
 
 from ..core.kernel_spec import GridAxis, KernelSpec, Operand
 from ..core.rational_program import Expr, const, var
+from ..trace import trace_span
 from .gridspec import GridSpec, IntrospectError, trace_points
 from .trace import Capture, CudaKernel, capture_kernel
 
@@ -267,44 +268,48 @@ def derive_kernel(kernel: CudaKernel, grid_spec: GridSpec, *,
                   device: str | torch.device = "cuda"
                   ) -> tuple[KernelSpec, Capture]:
     """``spec_from_kernel``, also returning the first point's capture
-    (its compiled attributes and fingerprint)."""
-    (D1, P1), (D2, P2) = trace_points(grid_spec)
-    cap1 = capture_kernel(kernel, grid_spec, D1, P1, device=device)
-    cap2 = capture_kernel(kernel, grid_spec, D2, P2, device=device)
-    axes = _match_grid(grid_spec, cap1, cap2, D1, P1, D2, P2)
-    operands = _match_operands(grid_spec, cap1, cap2, axes, D1, P1, D2, P2)
-    if (cap1.granule, cap1.compute_unit) != (cap2.granule,
-                                             cap2.compute_unit):
-        raise IntrospectError(
-            f"{grid_spec.name}: granule or compute unit changed between "
-            f"points")
-    spec = KernelSpec(
-        name=grid_spec.name,
-        data_params=tuple(grid_spec.data_params),
-        program_params=tuple(grid_spec.program_params),
-        grid=axes,
-        operands=operands,
-        flops_per_point=_derive_flops(grid_spec, cap1, cap2, axes, D1, D2),
-        threads=_derive_threads(grid_spec, cap1, cap2, P1, P2),
-        regs_per_thread=cap1.num_regs,
-        constraints=_derive_constraints(grid_spec, axes, operands,
-                                        cap1.granule),
-        param_candidates=dict(grid_spec.param_candidates),
-        fit_vars=dict(grid_spec.fit_vars),
-        source_fingerprint=cap1.fingerprint,
-        compute_unit=cap1.compute_unit,
-    )
-    for D, P, cap in ((D1, P1, cap1), (D2, P2, cap2)):
-        env = {**{k: float(v) for k, v in D.items()},
-               **{k: float(v) for k, v in P.items()}}
-        grid = tuple(int(round(float(a.extent_expr().eval(env))))
-                     for a in spec.grid)
-        _check(grid_spec, "grid", grid, cap.grid, D, P)
-        _check(grid_spec, "threads",
-               int(round(float(spec.threads.eval(env)))), cap.threads, D, P)
-        _check(grid_spec, "shared-memory bytes",
-               int(round(float(spec.stage_expr().eval(env)))),
-               cap.smem_bytes, D, P)
+    (its compiled attributes and fingerprint).  Both run in one
+    ``spec_from_kernel`` span, the reference's."""
+    with trace_span("spec_from_kernel", kernel=grid_spec.name) as sp:
+        (D1, P1), (D2, P2) = trace_points(grid_spec)
+        cap1 = capture_kernel(kernel, grid_spec, D1, P1, device=device)
+        cap2 = capture_kernel(kernel, grid_spec, D2, P2, device=device)
+        axes = _match_grid(grid_spec, cap1, cap2, D1, P1, D2, P2)
+        operands = _match_operands(grid_spec, cap1, cap2, axes, D1, P1, D2, P2)
+        if (cap1.granule, cap1.compute_unit) != (cap2.granule,
+                                                 cap2.compute_unit):
+            raise IntrospectError(
+                f"{grid_spec.name}: granule or compute unit changed between "
+                f"points")
+        spec = KernelSpec(
+            name=grid_spec.name,
+            data_params=tuple(grid_spec.data_params),
+            program_params=tuple(grid_spec.program_params),
+            grid=axes,
+            operands=operands,
+            flops_per_point=_derive_flops(grid_spec, cap1, cap2, axes, D1, D2),
+            threads=_derive_threads(grid_spec, cap1, cap2, P1, P2),
+            regs_per_thread=cap1.num_regs,
+            constraints=_derive_constraints(grid_spec, axes, operands,
+                                            cap1.granule),
+            param_candidates=dict(grid_spec.param_candidates),
+            fit_vars=dict(grid_spec.fit_vars),
+            source_fingerprint=cap1.fingerprint,
+            compute_unit=cap1.compute_unit,
+        )
+        for D, P, cap in ((D1, P1, cap1), (D2, P2, cap2)):
+            env = {**{k: float(v) for k, v in D.items()},
+                   **{k: float(v) for k, v in P.items()}}
+            grid = tuple(int(round(float(a.extent_expr().eval(env))))
+                         for a in spec.grid)
+            _check(grid_spec, "grid", grid, cap.grid, D, P)
+            _check(grid_spec, "threads",
+                   int(round(float(spec.threads.eval(env)))), cap.threads,
+                   D, P)
+            _check(grid_spec, "shared-memory bytes",
+                   int(round(float(spec.stage_expr().eval(env)))),
+                   cap.smem_bytes, D, P)
+        sp.set(fingerprint=cap1.fingerprint, n_operands=len(operands))
     return spec, cap1
 
 

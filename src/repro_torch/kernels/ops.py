@@ -55,6 +55,8 @@ from ..core.step_plan import StepPlan, active_step_plan
 from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
                                 matmul_spec, moe_gmm_spec, ssd_scan_spec)
 from ..introspect import AutoKernel, auto_register, get_auto
+from ..trace import span as _span
+from ..trace.span import Span
 from .flash_attention import flash_attention_kernel, flash_attention_plain
 from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
 from .matmul import matmul_kernel
@@ -144,7 +146,14 @@ def _resolve(kernel: str, D: dict, default: dict, plan: StepPlan | None,
         cfg = plan.resolve(kernel, D)
         if cfg is not None:
             return cfg
-    return choose_or_default(kernel, D, default, spec=spec)
+    # Only the fall-through is traced, as in the reference; it runs at
+    # every launch a step plan misses, so with no tracer it stays one
+    # module-global load and an ``is None`` test.
+    tracer = _span._active
+    if tracer is None:
+        return choose_or_default(kernel, D, default, spec=spec)
+    with Span(tracer, "dispatch.choose", {"kernel": kernel}):
+        return choose_or_default(kernel, D, default, spec=spec)
 
 
 def _branch_config(disp, kernel: str, dims,

@@ -25,9 +25,19 @@ tunes each against the card (``CudaEventTimer``; ``HopperModel`` only with
 chunked prefill of ``--prefill-chunk`` tokens at most) and ``--buckets``
 counts the decode attention kernel's bucket hits and padding waste over
 ``default_bucket_lattices``; each prints what the JAX launcher prints for
-it.  The JAX launcher's ``--telemetry``, ``--telemetry-json``,
-``--trace``, ``--ledger`` and ``--dash`` wait for their modules (ROADMAP
-Queue A item 5).
+it.
+
+``--telemetry`` installs the observability and retuning loop
+(``repro_torch.telemetry``) over the specs of the kernels the model's
+steps launch and the auto kernels', probing on the card
+(``CudaEventTimer``; ``HopperModel`` only with ``--device cpu``), and
+prints its Prometheus text after the run; ``--telemetry-json PATH`` writes
+the JSON snapshot instead.  ``--trace PATH`` records spans for the whole
+run and writes a Chrome trace-event file (open it in ui.perfetto.dev);
+``--ledger PATH`` appends the flight ledger (choices, probes, drift,
+refits and, with ``--trace``, spans; implies ``--telemetry``).  The JAX
+launcher's ``--dash`` waits for ``launch/dash.py`` (ROADMAP Queue A item
+6).
 """
 
 from __future__ import annotations
@@ -40,10 +50,11 @@ import torch
 from ..configs import get_config
 from ..models import Model
 from ..models.config import ModelConfig
-from ..serving.engine import Request, ServingEngine
+from ..serving.engine import Request, ServingEngine, model_kernel_specs
 
-__all__ = ["build_auto_kernels", "build_engine", "default_bucket_lattices",
-           "default_plan_envelope", "main", "pow2_seqs"]
+__all__ = ["build_auto_kernels", "build_engine", "build_telemetry",
+           "default_bucket_lattices", "default_plan_envelope", "main",
+           "pow2_seqs"]
 
 
 def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
@@ -52,7 +63,8 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                  device: str | torch.device = "cuda",
                  plan_envelope=None, auto_kernels=None,
                  step_plans: bool = True, prefill_chunk: int = 32,
-                 bucket_lattices=None) -> ServingEngine:
+                 bucket_lattices=None, trace=None,
+                 telemetry=None) -> ServingEngine:
     """An engine over ``cfg`` with ``params`` (seeded random weights if
     None) on ``device``; the other arguments are ``ServingEngine``'s."""
     model = Model(cfg, device=device)
@@ -63,7 +75,25 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                          plan_envelope=plan_envelope,
                          auto_kernels=auto_kernels, step_plans=step_plans,
                          prefill_chunk=prefill_chunk,
-                         bucket_lattices=bucket_lattices)
+                         bucket_lattices=bucket_lattices, trace=trace,
+                         telemetry=telemetry)
+
+
+def build_telemetry(seed: int = 0, auto_kernels=(), ledger=None,
+                    device: str | torch.device = "cuda", specs=()):
+    """Serving telemetry over ``specs`` (the model's kernel specs,
+    ``serving.engine.model_kernel_specs``) and the auto kernels' specs,
+    shadow-probing on the card (``CudaEventTimer``) or, with
+    ``device="cpu"``, on ``HopperModel``.  ``ledger`` (a path or a
+    ``repro_torch.trace.Ledger``) appends every choice, probe, drift and
+    refit to the JSONL flight ledger."""
+    from ..core.device_model import CudaEventTimer, HopperModel
+    from ..telemetry import Telemetry
+
+    oracle = (HopperModel(seed=seed) if torch.device(device).type == "cpu"
+              else CudaEventTimer(device=device, seed=seed))
+    return Telemetry(list(specs) + [ak.spec for ak in auto_kernels], oracle,
+                     seed=seed, ledger=ledger)
 
 
 def default_bucket_lattices(cfg: ModelConfig, batch: int,
@@ -181,11 +211,32 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
                     help="enable per-step bucketed-dispatch accounting for "
                          "the decode attention kernel (hit/miss + padding "
                          "waste, printed after the run)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="install the runtime observability/retuning loop "
+                         "and print its metrics after the run")
+    ap.add_argument("--telemetry-json", metavar="PATH", default=None,
+                    help="with --telemetry: write the JSON snapshot here "
+                         "instead of printing Prometheus text")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record structured spans for the whole run and "
+                         "write a Chrome trace-event JSON here (open in "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--ledger", metavar="PATH", default=None,
+                    help="append the JSONL flight ledger (choices, probes, "
+                         "drift, refits) here; implies --telemetry")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    ledger = tracer = None
+    if args.ledger:
+        from ..trace import Ledger
+        ledger = Ledger(args.ledger)
+    if args.trace:
+        from ..trace import Tracer
+        # the tracer shares the ledger: spans persist beside the decisions
+        tracer = Tracer(ledger=ledger)
     auto = []
     if args.auto_kernels:
         from ..core.device_model import CudaEventTimer, HopperModel
@@ -203,6 +254,11 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
                   f"kernel hash {ak.spec.source_fingerprint}, "
                   f"registers {cap.num_regs} ({cap.attributes_source}; "
                   f"launch-bounds cap {cap.regs_cap})", flush=True)
+    telemetry = None
+    if args.telemetry or ledger is not None:
+        telemetry = build_telemetry(
+            auto_kernels=auto, ledger=ledger, device=args.device,
+            specs=model_kernel_specs(cfg, args.batch, args.max_seq))
     envelope = (default_plan_envelope(args.batch, args.max_seq)
                 if args.plans else None)
     buckets = (default_bucket_lattices(cfg, args.batch, args.max_seq)
@@ -211,7 +267,8 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
                           plan_envelope=envelope, auto_kernels=auto,
                           step_plans=not args.no_step_plans,
                           prefill_chunk=args.prefill_chunk,
-                          bucket_lattices=buckets)
+                          bucket_lattices=buckets, trace=tracer,
+                          telemetry=telemetry)
     ws = engine.warm_started
     print(f"warm start: {len(ws)} driver(s) loaded {list(ws)}, "
           f"{len(ws.plans_loaded)} plan(s), "
@@ -246,6 +303,21 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
         frac = bs["waste_sum"] / n if n else 0.0
         print(f"bucket dispatch: {bs['hits']} hits, {bs['misses']} misses "
               f"over {bs['steps']} steps, mean padding waste {frac:.3f}")
+    if telemetry is not None:
+        if args.telemetry_json:
+            with open(args.telemetry_json, "w") as f:
+                f.write(telemetry.exporter.json())
+            print(f"telemetry snapshot written to {args.telemetry_json}")
+        elif args.telemetry:
+            print(telemetry.prometheus(), end="")
+        telemetry.uninstall()
+    if tracer is not None:
+        n = tracer.write_chrome_trace(args.trace)
+        tracer.uninstall()
+        print(f"trace: {n} spans written to {args.trace} "
+              f"(open in ui.perfetto.dev)")
+    if ledger is not None:
+        ledger.close()
     return finished
 
 

@@ -63,9 +63,22 @@ per-step bucket accounting: each decode step replays the bucket decision on
 the host (bit-identical rounding) and counts hit/miss and padding waste in
 ``bucket_stats``.
 
-Not ported yet: ``tune_for_shape`` (ROADMAP Queue A item 2, the online
-search), and ``telemetry=`` and ``trace=`` with the engine's trace spans
-(Queue A item 5).
+For a shape with no cached driver, ``tune_for_shape`` runs a budgeted
+online search on an oracle (``choose_or_default``'s opt-in escalation),
+memoized per search configuration.
+
+``trace=`` (a ``repro_torch.trace.Tracer``) and ``telemetry=`` (a
+``repro_torch.telemetry.Telemetry``) are installed process-wide before
+warm start, so the engine's bring-up lands in the flight recorder and
+every decision its steps make is observed.  The spans ``engine.step``,
+``engine.prefill``, ``engine.prefill_chunk`` and ``engine.decode`` sit
+where the JAX engine's do; with a tracer installed, a step's span closes
+only after the engine's stream has finished the step (the JAX engine
+blocks on the step's output), so the span holds its device time.  A
+decision made while a step is being captured defers its shadow probe
+(telemetry/loop.py); the engine runs the deferred probes after every step,
+on its stream, once the capture has ended.  A refit that swaps a driver
+stales the step plan, and the next step rebuilds it and re-captures.
 """
 
 from __future__ import annotations
@@ -77,12 +90,32 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.driver import WarmStartSummary, warm_start_from_cache
+from ..core.driver import (WarmStartSummary, choose_or_default,
+                           warm_start_from_cache)
 from ..core.step_plan import use_step_plan
+from ..trace import trace_span, tracing
 from .graphs import StepGraph, graph_launches, on_stream
 from .sampling import greedy, sample
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["Request", "ServingEngine", "model_kernel_specs"]
+
+
+def model_kernel_specs(cfg, batch: int, max_seq: int) -> list:
+    """Specs of the tuned kernels a model's serving steps launch (those its
+    ``decode_kernel_requests`` name), each once.  A kernel with no spec at
+    this width (flash attention at a head dim it is not built for, as the
+    smoke configs' 32) is left out."""
+    from ..kernels.ops import kernel_spec
+    from ..models.transformer import decode_kernel_requests
+
+    specs = []
+    for name in dict.fromkeys(r.kernel for r in decode_kernel_requests(
+            cfg, batch, max_seq)):
+        try:
+            specs.append(kernel_spec(name, cfg.dtype))
+        except ValueError:
+            continue
+    return specs
 
 
 @dataclass
@@ -100,7 +133,7 @@ class ServingEngine:
                  eos_id: int = 1, seed: int = 0, warm_start: bool = True,
                  plan_envelope=None, auto_kernels=None,
                  step_plans: bool = True, prefill_chunk: int = 32,
-                 bucket_lattices=None):
+                 bucket_lattices=None, trace=None, telemetry=None):
         self.model = model
         self.params = params
         self.batch = batch
@@ -108,6 +141,15 @@ class ServingEngine:
         self.eos_id = eos_id
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # The tracer and the telemetry loop each take a process-wide slot
+        # (the tracer, the choice listener); the caller decides which
+        # wins.  Installed first, so warm start and plan builds are seen.
+        self.tracer = trace
+        if trace is not None:
+            trace.install()
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.install()
         # Introspected kernels served by this engine (repro_torch.introspect
         # AutoKernel instances): their drivers come through the same warm
         # start, and their traffic envelopes join the plan envelope.
@@ -118,6 +160,8 @@ class ServingEngine:
         self.warm_started: WarmStartSummary = (
             warm_start_from_cache(self._warm_start_specs()) if warm_start
             else WarmStartSummary())
+        if telemetry is not None:
+            telemetry.note_warm_start(self.warm_started)
         # Precompile launch plans over the declared traffic envelope:
         # kernel name -> {data param: candidate values}.  One choose_many
         # pass per kernel; kernels with no driver are skipped.
@@ -257,6 +301,31 @@ class ServingEngine:
             rounds += 1
         return self.finished
 
+    def tune_for_shape(self, spec, D, device, strategy="surrogate",
+                       budget=None, hw=None) -> dict[str, int]:
+        """Launch parameters for a shape with no cached driver.
+
+        ``choose_or_default``'s opt-in escalation: the registered or cached
+        driver when one decides the shape, else a budgeted online search
+        on the oracle ``device`` (``CudaEventTimer`` on the card), memoized
+        per (kernel, hw, shape, strategy, budget), so a serving process
+        pays at most one bounded search per shape and search configuration.
+        A driver that raises on the shape (built for other data parameters)
+        is searched past.  ``strategy`` and ``budget`` are
+        ``repro_torch.search`` settings (default: the surrogate under
+        ``default_budget``); ``hw`` defaults to the oracle's.  Raises
+        ``ValueError`` when nothing is tuned and nothing can be searched.
+        """
+        hw = hw if hw is not None else device.hw
+        miss = {"__untuned__": -1}
+        cfg = choose_or_default(spec.name, D, miss, spec=spec, hw=hw,
+                                device=device, strategy=strategy,
+                                budget=budget)
+        if cfg == miss:
+            raise ValueError(
+                f"no tuned or searchable config for {spec.name} at {D}")
+        return cfg
+
     def graph_launches(self) -> dict[str, int]:
         """Kernel launches made by this engine's graph replays, by kernel
         (each graph's launches per replay, recorded at its capture, times
@@ -311,21 +380,9 @@ class ServingEngine:
 
     def _warm_start_specs(self) -> list:
         """Specs of the kernels the model's steps launch, and of the auto
-        kernels (the driver cache is keyed by spec).  A kernel with no spec
-        at this width (flash attention at a head dim it is not built for,
-        as the smoke configs' 32) has no driver to load."""
-        from ..kernels.ops import kernel_spec
-        from ..models.transformer import decode_kernel_requests
-
-        cfg = self.model.cfg
-        specs = []
-        for name in dict.fromkeys(r.kernel for r in decode_kernel_requests(
-                cfg, self.batch, self.max_seq)):
-            try:
-                specs.append(kernel_spec(name, cfg.dtype))
-            except ValueError:
-                continue
-        return specs + [ak.spec for ak in self.auto_kernels]
+        kernels (the driver cache is keyed by spec)."""
+        return model_kernel_specs(self.model.cfg, self.batch, self.max_seq) \
+            + [ak.spec for ak in self.auto_kernels]
 
     def _build_bucket_dispatch(self, bucket_lattices) -> dict:
         """kernel -> BucketedDispatch from the ``bucket_lattices=`` arg.
@@ -396,6 +453,8 @@ class ServingEngine:
             hit, waste = disp.observe(D)
             self.bucket_stats["hits" if hit else "misses"] += 1
             self.bucket_stats["waste_sum"] += waste
+            if self.telemetry is not None:
+                self.telemetry.note_bucket_step(hit, waste, kernel=kernel)
         self.bucket_stats["steps"] += 1
 
     def _refresh_step_plan(self) -> None:
@@ -499,6 +558,12 @@ class ServingEngine:
             step.inputs.copy_(torch.from_numpy(values.astype(np.int32)))
             with plan:
                 out = step()
+            if self.telemetry is not None:
+                # probes deferred by a capture this step ended
+                self.telemetry.drain_deferred()
+            if self._stream is not None and tracing():
+                # the step's span holds its device time
+                self._stream.synchronize()
         if caller is not None:
             caller.wait_stream(self._stream)
             if isinstance(out, torch.Tensor) and out is not step.output:
@@ -511,7 +576,9 @@ class ServingEngine:
         self._check_plan()
         if self._decode is None:
             self._decode = self._build_decode()
-        return self._call(self._decode, np.concatenate([tok, ps]))
+        with trace_span("engine.step",
+                        step_plan=self._step_plan is not None):
+            return self._call(self._decode, np.concatenate([tok, ps]))
 
     def _fill_slots(self, chunked: bool = False) -> None:
         for s in range(self.batch):
@@ -524,11 +591,13 @@ class ServingEngine:
                 # take the engine for idle meanwhile
                 req = self._filling = self.pending.pop(0)
             # prefill the prompt through the shared decode step
-            if chunked:
-                self._prefill_chunked(s, req.prompt)
-            else:
-                for t_idx, tok in enumerate(req.prompt[:-1]):
-                    self._single(s, tok, t_idx)
+            with trace_span("engine.prefill", rid=req.rid,
+                            tokens=len(req.prompt) - 1, chunked=chunked):
+                if chunked:
+                    self._prefill_chunked(s, req.prompt)
+                else:
+                    for t_idx, tok in enumerate(req.prompt[:-1]):
+                        self._single(s, tok, t_idx)
             self.slot_pos[s] = len(req.prompt) - 1
             self.slot_last[s] = req.prompt[-1]
             self.slot_budget[s] = req.max_new_tokens
@@ -581,8 +650,9 @@ class ServingEngine:
         step = self._chunks.get(c)
         if step is None:
             step = self._chunks[c] = self._build_chunk(c)
-        self._call(step, np.concatenate(
-            [tokens, [slot, pos0], base_tok, base_pos]))
+        with trace_span("engine.prefill_chunk", slot=int(slot), n_valid=c):
+            self._call(step, np.concatenate(
+                [tokens, [slot, pos0], base_tok, base_pos]))
 
     def _single(self, slot: int, token: int, pos: int) -> None:
         """One prompt token of ``slot``, through a step of every slot, as
@@ -600,27 +670,28 @@ class ServingEngine:
         active = [s for s in range(self.batch) if self.slot_req[s] is not None]
         if not active:
             return
-        logits = self._run_step(self.slot_last, self.slot_pos)
-        self.steps += 1
-        temps = {r.temperature for r in self.slot_req if r is not None}
-        with on_stream(self.device, self._stream):
-            greedy_tok = greedy(logits).cpu().numpy()
-            sampled_tok = sample(logits, self.generator,
-                                 temperature=max(temps | {1.0})
-                                 ).cpu().numpy()
-        self._note_bucket_stats(active)
-        for s in active:
-            req = self.slot_req[s]
-            nxt = int(greedy_tok[s] if req.temperature <= 0.0
-                      else sampled_tok[s])
-            req.output.append(nxt)
-            self.slot_pos[s] += 1
-            self.slot_last[s] = nxt
-            self.slot_budget[s] -= 1
-            if (nxt == self.eos_id or self.slot_budget[s] <= 0
-                    or self.slot_pos[s] >= self.max_seq - 1):
-                req.done = True
-                with self._cv:
-                    self.finished.append(req)
-                    self.slot_req[s] = None  # freed: continuous batching
-                    self._cv.notify_all()
+        with trace_span("engine.decode", active=len(active)):
+            logits = self._run_step(self.slot_last, self.slot_pos)
+            self.steps += 1
+            temps = {r.temperature for r in self.slot_req if r is not None}
+            with on_stream(self.device, self._stream):
+                greedy_tok = greedy(logits).cpu().numpy()
+                sampled_tok = sample(logits, self.generator,
+                                     temperature=max(temps | {1.0})
+                                     ).cpu().numpy()
+            self._note_bucket_stats(active)
+            for s in active:
+                req = self.slot_req[s]
+                nxt = int(greedy_tok[s] if req.temperature <= 0.0
+                          else sampled_tok[s])
+                req.output.append(nxt)
+                self.slot_pos[s] += 1
+                self.slot_last[s] = nxt
+                self.slot_budget[s] -= 1
+                if (nxt == self.eos_id or self.slot_budget[s] <= 0
+                        or self.slot_pos[s] >= self.max_seq - 1):
+                    req.done = True
+                    with self._cv:
+                        self.finished.append(req)
+                        self.slot_req[s] = None  # freed: continuous batching
+                        self._cv.notify_all()

@@ -575,3 +575,85 @@ def test_cuda_whisper_encoder_layer_matches_plain():
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2 * scale,
                                    rtol=2e-2)
+
+
+def _counting_timer(hw=None):
+    """``CudaEventTimer`` counting its ``probe_rows`` calls."""
+    from repro_torch.core import CudaEventTimer
+
+    class Counting(CudaEventTimer):
+        calls = 0
+
+        def probe_rows(self, table, rng, repeats=1):
+            self.calls += 1
+            return super().probe_rows(table, rng, repeats)
+
+    return Counting(hw)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_during_capture_is_deferred(tmp_path, monkeypatch):
+    """A decision made inside a CUDA-graph capture with the telemetry loop
+    installed over ``CudaEventTimer``: the capture records the one matmul
+    launch and nothing of the probe, the probe is queued and runs once the
+    capture has ended, and the replay equals the eager call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import HopperModel, Klaraptor, registry
+    from repro_torch.serving.graphs import StepGraph
+    from repro_torch.telemetry import Telemetry, TelemetryConfig
+
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    registry.clear()
+    timer = _counting_timer()
+    spec = matmul_spec(4)
+    Klaraptor(HopperModel(timer.hw), hw=timer.hw, cache=False).build_driver(
+        spec, repeats=1, max_configs_per_size=8)        # registered
+    tel = Telemetry([spec], timer, cache=False, config=TelemetryConfig(
+        probe_every=1, refit_enabled=False)).install()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(512, 1024, generator=gen, device="cuda")
+        y = torch.randn(1024, 256, generator=gen, device="cuda")
+        step = StepGraph(lambda: ops.matmul(x, y), torch.device("cuda"))
+        eager = step().clone()          # the eager call, then the capture
+        assert timer.calls == 1         # the eager call's probe
+        assert tel.deferred_total == 1 and tel.deferred_run_total == 0
+        assert step.launches == {"matmul": 1}
+        with torch.cuda.stream(step.stream):
+            assert tel.drain_deferred() == 1
+        assert timer.calls == 2 and not tel._deferred
+        assert torch.equal(step(), eager)
+        assert tel.counters.shadow_probes_total == 2
+    finally:
+        tel.uninstall()
+        registry.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_escalation_searches_on_the_card(tmp_path, monkeypatch):
+    """``choose_or_default(..., spec=, device=CudaEventTimer)`` on a shape
+    no driver decides: a small budget finds a feasible ``matmul_b32`` tile,
+    and a repeat is served from the memo without a probe."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import registry
+    from repro_torch.core.driver import choose_or_default
+    from repro_torch.search import SearchBudget
+
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    registry.clear()
+    timer = _counting_timer()
+    spec, D = matmul_spec(4), {"m": 1024, "n": 1024, "k": 1024}
+    default = {"bm": -1, "bn": -1, "bk": -1}
+    budget = SearchBudget(max_executions=12)
+    cfg = choose_or_default(spec.name, D, default, spec=spec, device=timer,
+                            budget=budget)
+    table = spec.candidates(D, timer.hw)
+    assert cfg in [table.row(i) for i in range(len(table))]
+    n = timer.calls
+    assert n > 0
+    assert choose_or_default(spec.name, D, default, spec=spec, device=timer,
+                             budget=budget) == cfg
+    assert timer.calls == n
+    registry.clear()

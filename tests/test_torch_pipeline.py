@@ -170,5 +170,6 @@ print(" ".join(sorted(m for m in sys.modules if m.startswith("repro_torch"))))
     walked = set(proc.stdout.split())
     assert len(walked) >= 30
     for sub in ("core", "search", "kernels", "models", "configs", "launch",
-                "serving", "introspect", "benchmarks", "examples"):
+                "serving", "introspect", "benchmarks", "examples", "trace",
+                "telemetry", "obs"):
         assert f"repro_torch.{sub}" in walked, sub

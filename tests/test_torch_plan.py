@@ -779,6 +779,32 @@ class TestReadThrough:
 
 
 # ---------------------------------------------------------------------------
+# The telemetry surface: plan metrics in JSON and Prometheus output
+# ---------------------------------------------------------------------------
+
+class TestPlanMetrics:
+    def test_exporter_reports_plan_counters(self, clean, builds):
+        from repro_torch.telemetry import Telemetry
+        driver = builds["matmul"].driver
+        register_driver(driver)
+        registry.register_plan(compile_plan(driver,
+                                            lattice(ENVELOPES["matmul"])))
+        tel = Telemetry([matmul_spec()], HopperModel(seed=0), cache=False)
+        with tel:
+            choose_or_default(driver.kernel, {"m": 1024, "n": 2048,
+                                              "k": 512}, {"bm": -1})
+        snap = tel.snapshot()
+        assert snap["counters"]["choices_by_source"] == {"plan": 1}
+        assert snap["counters"]["plan_hits"] == 1
+        assert snap["counters"]["choose_many_calls"] >= 1
+        assert snap["counters"]["choose_many_rows"] >= 1
+        prom = tel.prometheus()
+        assert 'klaraptor_choices_total{source="plan"} 1' in prom
+        assert "klaraptor_plan_hits 1" in prom
+        assert "klaraptor_choose_many_calls" in prom
+
+
+# ---------------------------------------------------------------------------
 # Parity with the JAX package on the same inputs
 # ---------------------------------------------------------------------------
 

@@ -6,11 +6,13 @@ the same repeats and caps, bit for bit, as the reference's: both packages'
 own budget cut (``search.driver._evaluate``) runs between the asks, over a
 fake oracle that returns a seeded times vector.  The fitter the surrogate
 prices rows with is held against the reference's on the surrogate's own
-sample.  Then the reference's ``tests/test_search.py`` (all but
-``TestEscalation``) runs on the port, by name and with its bars, on the f32
-SIMT matmul (``matmul_spec(4)``, 88 feasible tiles at 4096^3) under
-``HopperModel`` -- the bf16 specs are the 2-9 compiled tiles, where a
-quarter of an exhaustive pass buys one or two probes.
+sample.  Then the reference's ``tests/test_search.py`` runs on the port,
+by name and with its bars, on the f32 SIMT matmul (``matmul_spec(4)``, 88
+feasible tiles at 4096^3) under ``HopperModel`` -- the bf16 specs are the
+2-9 compiled tiles, where a quarter of an exhaustive pass buys one or two
+probes.  Its ``TestEscalation`` holds ``choose_or_default``'s opt-in
+search; the port's own rules for it follow (``device=`` opts in and needs
+``spec=``, which alone only reads the driver cache through).
 """
 
 import dataclasses
@@ -30,10 +32,13 @@ from repro.core.kernel_spec import moe_gmm_spec as ref_moe_gmm_spec
 import repro_torch.search as port_search
 import repro_torch.search.driver as port_driver
 import repro_torch.search.surrogate as port_surrogate
-from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
-                              RowProbe, exhaustive_search,
+from repro_torch.core import (H100, CandidateTable, DriverProgram,
+                              HopperModel, Klaraptor, RowProbe,
+                              choose_or_default, exhaustive_search,
                               flash_attention_spec, gmm_probe_data,
-                              matmul_spec, search_best, ssd_probe_data)
+                              matmul_spec, register_driver, registry,
+                              search_best, set_choice_listener,
+                              ssd_probe_data)
 from repro_torch.core import fitting as port_fitting
 from repro_torch.core.collect import collect
 from repro_torch.search import (STRATEGIES, SearchBudget, default_budget,
@@ -367,6 +372,183 @@ class TestCollectIntegration:
             p["e"] for p in ref_default_probe_data(ref_moe_gmm_spec())}
         assert ssd_probe_data(bhs=(3,), seqs=(128,)) == \
             [{"bh": 3, "s": 128, "chunkflops": 1}]
+
+
+class _CountingModel(HopperModel):
+    """``HopperModel`` counting its ``probe_rows`` calls."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.probe_rows_calls = 0
+
+    def probe_rows(self, table, rng, repeats=1):
+        self.probe_rows_calls += 1
+        return super().probe_rows(table, rng, repeats)
+
+
+def _mismatched_flash_driver():
+    """A matmul driver registered under the flash kernel's name: its
+    ``choose`` raises on the flash data parameters."""
+    build = Klaraptor(HopperModel(noise=0.03, seed=5), device="cpu",
+                      cache=False).build_driver(
+        matmul_spec(4), repeats=2, max_configs_per_size=16, register=False)
+    spec = flash_attention_spec()
+    register_driver(DriverProgram(kernel=spec.name, source=build.driver.source,
+                                  namespace=build.driver.namespace))
+    return spec
+
+
+class TestEscalation:
+    def test_choose_or_default_escalates_to_search(self, sim, tmp_path,
+                                                   monkeypatch):
+        monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "empty"))
+        registry.clear()
+        default = {"bm": -1, "bn": -1, "bk": -1}
+        counting = _CountingModel(noise=0.04, seed=11)
+        # without spec and device: the static default
+        assert choose_or_default("matmul_b32", D_MM, default) == default
+        budget = SearchBudget(max_executions=32)
+        cfg = choose_or_default("matmul_b32", D_MM, default,
+                                spec=matmul_spec(4), device=counting,
+                                budget=budget)
+        assert cfg != default and set(cfg) == {"bm", "bn", "bk"}
+        n = counting.probe_rows_calls
+        assert n > 0
+        # memoized: the second call searches nothing
+        again = choose_or_default("matmul_b32", D_MM, default,
+                                  spec=matmul_spec(4), device=counting,
+                                  budget=budget)
+        assert again == cfg and counting.probe_rows_calls == n
+        registry.clear()
+
+    def test_escalates_past_mismatched_driver(self, sim, tmp_path,
+                                              monkeypatch):
+        monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "empty"))
+        registry.clear()
+        spec = _mismatched_flash_driver()
+        D = {"bh": 8, "sq": 2048, "skv": 2048}
+        default = {"bq": -1, "bkv": -1}
+        assert choose_or_default(spec.name, D, default) == default
+        cfg = choose_or_default(spec.name, D, default, spec=spec, device=sim,
+                                budget=SearchBudget(max_executions=16))
+        assert cfg != default and set(cfg) == {"bq", "bkv"}
+        registry.clear()
+
+    def test_unknown_strategy_name_raises(self, sim, tmp_path, monkeypatch):
+        monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "empty"))
+        registry.clear()
+        with pytest.raises(ValueError, match="unknown search strategy"):
+            choose_or_default("matmul_b32", D_MM,
+                              {"bm": -1, "bn": -1, "bk": -1},
+                              spec=matmul_spec(4), device=sim,
+                              strategy="surogate")
+        registry.clear()
+
+    def test_tune_for_shape_survives_mismatched_driver(self, sim, tmp_path,
+                                                       monkeypatch):
+        from repro_torch.serving.engine import ServingEngine
+        monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "c"))
+        registry.clear()
+        spec = _mismatched_flash_driver()
+        engine = ServingEngine.__new__(ServingEngine)
+        D = {"bh": 8, "sq": 2048, "skv": 2048}
+        cfg = engine.tune_for_shape(spec, D, sim,
+                                    budget=SearchBudget(max_executions=16))
+        assert set(cfg) == {"bq", "bkv"}
+        registry.clear()
+
+
+# -- the escalation: the port's rules -----------------------------------------
+
+@pytest.fixture()
+def empty_registry(tmp_path, monkeypatch):
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    registry.clear()
+    set_choice_listener(None)
+    yield
+    set_choice_listener(None)
+    registry.clear()
+
+
+def test_escalation_returns_search_best(empty_registry):
+    """The escalation's tile is ``search_best``'s for the same spec, oracle,
+    shape, strategy and budget (the surrogate by default)."""
+    default = {"bm": -1, "bn": -1, "bk": -1}
+    for strategy in ("surrogate", "lhs"):
+        budget = SearchBudget(max_executions=40)
+        cfg = choose_or_default(
+            "matmul_b32", D_MM, default, spec=matmul_spec(4),
+            device=HopperModel(noise=0.04, seed=11), strategy=strategy,
+            budget=budget)
+        want = search_best(matmul_spec(4), HopperModel(noise=0.04, seed=11),
+                           D_MM, strategy=strategy, budget=budget)
+        assert cfg == want.best_config
+    assert choose_or_default(
+        "matmul_b32", D_PARITY, default, spec=matmul_spec(4),
+        device=HopperModel(noise=0.04, seed=11)) == search_best(
+        matmul_spec(4), HopperModel(noise=0.04, seed=11), D_PARITY,
+        strategy="surrogate").best_config
+
+
+def test_spec_alone_never_searches(empty_registry):
+    """The port's ``spec=`` is the driver cache's read-through key: alone
+    it reads the cache and falls to the default; the search needs
+    ``device=`` as well (the reference raises on ``spec=`` alone)."""
+    default = {"bm": -1, "bn": -1, "bk": -1}
+    events = []
+    set_choice_listener(events.append)
+    assert choose_or_default("matmul_b32", D_MM, default,
+                             spec=matmul_spec(4)) == default
+    searched = choose_or_default("matmul_b32", D_MM, default,
+                                 spec=matmul_spec(4), device=HopperModel(),
+                                 budget=SearchBudget(max_executions=16))
+    assert searched != default
+    assert choose_or_default("matmul_b32", D_MM, default,
+                             spec=matmul_spec(4)) == default
+    assert [e.source for e in events] == ["default", "search", "default"]
+
+
+def test_device_without_spec_raises(empty_registry):
+    with pytest.raises(ValueError, match="needs BOTH spec and device"):
+        choose_or_default("matmul_b32", D_MM, {"bm": -1, "bn": -1, "bk": -1},
+                          device=HopperModel())
+
+
+def test_escalation_rejects_a_foreign_budget(empty_registry):
+    counting = _CountingModel()
+    with pytest.raises(TypeError, match="SearchBudget"):
+        choose_or_default("matmul_b32", D_MM, {"bm": -1, "bn": -1, "bk": -1},
+                          spec=matmul_spec(4), device=counting,
+                          budget=ref_search.SearchBudget(max_executions=8))
+    assert counting.probe_rows_calls == 0
+
+
+def test_escalation_memo_sources_and_failures(empty_registry):
+    """The listener sees ``search`` then ``search_memo``; a search that
+    fits no probe is memoized as the default and probes nothing again."""
+    default = {"bm": -1, "bn": -1, "bk": -1}
+    events = []
+    set_choice_listener(events.append)
+    counting = _CountingModel(noise=0.04, seed=11)
+    kw = dict(spec=matmul_spec(4), device=counting)
+    budget = SearchBudget(max_executions=16)
+    first = choose_or_default("matmul_b32", D_MM, default, budget=budget,
+                              **kw)
+    assert choose_or_default("matmul_b32", D_MM, default, budget=budget,
+                             **kw) == first
+    tiny = SearchBudget(max_device_seconds=1e-12)
+    assert choose_or_default("matmul_b32", D_MM, default, budget=tiny,
+                             **kw) == default
+    n = counting.probe_rows_calls
+    assert choose_or_default("matmul_b32", D_MM, default, budget=tiny,
+                             **kw) == default
+    assert counting.probe_rows_calls == n
+    assert [e.source for e in events] == ["search", "search_memo",
+                                          "default", "default"]
+    # a new driver for the kernel forgets its searched shapes
+    registry.invalidate_kernel("matmul_b32")
+    choose_or_default("matmul_b32", D_MM, default, budget=budget, **kw)
+    assert events[-1].source == "search"
 
 
 # -- the port's small tables, defaults and errors -----------------------------

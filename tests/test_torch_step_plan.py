@@ -318,6 +318,26 @@ class TestDecisionMemo:
         assert events[-1].n_coalesced == MEMO_NOTIFY_EVERY
         assert sum(e.n_coalesced for e in events) == total
 
+    def test_telemetry_counts_coalesced_launches(self, clean, builds):
+        from repro_torch.core.driver import (MEMO_FULL_WINDOW,
+                                             MEMO_NOTIFY_EVERY)
+        from repro_torch.telemetry import Telemetry, TelemetryConfig
+        driver = builds["matmul"].driver
+        register_driver(driver)
+        # refits off: one would move the generation mid-loop and drop the
+        # pending coalesced hits, which is not the identity under test
+        tel = Telemetry([matmul_spec()], HopperModel(seed=0), cache=False,
+                        config=TelemetryConfig(refit_enabled=False))
+        total = 1 + MEMO_FULL_WINDOW + MEMO_NOTIFY_EVERY
+        with tel:
+            for _ in range(total):
+                choose_or_default(driver.kernel, D_IN, {"bm": -1})
+        snap = tel.snapshot()
+        assert snap["counters"]["choices_total"] == total
+        assert snap["counters"]["choices_by_source"] == {"driver": total}
+        (key,) = snap["keys"]
+        assert key["n_choices"] == total
+
     def test_disable_enable(self, clean, builds):
         driver = builds["matmul"].driver
         register_driver(driver)

@@ -13,7 +13,9 @@ six other architectures that fit one card through the port's prefill step
 and serving engine (its steps as CUDA graphs), derives kernel specs from
 the compiled kernels, runs the budgeted online search on the card, and
 serves with the search escalation, the telemetry loop and a tracer
-installed, one phase per printed block:
+installed, farms the tier-1 builds, a kill drill and a ledger-fed retune
+out to spawned workers taking turns on the card, and watches the serving
+side through the observatory, one phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -289,7 +291,41 @@ installed, one phase per printed block:
      ledger (six rounds each on the observed engine, the order reversed
      every other round), and the Chrome trace and the ledger read back;
      then
-     one JSON line ``{"observed": ...}``.
+     one JSON line ``{"observed": ...}``;
+ 27. the tuning farm and the observatory: (a) first one process builds
+     the four tier-1 drivers (``matmul_b16``, ``flash_attn_d128_causal``,
+     ``moe_gmm_b16``, ``ssd_scan_h64_n128``) at the probe settings of
+     phases 4, 8, 12 and 16 and collects ``matmul_b32`` (comparisons);
+     then ``FleetCoordinator.tune(tier1_spec_refs())`` on
+     ``CudaEventTimer`` with two spawned process workers that take turns
+     on the card through its lock (gated: every job completes, the merged
+     rows equal one process's, and so do their times: the per-row
+     ratio's median and the device-seconds within 10 %; each farm driver
+     lands under the key ``Klaraptor.build_driver`` computes, the
+     workers' held lock intervals (one per row) never overlap; the
+     farm's and one process's wall, device-seconds,
+     requeues, dropped duplicates, and each driver's choice at the shapes
+     of phases 5, 9, 13 and 16 beside one process's, with the card ms of
+     both, printed); (b) the same tune of ``matmul_b32`` with worker 0
+     killed at its first job (gated: the lease requeued, the worker
+     respawned, the rows equal one process's; the recovery time and the
+     longest gap between two heartbeats printed); (c) phase 26 (b)'s
+     drifting driver served with a ledger, the telemetry loop's refit
+     left to the farm: ``RetuneQueue.ingest`` of the ledger, then
+     ``FleetCoordinator.retune`` with two process workers under 25 % of
+     phase 25's pass (gated: the key done, the versioned cache at the
+     next ``tuning_version``, the serving registry untouched until a warm
+     start, which reads that version; the served tile's ratio printed);
+     (d) an ``Observatory`` over (c)'s serving side with
+     ``default_rules()`` (gated: ``evaluate()``, a non-empty ``snapshot()``
+     and ``prometheus()``, a scorecard row for ``matmul_b32``, the
+     ledger's ``replay_ledgers`` equal to the live bus; alerts and the
+     keys a breach boosted printed), then ``python -m
+     repro_torch.launch.status --ledger`` and ``python -m
+     repro_torch.launch.fleet status --spool`` (exit 0); then one JSON
+     line ``{"fleet": ...}``.  Every ``kernels`` row carries
+     ``fleet_path_launches``: the launches the workers' kept results
+     report plus this process's shadow probes in (c).
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -305,7 +341,9 @@ and engine, one path per architecture) and 25 (a) and (b) (the f32 matmul
 and grouped matmul under the online search and the strategies' builds)
 and 26 (the f32 matmul under the escalation's search, the telemetry
 loop's probes and refit and the captured step, flash attention under
-``tune_for_shape``'s search):
+``tune_for_shape``'s search) and 27 (the bf16 matmul, flash attention,
+the SSD and the grouped matmul in the farm's workers, the f32 matmul in
+the kill drill, the serving side's probes and the farm's retune):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -324,6 +362,7 @@ exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import itertools
@@ -333,6 +372,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -997,6 +1037,17 @@ def run(caches: list) -> int:
                       (simt_row, "matmul"), (gmm32_row, "moe_gmm")):
         row["telemetry_path_launches"] = \
             observed["launches"][name] if name else 0
+    farm = fleet_phase(hw, phase_done, caches, card, search["mm_pass"])
+    # (a) launches the bf16 rows' kernels, (b) and (c) the f32 matmul
+    for row, part, name in ((matmul_row, "bf16", "matmul"),
+                            (flash_row, "bf16", "flash_attention"),
+                            (ssd_row, "bf16", "ssd_scan"),
+                            (gmm_row, "bf16", "moe_gmm"),
+                            (ln_row, "f32", "layernorm"),
+                            (cs_row, "f32", "colsum"),
+                            (simt_row, "f32", "matmul"),
+                            (gmm32_row, "f32", "moe_gmm")):
+        row["fleet_path_launches"] = farm["launches"][part].get(name, 0)
     for row, name in ((matmul_row, "matmul"), (flash_row, "flash_attention"),
                       (ssd_row, "ssd_scan"), (gmm_row, "moe_gmm"),
                       (ln_row, "layernorm"), (cs_row, "colsum")):
@@ -4708,6 +4759,454 @@ def observed_phase(hw, phase_done, caches: list, card: str,
         "capture": {"queued": queued, "ran": ran},
         "engine": {"decode_ms": median, "rounds": rounds,
                    "spans": {s["name"]: s["count"] for s in spans}},
+        "launches": launches, "card": card}}, default=str))
+    return {"launches": launches}
+
+
+
+# Phase 27: the tuning farm and the observatory.  The farm's four tier-1
+# builds take the probe settings of the single-process builds of phases 4,
+# 8, 12 and 16 (2 repeats, 24 configs per size, each kernel's probe grid);
+# every tile table there has at most 9 rows, so 24 configs per size takes
+# them all, as phase 8's 12 does.
+FARM_WORKERS = 2
+FARM_REPEATS, FARM_CONFIGS = 2, 24
+# The shapes whose choices the farm's and the single process's drivers are
+# timed at: phase 5's gate/up GEMM, phase 9's prefill (bh 32, S 4096) at
+# head dim 128, phase 13's prefill, phase 16's up product.
+FARM_SHAPES = {
+    "matmul_b16": {"m": 4096, "n": 8192, "k": 2048},
+    "flash_attn_d128_causal": {"bh": 32, "sq": PREFILL_S, "skv": PREFILL_S},
+    "ssd_scan_h64_n128": {"bh": 24, "s": PREFILL_S, "chunkflops": 1},
+    "moe_gmm_b16": {"e": GMM_E, "g": GMM_G, "k": GMM_SHAPES[0][1],
+                    "n": GMM_SHAPES[0][2]},
+}
+RETUNE_FRACTION = 0.25          # of phase 25's exhaustive device-seconds
+# The farm's probe times against one process's for the same rows: the
+# per-row ratio's median and the device-seconds' ratio, each within 10 %.
+FARM_TIME_TOL = 0.10
+
+
+def _farm_probe_data() -> dict:
+    from repro_torch.core.kernel_spec import (flash_probe_data,
+                                              gmm_probe_data, ssd_probe_data)
+    return {"matmul_b16": None, "flash_attn_d128_causal": flash_probe_data(),
+            "moe_gmm_b16": gmm_probe_data(),
+            "ssd_scan_h64_n128": ssd_probe_data()}
+
+
+def _farm_results(board) -> list:
+    """The result documents a farm's board kept (one per job key)."""
+    rdir = os.path.join(board.root, "results")
+    return [board.result(n[:-len(".json")]) for n in sorted(os.listdir(rdir))
+            if n.endswith(".json")]
+
+
+def fleet_phase(hw, phase_done, caches: list, card: str,
+                mm_pass: tuple) -> dict:
+    """Phase 27: the tuning farm (``FleetCoordinator`` with spawned process
+    workers taking turns on the card) and the observatory (see the module
+    docstring).  ``mm_pass`` is phase 25's exhaustive pass of
+    ``matmul_b32`` at N 2048.  Returns the path's launches per kernel
+    counter: the main process's and those the workers' results report."""
+    import numpy as np
+
+    from repro_torch.core import (CandidateTable, CudaEventTimer,
+                                  DriverCache, HopperModel, Klaraptor,
+                                  matmul_spec, registry,
+                                  warm_start_from_cache)
+    from repro_torch.core.card_lock import (LOG_ENV, largest_overlap,
+                                            read_intervals)
+    from repro_torch.core.collect import collect
+    from repro_torch.core.driver import choose_or_default
+    from repro_torch.fleet import (FaultPlan, FleetConfig, FleetCoordinator,
+                                   RetuneQueue, SpecRef, collected_rows_equal,
+                                   drift_key, tier1_spec_refs)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observatory, default_rules, replay_ledgers
+    from repro_torch.search import SearchBudget
+    from repro_torch.serving.graphs import LAUNCH_COUNTERS, launch_counts
+    from repro_torch.telemetry import Telemetry, TelemetryConfig
+    from repro_torch.trace import Ledger
+
+    def card_timer():
+        return CudaEventTimer(hw, seed=SEED)
+
+    print(f"[27] the tuning farm and the observatory on the card ({card}): "
+          f"FleetCoordinator with {FARM_WORKERS} spawned process workers "
+          f"taking turns on the card, a kill drill, a ledger-fed retune, "
+          f"and an Observatory over the serving side", flush=True)
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="fleet-"))
+    caches.append(str(work))
+    lock_log = work / "card_lock.log"
+    refs = tier1_spec_refs()
+    pd = _farm_probe_data()
+    ref32 = SpecRef("repro_torch.core", "matmul_spec", (("dtype_bytes", 4),))
+    spec32 = ref32.build()
+    build_kw = dict(repeats=FARM_REPEATS, max_configs_per_size=FARM_CONFIGS,
+                    seed=SEED)
+
+    # -- comparisons first: one process's builds and collect ----------------
+    single_cache = DriverCache(str(work / "single"))
+    singles, single_wall, single_late = {}, {}, 0
+    for name, ref in sorted(refs.items()):
+        timer = card_timer()
+        t0 = time.perf_counter()
+        singles[name] = Klaraptor(timer, cache=single_cache).build_driver(
+            ref.build(), probe_data=pd[name], register=False, **build_kw)
+        single_wall[name] = time.perf_counter() - t0
+        single_late += timer.late
+    t0 = time.perf_counter()
+    single32 = collect(spec32, card_timer(), hw=hw, **build_kw)
+    single32_wall = time.perf_counter() - t0
+    print(f"  one process, the same builds: "
+          + "; ".join(f"{n} {single_wall[n]:.2f} s, "
+                      f"{singles[n].collected.n_probe_executions} probes, "
+                      f"{singles[n].probe_device_seconds:.4f} device-s"
+                      for n in sorted(singles))
+          + f"; in all {sum(single_wall.values()):.2f} s wall; "
+          f"{spec32.name}'s collect {single32_wall:.2f} s, "
+          f"{single32.n_probe_executions} probes; late enqueue windows "
+          f"re-timed {single_late}", flush=True)
+
+    for c in LAUNCH_COUNTERS.values():     # the phase-27 path starts here
+        c.reset()
+    os.environ[LOG_ENV] = str(lock_log)     # the workers inherit it
+    # the workers' launches by part: (a) launches the bf16 matmul and
+    # grouped matmul, (b) and (c) the f32 matmul, on one counter each
+    worker_launches: dict = {"bf16": {}, "f32": {}}
+
+    def note_workers(board, part: str) -> list:
+        docs = _farm_results(board)
+        for d in docs:
+            for k, n in d.get("launches", {}).items():
+                tally = worker_launches[part]
+                tally[k] = tally.get(k, 0) + n
+        return docs
+
+    # -- (a) the four tier-1 builds, farmed ----------------------------------
+    farm_cache = DriverCache(str(work / "farm"))
+    t0 = time.perf_counter()
+    with FleetCoordinator(work / "spool_a", card_timer(), hw=hw,
+                          cache=farm_cache,
+                          config=FleetConfig(n_workers=FARM_WORKERS,
+                                             backend="process",
+                                             job_timeout_s=600)) as fc:
+        t_started = time.perf_counter()
+        out = fc.tune(refs, probe_data=pd, **build_kw)
+        tune_wall = time.perf_counter() - t_started
+        farm_wall = time.perf_counter() - t0
+        stats_a, counts_a = fc.stats, fc.board.counts()
+        dropped_a = fc.board.dropped()
+        handles = [w.handle for w in fc.workers]
+        docs_a = note_workers(fc.board, "bf16")
+    spawned = sorted({type(h).__name__ for h in handles})
+    intervals = read_intervals(lock_log)
+    overlap = largest_overlap(intervals)
+    holders = {r["pid"] for r in intervals}
+    device_s = sum(r.collected.probe_device_seconds for r in out.values())
+    print(f"  (a) FleetCoordinator.tune(tier1_spec_refs()) on "
+          f"{"CudaEventTimer"}, {FARM_WORKERS} {spawned} "
+          f"workers: {farm_wall:.2f} s wall with the workers' start "
+          f"({tune_wall:.2f} s of tune), one process "
+          f"{sum(single_wall.values()):.2f} s; device-seconds "
+          f"{device_s:.4f} (one process "
+          f"{sum(s.probe_device_seconds for s in singles.values()):.4f}); "
+          f"jobs {stats_a.jobs_submitted} by kind {stats_a.by_kind}, board "
+          f"{counts_a}, requeues {stats_a.requeues}, speculations "
+          f"{stats_a.speculations}, duplicates dropped {len(dropped_a)}",
+          flush=True)
+    longest_hold = max(r["t1"] - r["t0"] for r in intervals)
+    print(f"    the card's lock: {len(intervals)} held intervals from "
+          f"{len(holders)} processes (one per row), the longest held "
+          f"{longest_hold * 1e3:.2f} ms; largest overlap {overlap:.6f} s; "
+          f"longest beat gap {max(d['max_beat_gap_s'] for d in docs_a):.3f}"
+          f" s (lease {FleetConfig().lease_s} s)", flush=True)
+    if counts_a["results"] != stats_a.jobs_submitted or counts_a["failed"] \
+            or len(docs_a) != stats_a.jobs_submitted:
+        raise AssertionError(f"a farm job did not complete: {counts_a}")
+    if spawned != ["SpawnProcess"] or len(holders) < FARM_WORKERS:
+        raise AssertionError(f"workers {spawned}, lock holders {holders}")
+    if overlap > 0.0:
+        raise AssertionError(f"two timed probes overlapped by {overlap} s")
+    picks, row_ratios = {}, {}
+    for name in sorted(refs):
+        spec = refs[name].build()
+        diff = collected_rows_equal(singles[name].collected,
+                                    out[name].collected)
+        ratio = np.asarray(out[name].collected.metrics["total_time_s"]) / \
+            np.asarray(singles[name].collected.metrics["total_time_s"])
+        row_ratios[name] = {
+            "p50": float(np.median(ratio)),
+            "p90": float(np.quantile(ratio, 0.9)),
+            "max": float(np.max(ratio)),
+            "sum": out[name].collected.probe_device_seconds
+            / singles[name].collected.probe_device_seconds}
+        print(f"    {name}: farm / one process, row by row: p50 "
+              f"{row_ratios[name]['p50']:.3f}, p90 "
+              f"{row_ratios[name]['p90']:.3f}, max "
+              f"{row_ratios[name]['max']:.3f}; device-seconds "
+              f"{row_ratios[name]['sum']:.3f}", flush=True)
+        again = Klaraptor(card_timer(), cache=farm_cache).build_driver(
+            spec, probe_data=pd[name], register=False, **build_kw)
+        D = FARM_SHAPES[name]
+        picks[name] = [out[name].driver.choose(D),
+                       singles[name].driver.choose(D)]
+        print(f"    {name}: rows equal to one process's "
+              f"{diff == []} ({len(out[name].collected)} rows, "
+              f"{out[name].collected.n_probe_executions} probes); under the "
+              f"single-process key {again.from_cache}; at {D} the farm "
+              f"driver picks {picks[name][0]}, one process's "
+              f"{picks[name][1]} (timed after the path)", flush=True)
+        if diff or not again.from_cache or \
+                again.driver.source != out[name].driver.source:
+            raise AssertionError(f"{name}: the farm's rows {diff} or its "
+                                 f"cache key differ from one process's")
+        # the farm's drivers land under the single-process key, so their
+        # times must be one process's: the median row and the sum within
+        # FARM_TIME_TOL
+        if not all(abs(row_ratios[name][k] - 1.0) <= FARM_TIME_TOL
+                   for k in ("p50", "sum")):
+            raise AssertionError(f"{name}: the farm's probe times differ "
+                                 f"from one process's: {row_ratios[name]}")
+
+    # -- (b) the kill drill ---------------------------------------------------
+    deaths = []
+    t0 = time.perf_counter()
+    with FleetCoordinator(work / "spool_b", card_timer(), hw=hw,
+                          cache=DriverCache(str(work / "farm_b")),
+                          config=FleetConfig(n_workers=FARM_WORKERS,
+                                             backend="process",
+                                             job_timeout_s=600),
+                          worker_faults={0: FaultPlan(kill_at_job=1)}) as fc:
+        stop = threading.Event()
+
+        def watch():
+            while not stop.wait(0.005):
+                if fc.stats.worker_deaths > len(deaths):
+                    deaths.append(time.time())
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        try:
+            drilled = fc.tune({spec32.name: ref32}, **build_kw)[spec32.name]
+        finally:
+            stop.set()
+            watcher.join(5.0)
+        stats_b = fc.stats
+        docs_b = note_workers(fc.board, "f32")
+        # the killed lease: the job whose kept result came after a failed
+        # attempt; recovered when that result was written
+        retried = [d for d in docs_b if d.get("attempts")]
+        done_at = [os.path.getmtime(fc.board.result_path(d["key"]))
+                   for d in retried]
+    drill_wall = time.perf_counter() - t0
+    recover_s = (max(done_at) - deaths[0]) if deaths and done_at else None
+    diff_b = collected_rows_equal(single32, drilled.collected)
+    gap_b = max(d["max_beat_gap_s"] for d in docs_b)
+    print(f"  (b) the same tune of {spec32.name} with FaultPlan(kill_at_job"
+          f"=1) on w0: {drill_wall:.2f} s wall; deaths "
+          f"{stats_b.worker_deaths}, respawns {stats_b.respawns}, requeues "
+          f"{stats_b.requeues}; the killed lease "
+          f"({[(d['key'][:12], d['worker']) for d in retried]}) done "
+          f"{recover_s if recover_s is None else round(recover_s, 3)} s "
+          f"after the death was seen; longest beat gap {gap_b:.3f} s; rows "
+          f"equal to one process's: {diff_b == []} "
+          f"({len(drilled.collected)} rows)", flush=True)
+    if stats_b.worker_deaths < 1 or stats_b.respawns < 1 or \
+            stats_b.requeues < 1 or recover_s is None:
+        raise AssertionError(f"the killed lease was not recovered: "
+                             f"{stats_b}")
+    if diff_b:
+        raise AssertionError(f"the drilled farm's rows differ: {diff_b}")
+
+    # -- (c) drift in a ledger -> RetuneQueue -> farm retune -> warm start --
+    feasible, times = mm_pass
+    best_s, pass_s = float(np.min(times)), float(np.sum(times))
+    D = {"m": SEARCH_N, "n": SEARCH_N, "k": SEARCH_N}
+    default = dict(ops.MATMUL_DEFAULT_F32)
+    fresh_cache(caches)
+    registry.clear()
+    off = dataclasses.replace(
+        hw, hbm_bw=OFF_PHYSICS_FACTOR * hw.hbm_bw,
+        peak_flops_f32=OFF_PHYSICS_FACTOR * hw.peak_flops_f32,
+        peak_flops_bf16=OFF_PHYSICS_FACTOR * hw.peak_flops_bf16)
+    corrupted = Klaraptor(HopperModel(off, noise=0.04, seed=7), hw=off
+                          ).build_driver(spec32, repeats=2,
+                                         max_configs_per_size=16, seed=7)
+    ledger_path = work / "serving.jsonl"
+    ledger = Ledger(ledger_path)
+    queue = RetuneQueue(work / "retune.json")
+    tel = Telemetry([spec32], card_timer(), seed=3, ledger=ledger,
+                    config=TelemetryConfig(probe_every=2,
+                                           refit_enabled=False)).install()
+    obs = Observatory(telemetry=tel, queue=queue,
+                      rules=default_rules()).install()
+    decisions = 0
+    try:
+        for _ in range(24):
+            choose_or_default(spec32.name, D, default)
+            decisions += 1
+            if tel.drift_events:
+                break
+    finally:
+        obs.uninstall()
+        tel.uninstall()
+    new_keys = queue.ingest(ledger_path)
+    alerts = obs.evaluate()
+    boosted = {k: r.get("boost") for k, r in queue.state["pending"].items()
+               if "boost" in r}
+    print(f"  (c) the serving side: {decisions} decisions at N {SEARCH_N} "
+          f"on a driver fitted at {OFF_PHYSICS_FACTOR:g}x the card's rates, "
+          f"{len(tel.drift_events)} drift (refits left to the farm), ledger "
+          f"{ledger.n_written} lines; RetuneQueue.ingest: {new_keys} new "
+          f"key(s), pending {[k for k, _ in queue.pending()]}", flush=True)
+    print(f"  (d) Observatory(telemetry=, queue=, default_rules()) "
+          f"evaluate(): " + ("; ".join(
+              f"{a.slo} {a.state} {a.key} value {a.value:.4f} burn "
+              f"{a.burn_fast:.1f}/{a.burn_slow:.1f}" for a in alerts)
+              or "no alert") + f"; keys a breach boosted in the queue "
+          f"{boosted}", flush=True)
+    if len(tel.drift_events) != 1 or not queue.pending():
+        raise AssertionError("no drift reached the retune queue")
+    dkey = drift_key(queue.pending()[0][1])
+    gen_before = registry.generation
+    src_before = registry.get(spec32.name).source
+    version_before = DriverCache().latest_version(spec32.name, hw.name)
+    budget = SearchBudget(max_device_seconds=RETUNE_FRACTION * pass_s)
+    t0 = time.perf_counter()
+    with FleetCoordinator(work / "spool_c", card_timer(), hw=hw,
+                          cache=DriverCache(),
+                          config=FleetConfig(n_workers=FARM_WORKERS,
+                                             backend="process",
+                                             job_timeout_s=600)) as fc:
+        outcomes = fc.retune(queue, {spec32.name: ref32}, budget=budget,
+                             seed=SEED)
+        note_workers(fc.board, "f32")
+    retune_wall = time.perf_counter() - t0
+    version = DriverCache().latest_version(spec32.name, hw.name)
+    untouched = registry.generation == gen_before and \
+        registry.get(spec32.name).source == src_before
+    registry.clear()
+    loaded = warm_start_from_cache([spec32], hw=hw)
+    read_back = registry.get(spec32.name)
+    served = choose_or_default(spec32.name, D, default)
+    ratio = best_s / float(times[feasible.index(served)]) \
+        if served in feasible else 0.0
+    o = outcomes[0] if outcomes else {}
+    print(f"    FleetCoordinator.retune({FARM_WORKERS} process workers, "
+          f"budget {budget.max_device_seconds:.4f} device-s = "
+          f"{RETUNE_FRACTION:.0%} of phase 25's pass): {retune_wall:.2f} s "
+          f"wall; {dkey}: succeeded {o.get('succeeded')}, error "
+          f"{o.get('error')}, cache_version {o.get('cache_version')}, "
+          f"searched {o.get('searched_config')}, override "
+          f"{o.get('override')}; queue {queue.summary()}", flush=True)
+    print(f"    the versioned cache: tuning_version {version_before} -> "
+          f"{version}; the serving registry untouched by the farm: "
+          f"{untouched}; a warm start loads {list(loaded)} at "
+          f"tuning_version "
+          f"{read_back.tuning_version if read_back else None}; served "
+          f"{served}, ratio against the pass's best {ratio:.3f}", flush=True)
+    if dkey not in queue.state["done"] or not o.get("succeeded"):
+        raise AssertionError(f"the drift key was not retuned: {outcomes}")
+    if version != version_before + 1 or o.get("cache_version") != version:
+        raise AssertionError(f"the cache holds tuning_version {version}")
+    if not untouched or read_back is None or \
+            read_back.tuning_version != version:
+        raise AssertionError("the farm touched the serving registry, or "
+                             "the warm start missed the new version")
+
+    # -- (d) the observatory, after the retune ---------------------------
+    more = obs.evaluate()
+    snap = obs.snapshot()
+    prom = obs.prometheus()
+    rows = obs.scorecard.as_rows()
+    ledger.close()
+    replayed = replay_ledgers([ledger_path])
+    same = replayed.bus.snapshot_json() == obs.bus.snapshot_json()
+    print(f"    after the retune: evaluate() {len(more)} transition(s); "
+          f"snapshot {sorted(snap)} (series events "
+          f"{snap['series']['n_events']}, firing {snap['slo']['firing']}), "
+          f"prometheus {len(prom.splitlines())} lines; scorecard rows "
+          f"{[(r['kernel'], r['bucket'], r['probes']) for r in rows]}; "
+          f"replay_ledgers of the ledger equals the live bus: {same}",
+          flush=True)
+    print("    " + obs.scorecard.render_text().replace("\n", "\n    "),
+          flush=True)
+    if not snap["series"]["n_events"] or not prom.strip() or \
+            not any(r["kernel"] == spec32.name for r in rows):
+        raise AssertionError("the observatory shows nothing")
+    if not same:
+        raise AssertionError("the ledger's replay differs from the live bus")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for argv in (["repro_torch.launch.status", "--ledger", str(ledger_path)],
+                 ["repro_torch.launch.fleet", "status", "--spool",
+                  str(work / "spool_c"), "--state",
+                  str(work / "retune.json")]):
+        proc = subprocess.run([sys.executable, "-m", *argv], env=env,
+                              capture_output=True, text=True, timeout=120)
+        head = [ln for ln in proc.stdout.splitlines() if ln.strip()][:3]
+        print(f"    python -m {' '.join(argv[:2])} ...: exit "
+              f"{proc.returncode}; " + " | ".join(head), flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{argv[0]} failed:\n{proc.stderr[-2000:]}")
+    registry.clear()
+    os.environ.pop(LOG_ENV, None)
+    all_intervals = read_intervals(lock_log)
+    overlap_all = largest_overlap(all_intervals)
+    print(f"  the card's lock over (a)-(c): {len(all_intervals)} held "
+          f"intervals, largest overlap {overlap_all:.6f} s", flush=True)
+    if overlap_all > 0.0:
+        raise AssertionError(f"two timed probes overlapped by "
+                             f"{overlap_all} s")
+
+    main_launches = launch_counts()          # the path ends here
+    # this process launched only (c)'s shadow probes: the f32 matmul
+    f32 = dict(worker_launches["f32"])
+    for k, n in main_launches.items():
+        f32[k] = f32.get(k, 0) + n
+    launches = {"bf16": worker_launches["bf16"], "f32": f32}
+    print(f"  launches on this path (the workers' kept results, this "
+          f"process's shadow probes): (a) {launches['bf16']}, (b) and (c) "
+          f"{launches['f32']}", flush=True)
+    if not all(launches["bf16"].get(k) for k in (
+            "matmul", "flash_attention", "ssd_scan", "moe_gmm")) or \
+            not launches["f32"].get("matmul"):
+        raise AssertionError(f"a kernel of the phase-27 path never "
+                             f"launched: {launches}")
+    # after the read: (a)'s choices timed at their shapes (L2-cold
+    # medians of the oracle's timings)
+    rows_a = []
+    for name in sorted(refs):
+        spec, D = refs[name].build(), FARM_SHAPES[name]
+        pair = CandidateTable.from_rows(spec.program_params, picks[name])
+        ms = card_timer().true_time_batch(
+            spec.traffic_table(D, pair, hw)) * 1e3
+        rows_a.append({"kernel": name, "farm": picks[name][0],
+                       "farm_ms": ms[0], "single": picks[name][1],
+                       "single_ms": ms[1]})
+        print(f"    (a) {name} at {D}: the farm driver's {picks[name][0]} "
+              f"{ms[0]:.4f} ms, one process's {picks[name][1]} "
+              f"{ms[1]:.4f} ms", flush=True)
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(27)
+    print(json.dumps({"fleet": {
+        "tune": {"farm_wall_s": farm_wall, "tune_wall_s": tune_wall,
+                 "single_wall_s": sum(single_wall.values()),
+                 "device_seconds": device_s,
+                 "requeues": stats_a.requeues, "dropped": len(dropped_a),
+                 "lock_intervals": len(intervals),
+                 "longest_hold_s": longest_hold,
+                 "largest_overlap_s": overlap,
+                 "largest_overlap_all_s": overlap_all, "choices": rows_a,
+                 "row_ratios": row_ratios, "single_late": single_late},
+        "drill": {"wall_s": drill_wall, "recover_s": recover_s,
+                  "max_beat_gap_s": gap_b, "requeues": stats_b.requeues},
+        "retune": {"wall_s": retune_wall, "version": version,
+                   "served": served, "ratio": ratio},
+        "observatory": {"alerts": [a.to_event() for a in alerts + more],
+                        "boosted": boosted, "replay_equal": same},
         "launches": launches, "card": card}}, default=str))
     return {"launches": launches}
 

@@ -20,31 +20,52 @@ The residual uses the *known* decision skeleton (overlap iff B_res >= 2), so
 what remains for ovh_step is the barrier/latency bubble and overlap leak --
 the "departure delay" of the MWP-CWP model.
 
-A collect run is a sequence of independent per-size batches: every batch
-draws from its own ``RandomState(batch_seed(seed, i))``, and
-``merge_shards`` folds them in batch-index order, so the merged dataset is
-a pure function of the shards.  All seeds come from a platform-stable hash
-(sha256), never Python's ``hash``.
+Shardability
+------------
+A collect run is a sequence of independent per-size batches, factored so
+that the tuning farm (``repro_torch.fleet``) can run batches -- or row
+chunks inside a batch -- on different workers and merge the shards into
+the single-process dataset:
+
+* every batch draws from its own ``RandomState(batch_seed(seed, i))``, so
+  strategy proposals and probe noise never couple two batches;
+* with ``shard_rows`` set, probe-call noise comes from per-chunk streams
+  (``chunk_noise_seed``) through ``ChunkedProber``, so the noise a row sees
+  depends only on (seed, batch, call, chunk position), never on which
+  process probes it;
+* ``merge_shards`` folds ``BatchShard``s in batch-index order, not
+  completion order.
+
+Under a seeded oracle (``HopperModel``) the merged dataset is the
+single-process one byte for byte; on the card (``CudaEventTimer``) times
+differ between any two runs, and what the farm keeps equal is which rows
+(D, configs, repeats) it probes, for strategies whose choice of rows does
+not read the times.  All seeds come from a platform-stable hash (sha256),
+never Python's ``hash``.  The reference's ``max_stages`` (the TPU's
+pipeline-buffer cap in the overhead residual) has no counterpart: the
+Hopper skeleton reads the blocks resident per SM instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import itertools
 import json
 import time
 from dataclasses import dataclass
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 
 from ..trace import trace_span
-from .device_model import H100, DeviceModel, HardwareParams
+from .device_model import H100, DeviceModel, HardwareParams, RowProbe
 from .kernel_spec import KernelSpec
 
 __all__ = [
-    "BatchShard", "CollectedData", "batch_budgets", "batch_seed", "collect",
-    "collect_batch", "default_probe_data", "from_reference_collected",
+    "BatchShard", "ChunkedProber", "CollectedData", "batch_budgets",
+    "batch_seed", "chunk_noise_seed", "collect", "collect_batch",
+    "concat_row_probes", "default_probe_data", "from_reference_collected",
     "merge_shards", "stable_mix",
 ]
 
@@ -65,6 +86,13 @@ def batch_seed(seed: int, batch_index: int) -> int:
     return stable_mix("collect.batch", int(seed), int(batch_index))
 
 
+def chunk_noise_seed(seed: int, batch_index: int, call_index: int,
+                     chunk_index: int) -> int:
+    """Seed of one row-chunk's probe-noise RandomState (``shard_rows``)."""
+    return stable_mix("collect.noise", int(seed), int(batch_index),
+                      int(call_index), int(chunk_index))
+
+
 def batch_budgets(n_batches: int, budget, max_configs_per_size: int,
                   repeats: int) -> list:
     """The per-batch ``SearchBudget``s of one collect run: no total budget
@@ -79,6 +107,73 @@ def batch_budgets(n_batches: int, budget, max_configs_per_size: int,
         return [SearchBudget(max_executions=max_configs_per_size * repeats)
                 for _ in range(n_batches)]
     return budget.split(n_batches)
+
+
+def concat_row_probes(parts: Sequence[RowProbe]) -> RowProbe:
+    """Concatenate per-chunk ``RowProbe``s back into one (row order kept)."""
+    if len(parts) == 1:
+        return parts[0]
+    return RowProbe(**{
+        f.name: np.concatenate([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(RowProbe)})
+
+
+class ChunkedProber:
+    """Chunk-seeded probe executor for one collect batch.
+
+    Splits every probe call into fixed-size row chunks and draws each
+    chunk's noise from its own RandomState
+    (``chunk_noise_seed(seed, batch, call, chunk)``), so the result does not
+    depend on which process probes a chunk or in what order: a farm worker
+    probing chunk (call, j) draws exactly the noise this in-process prober
+    would.  Strategy randomness stays on the batch rng, which this prober
+    never touches.
+    """
+
+    def __init__(self, device: DeviceModel, tt, seed: int, batch_index: int,
+                 shard_rows: int):
+        if shard_rows < 1:
+            raise ValueError(f"shard_rows must be >= 1, got {shard_rows}")
+        self.device = device
+        self.tt = tt
+        self.seed = int(seed)
+        self.batch_index = int(batch_index)
+        self.shard_rows = int(shard_rows)
+        self.call_index = 0
+
+    def chunks(self, n_rows: int) -> list[slice]:
+        return [slice(lo, min(lo + self.shard_rows, n_rows))
+                for lo in range(0, n_rows, self.shard_rows)]
+
+    def probe_chunk(self, idx: np.ndarray, reps: np.ndarray,
+                    call_index: int, chunk_index: int) -> RowProbe:
+        """Probe one chunk with its derived noise stream (worker-callable)."""
+        rng = np.random.RandomState(chunk_noise_seed(
+            self.seed, self.batch_index, call_index, chunk_index))
+        return self.device.probe_rows(self.tt.select(idx), rng, reps)
+
+    def __call__(self, idx: np.ndarray, reps: np.ndarray) -> RowProbe:
+        call = self.call_index
+        self.call_index += 1
+        parts = [self.probe_chunk(idx[sl], reps[sl], call, j)
+                 for j, sl in enumerate(self.chunks(int(idx.size)))]
+        return concat_row_probes(parts)
+
+
+def _arrays_to_json(obj) -> dict:
+    return {"columns": {k: v.tolist() for k, v in obj.columns.items()},
+            "metrics": {k: v.tolist() for k, v in obj.metrics.items()},
+            "grid_steps": obj.grid_steps.tolist(),
+            "stage_bytes": obj.stage_bytes.tolist()}
+
+
+def _arrays_from_json(d: Mapping) -> dict:
+    return {"columns": {k: np.asarray(v, dtype=np.int64)
+                        for k, v in d["columns"].items()},
+            "metrics": {k: np.asarray(v, dtype=np.float64)
+                        for k, v in d["metrics"].items()},
+            "grid_steps": np.asarray(d["grid_steps"], dtype=np.int64),
+            "stage_bytes": np.asarray(d["stage_bytes"], dtype=np.int64)}
 
 
 @dataclass
@@ -132,6 +227,31 @@ class CollectedData:
         y = np.asarray(self.metrics[metric], dtype=np.float64)
         return X, y
 
+    def to_json(self) -> dict:
+        """JSON-able form; float64 round-trips exactly through json repr.
+        The reference's ``vmem_stage_bytes`` key is ``stage_bytes`` here."""
+        return {
+            "spec_name": self.spec_name,
+            "data_params": list(self.data_params),
+            "program_params": list(self.program_params),
+            **_arrays_to_json(self),
+            "n_probe_executions": int(self.n_probe_executions),
+            "probe_device_seconds": float(self.probe_device_seconds),
+            "collect_wall_seconds": float(self.collect_wall_seconds),
+        }
+
+    @classmethod
+    def from_json(cls, d: Mapping) -> "CollectedData":
+        return cls(
+            spec_name=d["spec_name"],
+            data_params=tuple(d["data_params"]),
+            program_params=tuple(d["program_params"]),
+            **_arrays_from_json(d),
+            n_probe_executions=int(d["n_probe_executions"]),
+            probe_device_seconds=float(d["probe_device_seconds"]),
+            collect_wall_seconds=float(d["collect_wall_seconds"]),
+        )
+
 
 def from_reference_collected(d: Mapping) -> CollectedData:
     """The JAX package's ``CollectedData.to_json()`` dict as the port's.
@@ -170,6 +290,27 @@ class BatchShard:
     n_probe_executions: int
     probe_device_seconds: float
 
+    def to_json(self) -> dict:
+        return {
+            "batch_index": int(self.batch_index),
+            "D": {k: int(v) for k, v in self.D.items()},
+            **_arrays_to_json(self),
+            "n_candidates": int(self.n_candidates),
+            "n_probe_executions": int(self.n_probe_executions),
+            "probe_device_seconds": float(self.probe_device_seconds),
+        }
+
+    @classmethod
+    def from_json(cls, d: Mapping) -> "BatchShard":
+        return cls(
+            batch_index=int(d["batch_index"]),
+            D=dict(d["D"]),
+            **_arrays_from_json(d),
+            n_candidates=int(d["n_candidates"]),
+            n_probe_executions=int(d["n_probe_executions"]),
+            probe_device_seconds=float(d["probe_device_seconds"]),
+        )
+
 
 def default_probe_data(spec: KernelSpec,
                        sizes: Sequence[int] = (256, 512, 1024)
@@ -197,14 +338,19 @@ def collect_batch(
     batch_index: int = 0,
     budget=None,
     strategy=None,
+    shard_rows: int | None = None,
+    prober_factory: Callable | None = None,
 ) -> BatchShard:
-    """Probe one data size.
+    """Probe one data size; the shard a farm worker executes.
 
     ``budget`` is this batch's own ``SearchBudget``.  Pass a resolved
     ``Strategy`` instance to keep its run lifecycle (``begin_run``) with the
     caller, as ``collect`` does; a name or None is resolved *and* begun
     here.  The batch rng is ``RandomState(batch_seed(seed, batch_index))``
     whoever calls, so the shard depends only on its inputs.
+    ``prober_factory(batch_index, D, tt)`` (optional) takes over probe
+    execution -- the farm's row-shard hook; ``shard_rows`` alone selects the
+    in-process ``ChunkedProber`` with the chunk seeding workers use.
     """
     from ..search import SearchBudget, Strategy, resolve_strategy, \
         search_table
@@ -249,8 +395,18 @@ def collect_batch(
                 steps_blocks.append(steps)
                 stage_blocks.append(probe.stage_bytes)
 
+            if prober_factory is not None:
+                def pf(tt):
+                    return prober_factory(batch_index, dict(D), tt)
+            elif shard_rows is not None:
+                def pf(tt):
+                    return ChunkedProber(device, tt, seed, batch_index,
+                                         shard_rows)
+            else:
+                pf = None
             search_table(spec, device, D, table, strategy, ledger, rng,
-                         hw=hw, default_repeats=repeats, observer=record)
+                         hw=hw, default_repeats=repeats, observer=record,
+                         prober_factory=pf)
         bsp.set(n_candidates=len(table),
                 executions=ledger.spent_executions,
                 device_seconds=ledger.spent_device_seconds)
@@ -311,13 +467,18 @@ def collect(
     seed: int = 0,
     strategy=None,
     budget=None,
+    shard_rows: int | None = None,
+    prober_factory: Callable | None = None,
 ) -> CollectedData:
     """Probe the device oracle at strategy-selected (D, P) points.
 
     ``strategy`` is a search strategy name or instance (default: stratified
     ``random``); ``budget`` a total ``SearchBudget`` split evenly across the
     probe sizes (default: ``max_configs_per_size * repeats`` executions per
-    size).
+    size).  ``shard_rows`` switches probe noise to per-chunk streams
+    (``ChunkedProber``) so the farm's row-shard jobs reproduce this run;
+    ``prober_factory(batch_index, D, tt)`` takes over probe execution (the
+    farm coordinator's remote-probe hook).
     """
     from ..search import resolve_strategy
 
@@ -335,7 +496,8 @@ def collect(
         shards = [collect_batch(spec, device, D, hw=hw, repeats=repeats,
                                 max_configs_per_size=max_configs_per_size,
                                 seed=seed, batch_index=i, budget=b,
-                                strategy=strategy)
+                                strategy=strategy, shard_rows=shard_rows,
+                                prober_factory=prober_factory)
                   for i, (D, b) in enumerate(zip(probe_data, budgets))]
         csp.set(n_probe_executions=sum(s.n_probe_executions for s in shards),
                 probe_device_seconds=float(

@@ -47,11 +47,14 @@ fits carries the measured variation.
 from __future__ import annotations
 
 import hashlib
+import time
 from dataclasses import dataclass, fields, replace
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
+
+from .card_lock import CardLock
 
 __all__ = [
     "HardwareParams", "H100", "ProbeBatch", "RowProbe", "DeviceModel",
@@ -439,13 +442,33 @@ class CudaEventTimer(DeviceModel):
     launches per row.  Inputs are made once per data size from ``seed``.
     ``kernels.ops.probe_launcher`` binds the inputs and launches.  There
     is no CPU fallback: without a card the constructor raises.
+
+    The spin covers the host only if the host enqueues the start event,
+    the launch and the end event before it ends.  A host that another
+    thread or process preempts can take longer, and the launch is then
+    timed with the host's gap in it.  So the host times that window, and a
+    launch whose window reached ``SPIN_CYCLES`` at the boost clock is
+    timed again behind a spin four times as long, up to ``RETIMES``
+    times; ``late`` counts such windows.
+
+    Each row -- its input binding, warm-ups, flushes, spins, events and
+    launches -- runs while it holds the card's ``CardLock``
+    (core/card_lock.py), so timed probes of two threads or two processes
+    on one card take turns row by row; ``beat`` (optional) is called
+    while waiting for the lock and between rows -- a tuning-farm worker's
+    lease heartbeat.  ``warm`` loads every kernel library and makes the
+    CUDA context, under the lock, before the first probe.
     """
 
     SPIN_CYCLES = 200_000     # about 100 us at the H100's boost clock
+    BOOST_HZ = 1.98e9         # the H100 SXM's highest SM clock
+    RETIMES = 3
+    beat: Callable[[], object] | None = None
 
     def __init__(self, hw: HardwareParams | None = None,
                  device: str | torch.device = "cuda", warmup: int = 1,
-                 timings: int = 3, seed: int = 0):
+                 timings: int = 3, seed: int = 0,
+                 beat: Callable[[], object] | None = None):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(
@@ -456,8 +479,22 @@ class CudaEventTimer(DeviceModel):
         self.warmup = int(warmup)
         self.timings = int(timings)
         self.seed = int(seed)
+        self.beat = beat
         self._bound: tuple | None = None
         self._flush: torch.Tensor | None = None
+        self._lock = CardLock.for_device(self.device)
+        self.late = 0
+
+    def warm(self) -> None:
+        """Load (building if needed) every kernel library and make the CUDA
+        context, so no later probe -- and no farm lease -- waits on them."""
+        from ..kernels import _build
+
+        with self._lock.hold(self.beat):
+            for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+                _build.load(name)
+            torch.zeros(1, device=self.device)
+            torch.cuda.synchronize(self.device)
 
     def fingerprint(self) -> dict:
         """The timer's settings and the hash of the kernel library's
@@ -483,26 +520,42 @@ class CudaEventTimer(DeviceModel):
                                       device=self.device)
         self._flush.sum()
 
+    def _time_launch(self, launch, P, start, end, stream) -> None:
+        """Record one timed launch of ``launch(P)`` between ``start`` and
+        ``end``; again, behind a longer spin, while the host's enqueue
+        outlasted the spin before it (see the class docstring)."""
+        spin = self.SPIN_CYCLES
+        for _ in range(self.RETIMES + 1):
+            self._flush_l2()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(spin)
+            start.record(stream)
+            launch(P)
+            end.record(stream)
+            if time.perf_counter() - t0 < spin / self.BOOST_HZ:
+                return
+            self.late += 1
+            spin *= 4
+
     def _time_rows(self, table: TrafficTable, n_timed: int) -> np.ndarray:
-        """(n_timed, n) seconds: one timed launch per entry."""
-        launch = self._launch_fn(table.kernel, table.D)
+        """(n_timed, n) seconds: one timed launch per entry, each row under
+        the card's lock."""
         out = np.empty((n_timed, len(table)))
         stream = torch.cuda.current_stream(self.device)
         for i in range(len(table)):
+            if self.beat is not None:
+                self.beat()
             P = {p: int(c[i]) for p, c in table.config.items()}
-            for _ in range(self.warmup):
-                launch(P)
             events = [(torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
                       for _ in range(n_timed)]
-            with torch.cuda.device(self.device):
-                for start, end in events:
-                    self._flush_l2()
-                    torch.cuda._sleep(self.SPIN_CYCLES)
-                    start.record(stream)
+            with self._lock.hold(self.beat), torch.cuda.device(self.device):
+                launch = self._launch_fn(table.kernel, table.D)
+                for _ in range(self.warmup):
                     launch(P)
-                    end.record(stream)
-            events[-1][1].synchronize()
+                for start, end in events:
+                    self._time_launch(launch, P, start, end, stream)
+                events[-1][1].synchronize()
             out[:, i] = [s.elapsed_time(e) * 1e-3 for s, e in events]
         return out
 

@@ -138,6 +138,8 @@ class Klaraptor:
         budget=None,
         use_cache: bool = True,
         cache_version: int = 0,
+        shard_rows: int | None = None,
+        data: CollectedData | None = None,
     ) -> BuildResult:
         """Collect -> fit -> codegen one driver, through the driver cache.
 
@@ -146,13 +148,23 @@ class Klaraptor:
         ``use_cache=False`` skips the read but still writes.  A miss builds
         and writes the driver as generation ``cache_version``; a failed
         write warns once and does not fail the build.
+
+        ``data`` supplies an already-collected dataset -- the tuning farm's
+        write-through: nothing is probed, and since the other arguments
+        still describe how the data was collected, the driver lands under
+        the key the single-process build computes.  ``shard_rows`` selects
+        chunk-seeded probe noise (see ``collect``) and is part of the key
+        when set.
         """
         from ..search import resolve_strategy
 
         t0 = time.perf_counter()
+        if data is not None and data.spec_name != spec.name:
+            raise ValueError(
+                f"supplied data is for {data.spec_name!r}, not {spec.name!r}")
         key = None
         if self.cache is not None:
-            key = cache_key(spec, self.hw, {
+            hyper = {
                 "repeats": repeats,
                 "max_configs_per_size": max_configs_per_size,
                 "seed": seed,
@@ -164,7 +176,11 @@ class Klaraptor:
                 "strategy": resolve_strategy(strategy).fingerprint(),
                 "budget": budget.fingerprint() if budget is not None
                 else None,
-            })
+            }
+            # folded in only when set, so earlier builds keep their keys
+            if shard_rows is not None:
+                hyper["shard_rows"] = int(shard_rows)
+            key = cache_key(spec, self.hw, hyper)
         with trace_span("build_driver", kernel=spec.name) as bsp:
             entry = self.cache.get(spec.name, key) \
                 if key is not None and use_cache else None
@@ -183,10 +199,12 @@ class Klaraptor:
                     probe_device_seconds=0.0,
                     from_cache=True,
                 )
-            data = collect(spec, self.oracle, probe_data=probe_data,
-                           hw=self.hw, repeats=repeats,
-                           max_configs_per_size=max_configs_per_size,
-                           seed=seed, strategy=strategy, budget=budget)
+            if data is None:
+                data = collect(spec, self.oracle, probe_data=probe_data,
+                               hw=self.hw, repeats=repeats,
+                               max_configs_per_size=max_configs_per_size,
+                               seed=seed, strategy=strategy, budget=budget,
+                               shard_rows=shard_rows)
             fits: dict[str, FitResult] = {}
             with trace_span("fit", kernel=spec.name,
                             n_samples=len(data)) as fsp:

@@ -35,9 +35,10 @@ prints its Prometheus text after the run; ``--telemetry-json PATH`` writes
 the JSON snapshot instead.  ``--trace PATH`` records spans for the whole
 run and writes a Chrome trace-event file (open it in ui.perfetto.dev);
 ``--ledger PATH`` appends the flight ledger (choices, probes, drift,
-refits and, with ``--trace``, spans; implies ``--telemetry``).  The JAX
-launcher's ``--dash`` waits for ``launch/dash.py`` (ROADMAP Queue A item
-6).
+refits and, with ``--trace``, spans; implies ``--telemetry``) and points
+at ``python -m repro_torch.launch.status`` and ``python -m
+repro_torch.launch.fleet retune`` to read it.  The JAX launcher's
+``--dash`` waits for ``launch/dash.py`` (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -318,6 +319,12 @@ def main(argv: Sequence[str] | None = None) -> list[Request]:
               f"(open in ui.perfetto.dev)")
     if ledger is not None:
         ledger.close()
+        print(f"flight ledger: {ledger.n_written} events appended to "
+              f"{args.ledger}; render with "
+              f"python -m repro_torch.launch.status --ledger {args.ledger}")
+        print(f"  (feed drift events to the tuning farm with "
+              f"python -m repro_torch.launch.fleet retune --ledger "
+              f"{args.ledger})")
     return finished
 
 

@@ -24,10 +24,9 @@ batch.
 
 ``search_table`` is the per-table inner loop; ``collect``
 (core/collect.py) drives it once per probe size with a shared strategy and
-an observer that records the probe metrics for the fitter.  The
-reference's ``Prober`` / ``prober_factory`` hooks, which shard probe
-execution into fleet row-shard jobs, come with the fleet module and are
-not here.
+an observer that records the probe metrics for the fitter.  Its
+``prober_factory`` hook lets ``collect`` hand probe execution to a
+``ChunkedProber`` or to the tuning farm's row-shard jobs.
 """
 
 from __future__ import annotations
@@ -52,6 +51,9 @@ Dims = Mapping[str, int]
 
 # observer(indices, probe): collect() hooks this to record fit targets.
 Observer = Callable[[np.ndarray, RowProbe], None]
+# prober(indices, repeats) -> RowProbe: an alternative probe executor (the
+# farm's chunk-seeded / remote row-shard path); None probes directly.
+Prober = Callable[[np.ndarray, np.ndarray], RowProbe]
 
 
 @dataclass
@@ -122,6 +124,7 @@ class _CostCalibration:
 def _evaluate(ask: Ask, tt: TrafficTable, device: DeviceModel,
               rng: np.random.RandomState, ledger: BudgetLedger,
               cost_hint: np.ndarray, calib: _CostCalibration,
+              prober: Prober | None = None,
               ) -> tuple[np.ndarray, RowProbe] | None:
     """Probe one proposal under the budget; None if nothing fit at all."""
     idx = np.asarray(ask.indices, dtype=np.int64)
@@ -147,7 +150,10 @@ def _evaluate(ask: Ask, tt: TrafficTable, device: DeviceModel,
         keep = pred <= cap
         keep[0] = True
         idx, reps = idx[keep], reps[keep]
-    probe = device.probe_rows(tt.select(idx), rng, reps)
+    if prober is not None:
+        probe = prober(idx, reps)
+    else:
+        probe = device.probe_rows(tt.select(idx), rng, reps)
     calib.update(np.sum(cost_hint[idx] * reps), np.sum(probe.device_seconds))
     if cap is not None:
         spend = np.cumsum(probe.device_seconds)
@@ -179,14 +185,21 @@ def search_table(
     hw: HardwareParams | None = None,
     default_repeats: int = 1,
     observer: Observer | None = None,
+    prober_factory: Callable[[TrafficTable], Prober] | None = None,
 ) -> TableSearchStats:
     """Run one strategy pass over one candidate table under ``ledger``
-    (``hw``: default the oracle's)."""
+    (``hw``: default the oracle's).
+
+    ``prober_factory(tt)`` (optional) builds the probe executor for this
+    table; by default rows go straight to ``device.probe_rows`` with the
+    shared ``rng``, in the draw order of a run without the hook.
+    """
     stats = TableSearchStats()
     if not len(table):
         return stats
     hw = hw if hw is not None else device.hw
     tt = spec.traffic_table(D, table, hw)
+    prober = prober_factory(tt) if prober_factory is not None else None
     cost_hint = analytic_cost_hint(tt, hw)
     calib = _CostCalibration()
     # Upper bound on one-repeat rows the remaining budget could ever probe
@@ -205,7 +218,8 @@ def search_table(
         ask = strategy.ask(ledger)
         if ask is None:
             break
-        out = _evaluate(ask, tt, device, rng, ledger, cost_hint, calib)
+        out = _evaluate(ask, tt, device, rng, ledger, cost_hint, calib,
+                        prober)
         if out is None:
             break
         idx, probe = out

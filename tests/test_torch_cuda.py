@@ -657,3 +657,142 @@ def test_cuda_escalation_searches_on_the_card(tmp_path, monkeypatch):
                              budget=budget) == cfg
     assert timer.calls == n
     registry.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_two_threads_probes_never_overlap(tmp_path, monkeypatch):
+    """Two threads, each with its own ``CudaEventTimer``, probe
+    ``matmul_b32`` rows on one card at once: both hold the card's lock,
+    once per row, and no two held intervals overlap (the farm's one-card
+    contract)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import CudaEventTimer
+    from repro_torch.core.card_lock import (LOG_ENV, largest_overlap,
+                                            read_intervals)
+
+    log = tmp_path / "lock.log"
+    monkeypatch.setenv(LOG_ENV, str(log))
+    spec = matmul_spec(4)
+    D = {"m": 512, "n": 512, "k": 512}
+    hw = CudaEventTimer().hw
+    table = spec.candidates(D, hw)
+    tt = spec.traffic_table(D, table, hw).select(np.arange(min(6,
+                                                              len(table))))
+    errors = []
+
+    def worker(seed):
+        try:
+            timer = CudaEventTimer(hw, seed=seed)
+            for _ in range(4):
+                timer.probe_rows(tt, np.random.RandomState(seed), 2)
+        except Exception as e:     # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(s,)) for s in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    intervals = read_intervals(log)
+    assert len({r["thread"] for r in intervals}) == 2
+    assert len(intervals) == 2 * 4 * len(tt)
+    assert largest_overlap(intervals) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_spawned_worker_completes_a_batch_job(tmp_path):
+    """One spawned process worker rebuilds ``CudaEventTimer`` from the job's
+    JSON on the card and completes ``batch`` jobs: the merged rows equal a
+    single-process collect of the same seed (times differ), and the farm's
+    driver lands under the single-process build's key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import CudaEventTimer, DriverCache, Klaraptor
+    from repro_torch.core.collect import collect
+    from repro_torch.fleet import (FleetConfig, FleetCoordinator, SpecRef,
+                                   collected_rows_equal)
+
+    spec = matmul_spec(4)
+    ref = SpecRef("repro_torch.core", "matmul_spec", (("dtype_bytes", 4),))
+    probes = [{"m": 256, "n": 256, "k": 256}, {"m": 512, "n": 512, "k": 512}]
+    timer = CudaEventTimer()
+    single = collect(spec, timer, probe_data=probes, hw=timer.hw, repeats=2,
+                     max_configs_per_size=4, seed=3)
+    cache = DriverCache(str(tmp_path / "cache"))
+    with FleetCoordinator(tmp_path / "spool", timer, cache=cache,
+                          config=FleetConfig(n_workers=1, backend="process",
+                                             job_timeout_s=300)) as fc:
+        fb = fc.tune({spec.name: ref}, probe_data=probes, repeats=2,
+                     max_configs_per_size=4, seed=3)[spec.name]
+        assert fc.stats.by_kind == {"batch": 2}
+    assert collected_rows_equal(single, fb.collected) == []
+    again = Klaraptor(timer, cache=cache).build_driver(
+        spec, probe_data=probes, repeats=2, max_configs_per_size=4, seed=3)
+    assert again.from_cache and again.driver.source == fb.driver.source
+
+
+@pytest.mark.cuda
+def test_cuda_device_from_json_refuses_another_card():
+    """A job tuned for another card model does not run on this card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import CudaEventTimer
+    from repro_torch.fleet import device_from_json, device_to_json
+
+    d = device_to_json(CudaEventTimer(seed=5))
+    assert d["kind"] == "cuda_event_timer" and d["seed"] == 5
+    back = device_from_json(d)
+    assert back.fingerprint() == CudaEventTimer(seed=5).fingerprint()
+    with pytest.raises(ValueError, match="tuned for"):
+        device_from_json({**d, "hw": "NVIDIA A100-SXM4-80GB"})
+
+
+@pytest.mark.cuda
+def test_cuda_coordinator_refuses_a_timer_of_another_card(tmp_path):
+    """A coordinator given a timer tuned for the cc-9.0 table's
+    ``h100_sxm_cc90`` on a card that names itself otherwise raises at
+    construction, before any worker starts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from repro_torch.core import CudaEventTimer, HardwareParams
+    from repro_torch.fleet import FleetCoordinator
+
+    assert HardwareParams.from_device().name != H100.name
+    with pytest.raises(ValueError, match="tuned for"):
+        FleetCoordinator(tmp_path / "spool", CudaEventTimer(H100))
+    assert not (tmp_path / "spool").exists()
+
+
+@pytest.mark.cuda
+def test_cuda_timer_retimes_a_late_enqueue():
+    """A launch whose host path outlasts the spin before it (here 1 ms of
+    host sleep against a ~100 us spin) is timed again behind a spin four
+    times as long until the spin covers it (the 6.4 ms spin of the last
+    try does, so at least one and at most ``RETIMES`` late windows), and
+    the kept time is the kernel's, not the host's millisecond."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    import time
+
+    from repro_torch.core import CudaEventTimer
+
+    timer = CudaEventTimer()
+    x = torch.zeros(1024, device="cuda")
+
+    def slow_host(P):
+        time.sleep(1e-3)
+        return x.add_(1.0)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    stream = torch.cuda.current_stream()
+    timer._time_launch(slow_host, {}, start, end, stream)
+    end.synchronize()
+    assert 1 <= timer.late <= timer.RETIMES
+    assert start.elapsed_time(end) < 0.5        # ms

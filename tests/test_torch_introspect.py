@@ -542,8 +542,10 @@ class TestLayernormChoiceOnTheCard:
     small CTAs.  The repair: the timer flushes the L2 before every timed
     launch, and the auto build probes every candidate of the layernorm."""
 
-    def test_timer_flushes_l2_before_every_timed_launch(self, monkeypatch):
+    def test_timer_flushes_l2_before_every_timed_launch(self, monkeypatch,
+                                                        tmp_path):
         from repro_torch.core import device_model as dm
+        from repro_torch.core.card_lock import CardLock
 
         log = []
 
@@ -575,6 +577,9 @@ class TestLayernormChoiceOnTheCard:
         timer.hw, timer.device = H100, torch.device("cpu")
         timer.warmup, timer.timings, timer.seed = 1, 3, 0
         timer._bound, timer._flush = None, Buffer()
+        timer._lock, timer.late = CardLock(tmp_path / "card.lock"), 0
+        # a spin that covers any host window: no launch is timed again
+        timer.BOOST_HZ = 1.0
         monkeypatch.setattr(timer, "_launch_fn", lambda kernel, D: (
             lambda P: log.append("launch")))
         spec = matmul_spec(4)
@@ -584,6 +589,16 @@ class TestLayernormChoiceOnTheCard:
         timer._time_rows(tt, 3)
         timed = ["flush", "spin", "event", "launch", "event"]
         assert log == (["launch"] + timed * 3) * 2
+        assert timer.late == 0
+
+        # a spin no host window fits in: every timed launch is timed
+        # again RETIMES times, each try behind its own flush and spin
+        log.clear()
+        timer.BOOST_HZ = float("inf")
+        timer._time_rows(tt, 3)
+        tries = timer.RETIMES + 1
+        assert log == (["launch"] + timed * 3 * tries) * 2
+        assert timer.late == 2 * 3 * tries
 
         # the flush reads twice the L2's bytes
         small = object.__new__(dm.CudaEventTimer)

@@ -1,18 +1,20 @@
-"""The port's windowed series and metrics bus held against the JAX
-package's.
+"""The port's observatory held against the JAX package's.
 
-``repro_torch.obs.series`` is the reference's ``repro.obs.series``.  The
-reference's ``tests/test_obs.py`` series, bus and replay tests run here by
-name; where they went through the ``Observatory`` (not ported: its SLO
-rules and scorecard feed the fleet's retune queue), a ``MetricsBus`` fed
-the ledger's session anchor takes its place, as the ``Observatory`` feeds
-it.  Then a ledger written by the JAX package's closed telemetry loop is
-replayed into both packages' buses: the same JSON snapshot, the same
-Prometheus text, byte for byte.
+``repro_torch.obs`` is the reference's ``repro.obs``: the windowed series
+and metrics bus, the burn-rate SLO engine, the scorecard and the
+``Observatory`` that wires them over the fleet's ``RetuneQueue``.  The
+reference's ``tests/test_obs.py`` runs here by name (series, bus, replay,
+SLO transitions acting on the ledger and the queue, the scorecard's rows,
+the Observatory's install contract).  Then a ledger written by the JAX
+package's closed telemetry loop is replayed into both packages: the same
+bus snapshot and Prometheus text byte for byte, and, through
+``replay_ledgers`` with ``default_rules()`` and a queue each, the same SLO
+alerts, scorecard rows, queue state and ``snapshot()``.
 """
 
 import json
 import threading
+import time
 
 import pytest
 
@@ -25,12 +27,18 @@ from repro.search import SearchBudget as RefSearchBudget
 from repro.telemetry import Telemetry as RefTelemetry
 from repro.telemetry import TelemetryConfig as RefTelemetryConfig
 
+import repro.fleet as ref_fleet
+import repro.obs as ref_obs
+
 from repro_torch.core import HopperModel, matmul_spec
-from repro_torch.obs import (MetricsBus, WindowedCounter, WindowedGauge,
-                             WindowedHistogram, get_metrics_bus, label_str,
-                             parse_label_str, replay_into, set_metrics_bus)
+from repro_torch.fleet import RetuneQueue
+from repro_torch.obs import (GaugeRule, MetricsBus, Observatory, RatioRule,
+                             SLOEngine, WindowedCounter, WindowedGauge,
+                             WindowedHistogram, default_rules,
+                             get_metrics_bus, label_str, parse_label_str,
+                             replay_into, replay_ledgers, set_metrics_bus)
 from repro_torch.telemetry import Telemetry
-from repro_torch.trace import Ledger, merge_ledgers
+from repro_torch.trace import Ledger, merge_ledgers, read_ledger
 
 W = 10 ** 9          # 1 s windows everywhere below
 T0 = 1_000_000 * W   # an arbitrary wall epoch, far from zero
@@ -360,16 +368,199 @@ def test_replay_strict_flag_propagates(tmp_path):
 
 def test_telemetry_note_bucket_step_reaches_bus_without_ledger():
     tel = Telemetry([matmul_spec(4)], HopperModel(), cache=False)
-    bus = set_metrics_bus(MetricsBus())
-    try:
+    obs = Observatory()
+    with obs:
         tel.note_bucket_step(True, 0.25, kernel="mm")
-    finally:
-        set_metrics_bus(None)
     tel.note_bucket_step(True, 0.25, kernel="mm")   # bus gone: no ingest
     assert get_metrics_bus() is None
-    assert bus.counter("bucket_steps",
-                       {"kernel": "mm", "outcome": "hit"}).total == 1.0
+    assert obs.bus.counter("bucket_steps",
+                           {"kernel": "mm", "outcome": "hit"}).total == 1.0
     assert tel.exporter.snapshot()["counters"]["bucket_hits"] == 2
+
+
+# -- SLO engine ---------------------------------------------------------------
+
+def _burnable_bus(frac_default=0.2, n=50):
+    bus = MetricsBus()
+    bus.ingest({"type": "session", "pid": 1, "wall_ns": T0, "mono_ns": 0})
+    n_def = int(n * frac_default)
+    for i in range(n):
+        bus.ingest({"type": "choice", "kernel": "mm", "source":
+                    "default" if i < n_def else "plan", "t_ns": i * W // 4})
+    return bus
+
+
+def test_slo_breach_fires_once_and_resolves():
+    engine = SLOEngine(rules=[RatioRule(
+        name="fallback_rate", objective=0.02,
+        num=("choices", {"source": "default"}), den=("choices", {}))])
+    bus = _burnable_bus(frac_default=0.2)
+    alerts = engine.evaluate(bus)
+    assert [a.state for a in alerts] == ["breach"]
+    assert alerts[0].burn_fast >= 2.0 and alerts[0].burn_slow >= 1.0
+    # sustained breach: no new transition on the next tick
+    assert engine.evaluate(bus) == []
+    assert ("fallback_rate", "") in engine.firing
+    # the bad window ages out of both windows -> resolve transition
+    later = bus.last_wall_ns + 1_000 * W
+    bus.ingest({"type": "choice", "kernel": "mm", "source": "plan",
+                "wall_ns": later})
+    resolved = engine.evaluate(bus, now_ns=later)
+    assert [a.state for a in resolved] == ["resolve"]
+    assert engine.firing == {}
+
+
+def test_slo_fast_window_gate_blocks_stale_breach():
+    """Burn in the slow window only (the incident is over) must not page."""
+    engine = SLOEngine(rules=[RatioRule(
+        name="fallback_rate", objective=0.02,
+        num=("choices", {"source": "default"}), den=("choices", {}))])
+    bus = MetricsBus()
+    bus.ingest({"type": "session", "pid": 1, "wall_ns": T0, "mono_ns": 0})
+    for i in range(20):    # all defaults, but 100+ seconds ago
+        bus.ingest({"type": "choice", "source": "default",
+                    "wall_ns": T0 + i * W})
+    now = T0 + 200 * W
+    for i in range(20):    # recent traffic is clean
+        bus.ingest({"type": "choice", "source": "plan",
+                    "wall_ns": now - 20 * W + i * W})
+    assert engine.evaluate(bus, now_ns=now) == []
+
+
+def test_slo_alert_lands_in_ledger_and_enqueues_retune(tmp_path):
+    led = Ledger(tmp_path / "slo.jsonl")
+    q = RetuneQueue(tmp_path / "q.json")
+    rule = GaugeRule(name="drift_ewma", objective=0.25,
+                     gauge="rel_error_ewma", retune=True, retune_boost=1e3)
+    engine = SLOEngine(rules=[rule], ledger=led, queue=q,
+                       enrich=lambda key: {"D": {"m": 64}})
+    bus = MetricsBus()
+    bus.ingest({"type": "session", "pid": 1, "wall_ns": T0, "mono_ns": 0})
+    bus.ingest({"type": "probe", "kernel": "mm", "hw": "h100_sxm_cc90",
+                "bucket": "b1,b2", "rel_error_ewma": 2.0, "t_ns": 0})
+    alerts = engine.evaluate(bus)
+    led.close()
+    assert len(alerts) == 1 and alerts[0].state == "breach"
+    # the alert line is in the ledger AND was ingested back into the bus
+    events = read_ledger(tmp_path / "slo.jsonl")
+    ledger_alerts = [e for e in events if e["type"] == "alert"]
+    assert len(ledger_alerts) == 1
+    assert ledger_alerts[0]["key"] == {"kernel": "mm", "hw": "h100_sxm_cc90",
+                                       "bucket": "b1,b2"}
+    assert bus.counter("alerts", {"slo": "drift_ewma",
+                                  "state": "breach"}).total == 1.0
+    # the breached key is pending in the retune queue, boosted and enriched
+    pend = q.pending()
+    assert len(pend) == 1
+    key, ev = pend[0]
+    assert key == "mm|h100_sxm_cc90|b1,b2"
+    assert ev["slo"] == "drift_ewma" and ev["D"] == {"m": 64}
+    assert q.state["pending"][key]["boost"] == 1e3
+
+
+def test_default_rules_cover_the_documented_invariants():
+    names = {r.name for r in default_rules()}
+    assert names == {"fallback_rate", "bucket_miss_rate", "padding_waste",
+                     "drift_ewma", "refit_latency"}
+    waste = next(r for r in default_rules() if r.name == "padding_waste")
+    assert waste.retune and waste.group_by == ("kernel",)
+
+
+# -- scorecard ----------------------------------------------------------------
+
+def test_scorecard_ratio_refit_and_enrich():
+    bus = MetricsBus()
+    obs = Observatory()
+    obs.bus = bus     # not installed; just wiring the subscriber
+    card = obs.scorecard
+    card.attach(bus)
+    t = {"wall_ns": T0}
+    bus.ingest({"type": "choice", "kernel": "mm", "hw": "h100_sxm_cc90",
+                "D": {"m": 512, "n": 512, "k": 512},
+                "config": {"bm": 128}, "n_coalesced": 3, **t})
+    for obs_s in (1.1e-4, 1.2e-4, 3.0e-4):
+        bus.ingest({"type": "probe", "kernel": "mm", "hw": "h100_sxm_cc90",
+                    "bucket": "k9,m9,n9", "predicted_s": 1e-4,
+                    "observed_s": obs_s, "rel_error_ewma": 0.3, **t})
+    row = card.rows["mm|h100_sxm_cc90|k9,m9,n9"]
+    assert row.probes == 3
+    cal = row.calibration()
+    assert cal["p50"] == pytest.approx(1.2)
+    assert card.within_slo(row) is True
+    # enrichment resolves a coarse (kernel-only) key to the busiest row
+    extra = card.enrich({"kernel": "mm"})
+    assert extra["hw"] == "h100_sxm_cc90" and extra["bucket"] == "k9,m9,n9"
+    assert extra["observed_s"] == pytest.approx(3.0e-4)
+    # a successful refit wipes the ring and stamps the version
+    bus.ingest({"type": "refit", "kernel": "mm", "succeeded": True,
+                "cache_version": 7, **t})
+    assert len(row.ratios) == 0 and row.tuning_version == 7
+    assert card.within_slo(row) is None
+    # corpus rows carry the full labeled example
+    rows = card.corpus_rows()
+    assert len(rows) == 3
+    assert rows[0]["config"] == {"bm": 128}
+    text = card.render_text()
+    assert "mm" in text and "ratio p50" in text
+
+
+def test_scorecard_corpus_write(tmp_path):
+    bus = MetricsBus()
+    from repro_torch.obs import Scorecard
+    card = Scorecard().attach(bus)
+    bus.ingest({"type": "probe", "kernel": "mm", "hw": "h100_sxm_cc90",
+                "bucket": "b", "predicted_s": 1e-4, "observed_s": 2e-4,
+                "wall_ns": T0})
+    p = tmp_path / "corpus.jsonl"
+    assert card.write_corpus(p) == 1
+    row = json.loads(p.read_text().strip())
+    assert row["observed_s"] == 2e-4 and row["tuning_version"] is None
+
+
+# -- observatory lifecycle ----------------------------------------------------
+
+def test_observatory_install_uninstall_and_zero_cost_default():
+    assert get_metrics_bus() is None
+    obs = Observatory()
+    with obs:
+        assert get_metrics_bus() is obs.bus
+    assert get_metrics_bus() is None
+    # installing a second observatory then uninstalling the first must not
+    # tear down the second's bus
+    o1, o2 = Observatory(), Observatory()
+    o1.install()
+    o2.install()
+    o1.uninstall()
+    assert get_metrics_bus() is o2.bus
+    o2.uninstall()
+
+
+def test_observatory_counts_session_header_like_replay(tmp_path):
+    led = Ledger(tmp_path / "x.jsonl")
+    obs = Observatory(ledger=led)
+    led.close()
+    # live bus saw exactly the one event replay will read back
+    assert obs.bus.n_events == 1
+    replayed = replay_ledgers(tmp_path / "x.jsonl")
+    assert obs.bus.snapshot_json() == replayed.bus.snapshot_json()
+
+
+def test_observatory_sinks_the_tracers_spans(tmp_path):
+    """``install()`` makes the bus the tracer's span sink, ``uninstall()``
+    detaches it: spans reach the bus only while installed."""
+    from repro_torch.trace import Tracer, trace_span
+
+    with Tracer() as tracer:
+        obs = Observatory().install()
+        with trace_span("fleet.tune", kernels=["mm"]):
+            pass
+        assert tracer.span_sink == obs.bus.ingest
+        obs.uninstall()
+        assert tracer.span_sink is None
+        with trace_span("fleet.tune"):
+            pass
+    spans = obs.bus.snapshot()["histograms"]
+    assert obs.bus.n_events == 1 and spans
 
 
 # -- a JAX-written ledger replayed into both packages -------------------------
@@ -411,3 +602,55 @@ def test_reference_ledger_replays_identically_in_both_packages(
     replay_into(port2, two)
     ref_series.replay_into(ref2, two)
     assert port2.snapshot_json() == ref2.snapshot_json()
+
+
+def test_observatory_over_a_reference_ledger_as_the_reference(
+        tmp_path, monkeypatch):
+    """``replay_ledgers`` of one ledger the reference's telemetry loop
+    wrote, with ``default_rules()`` and a retune queue in each package:
+    one SLO evaluation gives the same alerts (ledger-ready events), the
+    same boosted keys in the queue, the same scorecard rows and text, and
+    the same ``snapshot()``."""
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "cache"))
+    path = tmp_path / "ref.jsonl"
+    cfg = RefTelemetryConfig(probe_every=1, min_samples=2,
+                             drift_threshold=0.2, ewma_alpha=1.0,
+                             refit_budget=RefSearchBudget(max_executions=24),
+                             refit_repeats=1, refit_max_configs_per_size=4,
+                             refit_enabled=False)
+    tel = RefTelemetry([ref_matmul_spec()], V5eSimulator(seed=3), config=cfg,
+                       cache=False, ledger=str(path))
+    D = {"m": 1024, "n": 1024, "k": 1024}
+    try:
+        for i in range(6):
+            tel._on_choice(RefChoiceEvent(
+                kernel="matmul_b16", D=dict(D),
+                config={"bm": 128, "bn": 512, "bk": 512},
+                source="default" if i % 3 == 0 else "driver",
+                predicted_s=1e-9, hw_name="tpu_v5e", n_coalesced=1 + i,
+                t_ns=time.monotonic_ns()))
+        for i in range(4):
+            tel.note_bucket_step(i % 2 == 0, 0.6, kernel="matmul_b16")
+    finally:
+        tel.ledger.close()
+        ref_registry.clear()
+    types = {json.loads(line)["type"] for line in open(path)}
+    assert {"choice", "probe", "drift", "bucket_step"} <= types
+    port_q = RetuneQueue(tmp_path / "port_q.json")
+    ref_q = ref_fleet.RetuneQueue(tmp_path / "ref_q.json")
+    port = replay_ledgers([path], rules=default_rules(), queue=port_q)
+    ref = ref_obs.replay_ledgers([path], rules=ref_obs.default_rules(),
+                                 queue=ref_q)
+    port_alerts = [a.to_event() for a in port.evaluate()]
+    ref_alerts = [a.to_event() for a in ref.evaluate()]
+    assert port_alerts == ref_alerts
+    assert {a["slo"] for a in port_alerts} >= {"drift_ewma",
+                                               "fallback_rate"}
+    assert port_q.state == ref_q.state and port_q.pending()
+    assert port.scorecard.as_rows() == ref.scorecard.as_rows()
+    assert port.scorecard.render_text() == ref.scorecard.render_text()
+    assert port.scorecard.corpus_rows() == ref.scorecard.corpus_rows()
+    assert port.snapshot() == ref.snapshot()
+    assert port.prometheus() == ref.prometheus()
+    # a second tick transitions nothing, in both
+    assert port.evaluate() == [] and ref.evaluate() == []

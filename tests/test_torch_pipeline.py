@@ -171,5 +171,5 @@ print(" ".join(sorted(m for m in sys.modules if m.startswith("repro_torch"))))
     assert len(walked) >= 30
     for sub in ("core", "search", "kernels", "models", "configs", "launch",
                 "serving", "introspect", "benchmarks", "examples", "trace",
-                "telemetry", "obs"):
+                "telemetry", "obs", "fleet", "distributed"):
         assert f"repro_torch.{sub}" in walked, sub

@@ -4,13 +4,13 @@
 spans with thread-local nesting that cost one ``is None`` test when no
 tracer is installed, the flight-recorder ring with per-name histograms,
 Chrome trace-event export and the JSONL flight ledger.  The reference's
-``tests/test_trace.py`` runs here by name, but for ``TestStatusCLI``
-(``launch/status.py`` is not ported), on the f32 matmul (``matmul_spec(4)``)
-under ``HopperModel``.  Then the two packages are held against each other:
-the same spans under the same clock readings give the same Chrome trace,
-the same events the same ledger lines, a driver build and a refit the same
-span trees; and every span the reference opens outside ``fleet/`` is
-opened by the port.
+``tests/test_trace.py`` runs here by name, ``TestStatusCLI`` with the
+port's ``launch/status.py``, on the f32 matmul (``matmul_spec(4)``) under
+``HopperModel``.  Then the two packages are held against each other: the
+same spans under the same clock readings give the same Chrome trace, the
+same events the same ledger lines, a driver build and a refit the same
+span trees, a ledger the same status text; and every span the reference
+opens is opened by the port.
 """
 
 import json
@@ -520,4 +520,131 @@ def test_every_reference_span_outside_fleet_is_opened_by_the_port():
     port |= set(re.findall(r'Span\(tracer, "([^"]+)"', (
         REPO / "src" / "repro_torch" / "kernels" / "ops.py").read_text()))
     assert "dispatch.choose" in ref and "engine.step" in ref
+    assert ref - port == set()
+
+
+class TestStatusCLI:
+    def test_renders_ledger(self, clean, tmp_path, capsys):
+        from repro_torch.launch.status import main
+        _, path = _run_telemetry_with_ledger(tmp_path, refit=True)
+        assert main(["--ledger", str(path)]) == 0
+        out = capsys.readouterr().out
+        assert "decisions by kernel and source" in out
+        assert KERNEL in out
+        assert "drift and refits" in out
+
+    def test_renders_snapshot(self, clean, tmp_path, capsys):
+        from repro_torch.launch.status import main
+        tel = Telemetry({}, HopperModel()).install()
+        try:
+            choose_or_default(KERNEL, D_SMALL, MM_DEFAULT)
+        finally:
+            tel.uninstall()
+        path = tmp_path / "snap.json"
+        path.write_text(tel.exporter.json())
+        assert main(["--snapshot", str(path), "--top", "3"]) == 0
+        out = capsys.readouterr().out
+        assert "decisions by source" in out and "default" in out
+
+    def test_requires_exactly_one_source(self):
+        from repro_torch.launch.status import main
+        with pytest.raises(SystemExit):
+            main([])
+
+
+def _reference_ledger_with_refit(tmp_path):
+    """The reference's own ``_run_telemetry_with_ledger(refit=True)``: its
+    loop over its TPU simulator, a fabricated optimistic prediction."""
+    from repro.core.driver import ChoiceEvent as RefChoiceEvent
+    from repro.core.driver import registry as ref_registry
+    from repro.telemetry import Telemetry as RefTelemetry
+
+    path = tmp_path / "ref_run.jsonl"
+    cfg = RefTelemetryConfig(probe_every=1, min_samples=2,
+                             drift_threshold=0.2, ewma_alpha=1.0,
+                             refit_budget=RefSearchBudget(max_executions=24),
+                             refit_repeats=1, refit_max_configs_per_size=4)
+    tel = RefTelemetry([ref_matmul_spec()], V5eSimulator(seed=3), config=cfg,
+                       cache=False, ledger=str(path))
+    tel.install()
+    try:
+        for _ in range(4):
+            tel._on_choice(RefChoiceEvent(
+                kernel="matmul_b16", D=dict(D_SMALL),
+                config={"bm": 128, "bn": 512, "bk": 512}, source="driver",
+                predicted_s=1e-9, hw_name=V5E.name))
+    finally:
+        tel.uninstall()
+        tel.ledger.close()
+        ref_registry.clear()
+    return path
+
+
+def test_status_text_identical_to_reference(clean, tmp_path, monkeypatch):
+    """Both launchers render the same text for the same ledger -- one the
+    reference's loop wrote, one the port's (with a tracer's spans and an
+    SLO alert appended) -- the same tail line per event, and the same
+    snapshot text for the port's exporter dump."""
+    import repro.launch.status as ref_status
+
+    import repro_torch.launch.status as port_status
+
+    monkeypatch.setenv("KLARAPTOR_CACHE_DIR", str(tmp_path / "refcache"))
+    ref_path = _reference_ledger_with_refit(tmp_path)
+    tel, port_path = _run_telemetry_with_ledger(tmp_path, refit=True)
+    with open(port_path, "a") as f:
+        f.write(json.dumps({"type": "span", "name": "refit", "depth": 0,
+                            "dur_ns": 3_000_000, "t_ns": 5}) + "\n")
+        f.write(json.dumps({"type": "alert", "slo": "drift_ewma",
+                            "state": "breach", "value": 2.5,
+                            "objective": 0.25,
+                            "key": {"kernel": KERNEL}}) + "\n")
+    for path in (ref_path, port_path):
+        port_events = read_ledger(path)
+        ref_events = ref_trace.read_ledger(path)
+        assert port_events == ref_events
+        for top in (1, 10):
+            assert port_status.render_ledger(port_events, top=top) == \
+                ref_status.render_ledger(ref_events, top=top)
+        assert [port_status.format_event(e) for e in port_events] == \
+            [ref_status.format_event(e) for e in ref_events]
+    snap = json.loads(tel.exporter.json())
+    assert port_status.render_snapshot(snap) == \
+        ref_status.render_snapshot(snap)
+    assert port_status.section("x") == ref_status.section("x")
+    rows = [["a", "1"], ["bbb", "22"]]
+    assert port_status.table(["k", "v"], rows) == \
+        ref_status.table(["k", "v"], rows)
+
+
+def test_follow_ledger_tails_as_the_reference(clean, tmp_path):
+    """``follow_ledger`` over one ledger (a torn last line left for the
+    next poll) prints the reference's lines and counts the same events."""
+    import io
+
+    import repro.launch.status as ref_status
+
+    import repro_torch.launch.status as port_status
+
+    _, path = _run_telemetry_with_ledger(tmp_path, refit=True)
+    with open(path, "a") as f:
+        f.write('{"type": "drift", "kernel": "x"')      # torn: not read
+    outs = []
+    for mod in (port_status, ref_status):
+        buf = io.StringIO()
+        n = mod.follow_ledger(path, interval_s=0.01, max_seconds=0.0,
+                              out=buf)
+        outs.append((n, buf.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == len(read_ledger(path))
+
+
+def test_every_reference_span_is_opened_by_the_port():
+    """With ``fleet/`` ported, the reference's spans everywhere (the farm's
+    ``fleet.tune`` and ``fleet.retune`` among them) are the port's too."""
+    ref = _span_names(REPO / "src" / "repro", skip=("trace",))
+    port = _span_names(REPO / "src" / "repro_torch", skip=("trace",))
+    port |= set(re.findall(r'Span\(tracer, "([^"]+)"', (
+        REPO / "src" / "repro_torch" / "kernels" / "ops.py").read_text()))
+    assert {"fleet.tune", "fleet.retune"} <= ref & port
     assert ref - port == set()

@@ -14,8 +14,10 @@ and serving engine (its steps as CUDA graphs), derives kernel specs from
 the compiled kernels, runs the budgeted online search on the card, and
 serves with the search escalation, the telemetry loop and a tracer
 installed, farms the tier-1 builds, a kill drill and a ledger-fed retune
-out to spawned workers taking turns on the card, and watches the serving
-side through the observatory, one phase per printed block:
+out to spawned workers taking turns on the card, watches the serving
+side through the observatory, and trains llama3.2-1b at full width through
+the hand-written flash-attention backward kernel, one phase per printed
+block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -325,7 +327,33 @@ side through the observatory, one phase per printed block:
      repro_torch.launch.fleet status --spool`` (exit 0); then one JSON
      line ``{"fleet": ...}``.  Every ``kernels`` row carries
      ``fleet_path_launches``: the launches the workers' kept results
-     report plus this process's shadow probes in (c).
+     report plus this process's shadow probes in (c);
+ 28. training on the card: (a) the flash-attention backward kernel
+     (``csrc/flash_attention_bwd.cu``) against its plain version at
+     llama3.2-1b's training shape (bh 256 = B 8 x 32 heads, S 256) and
+     prefill shape (bh 32, S 4096), GQA 32 / 8, d 64, causal, bf16 (gated:
+     dq, dk, dv each within 2e-2 x max |plain|; the forward's output
+     bit-equal with and without lse), each timed beside the bound (2.5 x
+     the forward's FLOPs), the plain version, SDPA's backward and the
+     forward with and without lse, the kernels' registers and spills; (b)
+     ``TrainLoop`` on llama3.2-1b at full width (16 layers, bf16, remat
+     "full", weights at std 1 / sqrt(fan-in)), B 8 x S 256 from
+     ``SyntheticStream``, 10 steps, keep 1, one async save at step 6 and
+     the loop's final one: first the step-1 gradient against the same step
+     with autograd through ``flash_attention_plain`` (gated: every leaf
+     finite and non-zero, each within 5e-2 x max |g|, the loss within
+     1e-2), then the loop (gated: finite losses; the flash forward and
+     backward launched), its ms per step, tokens/s, peak memory, losses
+     and gradient norms, flash launches per step, the saves' seconds, one
+     step's profile by kernel group (the optimizer's kernels those under
+     the step's ``adamw_update`` range; gated: some); (c) a crash
+     at step 5 and a resume from step 4's checkpoint at 2 layers, full
+     width, against an uninterrupted run (gated: parameters and moments
+     bit-equal), and ``ops.ssd_scan`` / ``ops.moe_gmm`` on card inputs
+     that require grad (gated: they raise); then one JSON line
+     ``{"train": ...}``.  The ``kernels`` line gains the backward kernel's
+     row (its launches on the training path) and the flash row
+     ``train_path_launches``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -343,7 +371,8 @@ and 26 (the f32 matmul under the escalation's search, the telemetry
 loop's probes and refit and the captured step, flash attention under
 ``tune_for_shape``'s search) and 27 (the bf16 matmul, flash attention,
 the SSD and the grouped matmul in the farm's workers, the f32 matmul in
-the kill drill, the serving side's probes and the farm's retune):
+the kill drill, the serving side's probes and the farm's retune) and 28
+(b) (flash attention's forward and backward kernels in ``TrainLoop``):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -438,22 +467,29 @@ SEARCH_N = 2048
 AUTO_D_MODEL = 2048
 LN_ROWS = (4096, 16384, 4097)
 COLSUM_SHAPES = ((8192, 4096), (2048, 8192))
+# Phase 28: llama3.2-1b's training batch (B x S tokens) and steps.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 10
 
 
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 FLASH_PROFILE_GROUPS = (("flash", ("flash_",)), ("gemm", GEMM_NAMES))
 SSD_PROFILE_GROUPS = (("ssd", ("ssd_",)), ("gemm", GEMM_NAMES))
+TRAIN_PROFILE_GROUPS = (("flash_fwd", ("flash_sm90", "flash_fwd")),
+                        ("flash_bwd", ("flash_bwd",)), ("gemm", GEMM_NAMES))
 
 
 def _device_profile(fn, what: str,
                     groups: tuple = FLASH_PROFILE_GROUPS,
-                    cpu: bool = True) -> dict:
+                    cpu: bool = True, ranges: tuple = ()) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and print the device time
     by kernel group and the device-busy share of the window's wall time
     (inflated by the profiler's own overhead).  ``groups`` = ((group, name
     fragments), ...): a kernel joins the first group one of whose fragments
-    its name holds, else "other".  ``cpu=False`` traces the device alone
-    (no host op events: less overhead, and less to aggregate)."""
+    its name holds, else "other".  ``ranges`` names ``record_function``
+    ranges inside ``fn``: the kernels launched by the ops under each form a
+    group of the range's name, before ``groups`` are tried.  ``cpu=False``
+    traces the device alone (no host op events: less overhead, and less to
+    aggregate; no ``ranges``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,12 +502,26 @@ def _device_profile(fn, what: str,
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    totals = {g: 0.0 for g, _ in groups} | {"other": 0.0}
+    totals = {r: 0.0 for r in ranges} | {g: 0.0 for g, _ in groups} \
+        | {"other": 0.0}
+    moved = {}                  # kernel name -> ms counted under a range
+
+    def under(ev):
+        for child in ev.cpu_children:
+            yield from child.kernels
+            yield from under(child)
+
+    for ev in (prof.events() if ranges else ()):
+        if ev.name in ranges and str(ev.device_type).endswith("CPU"):
+            for k in under(ev):
+                totals[ev.name] += k.duration / 1e3
+                moved[k.name] = moved.get(k.name, 0.0) + k.duration / 1e3
     kernels = []
     for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        if not str(ev.device_type).endswith("CUDA") or ev.key in ranges:
+            continue                # a range's own span on the device
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 \
+            - moved.get(ev.key, 0.0)
         name = ev.key.lower()
         group = next((g for g, frags in groups
                       if any(f in name for f in frags)), "other")
@@ -1056,8 +1106,11 @@ def run(caches: list) -> int:
         if name in eng["max_abs_err"]:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      eng["max_abs_err"][name])
+    train = train_phase(dev, hw, gen, check, time_ms, phase_done, card)
+    flash_row["train_path_launches"] = train["flash_launches"]
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
-                                  ln_row, cs_row, simt_row, gmm32_row],
+                                  ln_row, cs_row, simt_row, gmm32_row,
+                                  train["row"]],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5209,6 +5262,326 @@ def fleet_phase(hw, phase_done, caches: list, card: str,
                         "boosted": boosted, "replay_equal": same},
         "launches": launches, "card": card}}, default=str))
     return {"launches": launches}
+
+
+def _bwd_bound_ms(bh: int, hkv_rows: int, s: int, d: int) -> tuple[float,
+                                                                    str]:
+    """Least time of one causal flash-attention backward on the card: q,
+    k, v, the output, its gradient and the f32 lse read once, dq, dk and dv
+    written once (bf16), and 2.5 times the forward's FLOPs (five products
+    of 2 d FLOPs per visible pair against two) at the bf16 tensor-core
+    peak."""
+    pairs = _visible_pairs(s, s, True)
+    t_ops = 2.5 * 4.0 * d * bh * pairs / PEAK_BF16
+    reads = (3 * bh * s + 2 * hkv_rows * s) * d     # q, o, dO; k, v
+    writes = (bh * s + 2 * hkv_rows * s) * d        # dq; dk, dv
+    t_bytes = ((reads + writes) * 2 + bh * s * 4) / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _leaf_rel(a: dict, b: dict) -> dict:
+    """max |a - b| / max |b| per leaf path of two gradient trees."""
+    from repro_torch.tree import tree_paths
+    out = {}
+    for (path, x), (_, y) in zip(tree_paths(a), tree_paths(b)):
+        ref = float(y.float().abs().max())
+        out[path] = float((x.float() - y.float()).abs().max()) \
+            / max(ref, 1e-30)
+    return out
+
+
+def train_phase(dev, hw, gen, check, time_ms, phase_done,
+                card: str) -> dict:
+    """Phase 28: training on the card.  (a) the flash-attention backward
+    kernel alone at llama3.2-1b's training and prefill shapes; (b)
+    ``TrainLoop`` on llama3.2-1b at full width; (c) a crash and resume at
+    two layers, bit-exact, and the guards of the ops with no backward.
+    Returns the backward kernel's row of the ``kernels`` line and the
+    flash forward's launches on the training path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapePreset
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    t_phase = time.perf_counter()
+    hq, hkv, d = 32, 8, 64          # llama3.2-1b's attention
+    # -- (a) the backward kernel alone --------------------------------------
+    print("[28] training on the card.  (a) the flash-attention backward "
+          "kernel (csrc/flash_attention_bwd.cu: delta, dK / dV, dQ; SIMT, "
+          "no atomics) against flash_attention_backward_plain, bf16, GQA "
+          f"{hq} / {hkv}, d {d}, causal (gate: each of dq, dk, dv within "
+          "2e-2 x max |plain|)", flush=True)
+    for dt in (torch.bfloat16, torch.float32):
+        for hd in flash.BACKWARD_HEAD_DIMS:
+            attrs = {k: flash.backward_attributes(dt, hd, k)
+                     for k in flash.BACKWARD_KERNELS}
+            print(f"  registers / spilled bytes {dt} d {hd}: " + ", ".join(
+                f"{k} {a['num_regs']} / {a['local_bytes']}"
+                for k, a in attrs.items()), flush=True)
+    shapes = []
+    worst = 0.0
+    for name, B, S in (("train", TRAIN_B, TRAIN_S), ("prefill", 1,
+                                                       PREFILL_S)):
+        q = torch.randn(B * hq, S, d, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn(B * hkv, S, d, generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=True)
+        tiles = dict(bq=64, bkv=128)
+        out0 = flash.flash_attention_kernel(q, k, v, **tiles, **kw)
+        out, lse = flash.flash_attention_kernel(q, k, v, **tiles, **kw,
+                                                return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out0):
+            raise AssertionError(f"{name}: the forward's output changed "
+                                 f"when it also wrote lse")
+        dout = torch.randn(out.shape, generator=gen, device=dev
+                           ).to(torch.bfloat16)
+        got = flash.flash_attention_backward_kernel(q, k, v, out, dout, lse,
+                                                    **kw)
+        ref = flash.flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                                   **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: non-finite {gname}")
+            scale = float(r.float().abs().max())
+            errs[gname] = float((g.float() - r.float()).abs().max()) / scale
+            if errs[gname] > 2e-2:
+                raise AssertionError(f"{name}: {gname} differs from the "
+                                     f"plain backward by {errs[gname]:.3e} "
+                                     f"of max |plain|")
+        worst = max([worst] + [float((g.float() - r.float()).abs().max())
+                               for g, r in zip(got, ref)])
+        del got, ref
+        bound, bound_by = _bwd_bound_ms(B * hq, B * hkv, S, d)
+        ms = time_ms(lambda: flash.flash_attention_backward_kernel(
+            q, k, v, out, dout, lse, **kw))
+        plain_ms = time_ms(lambda: flash.flash_attention_backward_plain(
+            q, k, v, out, dout, lse, **kw), max_iters=1)
+        fwd_ms = time_ms(lambda: flash.flash_attention_kernel(
+            q, k, v, **tiles, **kw))
+        fwd_lse_ms = time_ms(lambda: flash.flash_attention_kernel(
+            q, k, v, **tiles, **kw, return_lse=True))
+        qs = q.reshape(B, hq, S, d).detach().requires_grad_()
+        ks, vs = (t.reshape(B, hkv, S, d).detach().requires_grad_()
+                  for t in (k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        do4 = dout.reshape(B, hq, S, d)
+        sdpa_ms = time_ms(lambda: torch.autograd.grad(
+            o, (qs, ks, vs), do4, retain_graph=True))
+        row = {"shape": name, "bh": B * hq, "s": S, "d": d, "gqa": hq // hkv,
+               "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": sdpa_ms, "bound_ms": bound,
+               "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+               "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms}
+        shapes.append(row)
+        print(f"  {name} (bh {B * hq}, S {S}): rel err dq {errs['dq']:.2e} "
+              f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} ok; kernel "
+              f"{ms:.4f} ms ({row['pct_of_bound']:.1f} % of bound) | plain "
+              f"{plain_ms:.3f} ms | SDPA backward {sdpa_ms:.4f} ms "
+              f"({ms / sdpa_ms:.2f}x) | bound {bound:.4f} ms ({bound_by}); "
+              f"forward {fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms, "
+              f"output bit-equal", flush=True)
+        del q, k, v, out, out0, lse, dout, qs, ks, vs, o, do4
+        torch.cuda.empty_cache()
+
+    # -- (b) TrainLoop on llama3.2-1b at full width --------------------------
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg)
+    params = model.init(SEED)
+    _fan_in_scaled(model, params)
+    preset = ShapePreset("chip", "train", TRAIN_S, TRAIN_B)
+    batch = {"tokens": torch.as_tensor(SyntheticStream(SyntheticConfig(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)).next_batch()["tokens"],
+        device=dev)}
+    print(f"  (b) TrainLoop, {cfg.name} at full width ({cfg.n_layers} layers,"
+          f" d {cfg.d_model}, {model.param_count() / 1e9:.3f} B parameters, "
+          f"bf16, remat {cfg.remat!r}, weights at std 1 / sqrt(fan-in)), "
+          f"B {TRAIN_B} x S {TRAIN_S} from SyntheticStream, "
+          f"{TRAIN_STEPS} steps; first the step-1 gradient against the same "
+          f"step with autograd through flash_attention_plain (gate: "
+          f"max |d| <= 5e-2 x max |g| per leaf, loss within 1e-2)",
+          flush=True)
+    m_k, g_k = loss_and_grads(model, params, batch)
+    m_p, g_p = loss_and_grads(model, params, batch,
+                              attn_op=flash.flash_attention_plain)
+    torch.cuda.synchronize()
+    for path, g in tree_paths(g_k):
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+            raise AssertionError(f"step 1: the gradient of {path} is not "
+                                 f"finite and non-zero")
+    rel = _leaf_rel(g_k, g_p)
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    print(f"  step 1: loss {loss_k:.6f} (plain attention {loss_p:.6f}, "
+          f"|d| {abs(loss_k - loss_p):.3e}); {len(rel)} leaves all finite "
+          f"and non-zero; largest per-leaf max |d| / max |g|: "
+          + ", ".join(f"{p} {r:.3e}" for p, r in top), flush=True)
+    if max(rel.values()) > 5e-2 or abs(loss_k - loss_p) > 1e-2 * abs(loss_p):
+        raise AssertionError(f"step 1 disagrees with the plain-attention "
+                             f"step: {top}, loss {loss_k} vs {loss_p}")
+    del g_p, m_p
+    torch.cuda.empty_cache()
+
+    ckpt_root = tempfile.mkdtemp(prefix="klaraptor-train-")
+    try:
+        loop = TrainLoop(cfg, preset, ckpt_dir=os.path.join(ckpt_root, "b"),
+                         ckpt_every=TRAIN_STEPS // 2 + 1, keep=1, seed=SEED,
+                         params=params)
+        loop.init_state()
+        del params
+        counters = (flash.LAUNCHES, flash.BACKWARD_LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        hist = loop.run(TRAIN_STEPS, log_every=1)      # the main path
+        fwd_launches, bwd_launches = (c.count for c in counters)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for m in hist:
+            print(f"    step {m['step']:2d}: loss {m['loss']:.4f} grad_norm "
+                  f"{m['grad_norm']:.4f} lr {m['lr']:.2e} "
+                  f"{m['step_time_s'] * 1e3:.2f} ms", flush=True)
+        if not all(np.isfinite(m["loss"]) for m in hist):
+            raise AssertionError("a training loss is not finite")
+        if not fwd_launches or not bwd_launches:
+            raise AssertionError(f"the training path launched flash forward "
+                                 f"{fwd_launches} and backward "
+                                 f"{bwd_launches} times")
+        step_ms = float(np.median([m["step_time_s"] for m in hist[2:]])) \
+            * 1e3
+        saves = loop.manager.timings
+        print(f"  {TRAIN_STEPS} steps in {wall:.2f} s of wall (both saves "
+              f"included); ms per step (median of steps 3-{TRAIN_STEPS}) "
+              f"{step_ms:.2f}, {TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} "
+              f"tokens/s; peak memory {peak:.2f} GiB; flash launches per "
+              f"step: forward {fwd_launches / TRAIN_STEPS:g} (remat "
+              f"{cfg.remat!r}: each layer's forward runs twice), backward "
+              f"{bwd_launches / TRAIN_STEPS:g}; saves (keep 1): "
+              + ", ".join(f"step {t['step']} host copy {t['copy_s']:.2f} s, "
+                          f"write {t.get('write_s', float('nan')):.2f} s"
+                          for t in saves), flush=True)
+        tree = {"params": loop.params, "mu": loop.opt_state["mu"],
+                "nu": loop.opt_state["nu"]}
+        ckpt_gb = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(tree)) / 2**30
+        del tree
+        # after the read: one step profiled; its optimizer is the kernels
+        # under the step's adamw_update range
+        batch = loop.next_batch()
+        prof = _device_profile(
+            lambda: loop.step_fn(loop.params, loop.opt_state, batch),
+            "one train step (adamw_update = the optimizer's kernels, other "
+            "= elementwise and the rest)", groups=TRAIN_PROFILE_GROUPS,
+            ranges=("adamw_update",))
+        if not prof or prof["adamw_update"] <= 0.0:
+            raise AssertionError(f"the profile of a train step holds no "
+                                 f"optimizer kernel: {prof}")
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (c) crash and resume at 2 layers, bit-exact; the guards ------
+        cfg2 = cfg.replace(n_layers=2)
+        model2 = Model(cfg2)
+        params2 = model2.init(SEED + 1)
+        _fan_in_scaled(model2, params2)
+        crash = dict(ckpt_every=4, keep=1, seed=SEED, params=params2)
+        t0 = time.perf_counter()
+        a = TrainLoop(cfg2, preset, seed=SEED, params=params2)
+        a.init_state()
+        a.run(6, log_every=6)
+        b = TrainLoop(cfg2, preset, ckpt_dir=os.path.join(ckpt_root, "c"),
+                      **crash)
+        b.init_state()
+        try:
+            b.run(6, fail_at=5)
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        b.manager.wait()
+        b2 = TrainLoop(cfg2, preset, ckpt_dir=os.path.join(ckpt_root, "c"),
+                       **crash)
+        resumed = b2.restore_or_init()
+        b2.run(6, log_every=6)
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves({"params": a.params, "opt": a.opt_state}),
+            tree_leaves({"params": b2.params, "opt": b2.opt_state})))
+        print(f"  (c) crash and resume, {cfg2.n_layers} layers at full "
+              f"width: a run of 6 steps against one that fails at step 5 "
+              f"and resumes from step {resumed}: parameters and moments "
+              f"bit-equal {same} ({time.perf_counter() - t0:.2f} s)",
+              flush=True)
+        if resumed != 4 or not same:
+            raise AssertionError(f"resumed from {resumed}; bit-equal {same}")
+        del a, b, b2, params2
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    x = torch.randn(2, 64, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    for name, call in (
+            ("ssd_scan", lambda: ops.ssd_scan(
+                x, torch.rand(2, 64, device=dev),
+                torch.randn(2, 64, 16, device=dev, dtype=torch.bfloat16),
+                torch.randn(2, 64, 16, device=dev, dtype=torch.bfloat16),
+                -torch.rand(2, device=dev))),
+            ("moe_gmm", lambda: ops.moe_gmm(x, torch.randn(
+                2, 64, 64, device=dev, dtype=torch.bfloat16)))):
+        try:
+            call()
+        except ops.MissingBackwardError as e:
+            print(f"  ops.{name} on a card input that requires grad raises: "
+                  f"{e}", flush=True)
+        else:
+            raise AssertionError(f"ops.{name} ran on a card input that "
+                                 f"requires grad: its gradient would be "
+                                 f"cut silently")
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(28)
+    train = {"step_ms": step_ms, "tokens_per_s": TRAIN_B * TRAIN_S
+             / step_ms * 1e3, "peak_gib": peak, "ckpt_gib": ckpt_gb,
+             "losses": [m["loss"] for m in hist],
+             "grad_norms": [m["grad_norm"] for m in hist],
+             "step1_max_leaf_rel": max(rel.values()),
+             "saves": saves, "profile": prof,
+             "flash_fwd_per_step": fwd_launches / TRAIN_STEPS,
+             "flash_bwd_per_step": bwd_launches / TRAIN_STEPS}
+    print(json.dumps({"train": train, "card": card}, default=str))
+    total = {k: sum(r[k] for r in shapes)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    row = {
+        "name": "flash_attention_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:70",
+        "replaces_note": "no TPU kernel: the JAX package differentiates "
+                         "flash_attention_ref with XLA",
+        "launches": bwd_launches,
+        "max_abs_err": worst,
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"], "bound_by": "operations"
+        if all(r["bound_by"] == "operations" for r in shapes) else "bytes",
+        "library_ms": total["library_ms"],
+        "shapes": shapes,
+    }
+    return {"row": row, "flash_launches": fwd_launches}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Runnable examples of the port: ``quickstart`` (KLARAPTOR end to end on
-the bf16 matmul) and ``polybench_suite`` (the paper's evaluation over the
-suite).  Run each with ``python -m repro_torch.examples.<name>``; importing
-a module runs nothing.
+the bf16 matmul), ``polybench_suite`` (the paper's evaluation over the
+suite) and ``train_lm`` (a llama-family model trained end to end).  Run
+each with ``python -m repro_torch.examples.<name>``; importing a module runs
+nothing.
 """

@@ -93,6 +93,12 @@
 // launch parameter taken at run time and sets the thread count; BKV (32, 64
 // or 128) is a template parameter.
 //
+// Both bodies can also write lse, the natural-log log-sum-exp of each row's
+// scaled, masked (and soft-capped) scores, f32 (bh, sq), -inf for a row that
+// sees no key: what the backward kernel (flash_attention_bwd.cu) recomputes P
+// from.  It is written in the epilogue, where the final m and l are known; a
+// null lse pointer writes nothing, so serving launches are unchanged.
+//
 // Both bodies keep the reference's masking: rows with no visible key give 0;
 // the running max starts at -1e30 and masked probabilities are exactly 0, so a
 // row whose first kv blocks are all masked never takes exp of a NaN;
@@ -104,6 +110,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
@@ -183,7 +190,8 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T, int D, int BKV>
 __global__ void __launch_bounds__(Bounds<D>::kMaxThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int skv,
                  int hq, int hkv, int bq, float scale, int causal,
                  int has_window, int window, float softcap) {
   constexpr int NS = BKV / kLanes;   // score columns per thread
@@ -304,6 +312,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + tr + i * rstep;
     if (qpos >= sq) continue;
     const float denom = l[i] > 0.0f ? l[i] : 1.0f;   // no visible key: acc is 0
+    if (lse != nullptr && tc == 0)
+      lse[(size_t)bh * sq + qpos] = l[i] > 0.0f ? m[i] + logf(l[i]) : -INFINITY;
     T* o = out + ((size_t)bh * sq + qpos) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[tc + c * kLanes] = from_f32<T>(acc[i][c] / denom);
@@ -316,7 +326,7 @@ size_t smem_bytes(int bq) {
 }
 
 template <typename T, int D, int BKV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                    int sq, int skv, int hq, int hkv, int bq, float scale, int causal,
                    int has_window, int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D, BKV>(bq);
@@ -330,22 +340,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 block(bq * kLanes / kRows);
   flash_fwd_kernel<T, D, BKV><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, skv, hq, hkv, bq, scale, causal, has_window, window,
+      static_cast<T*>(out), lse, sq, skv, hq, hkv, bq, scale, causal, has_window, window,
       softcap);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_bkv(int bkv, const void* q, const void* k, const void* v, void* out,
-                       int bh, int sq, int skv, int hq, int hkv, int bq, float scale,
+                       float* lse, int bh, int sq, int skv, int hq, int hkv, int bq, float scale,
                        int causal, int has_window, int window, float softcap,
                        cudaStream_t stream) {
   switch (bkv) {
-    case 32: return launch<T, D, 32>(q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 32: return launch<T, D, 32>(q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                      causal, has_window, window, softcap, stream);
-    case 64: return launch<T, D, 64>(q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 64: return launch<T, D, 64>(q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                      causal, has_window, window, softcap, stream);
-    case 128: return launch<T, D, 128>(q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 128: return launch<T, D, 128>(q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                        causal, has_window, window, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -353,15 +363,15 @@ cudaError_t launch_bkv(int bkv, const void* q, const void* k, const void* v, voi
 
 template <typename T>
 cudaError_t launch_d(int d, int bkv, const void* q, const void* k, const void* v,
-                     void* out, int bh, int sq, int skv, int hq, int hkv, int bq,
+                     void* out, float* lse, int bh, int sq, int skv, int hq, int hkv, int bq,
                      float scale, int causal, int has_window, int window, float softcap,
                      cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_bkv<T, 64>(bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 64: return launch_bkv<T, 64>(bkv, q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                       causal, has_window, window, softcap, stream);
-    case 128: return launch_bkv<T, 128>(bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 128: return launch_bkv<T, 128>(bkv, q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                         causal, has_window, window, softcap, stream);
-    case 256: return launch_bkv<T, 256>(bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
+    case 256: return launch_bkv<T, 256>(bkv, q, k, v, out, lse, bh, sq, skv, hq, hkv, bq, scale,
                                         causal, has_window, window, softcap, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -455,9 +465,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
-                  __nv_bfloat16* __restrict__ out, int sq, int skv, int hq, int hkv,
-                  float scale, int causal, int has_window, int window,
-                  float softcap) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
+                  int skv, int hq, int hkv, float scale, int causal, int has_window,
+                  int window, float softcap) {
   using namespace sm90;
   static_assert(D % kAtom == 0 && D <= 256, "whole swizzle boxes, wgmma N <= 256");
   static_assert(BQ % 64 == 0 && BQ <= 128, "one warpgroup per 64 rows, at most two");
@@ -643,6 +653,10 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     inv[h] = sum > 0.0f ? 1.0f / sum : 0.0f;   // no visible key: o is 0
+    // m is in the log2 domain: lse = (m + log2 l) ln 2
+    if (lse != nullptr && lane % 4 == 0 && row0 + 8 * h < sq)
+      lse[(size_t)bh * sq + row0 + 8 * h] =
+          sum > 0.0f ? (m[h] + log2f(sum)) / kLog2e : -INFINITY;
   }
   __syncthreads();   // every warpgroup's wgmmas are done with Q
   const int rl = (t / 32) * 16 + lane / 4;     // local row in the warpgroup
@@ -666,8 +680,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int D, int BQ, int BKV>
-cudaError_t sm90_launch(const void* q, const void* k, const void* v, void* out, int bh,
-                        int sq, int skv, int hq, int hkv, float scale, int causal,
+cudaError_t sm90_launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int bh, int sq, int skv, int hq, int hkv, float scale, int causal,
                         int has_window, int window, float softcap,
                         cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
@@ -682,7 +696,7 @@ cudaError_t sm90_launch(const void* q, const void* k, const void* v, void* out, 
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_sm90_kernel<D, BQ, BKV><<<grid, 2 * BQ, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, hq, hkv, scale,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, sq, skv, hq, hkv, scale,
       causal, has_window, window, softcap);
   return cudaGetLastError();
 }
@@ -709,13 +723,14 @@ cudaError_t sm90_attributes(int* num_regs, int* max_threads, int* local_bytes) {
 // Launches the instantiation of (d, bq, bkv); cudaErrorInvalidValue for a
 // tile that is not compiled.
 cudaError_t sm90_dispatch(int d, int bq, int bkv, const void* q, const void* k,
-                          const void* v, void* out, int bh, int sq, int skv, int hq,
+                          const void* v, void* out, float* lse, int bh, int sq, int skv, int hq,
                           int hkv, float scale, int causal, int has_window, int window,
                           float softcap, cudaStream_t stream) {
 #define FLASH_SM90_CASE(D, BQ, BKV)                                             \
   if (d == D && bq == BQ && bkv == BKV)                                         \
-    return sm90_launch<D, BQ, BKV>(q, k, v, out, bh, sq, skv, hq, hkv, scale,   \
-                                   causal, has_window, window, softcap, stream);
+    return sm90_launch<D, BQ, BKV>(q, k, v, out, lse, bh, sq, skv, hq, hkv,      \
+                                   scale, causal, has_window, window, softcap,  \
+                                   stream);
   FLASH_SM90_TILES(FLASH_SM90_CASE)
 #undef FLASH_SM90_CASE
   return cudaErrorInvalidValue;
@@ -738,19 +753,21 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (0 on success); the
 // caller has checked shapes, dtypes, alignment, tiles and limits.  bf16
 // runs the wgmma body ((bq, bkv) a compiled tile of head dim d); f32 the
-// SIMT body.
+// SIMT body.  lse is null or f32 (bh, sq).
 int klaraptor_flash_attention(const void* q, const void* k, const void* v, void* out,
-                              int bh, int sq, int skv, int d, int hq, int hkv, int bq,
+                              void* lse, int bh, int sq, int skv, int d, int hq, int hkv, int bq,
                               int bkv, float scale, int causal, int has_window,
                               int window, float softcap, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_d<float>(d, bkv, q, k, v, out, bh, sq, skv, hq, hkv, bq, scale,
-                             causal, has_window, window, softcap, s);
+      return launch_d<float>(d, bkv, q, k, v, out, static_cast<float*>(lse), bh, sq,
+                             skv, hq, hkv, bq, scale, causal, has_window, window,
+                             softcap, s);
     case kBF16:
-      return sm90_dispatch(d, bq, bkv, q, k, v, out, bh, sq, skv, hq, hkv, scale,
-                           causal, has_window, window, softcap, s);
+      return sm90_dispatch(d, bq, bkv, q, k, v, out, static_cast<float*>(lse), bh, sq,
+                           skv, hq, hkv, scale, causal, has_window, window, softcap,
+                           s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -23,7 +23,19 @@ which is the same in f32 and within the bf16 tolerance in bf16).  The tests
 use it, and the wrapper takes it only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES.count`` counts kernel launches
 and nothing else; ``LAUNCHES.tiles[(bh, sq, skv, d, causal)]`` holds the
-(bq, bkv) of the last launch at that shape.
+(bq, bkv) of the last launch at that shape.  With ``return_lse=True`` both
+also return lse, f32 (b * hq, sq): the natural-log log-sum-exp of each row's
+scaled, masked scores, -inf for a row that sees no key.
+
+``flash_attention_backward_kernel`` launches ``csrc/flash_attention_bwd.cu``
+(FlashAttention-2's backward, SIMT, no atomics): from q, k, v, the forward's
+output and lse and the output's gradient it gives dq, dk and dv (GQA: dk and
+dv summed over each kv head's group), causal or not, head dims 64 and 128,
+bf16 and f32, accumulated in f32.  ``flash_attention_backward_plain`` is its
+plain version: P recomputed from lse, delta = rowsum(dO * O) from the stored
+output, the same five products in f32.  Neither takes a window or a
+softcap yet.  ``BACKWARD_LAUNCHES.count`` counts calls of the backward
+kernel (one call launches its three kernels: delta, dK / dV and dQ).
 """
 
 from __future__ import annotations
@@ -40,9 +52,11 @@ from ..core.kernel_spec import (FLASH_HEAD_DIMS, FLASH_PAD,
 from ._build import load
 from .matmul import LaunchCounter
 
-__all__ = ["BKV_TILES", "DTYPES", "LAUNCHES", "flash_attention_kernel",
-           "flash_attention_plain", "kernel_attributes", "smem_bytes",
-           "tile_attributes"]
+__all__ = ["BACKWARD_HEAD_DIMS", "BACKWARD_LAUNCHES", "BKV_TILES", "DTYPES",
+           "LAUNCHES", "backward_attributes",
+           "flash_attention_backward_kernel", "flash_attention_backward_plain",
+           "flash_attention_kernel", "flash_attention_plain",
+           "kernel_attributes", "smem_bytes", "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,8 +66,11 @@ SMEM_LIMIT = 232448             # dynamic shared memory a block may opt in to
 REGS_PER_SM = 65536
 MAX_GRID_Y = 65535
 _NEG_INF = -1e30
+BACKWARD_HEAD_DIMS = (64, 128)  # the backward kernel's instantiations
+BACKWARD_KERNELS = ("delta", "dkdv", "dq")
 
 LAUNCHES = LaunchCounter()
+BACKWARD_LAUNCHES = LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     lib = load("flash_attention")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.klaraptor_flash_attention.argtypes = [
-        vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, i, i, i, f, i, vp]
+        vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, i, i, i, f, i, vp]
     lib.klaraptor_flash_attention.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_flash_attention_attributes.argtypes = [i, i, i, ip, ip, ip]
@@ -74,8 +91,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_cuda(what: str, rc: int) -> None:
-    msg = _lib().klaraptor_flash_error_string(rc).decode()
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = load("flash_attention_bwd")
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.klaraptor_flash_attention_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, i, vp]
+    lib.klaraptor_flash_attention_bwd.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.klaraptor_flash_attention_bwd_attributes.argtypes = [i, i, i, ip, ip,
+                                                             ip]
+    lib.klaraptor_flash_attention_bwd_attributes.restype = i
+    lib.klaraptor_flash_error_string.argtypes = [i]
+    lib.klaraptor_flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_cuda(what: str, rc: int, lib: ctypes.CDLL | None = None) -> None:
+    msg = (lib or _lib()).klaraptor_flash_error_string(rc).decode()
     raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
@@ -104,6 +137,21 @@ def tile_attributes(head_dim: int, bq: int, bkv: int) -> dict[str, int]:
                        head_dim, bq, bkv)
 
 
+def backward_attributes(dtype: torch.dtype, head_dim: int,
+                        kernel: str) -> dict[str, int]:
+    """The same for kernel ``kernel`` ("delta", "dkdv" or "dq") of the
+    backward at (dtype, head_dim) (builds it if needed)."""
+    lib = _bwd_lib()
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.klaraptor_flash_attention_bwd_attributes(
+        _DTYPE_CODE[dtype], head_dim, BACKWARD_KERNELS.index(kernel),
+        *[ctypes.byref(v) for v in vals])
+    if rc:
+        _raise_cuda("cudaFuncGetAttributes", rc, lib)
+    return dict(zip(("num_regs", "max_threads", "local_bytes"),
+                    (v.value for v in vals)))
+
+
 def smem_bytes(head_dim: int, bq: int, bkv: int, elem_bytes: int) -> int:
     """Dynamic shared memory of one CTA.  The wgmma body: the Q tile, the
     K/V ring and its barriers; the SIMT body: Q, K and V tiles in the input
@@ -113,25 +161,36 @@ def smem_bytes(head_dim: int, bq: int, bkv: int, elem_bytes: int) -> int:
     return (bq + 2 * bkv) * head_dim * elem_bytes + bq * (bkv + FLASH_PAD) * 4
 
 
-def _attn_block(qf, kf, vf, scale, softcap, causal, window, q_off, k_off=0):
-    """Attention for one query chunk, GQA-aware, in f32.
+def _visible(cq: int, ckv: int, causal: bool, window: int | None,
+             q_off: int, k_off: int, device) -> torch.Tensor:
+    """(cq, ckv) mask of the (query, key) pairs attention computes."""
+    qpos = (q_off + torch.arange(cq, device=device))[:, None]
+    kpos = (k_off + torch.arange(ckv, device=device))[None, :]
+    mask = torch.ones((cq, ckv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _attn_block(qf, kf, vf, scale, softcap, causal, window, q_off, k_off=0,
+                want_lse=False):
+    """Attention for one query chunk, GQA-aware, in f32: (out, lse), lse
+    None unless ``want_lse``.
 
     qf (b, kv, group, cq, d); kf/vf (b, kv, ckv, d): K/V stay at kv heads.
     """
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    cq, ckv = qf.shape[3], kf.shape[2]
-    qpos = (q_off + torch.arange(cq, device=qf.device))[:, None]
-    kpos = (k_off + torch.arange(ckv, device=qf.device))[None, :]
-    mask = torch.ones((cq, ckv), dtype=torch.bool, device=qf.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
+    mask = _visible(qf.shape[3], kf.shape[2], causal, window, q_off, k_off,
+                    qf.device)
     p = torch.softmax(s.masked_fill(~mask, _NEG_INF), dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
-    return out.masked_fill(~mask.any(dim=-1)[:, None], 0.0)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1) \
+        if want_lse else None
+    return out.masked_fill(~mask.any(dim=-1)[:, None], 0.0), lse
 
 
 def flash_attention_plain(
@@ -146,13 +205,15 @@ def flash_attention_plain(
     softcap: float | None = None,
     scale: float | None = None,
     q_chunk: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Attention in plain PyTorch, f32 math, output in q's dtype.
 
     ``q_chunk=None`` materializes the full (b, h, sq, skv) score tensor;
     ``q_chunk=C`` streams over query chunks of C rows, and for causal
     self-attention each chunk reads only the keys it can see, as the JAX
-    oracle does.
+    oracle does.  ``return_lse=True`` returns (out, lse), lse f32 (b * hq,
+    sq), -inf for a row that sees no key.
     """
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
@@ -165,9 +226,10 @@ def flash_attention_plain(
     vf = v.float().reshape(b, num_kv_heads, skv, d)
 
     if q_chunk is None or q_chunk >= sq:
-        out = _attn_block(qf, kf, vf, scale, softcap, causal, window, 0)
+        out, lse = _attn_block(qf, kf, vf, scale, softcap, causal, window, 0,
+                               want_lse=return_lse)
     else:
-        outs = []
+        outs, lses = [], []
         for lo in range(0, sq, q_chunk):    # the last chunk may be short
             hi = min(lo + q_chunk, sq)
             if causal and sq == skv:
@@ -176,16 +238,20 @@ def flash_attention_plain(
                 k_hi = hi
             else:
                 k_lo, k_hi = 0, skv
-            outs.append(_attn_block(
+            o, l = _attn_block(
                 qf[:, :, :, lo:hi], kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi],
-                scale, softcap, causal, window, lo, k_off=k_lo))
+                scale, softcap, causal, window, lo, k_off=k_lo,
+                want_lse=return_lse)
+            outs.append(o)
+            lses.append(l)
         out = torch.cat(outs, dim=3)
-    return out.reshape(bhq, sq, d).to(q.dtype)
+        lse = torch.cat(lses, dim=3) if return_lse else None
+    out = out.reshape(bhq, sq, d).to(q.dtype)
+    return (out, lse.reshape(bhq, sq)) if return_lse else out
 
 
-def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
-           softcap) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+def _check_operands(q, k, v, num_q_heads, num_kv_heads) -> None:
+    """Raise ValueError on q, k, v that neither kernel takes."""
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape \
             or q.shape[2] != k.shape[2]:
         raise ValueError(f"flash attention takes q (b*hq, sq, d) and k, v "
@@ -211,6 +277,17 @@ def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
         raise ValueError(f"heads ({num_q_heads} q, {num_kv_heads} kv) do "
                          f"not match q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)}")
+    if bhq > MAX_GRID_Y or max(sq, skv) + 128 >= 2**31:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
+
+
+def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
+           softcap) -> None:
+    """Raise ValueError on anything the forward kernel does not take."""
+    _check_operands(q, k, v, num_q_heads, num_kv_heads)
+    d = q.shape[2]
     if flash_uses_sm90(d, q.element_size()):
         if (bq, bkv) not in FLASH_SM90_TILES[d]:
             raise ValueError(f"(bq, bkv)=({bq!r}, {bkv!r}) is not a "
@@ -231,15 +308,11 @@ def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
         if smem > SMEM_LIMIT:
             raise ValueError(f"tiles need {smem} bytes of shared memory, "
                              f"more than the {SMEM_LIMIT} a block can have")
-    if bhq > MAX_GRID_Y or max(sq, skv) + 128 >= 2**31:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
     if window is not None and (not isinstance(window, int)
                                or abs(window) >= 2**31):
         raise ValueError(f"window={window!r} must be an int32 or None")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap={softcap!r} must be positive or None")
-    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must be 16-byte aligned")
 
 
 def flash_attention_kernel(
@@ -247,26 +320,34 @@ def flash_attention_kernel(
     num_q_heads: int, num_kv_heads: int, bq: int, bkv: int,
     causal: bool = True, window: int | None = None,
     softcap: float | None = None, scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Attention with tiles (bq, bkv): the CUDA kernel for CUDA tensors,
-    ``flash_attention_plain`` for CPU tensors (after the same checks)."""
+    ``flash_attention_plain`` for CPU tensors (after the same checks).
+    ``return_lse=True`` returns (out, lse) and has the kernel write lse in
+    its epilogue; without it the kernel gets a null lse pointer."""
     _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-            causal=causal, window=window, softcap=softcap, scale=scale)
+            causal=causal, window=window, softcap=softcap, scale=scale,
+            return_lse=return_lse)
     bhq, sq, d = q.shape
     skv = k.shape[1]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if skv == 0:            # no key at all: every row gives 0
-        return out.zero_()
+    lse = torch.empty((bhq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if out.numel() == 0 or skv == 0:    # no key at all: every row gives 0
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        out.zero_()
+        return (out, lse) if return_lse else out
     scale = scale if scale is not None else d ** -0.5
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _lib().klaraptor_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             bhq, sq, skv, d, num_q_heads, num_kv_heads, bq, bkv, float(scale),
             int(bool(causal)), int(window is not None),
             int(window) if window is not None else 0,
@@ -275,4 +356,105 @@ def flash_attention_kernel(
     if rc:
         _raise_cuda("flash attention kernel launch", rc)
     LAUNCHES.launched((bhq, sq, skv, d, bool(causal)), bq=bq, bkv=bkv)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    dout: torch.Tensor, lse: torch.Tensor, *, num_q_heads: int,
+    num_kv_heads: int, causal: bool = True, window: int | None = None,
+    softcap: float | None = None, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention in plain PyTorch, f32 math, each in its
+    input's dtype: P = exp(scale q k^T - lse) on the visible pairs,
+    delta = rowsum(dout * out), dS = P (dout v^T - delta), dq = scale dS k,
+    dk = scale dS^T q and dv = P^T dout, summed over each kv head's group."""
+    _refuse_backward(window, softcap)
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    b = bhq // num_q_heads
+    group = num_q_heads // num_kv_heads
+    scale = scale if scale is not None else d ** -0.5
+
+    def heads(t, n):                  # (b * h, s, d) -> (b, kv, group, s, d)
+        return t.float().reshape(b, num_kv_heads, group, n, d)
+
+    qf, of, dof = heads(q, sq), heads(out, sq), heads(dout, sq)
+    kf = k.float().reshape(b, num_kv_heads, skv, d)
+    vf = v.float().reshape(b, num_kv_heads, skv, d)
+    l = lse.float().reshape(b, num_kv_heads, group, sq, 1)
+    mask = _visible(sq, skv, causal, None, 0, 0, q.device) \
+        & torch.isfinite(l)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    p = torch.exp(s - l.masked_fill(~torch.isfinite(l), 0.0)) \
+        .masked_fill(~mask, 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    return (dq.reshape(bhq, sq, d).to(q.dtype),
+            dk.reshape(bhkv, skv, d).to(k.dtype),
+            dv.reshape(bhkv, skv, d).to(v.dtype))
+
+
+def _refuse_backward(window, softcap) -> None:
+    if window is not None or softcap is not None:
+        raise ValueError(f"the flash-attention backward takes no window or "
+                         f"softcap yet (window={window!r}, "
+                         f"softcap={softcap!r})")
+
+
+def flash_attention_backward_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    dout: torch.Tensor, lse: torch.Tensor, *, num_q_heads: int,
+    num_kv_heads: int, causal: bool = True, window: int | None = None,
+    softcap: float | None = None, scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the CUDA backward kernel for CUDA tensors,
+    ``flash_attention_backward_plain`` for CPU tensors (after the same
+    checks).  q, out, dout (b * hq, sq, d) and k, v (b * hkv, skv, d) of one
+    dtype and lse f32 (b * hq, sq), all contiguous; head dim 64 or 128."""
+    _refuse_backward(window, softcap)
+    _check_operands(q, k, v, num_q_heads, num_kv_heads)
+    bhq, sq, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be like q {tuple(q.shape)} "
+                         f"{q.dtype}; got {tuple(out.shape)} {out.dtype} and "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != (bhq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(bhq, sq)}; got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if d not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel is built for head dims "
+                         f"{BACKWARD_HEAD_DIMS}, not {d}")
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
+    if any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("out and dout must be 16-byte aligned")
+    skv = k.shape[1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    scale = scale if scale is not None else d ** -0.5
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.klaraptor_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bhq, sq, skv, d, num_q_heads,
+            num_kv_heads, float(scale), int(bool(causal)),
+            _DTYPE_CODE[q.dtype], stream)
+    if rc:
+        _raise_cuda("flash attention backward launch", rc, lib)
+    BACKWARD_LAUNCHES.launched((bhq, sq, skv, d, bool(causal)))
+    return dq, dk, dv

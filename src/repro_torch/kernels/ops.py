@@ -39,6 +39,16 @@ never adds a capture.
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
+
+Gradients.  On the CPU the plain versions are PyTorch, so autograd runs
+through them.  On the card ``flash_attention`` is a
+``torch.autograd.Function`` whenever grad is enabled and an input requires
+it: its forward is the tuned kernel, which then also writes lse, and its
+backward is the hand-written backward kernel
+(``flash_attention_backward_kernel``).  The other ops have no backward
+kernel yet: on a tensor that is not on the CPU they raise
+``MissingBackwardError`` when grad is enabled and an input requires it,
+where the kernel's output would otherwise be silently cut from the graph.
 """
 
 from __future__ import annotations
@@ -57,7 +67,9 @@ from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
 from ..introspect import AutoKernel, auto_register, get_auto
 from ..trace import span as _span
 from ..trace.span import Span
-from .flash_attention import flash_attention_kernel, flash_attention_plain
+from .flash_attention import (_refuse_backward,
+                              flash_attention_backward_kernel,
+                              flash_attention_kernel, flash_attention_plain)
 from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
 from .matmul import matmul_kernel
 from .moe_gmm import moe_gmm_kernel
@@ -65,7 +77,8 @@ from .reduce import COLSUM, colsum_grid_spec, colsum_kernel
 from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
 __all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "GMM_DEFAULT_F32",
-           "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "SSD_DEFAULT",
+           "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "MissingBackwardError",
+           "SSD_DEFAULT",
            "blocked_colsum", "flash_attention", "flash_kernel_name",
            "gemm_dims", "gmm_kernel_name", "kernel_spec", "layernorm",
            "matmul", "matmul_kernel_name", "moe_gmm", "probe_launcher",
@@ -185,6 +198,21 @@ def _round_up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
+class MissingBackwardError(RuntimeError):
+    """An op on the card was asked for a gradient its kernel cannot give."""
+
+
+def _refuse_grad(op: str, missing: str, *tensors: torch.Tensor) -> None:
+    """Raise ``MissingBackwardError`` when grad is enabled and an input that
+    is not on the CPU requires it: the hand-written kernel has no backward,
+    and its output would carry none."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.device.type != "cpu" for t in tensors):
+        raise MissingBackwardError(
+            f"ops.{op} has no backward on the card: {missing} is not "
+            f"written yet; run under torch.no_grad() or on CPU tensors")
+
+
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
            out_dtype: torch.dtype | None = None,
            plan: StepPlan | None = None, in_graph=None,
@@ -207,6 +235,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     if x.ndim < 2 or y.ndim != 2 or x.shape[-1] != y.shape[0]:
         raise ValueError(f"matmul takes x (..., m, k) and y (k, n); got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
+    _refuse_grad("matmul", "the matmul kernel's backward", x, y)
     out_dtype = out_dtype or x.dtype
     if in_graph is not None:
         if x.ndim != 2:
@@ -263,6 +292,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_gmm takes x (e, g, k) and w (e, k, n); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    _refuse_grad("moe_gmm", "the grouped matmul's backward", x, w)
     kernel = gmm_kernel_name(x.dtype)
     e, g, k = x.shape
     n = w.shape[2]
@@ -331,6 +361,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     falls to ``FLASH_DEFAULT``, as on the tuned path.
     """
     if in_graph is not None:
+        _refuse_grad("flash_attention(in_graph=)",
+                     "a backward through a bucket's padded buffers", q, k, v)
         if not causal:
             raise ValueError(
                 "in-graph flash attention requires causal=True: non-causal "
@@ -361,10 +393,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _flash_tile_fits(d, causal, q.element_size(), cfg["bq"],
                             cfg["bkv"]):
         cfg = FLASH_DEFAULT
-    return flash_attention_kernel(
-        q, k, v, num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-        bq=cfg["bq"], bkv=cfg["bkv"], causal=causal, window=window,
-        softcap=softcap, scale=scale)
+    kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
+              causal=causal, window=window, softcap=softcap, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, cfg["bq"], cfg["bkv"], kw)
+    return flash_attention_kernel(q, k, v, bq=cfg["bq"], bkv=cfg["bkv"],
+                                  **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention on the card with its gradient: the tuned forward
+    kernel writing lse, and the backward kernel from (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bq, bkv, kw):
+        _refuse_backward(kw["window"], kw["softcap"])   # before the forward
+        out, lse = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv,
+                                          return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_kernel(
+            q, k, v, out, dout.contiguous(), lse, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def kernel_spec(kernel: str, dtype: torch.dtype = torch.bfloat16):
@@ -426,6 +482,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     hold falls to the largest smaller one that fits.  CUDA tensors launch
     the kernel; CPU tensors take ``ssd_scan_plain`` at the same chunk.
     """
+    _refuse_grad("ssd_scan", "the SSD scan's backward", x, dt, B, C, A)
     bh, s, dh = x.shape
     n = B.shape[-1]
     cfg = _resolve(ssd_kernel_name(dh, n),
@@ -477,6 +534,8 @@ def layernorm(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
     """
     if x.ndim != 2:
         raise ValueError(f"layernorm takes x (r, c); got {tuple(x.shape)}")
+    _refuse_grad("layernorm", "the layernorm kernel's backward", x, res,
+                 gamma, beta)
     r, c = x.shape
     ak = _layernorm_auto(c, x.element_size(), float(eps), x.device.type)
     if in_graph is not None:
@@ -509,6 +568,7 @@ def blocked_colsum(x: torch.Tensor, *,
     if x.ndim != 2:
         raise ValueError(f"blocked_colsum takes x (r, c); got "
                          f"{tuple(x.shape)}")
+    _refuse_grad("blocked_colsum", "the column sum's backward", x)
     r, c = x.shape
     ak = _colsum_auto(x.element_size(), x.device.type)
     if in_graph is not None:

@@ -10,6 +10,12 @@ unembedding of the last position.  The JAX step is traced and sharded over
 a mesh; the port's runs eagerly on the model's one device, and it takes the
 prompt tokens themselves, where the JAX step drops the last column of a
 (B, S + 1) training batch.
+
+The train step (``make_train_step``) is the JAX package's: the model's
+training loss, its gradient over every parameter leaf, then AdamW.  The JAX
+step is ``jax.value_and_grad`` under ``jit``; the port's runs eagerly, its
+gradient from ``torch.autograd.grad`` -- on the card through the
+hand-written flash-attention backward kernel (``ops.flash_attention``).
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import torch
 from ..models import transformer as T
 from ..models.api import Model
 from ..models.layers import AttnOp, GmmOp, SsdOp
+from ..optim import AdamWConfig, adamw_update
+from ..tree import tree_leaves, tree_unflatten
 
-__all__ = ["make_prefill_step"]
+__all__ = ["make_prefill_step", "make_train_step"]
 
 
 def make_prefill_step(model: Model, attn_op: AttnOp | None = None,
@@ -66,3 +74,39 @@ def make_prefill_step(model: Model, attn_op: AttnOp | None = None,
         return T.unembed(cfg, params, hidden[:, -1])
 
     return prefill_step
+
+
+def loss_and_grads(model: Model, params: dict, batch: dict,
+                   attn_op: AttnOp | None = None) -> tuple[dict, dict]:
+    """(metrics of ``model.train_loss``, the gradient of its loss as a tree
+    like ``params``).  A leaf the loss does not reach gets a zero
+    gradient, as under ``jax.grad``.  ``attn_op`` replaces
+    ``ops.flash_attention`` (a check's autograd through its plain
+    version)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = model.train_loss(tree_unflatten(params, leaves),
+                                         batch, attn_op=attn_op)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return ({k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(params, grads))
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig) -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    metrics are ``loss``, ``ce`` and ``router_aux`` from the loss and
+    ``grad_norm`` (with clipping) and ``lr`` from AdamW, 0-d tensors.  The
+    update runs inside a profiler range named ``adamw_update``, so a
+    ``torch.profiler`` trace of a step tells the optimizer's kernels from
+    the rest."""
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        metrics, grads = loss_and_grads(model, params, batch)
+        with torch.profiler.record_function("adamw_update"):
+            params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
+                                                 params)
+        return params, opt_state, {**metrics, **om}
+
+    return train_step

@@ -10,24 +10,45 @@ The JAX package's ``models/api.py``, dispatching on ``cfg.arch_kind``:
   with cross-attention, whose decode cache carries the static
   cross-attention k / v at the encoder's length.
 
-Parameters, the decode cache, one decode step, and the sequential prefill
-through decode steps.  Training (``train_loss``) waits with the rest of
-training (ROADMAP Queue A item 6).  A ``Model`` lives on one device, the
-card unless the caller passes ``device="cpu"``; without a card it raises.
+Parameters, the training loss, the decode cache, one decode step, and the
+sequential prefill through decode steps.  A ``Model`` lives on one device,
+the card unless the caller passes ``device="cpu"``; without a card it
+raises.
+
+Training batches: {"tokens": (B, S + 1) int} for lm / ssm, with "patches"
+(B, P, d_model) for a vlm and "frames" (B, encoder_seq, d_model) for an
+encdec, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..core.device_model import resolve_device
 from . import transformer as T
 from .config import BlockDesc, ModelConfig
+from .layers import AttnOp
+from .loss import lm_loss
 from .module import ParamSpec, init_params, param_count
 
 __all__ = ["Model", "resolve_device"]
 
 _KINDS = ("lm", "ssm", "vlm", "encdec")
+
+f32 = torch.float32
+
+
+def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
+    """Whisper's sinusoidal positions (seq, d): sin of the first half of the
+    frequencies, cos of the second."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=f32, device=device) / half)
+    ang = torch.arange(seq, dtype=f32, device=device)[:, None] \
+        * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 class Model:
@@ -66,6 +87,42 @@ class Model:
 
     def param_count(self) -> int:
         return param_count(self.specs())
+
+    # -- training ---------------------------------------------------------------
+    def train_loss(self, params: dict, batch: dict,
+                   attn_op: AttnOp | None = None
+                   ) -> tuple[torch.Tensor, dict]:
+        """(loss, {"loss", "ce", "router_aux"}) of one batch: next-token
+        cross-entropy over the tokens' positions plus the MoE aux loss
+        times ``cfg.router_aux_coef``.  A vlm's patch embeddings go first
+        and their positions are sliced off before the loss; an encdec's
+        frames get the sinusoidal positions and go through the encoder
+        stack, non-causal (the prefill step adds no positions to them).
+        ``attn_op`` replaces ``ops.flash_attention`` as in
+        ``transformer.forward``."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        x = T.embed_tokens(cfg, params, inputs)
+        if cfg.arch_kind == "vlm":
+            patches = torch.as_tensor(batch["patches"],
+                                      device=self.device).to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            hidden, aux = T.forward(cfg, params, x, attn_op=attn_op)
+            hidden = hidden[:, patches.shape[1]:]
+        elif cfg.arch_kind == "encdec":
+            frames = torch.as_tensor(batch["frames"],
+                                     device=self.device).to(x.dtype)
+            pos = _sinusoid(frames.shape[1], cfg.d_model,
+                            frames.device).to(x.dtype)
+            enc_out, _ = T.forward(self.encoder_cfg(), params["encoder"],
+                                   frames + pos[None], causal=False,
+                                   attn_op=attn_op)
+            hidden, aux = T.forward(cfg, params, x, enc_out=enc_out,
+                                    attn_op=attn_op)
+        else:
+            hidden, aux = T.forward(cfg, params, x, attn_op=attn_op)
+        return lm_loss(cfg, params, hidden, labels, aux)
 
     # -- serving ----------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int) -> dict:

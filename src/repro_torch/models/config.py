@@ -4,9 +4,11 @@
 (period); the stack repeats it ``n_layers // period`` times.  ``dtype`` is a
 torch dtype.  The JAX config's ``use_pallas`` has no counterpart: a tensor on
 a CUDA device goes to the port's kernels and a tensor on the CPU to their
-plain versions.  ``remat`` and ``scan_layers`` shape the JAX package's traced
-program; the port runs eagerly and keeps them only so that a config reads
-the same in both packages.
+plain versions.  ``remat`` is honoured by the training forward: "full"
+recomputes each block in the backward, "none" keeps its intermediates, and
+"dots" (no config uses it) raises (``transformer.forward``).
+``scan_layers`` shapes the JAX package's traced program; the port runs
+eagerly and keeps it only so that a config reads the same in both packages.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ class ModelConfig:
 
     # numerics / execution
     dtype: Any = torch.bfloat16
-    remat: str = "full"             # JAX-side only (see module docstring)
+    remat: str = "full"             # full | none (see module docstring)
     logits_chunk: int = 1024
     attn_chunk: int | None = 1024   # query chunk of the plain (CPU) attention
     scan_layers: bool = True        # JAX-side only (see module docstring)

@@ -17,7 +17,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_leaves
 from . import layers as L
 from .config import BlockDesc, ModelConfig
 from .module import ParamSpec, spec_tree_map
@@ -83,7 +86,10 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    x = params["embed"][tokens]
+    # F.embedding, not indexing: its backward accumulates each row in index
+    # order on the CPU and the card alike (deterministic, so a resumed
+    # training run repeats the uninterrupted one bit for bit)
+    x = F.embedding(tokens, params["embed"])
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -145,7 +151,13 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     """Run the block stack on embedded inputs x (B, S, d).
 
     Returns (hidden_states, moe_aux_loss): the f32 sum of every MoE block's
-    aux loss (0 without MoE blocks).  ``attn_op`` replaces
+    aux loss (0 without MoE blocks).  When a gradient flows to the block
+    parameters (grad enabled and one of them requires it), ``cfg.remat ==
+    "full"`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, the reference's per-block
+    ``jax.checkpoint``), so the backward holds one block's intermediates at
+    a time; ``"none"`` keeps them all; ``"dots"`` (save the matrix
+    products) is not ported and raises.  ``attn_op`` replaces
     ``ops.flash_attention`` in every attention layer (see
     ``layers.attention``), ``ssd_op`` ``ops.ssd_scan`` in every Mamba-2
     layer (see ``layers.mamba``) and ``gmm_op`` ``ops.moe_gmm`` in every
@@ -155,12 +167,22 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     causal = cfg.causal if causal is None else causal
+    remat = cfg.remat != "none" and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params["blocks"]))
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported; the "
+                                  f"port recomputes whole blocks ('full') "
+                                  f"or nothing ('none')")
     aux = torch.zeros((), dtype=f32, device=x.device)
     for g in range(cfg.n_groups):
         for i, desc in enumerate(cfg.block_pattern):
             p = _group(params["blocks"][f"pos{i}"], g)
-            x, a = _apply_block(cfg, desc, p, x, positions, enc_out, causal,
-                                attn_op, ssd_op, gmm_op)
+            args = (cfg, desc, p, x, positions, enc_out, causal, attn_op,
+                    ssd_op, gmm_op)
+            if remat:
+                x, a = checkpoint(_apply_block, *args, use_reentrant=False)
+            else:
+                x, a = _apply_block(*args)
             if a is not None:
                 aux = aux + a
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)

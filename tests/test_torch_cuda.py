@@ -8,7 +8,8 @@ imports no JAX (the machine with the card has none), so on that machine
 runs them.  Tolerances: 2e-2 abs and rel in bf16; in f32 2e-4 for the
 matmul, the grouped matmul, the layernorm and the column sum, 2e-3 abs /
 1e-3 rel for flash attention and 5e-3 abs / 1e-3 rel for the SSD scan
-(tests/test_kernels.py's tolerances for each kernel).
+(tests/test_kernels.py's tolerances for each kernel).  The flash-attention
+backward: 2e-2 x max |plain| per gradient in bf16, 2e-4 in f32.
 """
 
 import itertools
@@ -21,8 +22,10 @@ from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import moe_gmm as gmm
 from repro_torch.kernels import reduce as cs
 from repro_torch.kernels.flash_attention import LAUNCHES as FLASH_LAUNCHES
-from repro_torch.kernels.flash_attention import (flash_attention_kernel,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    BACKWARD_LAUNCHES, flash_attention_backward_kernel,
+    flash_attention_backward_plain, flash_attention_kernel,
+    flash_attention_plain)
 from repro_torch.core import H100, matmul_spec, moe_gmm_spec
 from repro_torch.core.kernel_spec import (FLASH_SM90_TILES, SM90_TILES,
                                           flash_uses_sm90, ssd_scan_spec)
@@ -796,3 +799,93 @@ def test_cuda_timer_retimes_a_late_enqueue():
     end.synchronize()
     assert 1 <= timer.late <= timer.RETIMES
     assert start.elapsed_time(end) < 0.5        # ms
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_kernel_matches_plain():
+    """dq, dk and dv of the backward kernel against its plain version on
+    the same forward output and lse: bf16 and f32, d 64 and 128, causal
+    and not, GQA 4 and 1, ragged lengths; the forward's output bit-equal
+    with and without lse, and its lse against the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dtype, d, causal, (hq, hkv), (sq, skv) in itertools.product(
+            (torch.bfloat16, torch.float32), (64, 128), (True, False),
+            ((4, 1), (2, 2)), ((200, 200), (77, 333), (333, 130))):
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        q = torch.randn(2 * hq, sq, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(2 * hkv, skv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(2 * hkv, skv, d, generator=gen, device="cuda").to(dtype)
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal)
+        bq, bkv = (64, 64)
+        out0 = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv, **kw)
+        out, lse = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv,
+                                          return_lse=True, **kw)
+        assert torch.equal(out, out0)
+        torch.testing.assert_close(
+            lse, flash_attention_plain(q, k, v, return_lse=True, **kw)[1],
+            atol=1e-3, rtol=1e-5)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        before = BACKWARD_LAUNCHES.count
+        got = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+        assert BACKWARD_LAUNCHES.count == before + 1
+        ref = flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
+        for g, r in zip(got, ref):
+            assert g.dtype == dtype and bool(torch.isfinite(g).all())
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= tol * float(r.float().abs().max()), \
+                (dtype, d, causal, hq, hkv, sq, skv, err)
+
+
+@pytest.mark.cuda
+def test_cuda_ops_flash_attention_gradient_goes_through_the_kernels():
+    """``ops.flash_attention`` on card tensors that require grad is the
+    autograd Function: one forward launch (with lse), one backward launch,
+    and gradients that agree with autograd through the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        leaves = [torch.randn(b, 200, 64, generator=gen, device="cuda"
+                              ).to(dtype).requires_grad_() for b in (8, 2, 2)]
+        kw = dict(num_q_heads=4, num_kv_heads=1, causal=True)
+        f0, b0 = FLASH_LAUNCHES.count, BACKWARD_LAUNCHES.count
+        out = ops.flash_attention(*leaves, **kw)
+        assert out.requires_grad and FLASH_LAUNCHES.count == f0 + 1
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        got = torch.autograd.grad(out, leaves, dout)
+        assert BACKWARD_LAUNCHES.count == b0 + 1
+        ref = torch.autograd.grad(flash_attention_plain(*leaves, **kw),
+                                  leaves, dout)
+        for g, r in zip(got, ref):
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= tol * float(r.float().abs().max()), (dtype, err)
+        with torch.no_grad():                  # serving: no Function, no lse
+            assert not ops.flash_attention(*leaves, **kw).requires_grad
+        with pytest.raises(ValueError, match="window or softcap"):
+            ops.flash_attention(*leaves, **kw, softcap=30.0)
+
+
+@pytest.mark.cuda
+def test_cuda_ops_without_a_backward_raise_on_grad():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    dev = dict(device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(2, 64, 64, **dev, requires_grad=True)
+    calls = {
+        "ssd_scan": lambda: ops.ssd_scan(
+            x, torch.rand(2, 64, device="cuda"), torch.randn(2, 64, 16, **dev),
+            torch.randn(2, 64, 16, **dev), -torch.rand(2, device="cuda")),
+        "moe_gmm": lambda: ops.moe_gmm(x, torch.randn(2, 64, 64, **dev)),
+        "matmul": lambda: ops.matmul(x, torch.randn(64, 64, **dev)),
+        "layernorm": lambda: ops.layernorm(
+            x[0], x[0], torch.ones(64, **dev), torch.zeros(64, **dev)),
+        "blocked_colsum": lambda: ops.blocked_colsum(x[0]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ops.MissingBackwardError, match=name):
+            call()
+        with torch.no_grad():
+            call()                         # serving is unaffected

@@ -9,6 +9,13 @@ Hopper flash spec is held against the kernel's own limits, and KLARAPTOR is
 run on it against ``HopperModel``.  The CUDA kernel itself runs only on a
 card: tests/test_torch_cuda.py holds it against the plain version there and
 skips elsewhere.
+
+The backward: ``flash_attention_backward_plain`` (the backward kernel's
+plain version, P recomputed from the forward's lse) against
+``torch.autograd.grad`` of ``flash_attention_plain`` and ``jax.vjp`` of the
+reference's ``flash_attention_ref`` (what the JAX package trains through):
+2e-4 x max |grad| in f32, 2e-2 in bf16; and the forward's ``return_lse``
+against ``torch.logsumexp`` of the masked scaled scores.
 """
 
 import itertools
@@ -17,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref
@@ -32,9 +40,10 @@ from repro_torch.core.kernel_spec import (FLASH_HEAD_DIMS,
                                           flash_sm90_smem_bytes)
 from repro_torch.kernels import flash_attention as port_flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (LAUNCHES,
-                                                 flash_attention_kernel,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    BACKWARD_LAUNCHES, LAUNCHES, flash_attention_backward_kernel,
+    flash_attention_backward_plain, flash_attention_kernel,
+    flash_attention_plain)
 
 ATOL, RTOL = 2e-3, 1e-3
 
@@ -472,3 +481,173 @@ def test_wrapper_raises_and_never_falls_back():
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                             **heads)
     assert LAUNCHES.count == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward and lse
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    # (hq, hkv, sq, skv, d)
+    (4, 4, 64, 64, 64),        # GQA 1
+    (4, 2, 77, 77, 128),       # GQA 2, ragged
+    (8, 2, 50, 130, 64),       # GQA 4, sq < skv
+    (4, 1, 130, 50, 128),      # GQA 4, sq > skv
+]
+
+
+def _rel(got, ref) -> float:
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_backward_plain_matches_autograd_and_jax_vjp(dtype, case, causal):
+    hq, hkv, sq, skv, d = case
+    q, k, v = _qkv(sq * d + skv, 2 * hq, 2 * hkv, sq, skv, d)
+    dout = (np.random.RandomState(sq).randn(2 * hq, sq, d)).astype(np.float32)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    tol = 2e-4 if dtype == "f32" else 2e-2
+    tq, tk, tv, tdo = (t.to(tdt) for t in _t(q, k, v, dout))
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = flash_attention_backward_plain(tq, tk, tv, out, tdo, lse, **kw)
+    assert [g.dtype for g in got] == [tdt] * 3
+    # the wrapper takes the plain version for CPU tensors
+    before = BACKWARD_LAUNCHES.count
+    wrapped = flash_attention_backward_kernel(tq, tk, tv, out, tdo, lse, **kw)
+    assert BACKWARD_LAUNCHES.count == before
+    for a, b in zip(wrapped, got):
+        assert torch.equal(a, b)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves,
+                               tdo)
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, dout))
+    _, vjp = jax.vjp(lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw),
+                     jq, jk, jv)
+    jax_grads = vjp(jdo)
+    for name, g, a, j in zip("qkv", got, auto, jax_grads):
+        assert _rel(g.float(), a.float()) <= tol, (name, "autograd")
+        assert _rel(g.float(), j) <= tol, (name, "jax.vjp")
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=16),
+                                dict(causal=True, softcap=20.0)],
+                         ids=["causal", "full", "window", "softcap"])
+def test_return_lse_is_the_logsumexp_of_the_masked_scaled_scores(kw):
+    hq, hkv, sq, skv, d = 4, 2, 70, 90, 64
+    q, k, v = _qkv(3, 2 * hq, 2 * hkv, sq, skv, d)
+    tq, tk, tv = _t(q, k, v)
+    heads = dict(num_q_heads=hq, num_kv_heads=hkv)
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **heads,
+                                     **kw)
+    assert lse.shape == (2 * hq, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, flash_attention_plain(tq, tk, tv,
+                                                          **heads, **kw))
+    s = torch.einsum("bqd,bsd->bqs", tq, tk.repeat_interleave(hq // hkv, 0)
+                     ) * d ** -0.5
+    if kw.get("softcap"):
+        s = kw["softcap"] * torch.tanh(s / kw["softcap"])
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if kw["causal"]:
+        mask &= qpos >= kpos
+    if kw.get("window"):
+        mask &= qpos - kpos < kw["window"]
+    expected = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+    torch.testing.assert_close(lse, expected, atol=1e-5, rtol=1e-5)
+    chunked = flash_attention_plain(tq, tk, tv, return_lse=True, q_chunk=32,
+                                    **heads, **kw)[1]
+    torch.testing.assert_close(chunked, expected, atol=1e-5, rtol=1e-5)
+    cpu_kernel = flash_attention_kernel(tq, tk, tv, bq=32, bkv=64,
+                                        return_lse=True, **heads, **kw)[1]
+    torch.testing.assert_close(cpu_kernel, expected, atol=1e-5, rtol=1e-5)
+
+
+def test_lse_is_minus_inf_for_a_row_that_sees_no_key():
+    """Non-causal with a window of 8: rows at qpos >= skv + 7 see no key;
+    their output is 0, their lse -inf, and their gradient 0."""
+    hq, hkv, sq, skv, d = 2, 1, 48, 16, 64
+    q, k, v = _qkv(9, 2 * hq, 2 * hkv, sq, skv, d)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=False, window=8)
+    out, lse = flash_attention_plain(*_t(q, k, v), return_lse=True, **kw)
+    blind = torch.arange(sq) >= skv + 7
+    assert bool(torch.isneginf(lse[:, blind]).all())
+    assert bool(torch.isfinite(lse[:, ~blind]).all())
+    assert not bool(out[:, blind].any())
+    no_key = flash_attention_kernel(
+        *_t(q, k[:, :0].copy(), v[:, :0].copy()), bq=32, bkv=64,
+        return_lse=True, num_q_heads=hq, num_kv_heads=hkv)
+    assert not bool(no_key[0].any()) and bool(torch.isneginf(no_key[1]).all())
+
+
+def test_backward_refuses_window_softcap_and_other_head_dims():
+    q, k, v = (torch.zeros(4, 32, 64), torch.zeros(2, 32, 64),
+               torch.zeros(2, 32, 64))
+    out, lse = flash_attention_plain(q, k, v, num_q_heads=2, num_kv_heads=1,
+                                     return_lse=True)
+    heads = dict(num_q_heads=2, num_kv_heads=1)
+    for fn in (flash_attention_backward_kernel,
+               flash_attention_backward_plain):
+        for kw in (dict(window=8), dict(softcap=30.0)):
+            with pytest.raises(ValueError, match="window or softcap"):
+                fn(q, k, v, out, out, lse, **heads, **kw)
+    q2, k2, v2 = (torch.zeros(4, 32, 256), torch.zeros(2, 32, 256),
+                  torch.zeros(2, 32, 256))
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_backward_kernel(q2, k2, v2, q2, q2, lse, **heads)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_kernel(q, k, v, out, out, lse[:, :5],
+                                        **heads)
+
+
+def test_ops_flash_attention_keeps_autograd_on_the_cpu():
+    """On CPU tensors ``ops.flash_attention`` is the plain version, so its
+    gradient is autograd's through it."""
+    q, k, v = _t(*_qkv(4, 8, 2, 40, 40, 64))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kw = dict(num_q_heads=4, num_kv_heads=1, causal=True)
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.requires_grad
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    g = torch.autograd.grad(out, leaves, dout)
+    o2, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    for a, b in zip(g, flash_attention_backward_plain(q, k, v, o2, dout, lse,
+                                                      **kw)):
+        torch.testing.assert_close(a, b, atol=2e-4 * float(b.abs().max()),
+                                   rtol=2e-4)
+
+
+def test_ops_without_a_backward_refuse_grad_off_the_cpu():
+    """On a tensor that is not on the CPU (here the meta device, standing in
+    for the card) each op with no backward kernel raises when grad is
+    enabled and an input requires it, instead of cutting the graph; under
+    no_grad, or with no input requiring grad, it does not refuse."""
+    m = dict(device="meta")
+    x = torch.empty(2, 64, 64, **m, requires_grad=True)
+    calls = {
+        "matmul": lambda a: ops.matmul(a, torch.empty(64, 32, **m)),
+        "moe_gmm": lambda a: ops.moe_gmm(a, torch.empty(2, 64, 32, **m)),
+        "ssd_scan": lambda a: ops.ssd_scan(
+            a, torch.empty(2, 64, **m), torch.empty(2, 64, 16, **m),
+            torch.empty(2, 64, 16, **m), torch.empty(2, **m)),
+        "layernorm": lambda a: ops.layernorm(a[0], a[0],
+                                             torch.empty(64, **m),
+                                             torch.empty(64, **m)),
+        "blocked_colsum": lambda a: ops.blocked_colsum(a[0]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ops.MissingBackwardError, match=name):
+            call(x)
+        with torch.no_grad():
+            try:
+                call(x)
+            except ops.MissingBackwardError:
+                raise AssertionError(f"{name} refused under no_grad")
+            except Exception:
+                pass              # the meta device has no kernel to run

@@ -396,6 +396,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -476,6 +477,14 @@ FLASH_PROFILE_GROUPS = (("flash", ("flash_",)), ("gemm", GEMM_NAMES))
 SSD_PROFILE_GROUPS = (("ssd", ("ssd_",)), ("gemm", GEMM_NAMES))
 TRAIN_PROFILE_GROUPS = (("flash_fwd", ("flash_sm90", "flash_fwd")),
                         ("flash_bwd", ("flash_bwd",)), ("gemm", GEMM_NAMES))
+# The bf16 flash backward's three kernels, the calls of it and of SDPA's
+# backward in one profile of [28] (a), and the seconds the host waits before
+# and after them inside the profile.
+BWD_SPLIT_GROUPS = (("prep", ("flash_bwd_prep",)),
+                    ("dkdv", ("flash_bwd_dkdv_sm90",)),
+                    ("dq", ("flash_bwd_dq_sm90",)))
+BWD_PROFILE_CALLS = 10
+BWD_PROFILE_PAD_S = 2.0
 
 
 def _device_profile(fn, what: str,
@@ -529,8 +538,11 @@ def _device_profile(fn, what: str,
         kernels.append((ms, ev.count, ev.key))
     busy = sum(totals.values())
     if busy <= 0.0:
-        print(f"  profile of {what}: the profiler saw no device time; "
-              f"device time not measured")
+        seen = prof.key_averages()
+        print(f"  profile of {what}: the profiler saw no device time ("
+              f"{len(seen)} event keys, device types "
+              f"{sorted({str(ev.device_type) for ev in seen})}); device time "
+              f"not measured")
         return {}
     print(f"  profile of {what} (torch.profiler): wall {wall_ms:.2f} ms, "
           f"device busy {busy:.2f} ms ({busy / wall_ms:.1%}); "
@@ -762,6 +774,7 @@ def run(caches: list) -> int:
         print(f"  {lib.name}: {hgmma} HGMMA instructions in the SASS")
         if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-",
                                                "libflash_attention-",
+                                               "libflash_attention_bwd-",
                                                "libssd_scan-")):
             raise AssertionError(f"{lib.name} has no wgmma (HGMMA) in its "
                                  f"SASS: the bf16 path is not on the tensor "
@@ -5291,14 +5304,84 @@ def _leaf_rel(a: dict, b: dict) -> dict:
     return out
 
 
+def _long_context_step(dev, flash) -> dict:
+    """Phase 28 (d): one llama3.2-1b train step at full width, B 1 x S
+    4096 (``loss_and_grads`` and ``adamw_update`` through
+    ``make_train_step``; weights at std 1 / sqrt(fan-in)): a warm-up step,
+    a timed one with its peak memory, and a profiled one for the flash
+    backward's share of device-busy.  Gated: finite losses and that the
+    wgmma backward ran at S 4096; a step that does not fit in memory fails
+    the phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg)
+    print(f"  (d) one long-context step: {cfg.name} at full width, B 1 x S "
+          f"{PREFILL_S}, loss_and_grads + adamw_update (gates: finite "
+          f"losses, the wgmma backward ran)", flush=True)
+    try:
+        params = model.init(SEED + 2)
+        _fan_in_scaled(model, params)
+        opt_cfg = AdamWConfig(lr=1e-4, weight_decay=0.01)
+        opt_state = adamw_init(opt_cfg, params)
+        step = make_train_step(model, opt_cfg)
+        batch = {"tokens": torch.as_tensor(SyntheticStream(SyntheticConfig(
+            cfg.vocab_size, PREFILL_S, 1, seed=SEED + 2)).next_batch()[
+                "tokens"], device=dev)}
+        params, opt_state, m0 = step(params, opt_state, batch)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash.BACKWARD_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        params, opt_state, m1 = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ran = flash.BACKWARD_LAUNCHES.tiles.get((32, PREFILL_S, PREFILL_S,
+                                                 64, True), {})
+        launches = flash.BACKWARD_LAUNCHES.count
+        losses = [float(m0["loss"]), float(m1["loss"])]
+        out = {}
+        prof = _device_profile(
+            lambda: out.update(m=step(params, opt_state, batch)[2]),
+            f"one train step at B 1 x S {PREFILL_S}",
+            groups=TRAIN_PROFILE_GROUPS, ranges=("adamw_update",))
+        losses.append(float(out["m"]["loss"]))
+    finally:
+        params = opt_state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    share = prof["flash_bwd"] / prof["busy_ms"] if prof else float("nan")
+    print(f"  (d) {step_ms:.2f} ms a step (the second), peak memory "
+          f"{peak:.2f} GiB, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"flash backward {launches} launches a step, body {ran}, "
+          f"{share:.1%} of device-busy", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a long-context loss is not finite: {losses}")
+    if not launches or ran.get("body") != "wgmma":
+        raise AssertionError(f"the long-context step ran the flash backward "
+                             f"{launches} times, body {ran}")
+    return {"step_ms": step_ms, "peak_gib": peak,
+            "losses": losses, "flash_bwd_launches": launches,
+            "flash_bwd_share": share, "profile": prof}
+
+
 def train_phase(dev, hw, gen, check, time_ms, phase_done,
                 card: str) -> dict:
     """Phase 28: training on the card.  (a) the flash-attention backward
-    kernel alone at llama3.2-1b's training and prefill shapes; (b)
-    ``TrainLoop`` on llama3.2-1b at full width; (c) a crash and resume at
-    two layers, bit-exact, and the guards of the ops with no backward.
-    Returns the backward kernel's row of the ``kernels`` line and the
-    flash forward's launches on the training path."""
+    kernel alone at llama3.2-1b's training and prefill shapes and
+    internlm2-1.8b's d 128 attention; (b) ``TrainLoop`` on llama3.2-1b at
+    full width; (c) a crash and resume at two layers, bit-exact, and the
+    guards of the ops with no backward; (d) one long-context step
+    (``_long_context_step``).  Returns the backward kernel's row of the
+    ``kernels`` line and the flash forward's launches on the training
+    path."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -5314,24 +5397,34 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
     from repro_torch.tree import tree_leaves, tree_paths
 
     t_phase = time.perf_counter()
-    hq, hkv, d = 32, 8, 64          # llama3.2-1b's attention
     # -- (a) the backward kernel alone --------------------------------------
     print("[28] training on the card.  (a) the flash-attention backward "
-          "kernel (csrc/flash_attention_bwd.cu: delta, dK / dV, dQ; SIMT, "
-          "no atomics) against flash_attention_backward_plain, bf16, GQA "
-          f"{hq} / {hkv}, d {d}, causal (gate: each of dq, dk, dv within "
-          "2e-2 x max |plain|)", flush=True)
-    for dt in (torch.bfloat16, torch.float32):
-        for hd in flash.BACKWARD_HEAD_DIMS:
+          "kernel (csrc/flash_attention_bwd.cu: bf16 on the wgmma + TMA-ring "
+          "body -- prep, dK / dV, dQ; f32 on the SIMT body; no atomics) "
+          "against flash_attention_backward_plain, causal, at llama3.2-1b's "
+          "training and prefill shapes (GQA 32 / 8, d 64) and internlm2-"
+          "1.8b's (16 / 8, d 128) (gates: each of dq, dk, dv within 2e-2 x "
+          "max |plain|; the wgmma body ran; two calls bit-equal; no spilled "
+          "bytes in the wgmma kernels; the profiler sees each of its three "
+          "kernels)", flush=True)
+    for hd in flash.BACKWARD_HEAD_DIMS:
+        for dt, body in ((torch.float32, "f32 SIMT"),
+                         (torch.bfloat16, "bf16 wgmma")):
             attrs = {k: flash.backward_attributes(dt, hd, k)
                      for k in flash.BACKWARD_KERNELS}
-            print(f"  registers / spilled bytes {dt} d {hd}: " + ", ".join(
-                f"{k} {a['num_regs']} / {a['local_bytes']}"
-                for k, a in attrs.items()), flush=True)
+            print(f"  registers / spilled bytes, {body} body, d {hd}: "
+                  + ", ".join(f"{k} {a['num_regs']} / {a['local_bytes']}"
+                              for k, a in attrs.items()), flush=True)
+            if dt == torch.bfloat16 and any(a["local_bytes"]
+                                            for a in attrs.values()):
+                raise AssertionError(f"the wgmma backward spills at d {hd}: "
+                                     f"{attrs}")
     shapes = []
     worst = 0.0
-    for name, B, S in (("train", TRAIN_B, TRAIN_S), ("prefill", 1,
-                                                       PREFILL_S)):
+    for name, B, S, hq, hkv, d in (
+            ("train", TRAIN_B, TRAIN_S, 32, 8, 64),
+            ("prefill", 1, PREFILL_S, 32, 8, 64),
+            ("internlm2_d128", 1, PREFILL_S, 16, 8, 128)):
         q = torch.randn(B * hq, S, d, generator=gen, device=dev
                         ).to(torch.bfloat16)
         k, v = (torch.randn(B * hkv, S, d, generator=gen, device=dev
@@ -5349,9 +5442,16 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
                            ).to(torch.bfloat16)
         got = flash.flash_attention_backward_kernel(q, k, v, out, dout, lse,
                                                     **kw)
+        again = flash.flash_attention_backward_kernel(q, k, v, out, dout,
+                                                      lse, **kw)
+        ran = flash.BACKWARD_LAUNCHES.tiles[(B * hq, S, S, d, True)]
         ref = flash.flash_attention_backward_plain(q, k, v, out, dout, lse,
                                                    **kw)
         torch.cuda.synchronize()
+        if ran["body"] != "wgmma":
+            raise AssertionError(f"{name}: bf16 ran the {ran['body']} body")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
         errs = {}
         for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
             if not bool(torch.isfinite(g).all()):
@@ -5364,37 +5464,74 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
                                      f"of max |plain|")
         worst = max([worst] + [float((g.float() - r.float()).abs().max())
                                for g, r in zip(got, ref)])
-        del got, ref
+        del got, again, ref
         bound, bound_by = _bwd_bound_ms(B * hq, B * hkv, S, d)
-        ms = time_ms(lambda: flash.flash_attention_backward_kernel(
-            q, k, v, out, dout, lse, **kw))
-        plain_ms = time_ms(lambda: flash.flash_attention_backward_plain(
-            q, k, v, out, dout, lse, **kw), max_iters=1)
-        fwd_ms = time_ms(lambda: flash.flash_attention_kernel(
-            q, k, v, **tiles, **kw))
-        fwd_lse_ms = time_ms(lambda: flash.flash_attention_kernel(
-            q, k, v, **tiles, **kw, return_lse=True))
+
+        def bwd():
+            return flash.flash_attention_backward_kernel(q, k, v, out, dout,
+                                                         lse, **kw)
+
         qs = q.reshape(B, hq, S, d).detach().requires_grad_()
         ks, vs = (t.reshape(B, hkv, S, d).detach().requires_grad_()
                   for t in (k, v))
         o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                            enable_gqa=True)
         do4 = dout.reshape(B, hq, S, d)
-        sdpa_ms = time_ms(lambda: torch.autograd.grad(
-            o, (qs, ks, vs), do4, retain_graph=True))
+
+        def sdpa_bwd():
+            return torch.autograd.grad(o, (qs, ks, vs), do4,
+                                       retain_graph=True)
+
+        ms = time_ms(bwd)
+        sdpa_event_ms = time_ms(sdpa_bwd)
+        plain_ms = time_ms(lambda: flash.flash_attention_backward_plain(
+            q, k, v, out, dout, lse, **kw), max_iters=1)
+        fwd_ms = time_ms(lambda: flash.flash_attention_kernel(
+            q, k, v, **tiles, **kw))
+        fwd_lse_ms = time_ms(lambda: flash.flash_attention_kernel(
+            q, k, v, **tiles, **kw, return_lse=True))
+        def both():
+            # late in this script the profiler loses the kernels near either
+            # end of a short window (PERF.md §7): host waits on both sides
+            # keep the calls clear of them
+            time.sleep(BWD_PROFILE_PAD_S)
+            for fn in (bwd, sdpa_bwd):
+                for _ in range(BWD_PROFILE_CALLS):
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(BWD_PROFILE_PAD_S)
+
+        # SDPA's backward is host-bound at the training shape, so its events
+        # time the host: its device time is the sum of its kernels' in a trace
+        prof = _device_profile(
+            both, f"{BWD_PROFILE_CALLS} calls each of the backward and of "
+            f"SDPA's backward (other) at {name}", groups=BWD_SPLIT_GROUPS,
+            cpu=False)
+        if not prof or not all(prof[g] > 0 for g, _ in BWD_SPLIT_GROUPS) \
+                or prof["other"] <= 0:
+            raise AssertionError(f"{name}: the profile shows not all of the "
+                                 f"backward's kernels and SDPA's: {prof}")
+        split = {g: prof[g] / BWD_PROFILE_CALLS for g, _ in BWD_SPLIT_GROUPS}
+        sdpa_ms = prof["other"] / BWD_PROFILE_CALLS
+        device_ms = sum(split.values())
         row = {"shape": name, "bh": B * hq, "s": S, "d": d, "gqa": hq // hkv,
-               "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": sdpa_ms, "bound_ms": bound,
-               "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
-               "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms}
+               "rel_err": errs, "ms": ms, "device_ms": device_ms,
+               "split_ms": split, "plain_ms": plain_ms,
+               "library_ms": sdpa_ms, "library_event_ms": sdpa_event_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "pct_of_bound": 100.0 * bound / ms, "fwd_ms": fwd_ms,
+               "fwd_lse_ms": fwd_lse_ms}
         shapes.append(row)
-        print(f"  {name} (bh {B * hq}, S {S}): rel err dq {errs['dq']:.2e} "
-              f"dk {errs['dk']:.2e} dv {errs['dv']:.2e} ok; kernel "
-              f"{ms:.4f} ms ({row['pct_of_bound']:.1f} % of bound) | plain "
-              f"{plain_ms:.3f} ms | SDPA backward {sdpa_ms:.4f} ms "
-              f"({ms / sdpa_ms:.2f}x) | bound {bound:.4f} ms ({bound_by}); "
-              f"forward {fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms, "
-              f"output bit-equal", flush=True)
+        print(f"  {name} (bh {B * hq}, S {S}, d {d}, GQA {hq // hkv}): rel "
+              f"err dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+              f"{errs['dv']:.2e} ok, wgmma body, two calls bit-equal; kernel "
+              f"{ms:.4f} ms ({row['pct_of_bound']:.1f} % of bound), its "
+              f"kernels' device time {device_ms:.4f} ms (" + ", ".join(
+                  f"{g} {t:.4f}" for g, t in split.items()) + f") | plain "
+              f"{plain_ms:.3f} ms | SDPA backward {sdpa_ms:.4f} ms of device "
+              f"time ({ms / sdpa_ms:.2f}x; {sdpa_event_ms:.4f} ms by events) "
+              f"| bound {bound:.4f} ms ({bound_by}); forward {fwd_ms:.4f} ms, "
+              f"with lse {fwd_lse_ms:.4f} ms, output bit-equal", flush=True)
         del q, k, v, out, out0, lse, dout, qs, ks, vs, o, do4
         torch.cuda.empty_cache()
 
@@ -5463,6 +5600,10 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
             raise AssertionError(f"the training path launched flash forward "
                                  f"{fwd_launches} and backward "
                                  f"{bwd_launches} times")
+        bodies = {t["body"] for t in flash.BACKWARD_LAUNCHES.tiles.values()}
+        if bodies != {"wgmma"}:
+            raise AssertionError(f"the training path's flash backward ran "
+                                 f"the {bodies} bodies, not wgmma alone")
         step_ms = float(np.median([m["step_time_s"] for m in hist[2:]])) \
             * 1e3
         saves = loop.manager.timings
@@ -5553,6 +5694,7 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
             raise AssertionError(f"ops.{name} ran on a card input that "
                                  f"requires grad: its gradient would be "
                                  f"cut silently")
+    long_step = _long_context_step(dev, flash)
     print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
     phase_done(28)
     train = {"step_ms": step_ms, "tokens_per_s": TRAIN_B * TRAIN_S
@@ -5562,7 +5704,8 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
              "step1_max_leaf_rel": max(rel.values()),
              "saves": saves, "profile": prof,
              "flash_fwd_per_step": fwd_launches / TRAIN_STEPS,
-             "flash_bwd_per_step": bwd_launches / TRAIN_STEPS}
+             "flash_bwd_per_step": bwd_launches / TRAIN_STEPS,
+             "long_context_step": long_step}
     print(json.dumps({"train": train, "card": card}, default=str))
     total = {k: sum(r[k] for r in shapes)
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}

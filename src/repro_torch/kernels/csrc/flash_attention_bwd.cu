@@ -12,44 +12,115 @@
 // (src/repro/kernels/ref.py::flash_attention_ref); none of its Pallas kernels
 // has a backward.  The port's training forward runs the hand-written
 // forward kernel on the card, so its gradient needs this one.  The design is
-// FlashAttention-2's backward (Dao, 2023), written by hand:
+// FlashAttention-2's backward (Dao, 2023): K and V of a kv block stay put
+// while the q blocks that see them stream past (dK, dV), and Q of a q block
+// stays put while the kv blocks stream past (dQ).  Each output is summed by
+// one CTA in a fixed order -- no float atomics, so the backward is
+// deterministic -- at the price of S and dP computed twice, once per
+// kernel: 7 products of 2 d FLOPs per visible pair where the function needs
+// 5 (QK^T, dO V^T, P^T dO, dS^T Q, dS K).
 //
-//   * flash_bwd_delta_kernel: delta = rowsum(do * o), one warp per row, f32.
-//   * flash_bwd_dkdv_kernel: one CTA per (kv head, block of 64 kv rows).
-//     K and V stay in shared memory; the CTA loops over the q heads of the
-//     kv head's GQA group and, for each, over the q blocks that can see the
-//     kv block (from the diagonal down when causal), recomputing S = Q K^T
-//     and P from lse, dP = dO V^T and dS, and accumulating dV += P^T dO and
-//     dK += dS^T Q in registers.  Nothing is written twice: no float atomics,
-//     so the backward is deterministic.
+// Bound on an H100 SXM: those 5 products are 2.5 times the forward's FLOPs,
+// so at llama3.2-1b's prefill shape (bh 32, S 4096, d 64, causal) the
+// backward does about 172 GFLOP on about 84 MB (q, k, v, o, do and lse read
+// once, dq, dk, dv written once): bound by operations at the bf16
+// tensor-core rate (989 TFLOP/s), 0.174 ms.  At its training shape (bh 256,
+// S 256) it is 5.4 GFLOP on 42 MB: bound by bytes (3.35 TB/s), 12.6 us.
+//
+// Two bodies, one C interface.
+//
+// bf16 at head dims 64 and 128 -- the wgmma + TMA-ring body, three kernels:
+//   * flash_bwd_prep_kernel: one warp per row; delta = rowsum(do * o) and
+//     lse2 = lse * log2(e), both f32 (bh, sq_pad) with sq_pad = sq rounded up
+//     to 64.  A row that sees no key (lse -inf) and a padding row get
+//     lse2 = +inf, so 2^(x - lse2) is exactly 0 there with no test in the
+//     products' loops; padding rows get delta 0.  Padded rows keep every
+//     64-row run of lse2 and delta 256-byte aligned for the bulk copy.
+//   * flash_bwd_dkdv_sm90_kernel<D>: one CTA per (b * hkv, block of 64 kv
+//     rows), one consumer warpgroup (128 threads).  Thread 0 loads the
+//     (64, D) K and V tiles once by TMA (3-D maps over (d, s,
+//     b * heads), 128-byte swizzle, a ragged tail zero-filled), then walks
+//     the (q head of the group, 64-row q block) pairs that can see the block
+//     -- from the diagonal on when causal -- loading each pair's Q and dO
+//     tiles by TMA and its 64 lse2 and delta values by bulk copy into a ring
+//     of kStages slots with full and empty mbarriers, the forward's
+//     protocol.  Per pair a warpgroup computes
+//       S^T = K Q^T      Wgmma<64, kKMajor>, A = K, B = Q (both K-major),
+//       P^T = 2^(S^T scale log2(e) - lse2[col]) in registers,
+//       dP^T = V dO^T    Wgmma<64, kKMajor>, A = V, B = dO,
+//       dV += P^T dO     WgmmaRS<D>: P^T's accumulator fragment is the A
+//                        fragment (flash_attention.cu's note), B = dO read
+//                        MN-major from the same tile under a second
+//                        descriptor (the transpose bit),
+//       dS^T = P^T (dP^T - delta[col]) in registers,
+//       dK += dS^T Q     WgmmaRS<D>, B = Q MN-major.
+//     lse2 and delta are indexed by column, read from the slot.  dV's
+//     product is in flight while dS^T is formed (at D = 64; at D = 128 its
+//     A fragments would cost the registers dS^T needs).  The epilogue
+//     scales dK, converts both to bf16 and writes rows clipped at skv.
+//   * flash_bwd_dq_sm90_kernel<D>: one CTA per (b * hq, block of 64 q rows),
+//     one warpgroup.  Q and dO come in once by TMA and
+//     the rows' lse2 and delta once into registers; the (64, D) K and V tiles
+//     of each visible kv block stream through the ring.  Per block
+//       S = Q K^T, dP = dO V^T   Wgmma<64, kKMajor>, issued together,
+//       P and dS = P (dP - delta[row]) in registers, masked on the blocks
+//       that straddle the diagonal or skv,
+//       dQ += dS K               WgmmaRS<D>, B = K MN-major.
+//     The epilogue scales dQ, converts it to bf16 and writes rows clipped
+//     at sq.
+//   What bounds it, and what the design does about it.  The products take
+//   every FLOP, so they all run on the tensor cores (the SIMT body below
+//   caps at the CUDA cores' 67 TFLOP/s); TMA keeps the loads off the
+//   threads and the ring overlaps a slot's loads with the products of the
+//   slot before it; P and dS never leave registers (no shared-memory round
+//   trip, no barrier between the products).  Registers bound D = 128: dK
+//   and dV are 2 x 64 x 128 f32 / 128 threads = 128 registers a thread
+//   before S^T and dP^T (32 each), so P^T's bf16 fragments are formed
+//   before dP^T is issued and __launch_bounds__(128, 1) lets a thread have
+//   255 with no spill (chip_smoke.py [28] gates zero spilled bytes).  What
+//   is left is latency: within a warpgroup each product waits for the one
+//   it feeds on (S^T, then P^T, then dV and dS^T, then dK), and the CTAs an
+//   SM holds fill few of the gaps, so the tensor cores idle most of a step;
+//   the dK / dV kernel takes most of the time.  Both kernels work on 64-row
+//   blocks: 128-row blocks (two warpgroups a CTA) were no faster at the
+//   shapes PERF.md §6 lists.  A deeper ring, a register cap for a third CTA
+//   per SM, and the next pair's S^T issued beside this pair's dK were each
+//   tried on the card: each sped one shape and slowed another, and none is
+//   kept.
+//   Precision: P and dS are rounded once to bf16 for the register-A
+//   products, as FlashAttention-2 and -3 do and as the JAX oracle rounds P
+//   (no hi + lo split as in the forward's PV).  dq, dk and dv must stay
+//   within chip_smoke.py [28] (a)'s 2e-2 x max |plain| (PERF.md §6 has the
+//   values measured on the card); tests/test_torch_flash_attention.py's
+//   einsum that rounds them so stays within 5e-3 of the plain version and
+//   jax.vjp on the CPU, where the split would be within 1e-5.
+//
+// f32 -- the SIMT body: wgmma takes f32 only as TF32.
+//   * flash_bwd_delta_kernel: delta = rowsum(do * o), one warp per row.
+//   * flash_bwd_dkdv_kernel: one CTA per (kv head, block of 64 kv rows),
+//     looping over the q heads of the group and the q blocks that can see
+//     the kv block, recomputing S = Q K^T and P from lse, dP = dO V^T and
+//     dS, and accumulating dV += P^T dO and dK += dS^T Q in registers.
 //   * flash_bwd_dq_kernel: one CTA per (q head, block of 64 q rows), looping
-//     over the kv blocks the rows can see: dQ += dS K, again without atomics.
-//     S and dP are recomputed here too -- the price of no atomics.
+//     over the kv blocks the rows can see: dQ += dS K.
+//   256 threads; 64 x 64 tiles of S, dP, P and dS, each thread holding 4 x 4
+//   of them (rows ty + 16 i, columns tx + 16 j with ty = tid / 16, tx = tid
+//   % 16) and 4 x (D / 16) of the (64, D) accumulators.  The Q, dO, K and V
+//   tiles come in by 16-byte cp.async copies into rows padded by 16 bytes
+//   (a row's stride is 4 words past a multiple of 32 banks, so the 16-byte
+//   reads of 8 consecutive rows fall in 32 distinct banks), rows past sq or
+//   skv zero-filled by the copy.  P and dS go through f32 shared memory, rows
+//   padded by 16 words.  Every product is FP32 FMAs.
 //
-// Bound on an H100 SXM: the backward does 2.5 times the forward's FLOPs
-// (QK^T, dO V^T, P^T dO, dS^T Q and dS K, 2 d FLOPs each per visible pair,
-// against the forward's two products), so at llama3.2-1b's shapes it is bound
-// by operations, like the forward; the bound takes the bf16 tensor-core rate.
-// This first kernel is SIMT: every product is FP32 FMAs on the CUDA cores
-// (67 TFLOP/s), so it cannot reach that bound.  wgmma for the five products
-// and TMA loads are later work (ROADMAP Queue B).
-//
-// The SIMT body.  256 threads; 64 x 64 tiles of S, dP, P and dS, each thread
-// holding 4 x 4 of them (rows ty + 16 i, columns tx + 16 j with ty = tid / 16,
-// tx = tid % 16) and 4 x (D / 16) of the (64, D) accumulators.  The Q, dO, K
-// and V tiles come in by 16-byte cp.async copies, in the input type, into
-// rows padded by 16 bytes: a row's stride is 4 words past a multiple of 32
-// banks, so the 16-byte reads of 8 consecutive rows (the K operand of S)
-// fall in 32 distinct banks, and rows past sq or skv are zero-filled by the
-// copy.  P and dS go through f32 shared memory, rows padded by 16 words.
-// Everything is accumulated in f32; dq, dk and dv are written in the input
-// type.  Head dims 64 and 128, f32 and bf16, any sq and skv.  Softcap and
-// window are not taken: the wrapper refuses them.
+// Head dims 64 and 128, any sq and skv.  Softcap and window are not taken:
+// the wrapper refuses them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -63,22 +134,13 @@ enum DType { kF32 = 0, kBF16 = 1 };
 template <typename T> constexpr int kVec = 16 / sizeof(T);
 template <typename T, int D> constexpr int kLd = D + kVec<T>;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ void unpack(uint32_t w, float& a, float& b) {
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w);
   a = __low2float(h);
   b = __high2float(h);
 }
 
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// N consecutive elements at p (shared memory, N * sizeof(T) bytes aligned to
-// that width, 8 or 16 bytes at a time) as f32.
+// N consecutive f32 at p (shared memory, 16-byte aligned).
 template <int N>
 __device__ __forceinline__ void load_f32(const float* p, float* o) {
   static_assert(N % 4 == 0, "16-byte reads");
@@ -92,28 +154,6 @@ __device__ __forceinline__ void load_f32(const float* p, float* o) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* o) {
-  static_assert(N % 4 == 0, "8- or 16-byte reads");
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      unpack(v.x, o[8 * i], o[8 * i + 1]);
-      unpack(v.y, o[8 * i + 2], o[8 * i + 3]);
-      unpack(v.z, o[8 * i + 4], o[8 * i + 5]);
-      unpack(v.w, o[8 * i + 6], o[8 * i + 7]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
-      unpack(v.x, o[4 * i], o[4 * i + 1]);
-      unpack(v.y, o[4 * i + 2], o[4 * i + 3]);
-    }
-  }
-}
-
 // N f32 values stored as N consecutive elements at p (global memory).
 template <int N>
 __device__ __forceinline__ void store(float* p, const float* x) {
@@ -121,22 +161,6 @@ __device__ __forceinline__ void store(float* p, const float* x) {
   for (int i = 0; i < N / 4; ++i)
     reinterpret_cast<float4*>(p)[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
                                                   x[4 * i + 3]);
-}
-
-template <int N>
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float* x) {
-  if constexpr (N % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 8; ++i)
-      reinterpret_cast<uint4*>(p)[i] =
-          make_uint4(pack(x[8 * i], x[8 * i + 1]), pack(x[8 * i + 2], x[8 * i + 3]),
-                     pack(x[8 * i + 4], x[8 * i + 5]), pack(x[8 * i + 6], x[8 * i + 7]));
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i)
-      reinterpret_cast<uint2*>(p)[i] =
-          make_uint2(pack(x[4 * i], x[4 * i + 1]), pack(x[4 * i + 2], x[4 * i + 3]));
-  }
 }
 
 // One 16-byte cp.async copy; with valid false nothing is read and the 16
@@ -297,7 +321,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   float acc = 0.0f;
 #pragma unroll
   for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f32(o[row * D + d]), to_f32(dout[row * D + d]), acc);
+    acc = fmaf(o[row * D + d], dout[row * D + d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
@@ -466,16 +490,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int bh, int sq, int skv, int hq, int hkv, float scale,
-                     int causal, cudaStream_t stream) {
+cudaError_t simt_launch_d(int d, const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, void* dq,
+                          void* dk, void* dv, int bh, int sq, int skv, int hq, int hkv,
+                          float scale, int causal, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq, skv, hq,
-                                  hkv, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq, skv,
-                                    hq, hkv, scale, causal, stream);
+    case 64: return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq, skv,
+                                      hq, hkv, scale, causal, stream);
+    case 128: return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq,
+                                        skv, hq, hkv, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -504,12 +527,528 @@ cudaError_t attributes_of(int which, int* num_regs, int* max_threads, int* local
   }
 }
 
-template <typename T>
-cudaError_t attributes_d(int d, int which, int* num_regs, int* max_threads,
-                         int* local_bytes) {
+cudaError_t simt_attributes_d(int d, int which, int* num_regs, int* max_threads,
+                              int* local_bytes) {
   switch (d) {
-    case 64: return attributes_of<T, 64>(which, num_regs, max_threads, local_bytes);
-    case 128: return attributes_of<T, 128>(which, num_regs, max_threads, local_bytes);
+    case 64: return attributes_of<float, 64>(which, num_regs, max_threads, local_bytes);
+    case 128: return attributes_of<float, 128>(which, num_regs, max_threads, local_bytes);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, head dims 64 and 128: the wgmma + TMA-ring body
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;             // slots of each kernel's TMA ring
+constexpr int kSm90Threads = 128;      // one consumer warpgroup
+constexpr int kBlock = 64;             // rows of every tile, the warpgroup's
+constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may opt in to
+// Dynamic shared memory beyond the tiles: the 1 KiB alignment slack and the
+// full, empty and once-loaded tiles' barriers.
+constexpr int kSm90SmemExtra = sm90::kAlign + (2 * kStages + 1) * 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A dK / dV ring slot: the Q and dO tiles, then 64 lse2 and 64 delta values
+// (512 bytes, rounded up to keep the next slot's tiles 1 KiB aligned).
+template <int D>
+__host__ __device__ constexpr int dkdv_slot_bytes() {
+  return 2 * kBlock * D * 2 + sm90::kAlign;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkdv_sm90_smem_bytes() {
+  return 2 * kBlock * D * 2 + kStages * dkdv_slot_bytes<D>() + kSm90SmemExtra;
+}
+
+template <int D>
+__host__ __device__ constexpr int dq_sm90_smem_bytes() {
+  return 2 * kBlock * D * 2 + kStages * 2 * kBlock * D * 2 + kSm90SmemExtra;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special function unit (relative error about 2^-22; 2^-inf is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A (64, D) accumulator fragment times `mul`, in bf16, into dst, a row-major
+// (rows, D) array: this thread's rows row0 and row0 + 8, those below `rows`.
+template <int D>
+__device__ __forceinline__ void write_fragment(__nv_bfloat16* dst, int row0, int rows,
+                                               const float* acc, float mul, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= rows) continue;
+    __nv_bfloat16* p = dst + (size_t)r * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// delta[row] = rowsum(do * o) and lse2[row] = lse * log2(e) over rows of
+// (bh, sq_pad): +inf where lse is -inf (no visible key) and on padding rows,
+// whose delta is 0.  One warp per row.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ delta,
+                      float* __restrict__ lse2, int sq, int sq_pad, long long rows) {
+  const long long row = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long bh = row / sq_pad;
+  const int s = (int)(row % sq_pad);
+  float acc = 0.0f;
+  float l2 = INFINITY;
+  if (s < sq) {
+    const long long at = bh * sq + s;
+    const uint32_t* o2 = reinterpret_cast<const uint32_t*>(o + at * D);
+    const uint32_t* d2 = reinterpret_cast<const uint32_t*>(dout + at * D);
+#pragma unroll
+    for (int i = lane; i < D / 2; i += 32) {
+      float a, b, c, e;
+      unpack(o2[i], a, b);
+      unpack(d2[i], c, e);
+      acc = fmaf(a, c, fmaf(b, e, acc));
+    }
+    const float l = lse[at];
+    if (l != -INFINITY) l2 = l * kLog2e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = l2;
+  }
+}
+
+// q, dout: (bh, sq, D) through qmap and domap, k, v: (bh / hq * hkv, skv, D)
+// through kmap and vmap, all in boxes of 64 rows; lse2, delta: f32 (bh,
+// sq_pad); dk, dv: like k, row-major.  blockDim.x == 128, gridDim =
+// (ceil(skv / 64), bh / hq * hkv).
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int sq, int sq_pad, int skv, int hq, int hkv, float scale,
+                           int causal) {
+  using namespace sm90;
+  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes; registers");
+  static_assert(dkdv_sm90_smem_bytes<D>() <= kSmemLimit, "shared memory");
+  constexpr int kKVBytes = kBlock * D * 2;        // the K or the V tile
+  constexpr int kTileBytes = kBlock * D * 2;      // a Q or a dO tile
+  constexpr int kRowBytes = kBlock * 4;           // a tile's lse2 or delta
+  constexpr int kSlotBytes = dkdv_slot_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* ks = smem;                                   // [D/64][64][64]
+  unsigned char* vs = smem + kKVBytes;
+  unsigned char* ring = smem + 2 * kKVBytes;    // [kStages][Q, dO, lse2, delta]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kSlotBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int bkv = blockIdx.y;                 // b * hkv + kv head
+  const int k0 = blockIdx.x * kBlock;         // kv block 0 sees the most q rows
+  const int group = hq / hkv;
+  const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group;   // the group's first q head
+  // q rows before k0 see no key of this block when causal (k0 % 64 == 0)
+  const int q_begin = causal ? k0 : 0;
+  const int nq = q_begin < sq ? (sq - q_begin + kBlock - 1) / kBlock : 0;
+  const int n_it = group * nq;                // (q head, q block) pairs
+
+  auto load_q = [&](int it, int s) {
+    unsigned char* slot = ring + s * kSlotBytes;
+    const int bh = bh0 + it / nq;
+    const int q0 = q_begin + (it % nq) * kBlock;
+    const size_t at = (size_t)bh * sq_pad + q0;
+    mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kRowBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b) {
+      tma_load(slot + b * kBlock * 128, &qmap, &full[s], b * kAtom, q0, bh);
+      tma_load(slot + kTileBytes + b * kBlock * 128, &domap, &full[s], b * kAtom, q0, bh);
+    }
+    bulk_load(slot + 2 * kTileBytes, lse2 + at, kRowBytes, &full[s]);
+    bulk_load(slot + 2 * kTileBytes + kRowBytes, delta + at, kRowBytes, &full[s]);
+  };
+
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0 && n_it > 0) {
+    mbar_expect_tx(kvbar, 2 * kKVBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b) {
+      tma_load(ks + b * kBlock * 128, &kmap, kvbar, b * kAtom, k0, bkv);
+      tma_load(vs + b * kBlock * 128, &vmap, kvbar, b * kAtom, k0, bkv);
+    }
+    for (int s = 0; s < kStages && s < n_it; ++s) load_q(s, s);
+  }
+
+  const float pre = scale * kLog2e;
+  const int krow = k0 + (t / 32) * 16 + lane / 4;       // rows krow and krow + 8
+  const int col0 = 2 * (lane % 4);                     // first fragment column
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  if (n_it > 0) mbar_wait(kvbar, 0);
+  const uint32_t k_base = smem_addr(ks);
+  const uint32_t v_base = smem_addr(vs);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t q_base = smem_addr(ring + s * kSlotBytes);
+    const uint32_t do_base = q_base + kTileBytes;
+    const float* lrow = reinterpret_cast<const float*>(ring + s * kSlotBytes + 2 * kTileBytes);
+    const float* drow = lrow + kBlock;
+    const int q0 = q_begin + (it % nq) * kBlock;
+
+    // S^T = K Q^T
+    float st[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = make_desc(k_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(q_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<64, kKMajor>::mma(st, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // P^T = 2^(S^T pre - lse2[col]), 0 where q < k when causal
+    const bool masked = causal && q0 < k0 + 63;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * j + col0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = fmaf(st[4 * j + 2 * h + e], pre, -(e ? l2.y : l2.x));
+          if (masked && q0 + 8 * j + col0 + e < krow + 8 * h)
+            x = __uint_as_float(0xff800000u);       // -inf: p = 0 exactly
+          st[4 * j + 2 * h + e] = ex2(x);
+        }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+
+    // dP^T = V dO^T, then dV += P^T dO (dO MN-major: the transpose bit)
+    float dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = make_desc(v_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(do_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<64, kKMajor>::mma(dpt, da, db);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<D>::mma(dv_acc, pa[kk], make_desc(do_base + kk * 16 * 128, kBlock * 128, 1024));
+    wgmma_commit();
+    if constexpr (D <= 64) wgmma_wait<1>();   // dP^T is done; dV may run on
+    else wgmma_wait<0>();                      // pa's registers are dS^T's
+
+    // dS^T = P^T (dP^T - delta[col]), then dK += dS^T Q
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(drow + 8 * j + col0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        dsa[j / 2][2 * (j % 2) + h] =
+            pack_bf16(st[i] * (dpt[i] - dl.x), st[i + 1] * (dpt[i + 1] - dl.y));
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<D>::mma(dk_acc, dsa[kk], make_desc(q_base + kk * 16 * 128, kBlock * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // this slot's Q, dO, lse2 and delta are consumed: release it, and refill it
+    mbar_arrive(&empty[s]);
+    if (t == 0 && it + kStages < n_it) {
+      mbar_wait(&empty[s], (it / kStages) & 1);
+      load_q(it + kStages, s);
+    }
+  }
+
+  const size_t base = (size_t)bkv * skv * D;
+  write_fragment<D>(dk + base, krow, skv, dk_acc, scale, lane);
+  write_fragment<D>(dv + base, krow, skv, dv_acc, 1.0f, lane);
+}
+
+// q, dout: (bh, sq, D) through qmap and domap, k, v: (bh / hq * hkv, skv, D)
+// through kmap and vmap, all in boxes of 64 rows; lse2, delta: f32 (bh,
+// sq_pad); dq: like q, row-major.  blockDim.x == 128, gridDim = (ceil(sq /
+// 64), bh).
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const float* __restrict__ lse2, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int sq, int sq_pad, int skv,
+                         int hq, int hkv, float scale, int causal) {
+  using namespace sm90;
+  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes; registers");
+  static_assert(dq_sm90_smem_bytes<D>() <= kSmemLimit, "shared memory");
+  constexpr int kQBytes = kBlock * D * 2;       // the Q or the dO tile
+  constexpr int kKVBytes = kBlock * D * 2;      // a K or a V tile
+  constexpr int kSlotBytes = 2 * kKVBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* qs = smem;                                   // [D/64][64][64]
+  unsigned char* dos = smem + kQBytes;
+  unsigned char* ring = smem + 2 * kQBytes;                   // [kStages][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kSlotBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;   // longest causal rows first
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
+  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
+
+  auto load_kv = [&](int it, int s) {
+    unsigned char* slot = ring + s * kSlotBytes;
+    mbar_expect_tx(&full[s], kSlotBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b) {
+      tma_load(slot + b * kBlock * 128, &kmap, &full[s], b * kAtom, it * kBlock, kvh);
+      tma_load(slot + kKVBytes + b * kBlock * 128, &vmap, &full[s], b * kAtom,
+               it * kBlock, kvh);
+    }
+  };
+
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect_tx(qbar, 2 * kQBytes);
+#pragma unroll
+    for (int b = 0; b < D / kAtom; ++b) {
+      tma_load(qs + b * kBlock * 128, &qmap, qbar, b * kAtom, q0, bh);
+      tma_load(dos + b * kBlock * 128, &domap, qbar, b * kAtom, q0, bh);
+    }
+    for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, s);
+  }
+
+  const float pre = scale * kLog2e;
+  const int qrow = q0 + (t / 32) * 16 + lane / 4;       // rows qrow and qrow + 8
+  const int col0 = 2 * (lane % 4);
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l2[h] = lse2[(size_t)bh * sq_pad + qrow + 8 * h];
+    dl[h] = delta[(size_t)bh * sq_pad + qrow + 8 * h];
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  const uint32_t q_base = smem_addr(qs);
+  const uint32_t do_base = smem_addr(dos);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t k_base = smem_addr(ring + s * kSlotBytes);
+    const uint32_t v_base = k_base + kKVBytes;
+
+    // S = Q K^T and dP = dO V^T, issued together
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = make_desc(q_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(k_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<64, kKMajor>::mma(sc, da, db);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = make_desc(do_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(v_base + (kk / 4) * kBlock * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma<64, kKMajor>::mma(dp, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+
+    // P = 2^(S pre - lse2[row]), 0 off the visible pairs
+    const int k0 = it * kBlock;
+    const bool masked = k0 + kBlock > skv || (causal && k0 + kBlock - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = fmaf(sc[4 * j + 2 * h + e], pre, -l2[h]);
+          if (masked) {
+            const int kpos = k0 + 8 * j + col0 + e;
+            if (kpos >= skv || (causal && kpos > qrow + 8 * h))
+              x = __uint_as_float(0xff800000u);
+          }
+          sc[4 * j + 2 * h + e] = ex2(x);
+        }
+    wgmma_wait<0>();
+
+    // dS = P (dP - delta[row]), then dQ += dS K (K MN-major)
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * kk + 2 * i;
+        const float d = dl[i % 2];            // a1, a3 are eight rows down
+        dsa[kk][i] = pack_bf16(sc[c] * (dp[c] - d), sc[c + 1] * (dp[c + 1] - d));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<D>::mma(acc, dsa[kk], make_desc(k_base + kk * 16 * 128, kBlock * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // this slot's K and V are consumed: release it, and refill it
+    mbar_arrive(&empty[s]);
+    if (t == 0 && it + kStages < n_tiles) {
+      mbar_wait(&empty[s], (it / kStages) & 1);
+      load_kv(it + kStages, s);
+    }
+  }
+
+  write_fragment<D>(dq + (size_t)bh * sq * D, qrow, sq, acc, scale, lane);
+}
+
+template <int D>
+cudaError_t sm90_launch(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* work, void* dq, void* dk,
+                        void* dv, int bh, int sq, int skv, int hq, int hkv, float scale,
+                        int causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int bhkv = bh / hq * hkv;
+  const int sq_pad = (sq + kBlock - 1) / kBlock * kBlock;
+  float* delta = work;
+  float* lse2 = work + (size_t)bh * sq_pad;
+  const long long rows = (long long)bh * sq_pad;
+  flash_bwd_prep_kernel<D><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta, lse2, sq,
+      sq_pad, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap qmap, domap, kmap, vmap;
+  if (!sm90::make_map(&qmap, q, D, sq, bh, kBlock) ||
+      !sm90::make_map(&domap, dout, D, sq, bh, kBlock) ||
+      !sm90::make_map(&kmap, k, D, skv, bhkv, kBlock) ||
+      !sm90::make_map(&vmap, v, D, skv, bhkv, kBlock))
+    return cudaErrorInvalidValue;
+
+  constexpr int kv_smem = dkdv_sm90_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_sm90_kernel<D><<<dim3((skv + kBlock - 1) / kBlock, bhkv), kSm90Threads,
+                                  kv_smem, stream>>>(
+      qmap, domap, kmap, vmap, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      sq, sq_pad, skv, hq, hkv, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int q_smem = dq_sm90_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_sm90_kernel<D><<<dim3((sq + kBlock - 1) / kBlock, bh), kSm90Threads, q_smem,
+                                stream>>>(
+      qmap, domap, kmap, vmap, lse2, delta, static_cast<bf16*>(dq), sq, sq_pad, skv, hq, hkv,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t sm90_launch_d(int d, const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* work, void* dq,
+                          void* dk, void* dv, int bh, int sq, int skv, int hq, int hkv,
+                          float scale, int causal, cudaStream_t stream) {
+  switch (d) {
+    case 64: return sm90_launch<64>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv, hq,
+                                    hkv, scale, causal, stream);
+    case 128: return sm90_launch<128>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv,
+                                      hq, hkv, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t sm90_attributes(int which, int* num_regs, int* max_threads, int* local_bytes) {
+  switch (which) {
+    case 0: return attributes(flash_bwd_prep_kernel<D>, num_regs, max_threads, local_bytes);
+    case 1: return attributes(flash_bwd_dkdv_sm90_kernel<D>, num_regs, max_threads,
+                              local_bytes);
+    case 2: return attributes(flash_bwd_dq_sm90_kernel<D>, num_regs, max_threads,
+                              local_bytes);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t sm90_attributes_d(int d, int which, int* num_regs, int* max_threads,
+                              int* local_bytes) {
+  switch (d) {
+    case 64: return sm90_attributes<64>(which, num_regs, max_threads, local_bytes);
+    case 128: return sm90_attributes<128>(which, num_regs, max_threads, local_bytes);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -518,36 +1057,39 @@ cudaError_t attributes_d(int d, int which, int* num_regs, int* max_threads,
 
 extern "C" {
 
-// Launches the three kernels on `stream` and returns cudaGetLastError() (0
-// on success); the caller has checked shapes, dtypes, alignment and head
-// dim (64 or 128) and allocated delta, f32 (bh, sq).
+// Launches the backward's three kernels on `stream` and returns
+// cudaGetLastError() (0 on success); the caller has checked shapes, dtypes,
+// alignment and head dim (64 or 128).  bf16 runs the wgmma body; work is f32
+// scratch of 2 * bh * sq_pad (delta, then lse2; sq_pad = sq rounded up to
+// 64).  f32 runs the SIMT body with delta in the first bh * sq floats of
+// work.
 int klaraptor_flash_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout, const void* lse,
-                                  void* delta, void* dq, void* dk, void* dv, int bh, int sq,
+                                  void* work, void* dq, void* dk, void* dv, int bh, int sq,
                                   int skv, int d, int hq, int hkv, float scale, int causal,
                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  float* w = static_cast<float*>(work);
   switch (dtype) {
     case kF32:
-      return launch_d<float>(d, q, k, v, o, dout, l, dl, dq, dk, dv, bh, sq, skv, hq, hkv,
-                             scale, causal, s);
+      return simt_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv,
+                           scale, causal, s);
     case kBF16:
-      return launch_d<__nv_bfloat16>(d, q, k, v, o, dout, l, dl, dq, dk, dv, bh, sq, skv, hq,
-                                     hkv, scale, causal, s);
+      return sm90_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv,
+                           scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Registers per thread, launch-bound thread limit and local (spill) bytes of
-// kernel `which` (0 delta, 1 dK / dV, 2 dQ) for (dtype, head dim d).
+// kernel `which` of the body that (dtype, d) runs: f32, the SIMT body's (0
+// delta, 1 dK / dV, 2 dQ); bf16, the wgmma body's (0 prep, 1 dK / dV, 2 dQ).
 int klaraptor_flash_attention_bwd_attributes(int dtype, int d, int which, int* num_regs,
                                              int* max_threads, int* local_bytes) {
   switch (dtype) {
-    case kF32: return attributes_d<float>(d, which, num_regs, max_threads, local_bytes);
-    case kBF16:
-      return attributes_d<__nv_bfloat16>(d, which, num_regs, max_threads, local_bytes);
+    case kF32: return simt_attributes_d(d, which, num_regs, max_threads, local_bytes);
+    case kBF16: return sm90_attributes_d(d, which, num_regs, max_threads, local_bytes);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // csrc/gemm_sm90.cuh (the bf16 matmul and grouped matmul) and
 // csrc/flash_attention.cu (bf16 flash attention at head dims 64, 128 and
-// 256).
+// 256), csrc/flash_attention_bwd.cu (its bf16 backward at 64 and 128) and
+// csrc/ssd_scan.cu.
 //
 //   * mbarriers in shared memory: init, arrive, arrive with an expected
 //     transaction byte count, and a spin on a phase's parity;
 //   * the 3-D TMA load (cp.async.bulk.tensor) of one box, completing on an
 //     mbarrier, and the tensor-map encoder it needs (cuTensorMapEncodeTiled,
 //     taken from the loaded driver through dlopen, so nothing links -lcuda);
+//     and the 1-D bulk copy (cp.async.bulk) of a contiguous run of bytes;
 //   * wgmma: the shared-memory matrix descriptor for 128-byte-swizzled
 //     tiles, fence / commit / wait, and m64nNk16 bf16 products with f32
 //     accumulators -- A and B both from shared memory (Wgmma<N, TransB>), or
@@ -93,6 +95,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16) from global memory at src to
+// shared memory at dst, both 16-byte aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

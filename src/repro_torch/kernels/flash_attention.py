@@ -28,14 +28,22 @@ also return lse, f32 (b * hq, sq): the natural-log log-sum-exp of each row's
 scaled, masked scores, -inf for a row that sees no key.
 
 ``flash_attention_backward_kernel`` launches ``csrc/flash_attention_bwd.cu``
-(FlashAttention-2's backward, SIMT, no atomics): from q, k, v, the forward's
-output and lse and the output's gradient it gives dq, dk and dv (GQA: dk and
-dv summed over each kv head's group), causal or not, head dims 64 and 128,
-bf16 and f32, accumulated in f32.  ``flash_attention_backward_plain`` is its
-plain version: P recomputed from lse, delta = rowsum(dO * O) from the stored
-output, the same five products in f32.  Neither takes a window or a
-softcap yet.  ``BACKWARD_LAUNCHES.count`` counts calls of the backward
-kernel (one call launches its three kernels: delta, dK / dV and dQ).
+(FlashAttention-2's backward, no atomics, so deterministic): from q, k, v,
+the forward's output and lse and the output's gradient it gives dq, dk and
+dv (GQA: dk and dv summed over each kv head's group), causal or not, head
+dims 64 and 128, accumulated in f32.  bf16 runs the wgmma + TMA-ring body
+(``backward_body``): a prep kernel (delta = rowsum(dO * O) and lse in the
+log2 domain, rows padded to ``BACKWARD_ROW_PAD``), dK / dV per (kv head, 64
+kv rows) and dQ per (q head, 64 q rows), every product on wgmma, P and dS in
+registers and rounded once to bf16 for the products that take them.  f32
+runs the SIMT body (FP32 FMAs; wgmma takes f32 only as TF32).
+``flash_attention_backward_plain`` is its plain version: P recomputed from
+lse, delta = rowsum(dO * O) from the stored output, the same five products
+in f32.  Neither takes a window or a softcap yet.
+``BACKWARD_LAUNCHES.count`` counts calls of the backward kernel (one call
+launches its three kernels); ``BACKWARD_LAUNCHES.tiles[(bh, sq, skv, d,
+causal)]`` holds the body ("wgmma" or "simt") of the last call at that
+shape.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from ._build import load
 from .matmul import LaunchCounter
 
 __all__ = ["BACKWARD_HEAD_DIMS", "BACKWARD_LAUNCHES", "BKV_TILES", "DTYPES",
-           "LAUNCHES", "backward_attributes",
+           "LAUNCHES", "backward_attributes", "backward_body",
            "flash_attention_backward_kernel", "flash_attention_backward_plain",
            "flash_attention_kernel", "flash_attention_plain",
            "kernel_attributes", "smem_bytes", "tile_attributes"]
@@ -67,7 +75,19 @@ REGS_PER_SM = 65536
 MAX_GRID_Y = 65535
 _NEG_INF = -1e30
 BACKWARD_HEAD_DIMS = (64, 128)  # the backward kernel's instantiations
+# Its three kernels: delta (for bf16 the prep kernel, which also writes lse
+# in the log2 domain), dK / dV, dQ.
 BACKWARD_KERNELS = ("delta", "dkdv", "dq")
+BACKWARD_ROW_PAD = 64   # bf16: lse and delta rows padded to the 64-row block
+
+
+def backward_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward body that runs for (dtype, head_dim): "wgmma" for bf16,
+    "simt" for f32."""
+    if dtype not in DTYPES or head_dim not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes {DTYPES} at head dims "
+                         f"{BACKWARD_HEAD_DIMS}, not {dtype} at {head_dim}")
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 LAUNCHES = LaunchCounter()
 BACKWARD_LAUNCHES = LaunchCounter()
@@ -140,7 +160,7 @@ def tile_attributes(head_dim: int, bq: int, bkv: int) -> dict[str, int]:
 def backward_attributes(dtype: torch.dtype, head_dim: int,
                         kernel: str) -> dict[str, int]:
     """The same for kernel ``kernel`` ("delta", "dkdv" or "dq") of the
-    backward at (dtype, head_dim) (builds it if needed)."""
+    backward body that (dtype, head_dim) runs (builds it if needed)."""
     lib = _bwd_lib()
     vals = [ctypes.c_int() for _ in range(3)]
     rc = lib.klaraptor_flash_attention_bwd_attributes(
@@ -415,7 +435,8 @@ def flash_attention_backward_kernel(
     """(dq, dk, dv): the CUDA backward kernel for CUDA tensors,
     ``flash_attention_backward_plain`` for CPU tensors (after the same
     checks).  q, out, dout (b * hq, sq, d) and k, v (b * hkv, skv, d) of one
-    dtype and lse f32 (b * hq, sq), all contiguous; head dim 64 or 128."""
+    dtype and lse f32 (b * hq, sq), all contiguous; head dim 64 or 128.
+    bf16 runs the wgmma body, f32 the SIMT body."""
     _refuse_backward(window, softcap)
     _check_operands(q, k, v, num_q_heads, num_kv_heads)
     bhq, sq, d = q.shape
@@ -443,18 +464,22 @@ def flash_attention_backward_kernel(
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    # delta, then (bf16) lse in the log2 domain, rows padded
+    sq_pad = -(-sq // BACKWARD_ROW_PAD) * BACKWARD_ROW_PAD
+    work = torch.empty(2 * bhq * sq_pad, dtype=torch.float32,
+                       device=q.device)
     scale = scale if scale is not None else d ** -0.5
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.klaraptor_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bhq, sq, skv, d, num_q_heads,
             num_kv_heads, float(scale), int(bool(causal)),
             _DTYPE_CODE[q.dtype], stream)
     if rc:
         _raise_cuda("flash attention backward launch", rc, lib)
-    BACKWARD_LAUNCHES.launched((bhq, sq, skv, d, bool(causal)))
+    BACKWARD_LAUNCHES.launched((bhq, sq, skv, d, bool(causal)),
+                               body=backward_body(q.dtype, d))
     return dq, dk, dv

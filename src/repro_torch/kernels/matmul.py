@@ -51,18 +51,19 @@ _PLAIN_CHUNK_ELEMS = 1 << 24   # f32 elements of one outer-product chunk
 
 class LaunchCounter:
     """How many times a kernel was launched (``count``, a plain int), and,
-    for a kernel that records them, the tiles of its last launch at each
-    shape (``tiles``, keyed as the kernel's wrapper keys them)."""
+    for a kernel that records them, the tiles (and, for a kernel with two
+    bodies, the body) of its last launch at each shape (``tiles``, keyed as
+    the kernel's wrapper keys them)."""
 
     def __init__(self) -> None:
         self.count = 0
-        self.tiles: dict[tuple, dict[str, int]] = {}
+        self.tiles: dict[tuple, dict[str, int | str]] = {}
 
     def reset(self) -> None:
         self.count = 0
         self.tiles.clear()
 
-    def launched(self, shape: tuple, **tiles: int) -> None:
+    def launched(self, shape: tuple, **tiles: int | str) -> None:
         """Count one launch, made at ``shape`` with ``tiles``."""
         self.count += 1
         self.tiles[shape] = tiles

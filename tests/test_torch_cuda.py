@@ -804,9 +804,11 @@ def test_cuda_timer_retimes_a_late_enqueue():
 @pytest.mark.cuda
 def test_cuda_flash_backward_kernel_matches_plain():
     """dq, dk and dv of the backward kernel against its plain version on
-    the same forward output and lse: bf16 and f32, d 64 and 128, causal
-    and not, GQA 4 and 1, ragged lengths; the forward's output bit-equal
-    with and without lse, and its lse against the plain version's."""
+    the same forward output and lse: bf16 (the wgmma body) and f32 (the
+    SIMT body), d 64 and 128, causal and not, GQA 4 and 1, ragged
+    lengths; the body each dtype ran, and two calls bit-equal (no atomics);
+    the forward's output bit-equal with and without lse, and its lse
+    against the plain version's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -827,12 +829,17 @@ def test_cuda_flash_backward_kernel_matches_plain():
             lse, flash_attention_plain(q, k, v, return_lse=True, **kw)[1],
             atol=1e-3, rtol=1e-5)
         dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        ref = flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
         before = BACKWARD_LAUNCHES.count
         got = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
-        assert BACKWARD_LAUNCHES.count == before + 1
-        ref = flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
-        for g, r in zip(got, ref):
+        again = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+        assert BACKWARD_LAUNCHES.count == before + 2
+        ran = BACKWARD_LAUNCHES.tiles[(2 * hq, sq, skv, d, causal)]
+        assert ran["body"] == ("wgmma" if dtype == torch.bfloat16
+                               else "simt"), ran
+        for g, a, r in zip(got, again, ref):
             assert g.dtype == dtype and bool(torch.isfinite(g).all())
+            assert torch.equal(g, a), (dtype, d, "not bit-equal")
             err = float((g.float() - r.float()).abs().max())
             assert err <= tol * float(r.float().abs().max()), \
                 (dtype, d, causal, hq, hkv, sq, skv, err)

@@ -15,9 +15,11 @@ the compiled kernels, runs the budgeted online search on the card, and
 serves with the search escalation, the telemetry loop and a tracer
 installed, farms the tier-1 builds, a kill drill and a ledger-fed retune
 out to spawned workers taking turns on the card, watches the serving
-side through the observatory, and trains llama3.2-1b at full width through
-the hand-written flash-attention backward kernel, one phase per printed
-block:
+side through the observatory, trains llama3.2-1b at full width through
+the hand-written flash-attention backward kernel, and mamba2-130m,
+qwen3-moe (1 layer), internlm2-1.8b and whisper-medium through it and the
+SSD scan's and the grouped matmul's backward kernels, one phase per
+printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -349,11 +351,45 @@ block:
      the step's ``adamw_update`` range; gated: some); (c) a crash
      at step 5 and a resume from step 4's checkpoint at 2 layers, full
      width, against an uninterrupted run (gated: parameters and moments
-     bit-equal), and ``ops.ssd_scan`` / ``ops.moe_gmm`` on card inputs
-     that require grad (gated: they raise); then one JSON line
-     ``{"train": ...}``.  The ``kernels`` line gains the backward kernel's
-     row (its launches on the training path) and the flash row
-     ``train_path_launches``.
+     bit-equal), and ``ops.matmul`` / ``ops.layernorm`` on card inputs
+     that require grad (gated: they raise, having no backward yet); then
+     one JSON line ``{"train": ...}``.  The ``kernels`` line gains the
+     backward kernel's row (its launches on the training path) and the
+     flash row ``train_path_launches``.
+ 29. training beyond llama on the card: (a) the SSD scan's backward
+     (``csrc/ssd_scan_bwd.cu``) against ``ssd_scan_backward_plain`` at
+     mamba2-130m's training shape (bh 192 = B 8 x 24 heads sharing one
+     group's B and C, S 256, dh 64, n 128, bf16 and f32) and prefill shape
+     (bh 24, S 4096), at the chunk ``ops.ssd_scan`` resolves with grad on,
+     and the grouped matmul's backward (``csrc/moe_gmm.cu``, dX and dW on
+     wgmma with the transposed operand read in place) against
+     ``moe_gmm_backward_plain`` at qwen3-moe's training shapes (the
+     gate / up and down products of one layer at B 8 x S 256, 128 experts
+     of 160 rows padded to 192, bf16; the up product also in f32), at the
+     tiles the op resolves (gated: each gradient within 2e-2 (bf16) / 2e-4
+     (f32) x max |plain|; two calls bit-equal; the SSD forward's output
+     bit-equal with and without its states; no spilled bytes in either
+     backward), each timed beside its bound, its plain version and, for
+     the grouped matmul, ``torch.bmm`` of the same two products; (b)
+     ``TrainLoop`` at full width, bf16, B 8 x S 256 from
+     ``SyntheticStream``, weights at std 1 / sqrt(fan-in), on mamba2-130m
+     (24 layers), qwen3-moe-235b-a22b cut to 1 of 94 layers (bf16 AdamW
+     moments, as the reference trains it), internlm2-1.8b and
+     whisper-medium (its encoder and cross attention
+     the first non-causal and cross uses of the flash backward on a model
+     path): first the step-1 gradient against the same step with the
+     plain ops (``flash_attention_plain``, ``ssd_scan_plain``,
+     ``moe_gmm_plain`` with ``moe_gmm_backward_plain`` as its gradient;
+     gated: every leaf finite and non-zero, each within
+     5e-2 x max |g|, the loss within 1e-2; mamba2-130m's and qwen3-moe's
+     gates hold the step in f32, the bf16 difference printed beside the
+     bf16 floor of two plain SSDs at different chunks, or beside the two
+     steps' routing agreement), then 3 steps (gated: finite
+     losses; each forward and backward kernel of the model's path
+     launched), ms per step, tokens/s, peak memory and one step's device
+     busy share; then one JSON line ``{"train_more": ...}``.  The
+     ``kernels`` line gains the two backward rows and the SSD, grouped
+     matmul and flash rows ``train_more_path_launches``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -372,7 +408,9 @@ loop's probes and refit and the captured step, flash attention under
 ``tune_for_shape``'s search) and 27 (the bf16 matmul, flash attention,
 the SSD and the grouped matmul in the farm's workers, the f32 matmul in
 the kill drill, the serving side's probes and the farm's retune) and 28
-(b) (flash attention's forward and backward kernels in ``TrainLoop``):
+(b) (flash attention's forward and backward kernels in ``TrainLoop``) and
+29 (b) (flash attention's, the SSD scan's and the grouped matmul's
+forward and backward kernels in ``TrainLoop``, one path per model):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -470,6 +508,28 @@ LN_ROWS = (4096, 16384, 4097)
 COLSUM_SHAPES = ((8192, 4096), (2048, 8192))
 # Phase 28: llama3.2-1b's training batch (B x S tokens) and steps.
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 10
+# Phase 29: the models trained beyond llama, (arch, layers kept or None for
+# all) at phase 28's batch, and the loop's steps; the SSD backward's shapes
+# at mamba2-130m's (dh 64, n 128): (name, bh, heads sharing B and C, S).
+TRAIN_MORE = (("mamba2-130m", None), ("qwen3-moe-235b-a22b", 1),
+              ("internlm2-1.8b", None), ("whisper-medium", None))
+TRAIN_MORE_STEPS = 3
+# Models whose step-1 gradient is gated in f32.  In bf16 two correct SSDs
+# that round in different places (the plain version at chunks 256 and 64)
+# already give gradients 2e-1 of max |g| apart after mamba2-130m's 24 layers
+# (phase 29 prints that floor beside the kernel's difference), as its bf16
+# logits are (phase 13); and bf16 roundings move qwen3-moe's top-8 routing
+# for some tokens, which moves whole rows of the router's and the experts'
+# gradients (phase 29 prints the two steps' routing agreement).  In f32
+# both hold the gate.
+STEP1_F32 = ("mamba2-130m", "qwen3-moe-235b-a22b")
+# Models whose AdamW moments are bf16, as the reference trains them
+# (src/repro/configs/__init__.py's BF16_OPT_STATE): with f32 moments
+# qwen3-moe's functional update holds old and new moments at once and runs
+# out of the card's 80 GB at any batch.
+BF16_MOMENTS = ("qwen3-moe-235b-a22b",)
+SSD_BWD_SHAPES = (("train", TRAIN_B * 24, 24, TRAIN_S),
+                  ("prefill", 24, 24, PREFILL_S))
 
 
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -477,6 +537,10 @@ FLASH_PROFILE_GROUPS = (("flash", ("flash_",)), ("gemm", GEMM_NAMES))
 SSD_PROFILE_GROUPS = (("ssd", ("ssd_",)), ("gemm", GEMM_NAMES))
 TRAIN_PROFILE_GROUPS = (("flash_fwd", ("flash_sm90", "flash_fwd")),
                         ("flash_bwd", ("flash_bwd",)), ("gemm", GEMM_NAMES))
+TRAIN_MORE_PROFILE_GROUPS = (
+    ("flash_fwd", ("flash_sm90", "flash_fwd")), ("flash_bwd", ("flash_bwd",)),
+    ("ssd_fwd", ("ssd_sm90", "ssd_simt")), ("ssd_bwd", ("ssd_bwd",)),
+    ("gemm", GEMM_NAMES))
 # The bf16 flash backward's three kernels, the calls of it and of SDPA's
 # backward in one profile of [28] (a), and the seconds the host waits before
 # and after them inside the profile.
@@ -1121,9 +1185,14 @@ def run(caches: list) -> int:
                                      eng["max_abs_err"][name])
     train = train_phase(dev, hw, gen, check, time_ms, phase_done, card)
     flash_row["train_path_launches"] = train["flash_launches"]
+    more = train_more_phase(dev, gen, time_ms, phase_done, card)
+    for row, name in ((flash_row, "flash_attention"), (ssd_row, "ssd_scan"),
+                      (gmm_row, "moe_gmm"),
+                      (train["row"], "flash_attention_backward")):
+        row["train_more_path_launches"] = more["launches"][name]
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
                                   ln_row, cs_row, simt_row, gmm32_row,
-                                  train["row"]],
+                                  train["row"], *more["rows"]],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5378,7 +5447,8 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
     kernel alone at llama3.2-1b's training and prefill shapes and
     internlm2-1.8b's d 128 attention; (b) ``TrainLoop`` on llama3.2-1b at
     full width; (c) a crash and resume at two layers, bit-exact, and the
-    guards of the ops with no backward; (d) one long-context step
+    guards of the ops with no backward (the matmul, the layernorm); (d)
+    one long-context step
     (``_long_context_step``).  Returns the backward kernel's row of the
     ``kernels`` line and the flash forward's launches on the training
     path."""
@@ -5678,13 +5748,11 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
     x = torch.randn(2, 64, 64, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
     for name, call in (
-            ("ssd_scan", lambda: ops.ssd_scan(
-                x, torch.rand(2, 64, device=dev),
-                torch.randn(2, 64, 16, device=dev, dtype=torch.bfloat16),
-                torch.randn(2, 64, 16, device=dev, dtype=torch.bfloat16),
-                -torch.rand(2, device=dev))),
-            ("moe_gmm", lambda: ops.moe_gmm(x, torch.randn(
-                2, 64, 64, device=dev, dtype=torch.bfloat16)))):
+            ("matmul", lambda: ops.matmul(x, torch.randn(
+                64, 64, device=dev, dtype=torch.bfloat16))),
+            ("layernorm", lambda: ops.layernorm(
+                x[0], x[0], torch.ones(64, device=dev, dtype=torch.bfloat16),
+                torch.zeros(64, device=dev, dtype=torch.bfloat16)))):
         try:
             call()
         except ops.MissingBackwardError as e:
@@ -5725,6 +5793,502 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
         "shapes": shapes,
     }
     return {"row": row, "flash_launches": fwd_launches}
+
+
+def _ssd_bwd_bound_ms(bh: int, groups: int, s: int, dh: int, n: int,
+                      chunk: int, elem: int) -> tuple[float, str]:
+    """Least time of one SSD backward on the card: x, dy, f32 dt, A and the
+    f32 entering states (one (n, dh) tile per chunk) read once, B and C
+    once per group, dx, dB, dC, f32 ddt and dA written once; and the FLOPs
+    of the chunked backward at ``chunk`` (per chunk of l rows and its p = l
+    (l + 1) / 2 causal pairs: C B^T, dy x^T and the products for dx, dB and
+    dC, 2 p (3 n + 2 dh); the five state products, 10 l n dh) at the
+    tensor-core peak of bf16 inputs (the FP32 rate for f32)."""
+    ops = 0.0
+    chunks = 0
+    for c0 in range(0, s, chunk):
+        rows = min(chunk, s - c0)
+        pairs = rows * (rows + 1) / 2
+        ops += 2.0 * pairs * (3 * n + 2 * dh) + 10.0 * rows * n * dh
+        chunks += 1
+    t_ops = bh * ops / (PEAK_BF16 if elem == 2 else PEAK_F32)
+    t_bytes = (3 * bh * s * dh * elem + 4 * groups * s * n * elem
+               + bh * (2 * s + 2) * 4 + bh * chunks * n * dh * 4) / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _gmm_bwd_bound_ms(e: int, g: int, k: int, n: int,
+                      elem: int) -> tuple[float, str]:
+    """Least time of one grouped-matmul backward on the card: x, w and dy
+    read once, dx and dw written once, and the two products' 4 e g k n
+    FLOPs at the tensor-core peak of bf16 inputs (the FP32 rate for
+    f32)."""
+    t_ops = 4.0 * e * g * k * n / (PEAK_BF16 if elem == 2 else PEAK_F32)
+    t_bytes = (2 * e * g * k + 2 * e * k * n + e * g * n) * elem / HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _train_more_counters():
+    """The launch counters of the kernels phase 29 trains through, by the
+    names of the ``kernels`` line's rows."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": flash.LAUNCHES,
+            "flash_attention_backward": flash.BACKWARD_LAUNCHES,
+            "ssd_scan": ssd.LAUNCHES,
+            "ssd_scan_backward": ssd.BACKWARD_LAUNCHES,
+            "moe_gmm": gmm.LAUNCHES,
+            "moe_gmm_backward": gmm.BACKWARD_LAUNCHES}
+
+
+def _ssd_backward_alone(dev, gen, time_ms) -> list:
+    """Phase 29 (a), the SSD scan: the backward kernel against its plain
+    version at mamba2-130m's training and prefill shapes, at the chunk
+    ``ops.ssd_scan`` takes with grad on; gated and timed (see
+    ``train_more_phase``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dh, n = 64, 128
+    rows = []
+    for name, bh, h, s in SSD_BWD_SHAPES:
+        for dtype in ((torch.bfloat16, torch.float32) if name == "train"
+                      else (torch.bfloat16,)):
+            x = (torch.randn(bh, s, dh, generator=gen, device=dev) * 0.5
+                 ).to(dtype)
+            dt = 0.01 + 0.5 * torch.rand(bh, s, generator=gen, device=dev)
+            B, C = ((torch.randn(bh // h, s, n, generator=gen, device=dev)
+                     * 0.3).to(dtype) for _ in range(2))
+            A = -0.5 - torch.rand(bh, generator=gen, device=dev)
+            ins = (x, dt, B, C, A)
+            dy = torch.randn(bh, s, dh, generator=gen, device=dev).to(dtype)
+            # the chunk the op trains at: one call through its Function
+            leaves = [t.detach().requires_grad_() for t in ins]
+            torch.autograd.grad(ops.ssd_scan(*leaves), leaves, dy)
+            chunk = ssd.BACKWARD_LAUNCHES.tiles[(bh, s, dh, n)]["chunk"]
+            y0 = ssd.ssd_scan_kernel(*ins, chunk=chunk)
+            y1, states = ssd.ssd_scan_kernel(*ins, chunk=chunk,
+                                             return_states=True)
+            got = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk)
+            again = ssd.ssd_scan_backward_kernel(*ins, states, dy,
+                                                 chunk=chunk)
+            _, pstates = ssd.ssd_scan_plain(*ins, chunk=chunk,
+                                            return_states=True)
+            ref = ssd.ssd_scan_backward_plain(*ins, pstates, dy, chunk)
+            torch.cuda.synchronize()
+            what = f"SSD backward {name} {str(dtype)[6:]} (bh {bh}, S {s})"
+            if not torch.equal(y0, y1):
+                raise AssertionError(f"{what}: the forward's output changed "
+                                     f"when it also wrote its states")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two backward calls differ")
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+            errs = {}
+            for gname, g, r in zip(("dx", "ddt", "dB", "dC", "dA"), got, ref):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{what}: non-finite {gname}")
+                errs[gname] = float((g.float() - r.float()).abs().max()) \
+                    / float(r.float().abs().max())
+                if errs[gname] > tol:
+                    raise AssertionError(f"{what}: {gname} differs from the "
+                                         f"plain backward by "
+                                         f"{errs[gname]:.3e} of max |plain|")
+            worst = max(float((g.float() - r.float()).abs().max())
+                        for g, r in zip(got, ref))
+            del got, again, ref, pstates
+            ms = time_ms(lambda: ssd.ssd_scan_backward_kernel(
+                *ins, states, dy, chunk=chunk))
+            plain_ms = time_ms(lambda: ssd.ssd_scan_backward_plain(
+                *ins, states, dy, chunk), max_iters=1)
+            fwd_ms = time_ms(lambda: ssd.ssd_scan_kernel(*ins, chunk=chunk))
+            fwd_states_ms = time_ms(lambda: ssd.ssd_scan_kernel(
+                *ins, chunk=chunk, return_states=True))
+            bound, bound_by = _ssd_bwd_bound_ms(bh, bh // h, s, dh, n, chunk,
+                                                x.element_size())
+            row = {"shape": name, "dtype": str(dtype)[6:], "bh": bh, "s": s,
+                   "chunk": chunk, "rel_err": errs, "max_abs_err": worst,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+                   "fwd_ms": fwd_ms, "fwd_states_ms": fwd_states_ms,
+                   "states_mb": states.numel() * 4 / 1e6}
+            rows.append(row)
+            print(f"  {what}, chunk {chunk}: rel err " + " ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()) + f" ok, two calls "
+                f"bit-equal, forward bit-equal with its states "
+                f"({row['states_mb']:.1f} MB); kernel {ms:.4f} ms "
+                f"({row['pct_of_bound']:.1f} % of bound) | plain "
+                f"{plain_ms:.3f} ms | bound {bound:.4f} ms ({bound_by}); "
+                f"forward {fwd_ms:.4f} ms, with states {fwd_states_ms:.4f} "
+                f"ms", flush=True)
+            del x, dt, B, C, A, ins, dy, states, leaves
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _gmm_backward_alone(dev, gen, time_ms) -> list:
+    """Phase 29 (a), the grouped matmul: the backward kernel against its
+    plain version at qwen3-moe's training shapes (one layer's gate / up and
+    down products at B 8 x S 256), at the tiles ``ops.moe_gmm`` resolves
+    with grad on; gated and timed beside ``torch.bmm`` of the same two
+    products (see ``train_more_phase``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-235b-a22b")
+    G, _, C = L.moe_groups(cfg, TRAIN_B * TRAIN_S)
+    e, g = cfg.n_experts, G * C
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    rows = []
+    for name, k, n, dtype in (("gate_up", d, ff, torch.bfloat16),
+                              ("down", ff, d, torch.bfloat16),
+                              ("gate_up", d, ff, torch.float32)):
+        x = torch.randn(e, g, k, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(e, k, n, generator=gen, device=dev) * k ** -0.5
+             ).to(dtype)
+        dy = torch.randn(e, g, n, generator=gen, device=dev).to(dtype)
+        # the tiles the op trains at: one call through its Function
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        torch.autograd.grad(ops.moe_gmm(xl, wl), (xl, wl), dy)
+        gp = ops.gemm_dims(ops.gmm_kernel_name(dtype),
+                           {"e": e, "g": g, "k": k, "n": n})["g"]
+        tiles = gmm.BACKWARD_LAUNCHES.tiles[(e, gp, k, n)]
+        dx_t, dw_t = ({p: t[i] for i, p in enumerate(("bg", "bn", "bk"))}
+                      for t in (tiles["dx"], tiles["dw"]))
+        xp, dyp = (F.pad(t, (0, 0, 0, gp - g)) for t in (x, dy))
+
+        def bwd():
+            return gmm.moe_gmm_backward_kernel(xp, w, dyp, dx_tiles=dx_t,
+                                               dw_tiles=dw_t)
+
+        got, again = bwd(), bwd()
+        ref = gmm.moe_gmm_backward_plain(xp, w, dyp)
+        torch.cuda.synchronize()
+        what = (f"grouped-matmul backward {name} {str(dtype)[6:]} (e {e}, g "
+                f"{g} -> {gp}, {k} -> {n})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: two backward calls differ")
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        errs = {}
+        for gname, a, r in zip(("dx", "dw"), got, ref):
+            errs[gname] = float((a.float() - r.float()).abs().max()) \
+                / float(r.float().abs().max())
+            if not bool(torch.isfinite(a).all()) or errs[gname] > tol:
+                raise AssertionError(f"{what}: {gname} differs from the "
+                                     f"plain backward by {errs[gname]:.3e} "
+                                     f"of max |plain|")
+        worst = max(float((a.float() - r.float()).abs().max())
+                    for a, r in zip(got, ref))
+        del got, again, ref
+        wt = w.transpose(1, 2)
+
+        def library():
+            return (torch.bmm(dyp, wt), torch.bmm(xp.transpose(1, 2), dyp))
+
+        ms = time_ms(bwd)
+        library_ms = time_ms(library)
+        plain_ms = time_ms(lambda: gmm.moe_gmm_backward_plain(xp, w, dyp),
+                           max_iters=1)
+        bound, bound_by = _gmm_bwd_bound_ms(e, gp, k, n, x.element_size())
+        row = {"shape": name, "dtype": str(dtype)[6:], "e": e, "g": gp,
+               "k": k, "n": n, "dx_tiles": tiles["dx"],
+               "dw_tiles": tiles["dw"], "rel_err": errs,
+               "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound,
+               "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
+               "tflops": 4.0 * e * gp * k * n / ms / 1e9}
+        rows.append(row)
+        print(f"  {what}: dx tiles {tiles['dx']}, dw tiles {tiles['dw']}; "
+              f"rel err dx {errs['dx']:.2e} dw {errs['dw']:.2e} ok, two "
+              f"calls bit-equal; kernel {ms:.4f} ms ({row['tflops']:.1f} "
+              f"TFLOP/s, {row['pct_of_bound']:.1f} % of bound) | torch.bmm "
+              f"x2 {library_ms:.4f} ms ({ms / library_ms:.2f}x) | plain "
+              f"{plain_ms:.1f} ms | bound {bound:.4f} ms ({bound_by})",
+              flush=True)
+        del x, w, dy, xl, wl, xp, dyp, wt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_model(dev, gen, arch: str, n_layers, index: int) -> dict:
+    """Phase 29 (b) for one model: the step-1 gradient against the plain
+    ops' step, then ``TrainLoop`` with every launch counter set to 0 just
+    before it and read just after; one more step profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapePreset
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.tree import tree_paths
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg)
+    params = model.init(SEED + 10 + index)
+    _fan_in_scaled(model, params)
+    batch = {"tokens": torch.as_tensor(SyntheticStream(SyntheticConfig(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)).next_batch()["tokens"],
+        device=dev)}
+    if cfg.arch_kind == "encdec":
+        batch["frames"] = torch.randn(
+            (TRAIN_B, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev).to(cfg.dtype)
+    kinds = [k for k, on in (
+        ("flash_attention", any(d.kind == "attn" for d in cfg.block_pattern)),
+        ("ssd_scan", any(d.kind != "attn" for d in cfg.block_pattern)),
+        ("moe_gmm", any(d.moe for d in cfg.block_pattern))) if on]
+    depth = "" if n_layers is None else f" (cut to {n_layers} layer)"
+    moments = "bf16" if arch in BF16_MOMENTS else "f32"
+    print(f"  (b) {arch}{depth}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{model.param_count() / 1e9:.3f} B parameters, bf16, {moments} "
+          f"AdamW moments, remat {cfg.remat!r}; kernels on its path: "
+          f"{', '.join(kinds)}", flush=True)
+    class PlainGmm(torch.autograd.Function):
+        """``moe_gmm_plain`` with ``moe_gmm_backward_plain`` as its
+        gradient: autograd through the plain version's sum over k would
+        build a full-size gradient of w at every step of the sum (~100 s of
+        qwen3-moe's plain steps)."""
+
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return gmm.moe_gmm_plain(x, w)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return gmm.moe_gmm_backward_plain(*ctx.saved_tensors,
+                                              dy.contiguous())
+
+    plain = dict(attn_op=flash.flash_attention_plain,
+                 ssd_op=ssd.ssd_scan_plain, gmm_op=PlainGmm.apply)
+
+    routes, marks = [], []
+    real_route = L.moe_route
+
+    def recording_route(c, p, xg):
+        out = real_route(c, p, xg)
+        routes.append(out[2])
+        return out
+
+    def step1(mdl, tree, what: str, **ops) -> tuple:
+        """(per-leaf rel difference, losses) of the kernels' step against
+        the plain ops' (or ``ops``') step."""
+        m_k, g_k = loss_and_grads(mdl, tree, batch)
+        marks.append(len(routes))
+        m_p, g_p = loss_and_grads(mdl, tree, batch, **(ops or plain))
+        torch.cuda.synchronize()
+        for path, g in tree_paths(g_k):
+            if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
+                raise AssertionError(f"{arch} step 1 ({what}): the gradient "
+                                     f"of {path} is not finite and non-zero")
+        rel = _leaf_rel(g_k, g_p)
+        losses = (float(m_k["loss"]), float(m_p["loss"]))
+        top = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+        print(f"    step 1 ({what}): loss {losses[0]:.6f} (plain ops "
+              f"{losses[1]:.6f}); {len(rel)} leaves finite and non-zero; "
+              f"largest per-leaf max |d| / max |g|: "
+              + ", ".join(f"{p} {r:.3e}" for p, r in top), flush=True)
+        return rel, losses, top
+
+    L.moe_route = recording_route
+    try:
+        rel, (loss_k, loss_p), top = step1(model, params, "bf16")
+    finally:
+        L.moe_route = real_route
+    floor = None
+    if routes:
+        agree = _routing_agreement(routes[0], routes[marks[0]])
+        print(f"    bf16 routing of the two steps' first forward: "
+              f"{agree[0]:.4%} of the (token, choice) pairs among the same "
+              f"token's choices, {agree[1]:.4%} slot for slot", flush=True)
+    if arch in STEP1_F32 and not routes:
+        # the bf16 floor: the plain SSD at another chunk against the plain
+        # step; then the gate's step in f32
+        _, gf = loss_and_grads(model, params, batch, **{
+            **plain, "ssd_op": functools.partial(ssd.ssd_scan_plain,
+                                                 chunk=64)})
+        _, gp = loss_and_grads(model, params, batch, **plain)
+        floor = max(_leaf_rel(gf, gp).values())
+        del gf, gp
+        print(f"    bf16 floor (the plain SSD at chunk 64 against chunk "
+              f"256): {floor:.3e} of max |g|; the gate holds the step in "
+              f"f32", flush=True)
+    if arch in STEP1_F32:
+        model32 = Model(cfg.replace(dtype=torch.float32))
+        rel, (loss_k, loss_p), top = step1(model32, _upcast(params), "f32")
+        del model32
+    if max(rel.values()) > 5e-2 or abs(loss_k - loss_p) > 1e-2 * abs(loss_p):
+        raise AssertionError(f"{arch} step 1 disagrees with the plain-op "
+                             f"step: {top}, loss {loss_k} vs {loss_p}")
+    torch.cuda.empty_cache()
+    preset = ShapePreset("chip", "train", TRAIN_S, TRAIN_B)
+    opt_cfg = None
+    if arch in BF16_MOMENTS:      # TrainLoop's own schedule, bf16 moments
+        opt_cfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000),
+                              weight_decay=0.01, state_dtype=torch.bfloat16)
+    loop = TrainLoop(cfg, preset, seed=SEED, params=params, opt_cfg=opt_cfg)
+    loop.init_state()
+    loop.initial_params = params = None   # the loop trains its own copy
+    counters = _train_more_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    hist = loop.run(TRAIN_MORE_STEPS, log_every=1)     # the main path
+    launches = {k: c.count for k, c in counters.items()}
+    flash_keys = list(flash.BACKWARD_LAUNCHES.tiles)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in hist]
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: a training loss is not finite: "
+                             f"{losses}")
+    missing = [k for kind in kinds for k in (kind, kind + "_backward")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{arch}: the training path launched no "
+                             f"{missing}: {launches}")
+    if arch.startswith("whisper") and not (
+            any(not key[4] for key in flash_keys)
+            and any(key[1] != key[2] for key in flash_keys)):
+        raise AssertionError(f"whisper's training path ran no non-causal or "
+                             f"no cross flash backward: {flash_keys}")
+    step_ms = float(np.median([m["step_time_s"] for m in hist[1:]])) * 1e3
+    batch = loop.next_batch()
+    prof = _device_profile(
+        lambda: loop.step_fn(loop.params, loop.opt_state, batch),
+        f"one {arch} train step", groups=TRAIN_MORE_PROFILE_GROUPS,
+        ranges=("adamw_update",))
+    busy = prof["busy_ms"] / prof["wall_ms"] if prof else float("nan")
+    print(f"    {TRAIN_MORE_STEPS} steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; ms per step (median "
+          f"of steps 2-{TRAIN_MORE_STEPS}) {step_ms:.2f}, "
+          f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak:.2f} GiB, device busy {busy:.1%} of a profiled step; "
+          f"launches per step: " + ", ".join(
+              f"{k} {v / TRAIN_MORE_STEPS:g}" for k, v in launches.items()
+              if v) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "params_b": model.param_count() / 1e9, "step_ms": step_ms,
+            "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
+            "peak_gib": peak, "losses": losses,
+            "moments": "bfloat16" if arch in BF16_MOMENTS else "float32",
+            "grad_norms": [m["grad_norm"] for m in hist],
+            "step1_max_leaf_rel": max(rel.values()),
+            "step1_dtype": "float32" if arch in STEP1_F32 else "bfloat16",
+            "step1_bf16_floor": floor,
+            "step1_loss": [loss_k, loss_p], "busy_share": busy,
+            "profile": prof, "launches": launches}
+
+
+def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
+    """Phase 29: training beyond llama on the card.  (a) the SSD scan's and
+    the grouped matmul's backward kernels alone at mamba2-130m's and
+    qwen3-moe's training shapes (and the SSD's prefill shape); (b)
+    ``TrainLoop`` on mamba2-130m, qwen3-moe (1 layer), internlm2-1.8b and
+    whisper-medium at full width.  Returns the two backward kernels' rows
+    of the ``kernels`` line and each kernel's launches on the four
+    training paths."""
+    import torch
+
+    from repro_torch.core.kernel_spec import SM90_TILES
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+
+    t_phase = time.perf_counter()
+    print("[29] training beyond llama on the card.  (a) the SSD scan's "
+          "backward (csrc/ssd_scan_bwd.cu: one launch, the chain of state "
+          "gradients in reverse chunk order, a fixed-order reduction; no "
+          "atomics) and the grouped matmul's (csrc/moe_gmm.cu: dX and dW on "
+          "wgmma, the transposed operand read in place) against their plain "
+          "versions at mamba2-130m's and qwen3-moe's training shapes (gates: "
+          "each gradient within 2e-2 (bf16) / 2e-4 (f32) x max |plain|; two "
+          "calls bit-equal; the SSD forward bit-equal with its states; no "
+          "spilled bytes)", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        attrs = ssd.backward_attributes(dtype)
+        print(f"  ssd_scan_bwd SIMT {str(dtype)[6:]}: {attrs}", flush=True)
+        if attrs["local_bytes"]:
+            raise AssertionError(f"the SSD backward spills: {attrs}")
+    cap = gmm.MOE_GMM.regs_cap_for(torch.bfloat16)
+    for layout in ("dx", "dw"):
+        attrs = {t: gmm.tile_attributes(*t, layout=layout)
+                 for t in SM90_TILES}
+        print(f"  moe_gmm backward {layout} wgmma tiles (registers / spilled "
+              f"bytes, cap {cap}): " + ", ".join(
+                  f"{t} {a['num_regs']}/{a['local_bytes']}"
+                  for t, a in attrs.items()), flush=True)
+        bad = {t: a for t, a in attrs.items()
+               if a["num_regs"] > cap or a["local_bytes"]}
+        if bad:
+            raise AssertionError(f"moe_gmm backward {layout}: {bad}")
+    ssd_rows = _ssd_backward_alone(dev, gen, time_ms)
+    gmm_rows = _gmm_backward_alone(dev, gen, time_ms)
+
+    # -- (b) TrainLoop on the four models ------------------------------------
+    print(f"  (b) TrainLoop at full width, bf16, B {TRAIN_B} x S {TRAIN_S} "
+          f"from SyntheticStream, weights at std 1 / sqrt(fan-in), "
+          f"{TRAIN_MORE_STEPS} steps each; first the step-1 gradient against "
+          f"the same step with the plain ops (gates: every leaf finite and "
+          f"non-zero, max |d| <= 5e-2 x max |g| per leaf, loss within 1e-2; "
+          f"then finite losses and every forward and backward kernel of the "
+          f"model's path launched)", flush=True)
+    models = [_train_model(dev, gen, arch, n_layers, i)
+              for i, (arch, n_layers) in enumerate(TRAIN_MORE)]
+    launches = {name: sum(m["launches"][name] for m in models)
+                for name in _train_more_counters()}
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(29)
+    print(json.dumps({"train_more": {"ssd_backward": ssd_rows,
+                                     "gmm_backward": gmm_rows,
+                                     "models": models},
+                      "card": card}, default=str))
+    out_rows = []
+    for name, source, replaces, note, shapes in (
+            ("ssd_scan_backward", "ssd_scan_bwd.cu",
+             "src/repro/models/layers.py:355",
+             "no TPU kernel: the JAX package differentiates ssd_parallel "
+             "with XLA", ssd_rows),
+            ("moe_gmm_backward", "moe_gmm.cu", "src/repro/kernels/ref.py:122",
+             "no TPU kernel: the JAX package differentiates moe_gmm_ref "
+             "with XLA", gmm_rows)):
+        out_rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "replaces_note": note,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": "operations" if all(
+                r["bound_by"] == "operations" for r in shapes) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in shapes)
+            if name == "moe_gmm_backward" else None,
+            "shapes": shapes})
+    return {"rows": out_rows, "launches": launches}
 
 
 if __name__ == "__main__":

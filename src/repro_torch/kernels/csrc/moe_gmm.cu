@@ -29,6 +29,19 @@
 //     (where the TPU had a sequential grid axis).  bg, bn and bk are taken
 //     at run time: the CTA has (bg / 8) * (bn / 8) threads.  It is capped at
 //     the FP32 rate of the CUDA cores (67 TFLOP/s).
+//
+// The backward (klaraptor_moe_gmm_backward) replaces no TPU kernel either:
+// the JAX package differentiates moe_gmm_ref with XLA.  It is two grouped
+// products, dX[e] = dY[e] W[e]^T (e, g, k) and dW[e] = X[e]^T dY[e] (e, k,
+// n), each bound by operations on the tensor cores as the forward is (the
+// same 2 g n k FLOPs on the same bytes).  bf16 runs both on the forward's
+// mainloop with the transposed operand read in place -- W^T as a K-major B
+// (gemm_sm90::kNT), X^T as an MN-major A through wgmma's A transpose bit
+// (gemm_sm90::kTN) -- so no pass copies a transpose, and each product's tile
+// is one of the nine compiled ones, chosen by the caller.  f32 has no
+// backward entry here: the wrapper feeds the f32 SIMT mainloop
+// klaraptor_moe_gmm a transposed contiguous copy of W and of X (no model
+// trains in f32 on the card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +57,22 @@ enum DType { kF32 = 0, kBF16 = 1 };
 }  // namespace
 
 extern "C" {
+
+// The bf16 backward on `stream`: dx (e, g, k) = dy (e, g, n) @ w^T at tile
+// (xg, xn, xk) over (g, k, n), and dw (e, k, n) = x^T @ dy at tile (wg, wn,
+// wk) over (k, n, g); returns cudaGetLastError() (0 on success) or
+// cudaErrorInvalidValue for a tile that is not compiled.  The caller has
+// checked shapes, alignment and tile divisibility.
+int klaraptor_moe_gmm_backward(const void* x, const void* w, const void* dy, void* dx,
+                               void* dw, int e, int g, int n, int k, int xg, int xn, int xk,
+                               int wg, int wn, int wk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = gemm_sm90::dispatch<gemm_sm90::kNT>(dy, w, dx, gemm_sm90::kBF16, e, g, k,
+                                                      n, xg, xn, xk, s);
+  if (err) return err;
+  return gemm_sm90::dispatch<gemm_sm90::kTN>(x, dy, dw, gemm_sm90::kBF16, e, k, n, g, wg, wn,
+                                             wk, s);
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); the
 // caller has checked shapes, alignment, tile divisibility and limits.
@@ -75,10 +104,19 @@ int klaraptor_moe_gmm_attributes(int dtype, int* num_regs, int* max_threads,
 }
 
 // Registers per thread and local (spill) bytes of the bf16 wgmma tile
-// (bg, bn, bk); cudaErrorInvalidValue if it is not compiled.
-int klaraptor_moe_gmm_tile_attributes(int bg, int bn, int bk, int* num_regs,
+// (bg, bn, bk) in layout `layout` (gemm_sm90::Layout: 0 the forward, 1 dX,
+// 2 dW); cudaErrorInvalidValue if it is not compiled.
+int klaraptor_moe_gmm_tile_attributes(int bg, int bn, int bk, int layout, int* num_regs,
                                       int* local_bytes) {
-  return gemm_sm90::dispatch_attributes(bg, bn, bk, num_regs, local_bytes);
+  switch (layout) {
+    case gemm_sm90::kNN:
+      return gemm_sm90::dispatch_attributes(bg, bn, bk, num_regs, local_bytes);
+    case gemm_sm90::kNT:
+      return gemm_sm90::dispatch_attributes<gemm_sm90::kNT>(bg, bn, bk, num_regs, local_bytes);
+    case gemm_sm90::kTN:
+      return gemm_sm90::dispatch_attributes<gemm_sm90::kTN>(bg, bn, bk, num_regs, local_bytes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* klaraptor_moe_gmm_error_string(int err) {

@@ -128,15 +128,16 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// d (64 x N f32, the fragment layout of wgmma) += A (64 x 16, K-major) @
-// B (16 x N), both from shared memory; B is K-major with TransB = kKMajor
-// and MN-major with TransB = kMNMajor.  The fragment: thread t of the
+// d (64 x N f32, the fragment layout of wgmma) += A (64 x 16) @ B (16 x N),
+// both from shared memory; B is K-major with TransB = kKMajor and MN-major
+// with TransB = kMNMajor, and A likewise with TransA (K-major by default).
+// An MN-major A's descriptor is laid out as an MN-major B's.  The fragment: thread t of the
 // warpgroup holds, for each 8-column block j, d[4j], d[4j+1] at row
 // 16 (t / 32) + (t % 32) / 4, columns 8j + 2 (t % 4) and one more, and
 // d[4j+2], d[4j+3] eight rows down.
-template <int N, int TransB> struct Wgmma;
+template <int N, int TransB, int TransA = kKMajor> struct Wgmma;
 
-template <int TransB> struct Wgmma<64, TransB> {
+template <int TransB, int TransA> struct Wgmma<64, TransB, TransA> {
   static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -145,17 +146,17 @@ template <int TransB> struct Wgmma<64, TransB> {
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TransB));
+      : "l"(a), "l"(b), "r"(1), "n"(TransB), "n"(TransA));
   }
 };
 
-template <int TransB> struct Wgmma<128, TransB> {
+template <int TransB, int TransA> struct Wgmma<128, TransB, TransA> {
   static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -168,7 +169,7 @@ template <int TransB> struct Wgmma<128, TransB> {
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -178,11 +179,11 @@ template <int TransB> struct Wgmma<128, TransB> {
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TransB));
+      : "l"(a), "l"(b), "r"(1), "n"(TransB), "n"(TransA));
   }
 };
 
-template <int TransB> struct Wgmma<256, TransB> {
+template <int TransB, int TransA> struct Wgmma<256, TransB, TransA> {
   static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -203,7 +204,7 @@ template <int TransB> struct Wgmma<256, TransB> {
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -221,7 +222,7 @@ template <int TransB> struct Wgmma<256, TransB> {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1), "n"(TransB));
+      : "l"(a), "l"(b), "r"(1), "n"(TransB), "n"(TransA));
   }
 };
 

@@ -89,147 +89,23 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr int kCols = 16;      // head-dim columns per SIMT CTA
-constexpr int kRows = 32;      // rows of a SIMT score tile
-constexpr int kGPad = 4;       // f32 words of padding per score-tile row
-constexpr int kThreads = 256;  // SIMT CTA
-constexpr int kVecBytes = 16;  // global loads are 16 bytes wide
+using namespace ssd;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Four consecutive values at p (8-byte aligned for bf16, 16 for f32) as f32.
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// Two consecutive values at p (4-byte aligned for bf16, 8 for f32) as f32,
-// and their store.
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// -- the chain of chunk states ------------------------------------------------
-
-// Thread 0 draws the CTA's ticket; the last ticket of the launch resets the
-// counter (every other ticket has been drawn by then).
-__device__ __forceinline__ int draw_ticket(int* counter, int* slot, int total) {
-  if (threadIdx.x == 0) {
-    const int t = atomicAdd(counter, 1);
-    if (t == total - 1) *counter = 0;
-    *slot = t;
-  }
-  __syncthreads();
-  return *slot;
-}
-
-// The chain's flags are per warp: warp w of a chunk reads and writes the
-// same state elements as warp w of the chunks before and after it, so it
-// waits on and releases only its own flag, with no block-wide barrier on
-// the chain's path.
-//
-// Lane 0 spins until the warp's flag reaches `target`; then the warp.  The
-// predecessor is always running or done, so the wait ends; a spin that
-// outlasts seconds means a broken chain, and traps (the launch fails)
-// instead of hanging the card.
-__device__ __forceinline__ void wait_flag(const int* flag, int target) {
-  if ((threadIdx.x & 31) == 0) {
-    int v;
-    long long spins = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
-                   : "=r"(v) : "l"(flag) : "memory");
-      if (++spins > (1ll << 25)) __trap();
-    } while (v < target);
-  }
-  __syncwarp();
-}
-
-// After the warp's state stores: the warp's barrier, then one gpu-scope
-// fence and the flag's store by lane 0 (the chain's last chunk sets it back
-// to 0).  The fence is cumulative: it orders the other lanes' stores, which
-// the barrier ordered before it, so no lane needs a fence of its own on the
-// chain's path (the pattern of CUTLASS's release on a barrier).
-__device__ __forceinline__ void publish_flag(int* flag, int value) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0)
-    asm volatile("fence.acq_rel.gpu;\n"
-                 "st.relaxed.gpu.global.s32 [%0], %1;\n"
-                 :: "l"(flag), "r"(value) : "memory");
-}
-
-// Running sum of a * dts[0..L) into cum (warp 0; the caller syncs).
-__device__ __forceinline__ void running_sum(const float* dts, float* cum, float a, int L) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float carry = 0.0f;
-    for (int base = 0; base < L; base += 32) {
-      float v = a * dts[base + lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += up;
-      }
-      v += carry;
-      cum[base + lane] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // SIMT body: f32, and bf16 at shapes without a wgmma instantiation
 // ---------------------------------------------------------------------------
 
-// Rows [0, rows) of a row-major (rows, n) tile at src into dst[n][rows]
-// (transposed); rows at or past `valid` are zero.  Consecutive threads take
-// consecutive rows, so the transposed shared-memory writes do not conflict.
-template <typename T>
-__device__ __forceinline__ void stage_transposed(T* dst, const T* src, int rows, int n,
-                                                 int valid) {
-  constexpr int V = kVecBytes / sizeof(T);
-  const int vecs = rows * (n / V);
-  for (int i = threadIdx.x; i < vecs; i += kThreads) {
-    const int row = i % rows;
-    const int c = (i / rows) * V;
-    uint4 pack = make_uint4(0u, 0u, 0u, 0u);
-    if (row < valid) pack = *reinterpret_cast<const uint4*>(src + (size_t)row * n + c);
-    const T* e = reinterpret_cast<const T*>(&pack);
-#pragma unroll
-    for (int t = 0; t < V; ++t) dst[(c + t) * rows + row] = e[t];
-  }
-}
-
 // x: (bh, s, dh); dt: (bh, s) f32; B, C: (bh / heads, s, n); A: (bh,) f32;
 // out like x; all contiguous and 16-byte aligned.  states: (bh * dh / kCols,
 // 2, n, kCols) f32; sync: the ticket counter, then kThreads / 32 flags per
-// chain (one per warp), all 0.
+// chain (one per warp), all 0.  entering: null, or (bh, ceil(s / L), n, dh)
+// f32, each chunk's entering state (what the backward reads).
 // gridDim = bh * dh / kCols * ceil(s / L), blockDim = kThreads,
 // L % kRows == 0, n % 8 == 0, dh % kCols == 0.
 template <typename T>
@@ -237,7 +113,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const T* __restrict__ B, const T* __restrict__ C,
                 const float* __restrict__ A, T* __restrict__ out, float* states, int* sync,
-                int bh, int s, int dh, int n, int L, int heads) {
+                float* __restrict__ entering, int bh, int s, int dh, int n, int L,
+                int heads) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int ticket;
   const int GS = L + kGPad;                               // score-tile row stride
@@ -345,6 +222,8 @@ ssd_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       if (e >= n * kCols) break;
       if (!last) __stcg(slot_out + e, fmaf(decay, h[u], st[e]));
       st[e] = h[u];
+      if (entering)
+        entering[(((size_t)row * chunks + chunk) * n + e / kCols) * dh + d0 + e % kCols] = h[u];
     }
   }
   publish_flag(flag, last ? 0 : chunk + 1);
@@ -436,8 +315,8 @@ size_t simt_smem_bytes(int n, int L) {
 
 template <typename T>
 cudaError_t simt_launch(const void* x, const void* dt, const void* B, const void* C,
-                        const void* A, void* out, void* states, void* sync, int bh, int s,
-                        int dh, int n, int L, int heads, cudaStream_t stream) {
+                        const void* A, void* out, void* states, void* sync, void* entering,
+                        int bh, int s, int dh, int n, int L, int heads, cudaStream_t stream) {
   const size_t smem = simt_smem_bytes<T>(n, L);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -448,7 +327,8 @@ cudaError_t simt_launch(const void* x, const void* dt, const void* B, const void
   ssd_simt_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(A), static_cast<T*>(out),
-      static_cast<float*>(states), static_cast<int*>(sync), bh, s, dh, n, L, heads);
+      static_cast<float*>(states), static_cast<int*>(sync), static_cast<float*>(entering), bh,
+      s, dh, n, L, heads);
   return cudaGetLastError();
 }
 
@@ -505,7 +385,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 // x: (bh, s, DH) through xmap; B, C: (bh / heads, s, N) through bmap, cmap;
 // dt: (bh, s) f32; A: (bh,) f32; out: (bh, s, DH) bf16, 4-byte aligned.
 // states: (bh, 2, N, DH) f32; sync: the ticket counter, then L / 16 flags
-// per row (one per warp), all 0.  gridDim = bh * ceil(s / L), blockDim = 2 L (one warpgroup per
+// per row (one per warp), all 0; entering: null, or (bh, ceil(s / L), N,
+// DH) f32, each chunk's entering state.  gridDim = bh * ceil(s / L), blockDim = 2 L (one warpgroup per
 // 64 rows).
 template <int DH, int N, int L>
 __global__ void __launch_bounds__(256, 1)
@@ -513,8 +394,8 @@ ssd_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap bmap,
                 const __grid_constant__ CUtensorMap cmap,
                 const float* __restrict__ dt, const float* __restrict__ A,
-                __nv_bfloat16* __restrict__ out, float* states, int* sync, int bh, int s,
-                int heads) {
+                __nv_bfloat16* __restrict__ out, float* states, int* sync,
+                float* __restrict__ entering, int bh, int s, int heads) {
   using namespace sm90;
   static_assert(DH % kAtom == 0 && N % kAtom == 0 && DH <= 128 && N <= 128,
                 "whole swizzle boxes, wgmma N <= 128");
@@ -695,6 +576,19 @@ ssd_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
     }
   }
   publish_flag(flag, last ? 0 : chunk + 1);
+  if (entering) {
+    float* eg = entering + ((size_t)row * chunks + chunk) * N * DH;
+#pragma unroll
+    for (int mi = 0; mi < kMTiles; ++mi) {
+      if (wg + mi * W >= N / 64) continue;
+#pragma unroll
+      for (int jb = 0; jb < DH / 8; ++jb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(eg + ((wg + mi * W) * 64 + r0 + 8 * h) * DH + jb * 8 + q2) =
+              hin[mi][jb][h];
+    }
+  }
   // h_in into shared memory, as hi + lo bf16 tiles, for C h_in
 #pragma unroll
   for (int mi = 0; mi < kMTiles; ++mi) {
@@ -747,8 +641,8 @@ ssd_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
 
 template <int DH, int N, int L>
 cudaError_t sm90_launch(const void* x, const void* dt, const void* B, const void* C,
-                        const void* A, void* out, void* states, void* sync, int bh, int s,
-                        int heads, cudaStream_t stream) {
+                        const void* A, void* out, void* states, void* sync, void* entering,
+                        int bh, int s, int heads, cudaStream_t stream) {
   CUtensorMap xmap, bmap, cmap;
   const int groups = bh / heads;
   if (!sm90::make_map(&xmap, x, DH, s, bh, L) || !sm90::make_map(&bmap, B, N, s, groups, L) ||
@@ -762,7 +656,7 @@ cudaError_t sm90_launch(const void* x, const void* dt, const void* B, const void
   ssd_sm90_kernel<DH, N, L><<<grid, 2 * L, smem, stream>>>(
       xmap, bmap, cmap, static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(states), static_cast<int*>(sync),
-      bh, s, heads);
+      static_cast<float*>(entering), bh, s, heads);
   return cudaGetLastError();
 }
 
@@ -791,10 +685,11 @@ bool sm90_compiled(int dh, int n, int L) {
 
 cudaError_t sm90_dispatch(int dh, int n, int L, const void* x, const void* dt, const void* B,
                           const void* C, const void* A, void* out, void* states, void* sync,
-                          int bh, int s, int heads, cudaStream_t stream) {
+                          void* entering, int bh, int s, int heads, cudaStream_t stream) {
 #define SSD_SM90_CASE(DH, N, CH)                                                 \
   if (dh == DH && n == N && L == CH)                                             \
-    return sm90_launch<DH, N, CH>(x, dt, B, C, A, out, states, sync, bh, s, heads, stream);
+    return sm90_launch<DH, N, CH>(x, dt, B, C, A, out, states, sync, entering, bh, s, heads, \
+                                  stream);
   SSD_SM90_TILES(SSD_SM90_CASE)
 #undef SSD_SM90_CASE
   return cudaErrorInvalidValue;
@@ -818,24 +713,28 @@ extern "C" {
 // caller has checked shapes, dtypes, alignment, the chunk and limits, and
 // hands over the f32 state ring `states` and the zeroed integers `sync` (the
 // ticket counter and one flag per chain), which the launch leaves zeroed.
+// `entering`, when not null, receives each chunk's entering state, f32 (bh,
+// ceil(s / chunk), n, dh), zeros for the first chunk: the tile the kernel
+// reads from the chain, which the backward needs; y is the same either way.
 // bf16 at a compiled (dh, n, chunk) runs the wgmma body (states (bh, 2, n,
 // dh), bh * chunk / 16 flags); everything else the SIMT body (states
 // (bh * dh / 16, 2, n, 16), bh * dh / 16 * 8 flags).  B and C are shared by
 // `heads` consecutive rows.
 int klaraptor_ssd_scan(const void* x, const void* dt, const void* B, const void* C,
-                       const void* A, void* out, void* states, void* sync, int bh, int s,
-                       int dh, int n, int chunk, int heads, int dtype, void* stream) {
+                       const void* A, void* out, void* states, void* sync, void* entering,
+                       int bh, int s, int dh, int n, int chunk, int heads, int dtype,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return simt_launch<float>(x, dt, B, C, A, out, states, sync, bh, s, dh, n, chunk,
-                                heads, st);
+      return simt_launch<float>(x, dt, B, C, A, out, states, sync, entering, bh, s, dh, n,
+                                chunk, heads, st);
     case kBF16:
       if (sm90_compiled(dh, n, chunk))
-        return sm90_dispatch(dh, n, chunk, x, dt, B, C, A, out, states, sync, bh, s, heads,
-                             st);
-      return simt_launch<__nv_bfloat16>(x, dt, B, C, A, out, states, sync, bh, s, dh, n,
-                                        chunk, heads, st);
+        return sm90_dispatch(dh, n, chunk, x, dt, B, C, A, out, states, sync, entering, bh,
+                             s, heads, st);
+      return simt_launch<__nv_bfloat16>(x, dt, B, C, A, out, states, sync, entering, bh, s,
+                                        dh, n, chunk, heads, st);
     default: return cudaErrorInvalidValue;
   }
 }

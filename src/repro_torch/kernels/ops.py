@@ -41,12 +41,13 @@ A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the kernel's plain PyTorch version.
 
 Gradients.  On the CPU the plain versions are PyTorch, so autograd runs
-through them.  On the card ``flash_attention`` is a
-``torch.autograd.Function`` whenever grad is enabled and an input requires
-it: its forward is the tuned kernel, which then also writes lse, and its
-backward is the hand-written backward kernel
-(``flash_attention_backward_kernel``).  The other ops have no backward
-kernel yet: on a tensor that is not on the CPU they raise
+through them.  On the card ``flash_attention``, ``ssd_scan`` and
+``moe_gmm`` are ``torch.autograd.Function``s whenever grad is enabled and
+an input requires it: the forward is the tuned kernel (flash attention's
+then also writes lse, the SSD scan's each chunk's entering state), and the
+backward a hand-written kernel (``flash_attention_backward_kernel``,
+``ssd_scan_backward_kernel``, ``moe_gmm_backward_kernel``).  The other ops
+have no backward kernel yet: on a tensor that is not on the CPU they raise
 ``MissingBackwardError`` when grad is enabled and an input requires it,
 where the kernel's output would otherwise be silently cut from the graph.
 """
@@ -72,9 +73,11 @@ from .flash_attention import (_refuse_backward,
                               flash_attention_kernel, flash_attention_plain)
 from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
 from .matmul import matmul_kernel
-from .moe_gmm import moe_gmm_kernel
+from .moe_gmm import moe_gmm_backward_kernel, moe_gmm_kernel
 from .reduce import COLSUM, colsum_grid_spec, colsum_kernel
-from .ssd_scan import ssd_scan_kernel, ssd_scan_plain
+from .ssd_scan import (SMEM_LIMIT, backward_smem_bytes,
+                       ssd_scan_backward_kernel, ssd_scan_kernel,
+                       ssd_scan_plain)
 
 __all__ = ["FLASH_DEFAULT", "GMM_DEFAULT", "GMM_DEFAULT_F32",
            "MATMUL_DEFAULT", "MATMUL_DEFAULT_F32", "MissingBackwardError",
@@ -202,12 +205,19 @@ class MissingBackwardError(RuntimeError):
     """An op on the card was asked for a gradient its kernel cannot give."""
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether grad is enabled and an input that is not on the CPU requires
+    it: an op then runs its autograd Function (or, with no backward kernel,
+    refuses)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad and t.device.type != "cpu" for t in tensors)
+
+
 def _refuse_grad(op: str, missing: str, *tensors: torch.Tensor) -> None:
     """Raise ``MissingBackwardError`` when grad is enabled and an input that
     is not on the CPU requires it: the hand-written kernel has no backward,
     and its output would carry none."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad and t.device.type != "cpu" for t in tensors):
+    if _wants_grad(*tensors):
         raise MissingBackwardError(
             f"ops.{op} has no backward on the card: {missing} is not "
             f"written yet; run under torch.no_grad() or on CPU tensors")
@@ -286,13 +296,13 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
     for f32) are zero-padded (exact for a product) and the result is sliced
     back; the tiles are then snapped to the padded shape.  CUDA tensors
     launch the kernel, CPU tensors take ``moe_gmm_plain`` through the same
-    wrapper.
+    wrapper.  With grad on a CUDA input the padded product runs as
+    ``_MoeGmm`` (the padding and its slice stay autograd's).
     """
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_gmm takes x (e, g, k) and w (e, k, n); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    _refuse_grad("moe_gmm", "the grouped matmul's backward", x, w)
     kernel = gmm_kernel_name(x.dtype)
     e, g, k = x.shape
     n = w.shape[2]
@@ -303,12 +313,44 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
     if (kp, np_) != (k, n):
         w = F.pad(w, (0, np_ - n, 0, kp - k))
     cfg = _resolve(kernel, D, _DEFAULTS[kernel], plan, _gemm_spec(kernel))
-    out = moe_gmm_kernel(x.contiguous(), w.contiguous(),
-                         **_fit_gemm(kernel, cfg,
-                                     {"bg": gp, "bn": np_, "bk": kp}))
+    tiles = _fit_gemm(kernel, cfg, {"bg": gp, "bn": np_, "bk": kp})
+    if _wants_grad(x, w):
+        out = _MoeGmm.apply(x.contiguous(), w.contiguous(), tiles)
+    else:
+        out = moe_gmm_kernel(x.contiguous(), w.contiguous(), **tiles)
     if (gp, np_) != (g, n):
         out = out[:, :g, :n]
     return out
+
+
+class _MoeGmm(torch.autograd.Function):
+    """The grouped matmul on the card with its gradient: the tuned forward
+    kernel, and the backward kernel's two products (dx = dy w^T, dw = x^T
+    dy), each at the tile ``_resolve`` gives under the forward's spec at
+    that product's own (padded) dims."""
+
+    @staticmethod
+    def forward(ctx, x, w, tiles):
+        ctx.save_for_backward(x, w)
+        return moe_gmm_kernel(x, w, **tiles)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        kernel = gmm_kernel_name(x.dtype)
+        e, g, k = x.shape
+        n = w.shape[2]
+
+        def tiles(G: int, K: int, N: int) -> dict[str, int]:
+            D = gemm_dims(kernel, {"e": e, "g": G, "k": K, "n": N})
+            cfg = _resolve(kernel, D, _DEFAULTS[kernel], None,
+                           _gemm_spec(kernel))
+            return _fit_gemm(kernel, cfg, {"bg": G, "bn": N, "bk": K})
+
+        dx, dw = moe_gmm_backward_kernel(x, w, dy.contiguous(),
+                                         dx_tiles=tiles(g, n, k),
+                                         dw_tiles=tiles(k, g, n))
+        return dx, dw, None
 
 
 def flash_kernel_name(head_dim: int, causal: bool) -> str:
@@ -481,8 +523,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     masks a ragged last chunk); a chunk this dtype's shared memory cannot
     hold falls to the largest smaller one that fits.  CUDA tensors launch
     the kernel; CPU tensors take ``ssd_scan_plain`` at the same chunk.
+    With grad on a CUDA input it runs as ``_SsdScan``, at the largest chunk
+    up to that one whose backward fits in shared memory too.
     """
-    _refuse_grad("ssd_scan", "the SSD scan's backward", x, dt, B, C, A)
     bh, s, dh = x.shape
     n = B.shape[-1]
     cfg = _resolve(ssd_kernel_name(dh, n),
@@ -491,6 +534,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     chunk = _ssd_chunk(dh, n, x.element_size(), int(cfg["chunk"]))
     dt, A = dt.float().contiguous(), A.float().contiguous()
     tensors = (x, dt, B, C, A)
+    if _wants_grad(*tensors):
+        return _SsdScan.apply(x.contiguous(), dt, B.contiguous(),
+                              C.contiguous(), A,
+                              _ssd_train_chunk(dh, n, x.element_size(),
+                                               chunk))
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
     if x.device.type != "cuda":
@@ -498,6 +546,44 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                          f"{x.device}")
     return ssd_scan_kernel(x.contiguous(), dt, B.contiguous(),
                            C.contiguous(), A, chunk=chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_train_chunk(head_dim: int, d_state: int, dtype_bytes: int,
+                     chunk: int) -> int:
+    """``chunk`` if the backward's shared memory holds it too, else the
+    largest smaller chunk the spec takes that it holds (the backward runs
+    at the forward's chunk, whose entering states it reads)."""
+    spec = _ssd_spec(head_dim, d_state, dtype_bytes)
+    fits = spec.candidates({"bh": 1, "s": 1, "chunkflops": 1})["chunk"]
+    ok = [int(c) for c in fits if c <= chunk and backward_smem_bytes(
+        int(c), d_state, dtype_bytes) <= SMEM_LIMIT]
+    if not ok:
+        raise ValueError(f"no chunk up to {chunk} fits the SSD backward at "
+                         f"(dh {head_dim}, n {d_state}, {dtype_bytes}-byte "
+                         f"inputs)")
+    return max(ok)
+
+
+class _SsdScan(torch.autograd.Function):
+    """The SSD scan on the card with its gradient: the forward kernel
+    writing each chunk's entering state, and the backward kernel from the
+    states and dy at the same chunk."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, chunk):
+        y, states = ssd_scan_kernel(x, dt, B, C, A, chunk=chunk,
+                                    return_states=True)
+        ctx.save_for_backward(x, dt, B, C, A, states)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, B, C, A, states = ctx.saved_tensors
+        grads = ssd_scan_backward_kernel(x, dt, B, C, A, states,
+                                         dy.contiguous(), chunk=ctx.chunk)
+        return (*grads, None)
 
 
 @functools.lru_cache(maxsize=None)

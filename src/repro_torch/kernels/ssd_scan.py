@@ -26,6 +26,15 @@ term, then the state update, with a shorter last chunk where the chunk does
 not divide s.  The tests use it, and the wrapper takes it only for tensors on
 the CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES.count``
 counts kernel launches and nothing else.
+
+With ``return_states=True`` both also return each chunk's entering state,
+f32 (bh, chunks, n, dh), which the backward reads:
+``ssd_scan_backward_kernel`` launches ``csrc/ssd_scan_bwd.cu`` (no TPU
+counterpart: the JAX package differentiates ``ssd_parallel`` with XLA) and
+gives (dx, ddt, dB, dC, dA) from them and dy at the same chunk; its plain
+version is ``ssd_scan_backward_plain``.  ``BACKWARD_LAUNCHES`` counts its
+calls (a call launches the backward and its reduction) and keeps the chunk
+of the last call at each (bh, s, dh, n).
 """
 
 from __future__ import annotations
@@ -35,14 +44,17 @@ import functools
 
 import torch
 
-from ..core.kernel_spec import (SSD_COLS, SSD_ROWS, SSD_SM90_CHUNKS,
+from ..core.kernel_spec import (SSD_COLS, SSD_GPAD, SSD_ROWS,
+                                SSD_SM90_CHUNKS,
                                 SSD_STATE_SLOTS, SSD_THREADS, ssd_smem_bytes,
                                 ssd_uses_sm90)
 from ._build import load
 from ._workspace import zeroed_ints
 from .matmul import LaunchCounter
 
-__all__ = ["DTYPES", "LAUNCHES", "kernel_attributes", "ssd_ctas",
+__all__ = ["BACKWARD_LAUNCHES", "DTYPES", "LAUNCHES", "backward_attributes",
+           "backward_smem_bytes", "kernel_attributes", "ssd_ctas",
+           "ssd_scan_backward_kernel", "ssd_scan_backward_plain",
            "ssd_scan_kernel", "ssd_scan_plain", "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -51,13 +63,14 @@ SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
 _NEG_INF = -1e30
 
 LAUNCHES = LaunchCounter()
+BACKWARD_LAUNCHES = LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load("ssd_scan")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.klaraptor_ssd_scan.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    lib.klaraptor_ssd_scan.argtypes = [vp] * 9 + [i] * 7 + [vp]
     lib.klaraptor_ssd_scan.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_ssd_scan_attributes.argtypes = [i, ip, ip, ip]
@@ -69,16 +82,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_cuda(what: str, rc: int) -> None:
-    msg = _lib().klaraptor_ssd_error_string(rc).decode()
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = load("ssd_scan_bwd")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.klaraptor_ssd_scan_bwd.argtypes = [vp] * 18 + [i] * 7 + [vp]
+    lib.klaraptor_ssd_scan_bwd.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.klaraptor_ssd_scan_bwd_attributes.argtypes = [i, ip, ip, ip]
+    lib.klaraptor_ssd_scan_bwd_attributes.restype = i
+    lib.klaraptor_ssd_error_string.argtypes = [i]
+    lib.klaraptor_ssd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_cuda(what: str, rc: int, lib: ctypes.CDLL | None = None) -> None:
+    msg = (lib or _lib()).klaraptor_ssd_error_string(rc).decode()
     raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-def _read_attributes(fn, *args) -> dict[str, int]:
+def _read_attributes(fn, *args, lib=None) -> dict[str, int]:
     vals = [ctypes.c_int() for _ in range(3)]
     rc = fn(*args, *[ctypes.byref(v) for v in vals])
     if rc:
-        _raise_cuda("cudaFuncGetAttributes", rc)
+        _raise_cuda("cudaFuncGetAttributes", rc, lib)
     return dict(zip(("num_regs", "max_threads", "local_bytes"),
                     (v.value for v in vals)))
 
@@ -94,6 +121,23 @@ def tile_attributes(dh: int, n: int, chunk: int) -> dict[str, int]:
     """The same for the bf16 wgmma instantiation (dh, n, chunk)."""
     return _read_attributes(_lib().klaraptor_ssd_scan_tile_attributes, dh, n,
                             chunk)
+
+
+def backward_attributes(dtype: torch.dtype) -> dict[str, int]:
+    """The same for the backward's SIMT kernel compiled for ``dtype``."""
+    lib = _bwd_lib()
+    return _read_attributes(lib.klaraptor_ssd_scan_bwd_attributes,
+                            _DTYPE_CODE[dtype], lib=lib)
+
+
+def backward_smem_bytes(chunk: int, n: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of one backward CTA: B^T and C^T (n x chunk)
+    and the x and dy columns (chunk x SSD_COLS) in the input type; h_in and
+    dh (n x SSD_COLS), dx's state term (chunk x SSD_COLS), three padded
+    score tiles (SSD_ROWS x chunk) and eight per-row vectors (chunk), f32."""
+    return ((2 * n + 2 * SSD_COLS) * chunk * elem_bytes
+            + 4 * (2 * n * SSD_COLS + SSD_COLS * chunk
+                   + 3 * SSD_ROWS * (chunk + SSD_GPAD) + 8 * chunk))
 
 
 def ssd_ctas(bh: int, s: int, dh: int, n: int, chunk: int,
@@ -114,11 +158,13 @@ def _per_row(t: torch.Tensor, bh: int) -> torch.Tensor:
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                   C: torch.Tensor, A: torch.Tensor,
-                   chunk: int = 256) -> torch.Tensor:
+                   C: torch.Tensor, A: torch.Tensor, chunk: int = 256, *,
+                   return_states: bool = False):
     """The SSD scan in plain PyTorch, chunk by chunk, f32 inside; the output
     has x's dtype.  x (bh, s, dh); dt (bh, s); B, C (bh / h, s, n), each
-    shared by h consecutive rows of x; A (bh,)."""
+    shared by h consecutive rows of x; A (bh,).  With ``return_states``
+    also each chunk's entering state, f32 (bh, chunks, n, dh) (zeros for
+    the first chunk): what the backward reads."""
     bh, s, dh = x.shape
     n = B.shape[-1]
     xf, dtf = x.float(), dt.float()
@@ -126,23 +172,109 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     a = A.float()[:, None]                                  # (bh, 1)
     state = torch.zeros(bh, n, dh, dtype=torch.float32, device=x.device)
     out = torch.empty(bh, s, dh, dtype=torch.float32, device=x.device)
+    entering = []
     for c0 in range(0, s, chunk):                # the last chunk may be short
         c1 = min(c0 + chunk, s)
+        entering.append(state)
         xc, dc, Bc, Cc = xf[:, c0:c1], dtf[:, c0:c1], Bf[:, c0:c1], Cf[:, c0:c1]
         cum = torch.cumsum(a * dc, dim=1)                   # (bh, L) inclusive
         total = cum[:, -1:]                                 # (bh, 1)
-        idx = torch.arange(c1 - c0, device=x.device)
-        causal = idx[:, None] >= idx[None, :]
-        # mask the exponent before exp: i < j would overflow
-        expnt = (cum[:, :, None] - cum[:, None, :]).masked_fill(~causal,
-                                                                _NEG_INF)
-        gate = torch.exp(expnt) * dc[:, None, :]            # (bh, L, L)
+        gate = _decay(cum) * dc[:, None, :]                 # (bh, L, L)
         scores = torch.einsum("bin,bjn->bij", Cc, Bc) * gate
         out[:, c0:c1] = scores @ xc + (Cc * torch.exp(cum)[..., None]) @ state
         w = torch.exp(total - cum) * dc                     # (bh, L)
         state = torch.exp(total)[..., None] * state + torch.einsum(
             "bjn,bjd->bnd", Bc * w[..., None], xc)
-    return out.to(x.dtype)
+    if not return_states:
+        return out.to(x.dtype)
+    states = torch.stack(entering, dim=1) if entering else \
+        torch.zeros(bh, 0, n, dh, dtype=torch.float32, device=x.device)
+    return out.to(x.dtype), states
+
+
+def _decay(cum: torch.Tensor) -> torch.Tensor:
+    """exp(cum_i - cum_j) for j <= i, else 0, of a chunk's running sums
+    (bh, L) -> (bh, L, L).  The exponent is masked before exp: for i < j it
+    is positive and would overflow, and 0 x inf is a NaN gradient."""
+    idx = torch.arange(cum.shape[1], device=cum.device)
+    causal = idx[:, None] >= idx[None, :]
+    expnt = (cum[:, :, None] - cum[:, None, :]).masked_fill(~causal,
+                                                            _NEG_INF)
+    return torch.exp(expnt)
+
+
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                            B: torch.Tensor, C: torch.Tensor,
+                            A: torch.Tensor, states: torch.Tensor,
+                            dy: torch.Tensor, chunk: int):
+    """(dx, ddt, dB, dC, dA) of the SSD scan in plain PyTorch, f32 inside,
+    chunk by chunk in reverse, from the forward's entering ``states`` (bh,
+    chunks, n, dh) and the output's gradient dy (bh, s, dh).  dx has x's
+    dtype, dB and dC B's (summed over the h rows that share them), ddt
+    (bh, s) and dA (bh,) are f32.
+
+    Within a chunk (cum the running sum of A dt, total its last entry, E_ij
+    = exp(cum_i - cum_j) for j <= i, w_j = exp(total - cum_j) dt_j) the
+    state gradient carried in from the later chunks, dh_out, gives
+    dh_in = exp(total) dh_out + sum_i exp(cum_i) C_i^T dy_i for the chunk
+    before, and with M_ij = dy_i . x_j, G_ij = (C_i . B_j) E_ij:
+      dx_j = dt_j sum_i G_ij dy_i + w_j dh_out^T B_j
+      dB_j = sum_i M_ij E_ij dt_j C_i + w_j dh_out x_j
+      dC_i = sum_j M_ij E_ij dt_j B_j + exp(cum_i) h_in dy_i
+    and the decay exponents' gradient dcum_i = sum_j P_ij - sum_j P_ji +
+    exp(cum_i) dy_i . (C_i h_in) - w_i R_i (P_ij = G_ij M_ij dt_j, R_j =
+    x_j . dh_out^T B_j), plus dtotal = sum_j w_j R_j + exp(total) <h_in,
+    dh_out> on the last entry; ddt and dA take its reverse running sum
+    times A and dt, and ddt_j the direct terms sum_i G_ij M_ij + exp(total
+    - cum_j) R_j."""
+    bh, s, dh = x.shape
+    g, n = B.shape[0], B.shape[-1]
+    xf, dtf, dyf = x.float(), dt.float(), dy.float()
+    Bf, Cf = _per_row(B.float(), bh), _per_row(C.float(), bh)
+    a = A.float()[:, None]
+    dx = torch.empty(bh, s, dh, dtype=torch.float32, device=x.device)
+    ddt = torch.empty(bh, s, dtype=torch.float32, device=x.device)
+    dB = torch.empty(bh, s, n, dtype=torch.float32, device=x.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros(bh, dtype=torch.float32, device=x.device)
+    dh_out = torch.zeros(bh, n, dh, dtype=torch.float32, device=x.device)
+    starts = list(range(0, s, chunk))
+    for c in reversed(range(len(starts))):
+        c0 = starts[c]
+        c1 = min(c0 + chunk, s)
+        xc, dc, Bc, Cc, dyc = (xf[:, c0:c1], dtf[:, c0:c1], Bf[:, c0:c1],
+                               Cf[:, c0:c1], dyf[:, c0:c1])
+        h_in = states[:, c].float()
+        cum = torch.cumsum(a * dc, dim=1)
+        total = cum[:, -1:]
+        E = _decay(cum)
+        G = torch.einsum("bin,bjn->bij", Cc, Bc) * E
+        M = torch.einsum("bid,bjd->bij", dyc, xc)
+        W = M * E * dc[:, None, :]
+        P = G * M * dc[:, None, :]
+        ec = torch.exp(cum)
+        w = torch.exp(total - cum) * dc
+        Bdh = torch.einsum("bjn,bnd->bjd", Bc, dh_out)
+        R = (Bdh * xc).sum(-1)
+        Q = ec * (torch.einsum("bin,bnd->bid", Cc, h_in) * dyc).sum(-1)
+        dx[:, c0:c1] = dc[..., None] * torch.einsum("bij,bid->bjd", G, dyc) \
+            + w[..., None] * Bdh
+        dB[:, c0:c1] = torch.einsum("bij,bin->bjn", W, Cc) \
+            + w[..., None] * torch.einsum("bnd,bjd->bjn", dh_out, xc)
+        dC[:, c0:c1] = torch.einsum("bij,bjn->bin", W, Bc) \
+            + ec[..., None] * torch.einsum("bnd,bid->bin", h_in, dyc)
+        dcum = P.sum(2) - P.sum(1) + Q - w * R
+        dtotal = (w * R).sum(-1, keepdim=True) \
+            + torch.exp(total) * (h_in * dh_out).sum((1, 2))[:, None]
+        rev = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,)) \
+            + dtotal
+        ddt[:, c0:c1] = (G * M).sum(1) + torch.exp(total - cum) * R + a * rev
+        dA += (dc * rev).sum(-1)
+        dh_out = torch.exp(total)[..., None] * dh_out + torch.einsum(
+            "bin,bid->bnd", Cc * ec[..., None], dyc)
+    dB = dB.view(g, bh // g, s, n).sum(1)
+    dC = dC.view(g, bh // g, s, n).sum(1)
+    return dx.to(x.dtype), ddt, dB.to(B.dtype), dC.to(C.dtype), dA
 
 
 def _check(x, dt, B, C, A, chunk) -> None:
@@ -199,19 +331,25 @@ def _check(x, dt, B, C, A, chunk) -> None:
 
 
 def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor, A: torch.Tensor, *,
-                    chunk: int) -> torch.Tensor:
+                    C: torch.Tensor, A: torch.Tensor, *, chunk: int,
+                    return_states: bool = False):
     """The SSD scan at chunk length ``chunk``: the CUDA kernel for CUDA
     tensors, ``ssd_scan_plain`` for CPU tensors (after the same checks).
-    B and C may be (bh / h, s, n), shared by h consecutive rows of x."""
+    B and C may be (bh / h, s, n), shared by h consecutive rows of x.  With
+    ``return_states`` also each chunk's entering state, f32 (bh, chunks, n,
+    dh): the kernel writes the tile it reads from the chain (zeros for the
+    first chunk), and y is the same bits either way."""
     _check(x, dt, B, C, A, chunk)
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, B, C, A, chunk=chunk)
+        return ssd_scan_plain(x, dt, B, C, A, chunk=chunk,
+                              return_states=return_states)
     bh, s, dh = x.shape
     n = B.shape[-1]
     out = torch.empty_like(x)
+    entering = torch.empty((bh, -(-s // chunk), n, dh) if return_states
+                           else (0,), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out
+        return (out, entering.zero_()) if return_states else out
     # a chain per row (per 16 head-dim columns in the SIMT body), a flag per
     # warp of a chain's CTA
     if ssd_uses_sm90(dh, n, x.element_size()):
@@ -227,9 +365,81 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         rc = _lib().klaraptor_ssd_scan(
             x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), out.data_ptr(), states.data_ptr(), sync.data_ptr(),
+            entering.data_ptr() if return_states else None,
             bh, s, dh, n, chunk, bh // B.shape[0], _DTYPE_CODE[x.dtype],
             stream)
     if rc:
         _raise_cuda("SSD scan kernel launch", rc)
     LAUNCHES.count += 1
-    return out
+    return (out, entering) if return_states else out
+
+
+def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor,
+                             A: torch.Tensor, states: torch.Tensor,
+                             dy: torch.Tensor, *, chunk: int):
+    """(dx, ddt, dB, dC, dA) of the SSD scan: ``csrc/ssd_scan_bwd.cu`` for
+    CUDA tensors, ``ssd_scan_backward_plain`` for CPU tensors (after the
+    same checks).  ``states`` are the forward's entering states at the same
+    chunk (``ssd_scan_kernel(..., return_states=True)``), dy has x's shape
+    and dtype.  The kernel (the SIMT body for both dtypes) runs every
+    (row, SSD_COLS head-dim columns, chunk) as a CTA, the chain of state
+    gradients in reverse chunk order, and writes f32 partials that a second
+    pass sums in a fixed order, so two calls give the same bits."""
+    _check(x, dt, B, C, A, chunk)
+    bh, s, dh = x.shape
+    n = B.shape[-1]
+    chunks = -(-s // chunk)
+    if tuple(states.shape) != (bh, chunks, n, dh) \
+            or states.dtype != torch.float32:
+        raise ValueError(f"states must be f32 {(bh, chunks, n, dh)}; got "
+                         f"{tuple(states.shape)} {states.dtype}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be like x {tuple(x.shape)} {x.dtype}; "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    for name, t in (("states", states), ("dy", dy)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    if chunk % SSD_ROWS:
+        raise ValueError(f"the backward takes chunks that are multiples of "
+                         f"{SSD_ROWS}, not {chunk}")
+    smem = backward_smem_bytes(chunk, n, x.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the backward at chunk {chunk} needs {smem} bytes "
+                         f"of shared memory, more than the {SMEM_LIMIT} a "
+                         f"block can have")
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, dt, B, C, A, states, dy, chunk)
+    if dy.data_ptr() % 16 or states.data_ptr() % 16:
+        raise ValueError("dy and states must be 16-byte aligned")
+    blocks = dh // SSD_COLS
+    chains = bh * blocks
+    dx = torch.empty_like(x)
+    ddt = torch.empty(bh, s, dtype=torch.float32, device=x.device)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.empty(bh, dtype=torch.float32, device=x.device)
+    if x.numel() == 0 or n == 0:
+        return dx.zero_(), ddt.zero_(), dB.zero_(), dC.zero_(), dA.zero_()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # per (row, column block) partials of dB, dC, ddt and, per chunk, of dA
+    part_bc = torch.empty(2, chains, s, n, **f32)
+    part_dt = torch.empty(chains, s, **f32)
+    part_a = torch.empty(chains, chunks, **f32)
+    ring = torch.empty(chains * SSD_STATE_SLOTS * n * SSD_COLS, **f32)
+    lib = _bwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        sync = zeroed_ints(x.device, stream, 1 + chains * SSD_THREADS // 32,
+                           "ssd_scan_bwd")
+        rc = lib.klaraptor_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            A.data_ptr(), states.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+            part_bc[0].data_ptr(), part_bc[1].data_ptr(),
+            part_dt.data_ptr(), part_a.data_ptr(), ring.data_ptr(),
+            sync.data_ptr(), bh, s, dh, n, chunk, bh // B.shape[0],
+            _DTYPE_CODE[x.dtype], stream)
+    if rc:
+        _raise_cuda("SSD scan backward launch", rc, lib)
+    BACKWARD_LAUNCHES.launched((bh, s, dh, n), chunk=chunk)
+    return dx, ddt, dB, dC, dA

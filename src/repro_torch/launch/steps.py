@@ -77,16 +77,19 @@ def make_prefill_step(model: Model, attn_op: AttnOp | None = None,
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict,
-                   attn_op: AttnOp | None = None) -> tuple[dict, dict]:
+                   attn_op: AttnOp | None = None,
+                   ssd_op: SsdOp | None = None,
+                   gmm_op: GmmOp | None = None) -> tuple[dict, dict]:
     """(metrics of ``model.train_loss``, the gradient of its loss as a tree
     like ``params``).  A leaf the loss does not reach gets a zero
-    gradient, as under ``jax.grad``.  ``attn_op`` replaces
-    ``ops.flash_attention`` (a check's autograd through its plain
-    version)."""
+    gradient, as under ``jax.grad``.  ``attn_op``, ``ssd_op`` and
+    ``gmm_op`` replace ``ops.flash_attention``, ``ops.ssd_scan`` and
+    ``ops.moe_gmm`` (a check's autograd through their plain versions)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = model.train_loss(tree_unflatten(params, leaves),
-                                         batch, attn_op=attn_op)
+                                         batch, attn_op=attn_op,
+                                         ssd_op=ssd_op, gmm_op=gmm_op)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]

@@ -29,7 +29,7 @@ import torch
 from ..core.device_model import resolve_device
 from . import transformer as T
 from .config import BlockDesc, ModelConfig
-from .layers import AttnOp
+from .layers import AttnOp, GmmOp, SsdOp
 from .loss import lm_loss
 from .module import ParamSpec, init_params, param_count
 
@@ -90,7 +90,9 @@ class Model:
 
     # -- training ---------------------------------------------------------------
     def train_loss(self, params: dict, batch: dict,
-                   attn_op: AttnOp | None = None
+                   attn_op: AttnOp | None = None,
+                   ssd_op: SsdOp | None = None,
+                   gmm_op: GmmOp | None = None
                    ) -> tuple[torch.Tensor, dict]:
         """(loss, {"loss", "ce", "router_aux"}) of one batch: next-token
         cross-entropy over the tokens' positions plus the MoE aux loss
@@ -98,8 +100,10 @@ class Model:
         and their positions are sliced off before the loss; an encdec's
         frames get the sinusoidal positions and go through the encoder
         stack, non-causal (the prefill step adds no positions to them).
-        ``attn_op`` replaces ``ops.flash_attention`` as in
+        ``attn_op``, ``ssd_op`` and ``gmm_op`` replace
+        ``ops.flash_attention``, ``ops.ssd_scan`` and ``ops.moe_gmm`` as in
         ``transformer.forward``."""
+        ops = dict(attn_op=attn_op, ssd_op=ssd_op, gmm_op=gmm_op)
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -108,7 +112,7 @@ class Model:
             patches = torch.as_tensor(batch["patches"],
                                       device=self.device).to(x.dtype)
             x = torch.cat([patches, x], dim=1)
-            hidden, aux = T.forward(cfg, params, x, attn_op=attn_op)
+            hidden, aux = T.forward(cfg, params, x, **ops)
             hidden = hidden[:, patches.shape[1]:]
         elif cfg.arch_kind == "encdec":
             frames = torch.as_tensor(batch["frames"],
@@ -117,11 +121,10 @@ class Model:
                             frames.device).to(x.dtype)
             enc_out, _ = T.forward(self.encoder_cfg(), params["encoder"],
                                    frames + pos[None], causal=False,
-                                   attn_op=attn_op)
-            hidden, aux = T.forward(cfg, params, x, enc_out=enc_out,
-                                    attn_op=attn_op)
+                                   **ops)
+            hidden, aux = T.forward(cfg, params, x, enc_out=enc_out, **ops)
         else:
-            hidden, aux = T.forward(cfg, params, x, attn_op=attn_op)
+            hidden, aux = T.forward(cfg, params, x, **ops)
         return lm_loss(cfg, params, hidden, labels, aux)
 
     # -- serving ----------------------------------------------------------------

@@ -1,7 +1,12 @@
 """AdamW, as the JAX package writes it: f32 arithmetic per leaf, the same
 bias correction, clipping by the global norm before the moments.
 
-``adamw_update`` returns new trees, as the reference does.  The moments'
+``adamw_update`` returns new trees, as the reference does.  It updates each
+leaf in flat chunks of at most ``UPDATE_CHUNK`` elements, applying the
+clip's scale chunk by chunk: the bits are those of one whole-leaf pass, but
+the f32 temporaries stay at a chunk's size and no scaled copy of the
+gradients is made (a 3.7 B-parameter model's 805 M-element expert leaves
+would otherwise need ~20 GB of them).  The moments'
 dtype is ``AdamWConfig.state_dtype`` (f32 by default).  The reference can round a bf16 parameter
 stochastically from a ``jax.random`` key (``sr_key``); the port draws the
 rounding noise from a ``torch.Generator`` (``sr_gen``), leaf by leaf in
@@ -18,10 +23,11 @@ import torch
 
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm",
-           "global_norm", "stochastic_round"]
+__all__ = ["AdamWConfig", "UPDATE_CHUNK", "adamw_init", "adamw_update",
+           "clip_by_global_norm", "global_norm", "stochastic_round"]
 
 f32 = torch.float32
+UPDATE_CHUNK = 1 << 26      # elements of a leaf updated at a time
 
 
 @dataclass(frozen=True)
@@ -51,11 +57,20 @@ def global_norm(tree) -> torch.Tensor:
                           for l in tree_leaves(tree)))
 
 
+def _clip_scale(tree, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min(1, max_norm / the tree's global norm), the norm)."""
+    norm = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _scaled(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.to(f32) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled by min(1, max_norm / its global norm), the norm)."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(f32) * scale).to(g.dtype), tree), norm
+    scale, norm = _clip_scale(tree, max_norm)
+    return tree_map(lambda g: _scaled(g, scale), tree), norm
 
 
 def stochastic_round(x: torch.Tensor, generator: torch.Generator
@@ -82,9 +97,9 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
         (), cfg.lr, dtype=f32, device=step.device)
 
     metrics = {}
+    scale = None
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-        metrics["grad_norm"] = gnorm
+        scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm)
 
     sf = step.to(f32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=f32, device=sf.device),
@@ -96,17 +111,33 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
     for g, p, mu, nu in zip(tree_leaves(grads), tree_leaves(params),
                             tree_leaves(state["mu"]),
                             tree_leaves(state["nu"])):
-        g32 = g.to(f32)
-        mu32 = cfg.b1 * mu.to(f32) + (1.0 - cfg.b1) * g32
-        nu32 = cfg.b2 * nu.to(f32) + (1.0 - cfg.b2) * g32 * g32
-        upd = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
-        p32 = p.to(f32) * (1.0 - lr * cfg.weight_decay) - lr * upd
-        if sr_gen is not None and p.dtype == torch.bfloat16:
-            new_p.append(stochastic_round(p32, sr_gen))
-        else:
-            new_p.append(p32.to(p.dtype))
-        new_mu.append(mu32.to(cfg.state_dtype))
-        new_nu.append(nu32.to(cfg.state_dtype))
+        out_p = torch.empty_like(p, memory_format=torch.contiguous_format)
+        out_mu, out_nu = (torch.empty(p.shape, dtype=cfg.state_dtype,
+                                      device=p.device) for _ in range(2))
+        # stochastic rounding draws the leaf's noise in one piece
+        whole = sr_gen is not None and p.dtype == torch.bfloat16
+        n = p.numel()
+        chunk = max(n, 1) if whole else UPDATE_CHUNK
+        flat = [t.reshape(-1) for t in (g, p, mu, nu, out_p, out_mu, out_nu)]
+        for a in range(0, n, chunk):
+            gc, pc, muc, nuc, op, om, on = (t[a:a + chunk] for t in flat)
+            if scale is not None:
+                gc = _scaled(gc, scale)
+            g32 = gc.to(f32)
+            mu32 = cfg.b1 * muc.to(f32) + (1.0 - cfg.b1) * g32
+            nu32 = cfg.b2 * nuc.to(f32) + (1.0 - cfg.b2) * g32 * g32
+            upd = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
+            p32 = pc.to(f32) * (1.0 - lr * cfg.weight_decay) - lr * upd
+            if whole:
+                op.copy_(stochastic_round(p32.view(p.shape), sr_gen)
+                         .reshape(-1))
+            else:
+                op.copy_(p32.to(p.dtype))
+            om.copy_(mu32.to(cfg.state_dtype))
+            on.copy_(nu32.to(cfg.state_dtype))
+        new_p.append(out_p)
+        new_mu.append(out_mu)
+        new_nu.append(out_nu)
 
     metrics["lr"] = lr
     return (tree_unflatten(params, new_p),

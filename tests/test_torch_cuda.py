@@ -9,7 +9,8 @@ runs them.  Tolerances: 2e-2 abs and rel in bf16; in f32 2e-4 for the
 matmul, the grouped matmul, the layernorm and the column sum, 2e-3 abs /
 1e-3 rel for flash attention and 5e-3 abs / 1e-3 rel for the SSD scan
 (tests/test_kernels.py's tolerances for each kernel).  The flash-attention
-backward: 2e-2 x max |plain| per gradient in bf16, 2e-4 in f32.
+backward, the SSD scan's and the grouped matmul's backward: 2e-2 x max
+|plain| per gradient in bf16, 2e-4 in f32.
 """
 
 import itertools
@@ -31,6 +32,7 @@ from repro_torch.core.kernel_spec import (FLASH_SM90_TILES, SM90_TILES,
                                           flash_uses_sm90, ssd_scan_spec)
 from repro_torch.kernels.matmul import LAUNCHES as MATMUL_LAUNCHES
 from repro_torch.kernels.matmul import OUT_DTYPES, matmul_kernel, matmul_plain
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_plain
 
@@ -882,10 +884,6 @@ def test_cuda_ops_without_a_backward_raise_on_grad():
     dev = dict(device="cuda", dtype=torch.bfloat16)
     x = torch.randn(2, 64, 64, **dev, requires_grad=True)
     calls = {
-        "ssd_scan": lambda: ops.ssd_scan(
-            x, torch.rand(2, 64, device="cuda"), torch.randn(2, 64, 16, **dev),
-            torch.randn(2, 64, 16, **dev), -torch.rand(2, device="cuda")),
-        "moe_gmm": lambda: ops.moe_gmm(x, torch.randn(2, 64, 64, **dev)),
         "matmul": lambda: ops.matmul(x, torch.randn(64, 64, **dev)),
         "layernorm": lambda: ops.layernorm(
             x[0], x[0], torch.ones(64, **dev), torch.zeros(64, **dev)),
@@ -896,3 +894,115 @@ def test_cuda_ops_without_a_backward_raise_on_grad():
             call()
         with torch.no_grad():
             call()                         # serving is unaffected
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _ssd_inputs(gen, bh, h, s, dh, n, dtype):
+    x = (torch.randn(bh, s, dh, generator=gen, device="cuda") * 0.5
+         ).to(dtype)
+    dt = 0.01 + 0.5 * torch.rand(bh, s, generator=gen, device="cuda")
+    B, C = ((torch.randn(bh // h, s, n, generator=gen, device="cuda") * 0.3
+             ).to(dtype) for _ in range(2))
+    A = -0.5 - torch.rand(bh, generator=gen, device="cuda")
+    return x, dt, B, C, A
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_forward_is_bit_equal_with_states():
+    """The forward writes each chunk's entering state when asked, and its
+    output is the same bits either way; the states match the plain
+    version's (wgmma chunks 64 / 128, SIMT f32 and the smoke shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, (bh, h, s, dh, n, chunk) in itertools.product(
+            (torch.bfloat16, torch.float32),
+            ((48, 24, 300, 64, 128, 64), (24, 24, 256, 64, 128, 128),
+             (8, 4, 100, 32, 32, 32))):
+        ins = _ssd_inputs(gen, bh, h, s, dh, n, dtype)
+        y0 = ssd_scan_kernel(*ins, chunk=chunk)
+        y1, states = ssd_scan_kernel(*ins, chunk=chunk, return_states=True)
+        _, ref = ssd_scan_plain(*ins, chunk=chunk, return_states=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y0, y1), (dtype, bh, s, chunk)
+        assert _rel(states, ref) <= 1e-4, (dtype, bh, s, chunk)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_backward_kernel_matches_plain():
+    """Each gradient within 2e-2 (bf16) / 2e-4 (f32) x max |plain| at a
+    ragged length with B and C shared by h rows, two calls bit-equal, and
+    ``ops.ssd_scan`` with grad on launching both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype, (bh, h, s, dh, n, chunk) in itertools.product(
+            (torch.bfloat16, torch.float32),
+            ((48, 24, 300, 64, 128, 64), (8, 4, 100, 32, 32, 32))):
+        ins = _ssd_inputs(gen, bh, h, s, dh, n, dtype)
+        _, states = ssd_scan_kernel(*ins, chunk=chunk, return_states=True)
+        dy = torch.randn(bh, s, dh, generator=gen, device="cuda").to(dtype)
+        got = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk)
+        again = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk)
+        ref = ssd.ssd_scan_backward_plain(*ins, states, dy, chunk)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a)
+            assert bool(torch.isfinite(g).all()) and _rel(g, r) <= tol
+    leaves = [t.requires_grad_() for t in _ssd_inputs(
+        gen, 48, 24, 256, 64, 128, torch.bfloat16)]
+    f0, b0 = SSD_LAUNCHES.count, ssd.BACKWARD_LAUNCHES.count
+    y = ops.ssd_scan(*leaves)
+    torch.autograd.grad(y, leaves, torch.ones_like(y))
+    assert SSD_LAUNCHES.count == f0 + 1
+    assert ssd.BACKWARD_LAUNCHES.count == b0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gmm_backward_kernel_matches_plain():
+    """dx and dw at every compiled bf16 tile (both layouts read in place)
+    and at two f32 SIMT tiles, within 2e-2 / 2e-4 x max |plain|, two calls
+    bit-equal, and ``ops.moe_gmm`` with grad on at a shape that needs
+    padding launching both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    e, g, k, n = 2, 256, 512, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(e, g, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(e, k, n, generator=gen, device="cuda") * 0.05
+             ).to(dtype)
+        dy = torch.randn(e, g, n, generator=gen, device="cuda").to(dtype)
+        ref = gmm.moe_gmm_backward_plain(x, w, dy)
+        tiles = SM90_TILES if dtype == torch.bfloat16 else \
+            ((64, 64, 32), (128, 128, 32))
+        for t in tiles:
+            tt = dict(zip(("bg", "bn", "bk"), t))
+            got = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt,
+                                              dw_tiles=tt)
+            again = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt,
+                                                dw_tiles=tt)
+            torch.cuda.synchronize()
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+            for a, b, r in zip(got, again, ref):
+                assert torch.equal(a, b)
+                assert _rel(a, r) <= tol, (dtype, t)
+    x = torch.randn(3, 100, 200, generator=gen, device="cuda"
+                    ).to(torch.bfloat16).requires_grad_()
+    w = torch.randn(3, 200, 96, generator=gen, device="cuda"
+                    ).to(torch.bfloat16).requires_grad_()
+    f0, b0 = gmm.LAUNCHES.count, gmm.BACKWARD_LAUNCHES.count
+    out = ops.moe_gmm(x, w)
+    dout = torch.randn(out.shape, generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    got = torch.autograd.grad(out, (x, w), dout)
+    assert gmm.LAUNCHES.count == f0 + 1
+    assert gmm.BACKWARD_LAUNCHES.count == b0 + 1
+    for a, r in zip(got, gmm.moe_gmm_backward_plain(x.detach(), w.detach(),
+                                                    dout)):
+        assert _rel(a, r) <= 2e-2

@@ -708,10 +708,6 @@ def test_ops_without_a_backward_refuse_grad_off_the_cpu():
     x = torch.empty(2, 64, 64, **m, requires_grad=True)
     calls = {
         "matmul": lambda a: ops.matmul(a, torch.empty(64, 32, **m)),
-        "moe_gmm": lambda a: ops.moe_gmm(a, torch.empty(2, 64, 32, **m)),
-        "ssd_scan": lambda a: ops.ssd_scan(
-            a, torch.empty(2, 64, **m), torch.empty(2, 64, 16, **m),
-            torch.empty(2, 64, 16, **m), torch.empty(2, **m)),
         "layernorm": lambda a: ops.layernorm(a[0], a[0],
                                              torch.empty(64, **m),
                                              torch.empty(64, **m)),

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref
@@ -213,3 +214,99 @@ def test_ops_dispatches_through_the_driver(built):
     xa, wa = _inputs(3, 2, 256, 512, 256)
     (xj, xt), (wj, wt) = _both(xa, "bfloat16"), _both(wa, "bfloat16")
     _close(ops.moe_gmm(xt, wt), ref.moe_gmm_ref(xj, wj), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# the backward: moe_gmm_backward_plain and the autograd Function
+# ---------------------------------------------------------------------------
+
+def _ref_vjp(xa, wa, dya, name):
+    (xj, _), (wj, _), (dyj, _) = (_both(a, name) for a in (xa, wa, dya))
+    _, vjp = jax.vjp(ref.moe_gmm_ref, xj, wj)
+    return [np.asarray(g, np.float32) for g in vjp(dyj)]
+
+
+def _hold_grads(got, expected, tol):
+    for name, g, r in zip(("dx", "dw"), got, expected):
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max(), err_msg=name)
+
+
+BACKWARD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("e,g,k,n", [(2, 64, 128, 128), (4, 128, 64, 192),
+                                     (3, 37, 45, 29)])
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_backward_plain_matches_vjp_of_the_reference(e, g, k, n, name):
+    """(dx, dw) against jax.vjp of the reference's moe_gmm_ref: f32 at 1e-5
+    and bf16 at 2e-2 of max |g|; dx has x's dtype, dw w's."""
+    xa, wa = _inputs(e * g + n, e, g, k, n)
+    dya = np.random.RandomState(g).randn(e, g, n).astype(np.float32)
+    xt, wt, dyt = (_both(a, name)[1] for a in (xa, wa, dya))
+    got = port_gmm.moe_gmm_backward_plain(xt, wt, dyt)
+    assert [t.dtype for t in got] == [xt.dtype, wt.dtype]
+    _hold_grads(got, _ref_vjp(xa, wa, dya, name), BACKWARD_TOL[name])
+
+
+@pytest.mark.parametrize("e,g,k,n", [(3, 37, 45, 29), (2, 70, 130, 64)])
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_ops_moe_gmm_gradient_through_the_function(e, g, k, n, name,
+                                                   monkeypatch):
+    """``ops.moe_gmm`` with grad on, its autograd Function forced on CPU
+    tensors (on the card it runs for CUDA inputs that require grad): the
+    padded product's forward and backward go through the wrappers (each
+    takes its plain version on the CPU), the padding's slice stays
+    autograd's, and (dx, dw) equal jax.vjp of moe_gmm_ref at the unpadded
+    shape; the backward's two products are tiled at tiles the kernel
+    takes for their own dims."""
+    calls = []
+
+    def recording(x, w, dy, *, dx_tiles, dw_tiles):
+        calls.append((tuple(x.shape), tuple(w.shape), dx_tiles, dw_tiles))
+        port_gmm._check_tiles(x.shape[0], x.shape[1], w.shape[2],
+                              x.shape[2], x.dtype, **dx_tiles)
+        port_gmm._check_tiles(x.shape[0], x.shape[2], x.shape[1],
+                              w.shape[2], x.dtype, **dw_tiles)
+        return port_gmm.moe_gmm_backward_kernel(
+            x, w, dy, dx_tiles=dx_tiles, dw_tiles=dw_tiles)
+
+    monkeypatch.setattr(ops, "_wants_grad", lambda *t: torch.is_grad_enabled()
+                        and any(a.requires_grad for a in t))
+    monkeypatch.setattr(ops, "moe_gmm_backward_kernel", recording)
+    xa, wa = _inputs(g + k, e, g, k, n)
+    dya = np.random.RandomState(n).randn(e, g, n).astype(np.float32)
+    x, w, dy = (_both(a, name)[1] for a in (xa, wa, dya))
+    x.requires_grad_()
+    w.requires_grad_()
+    out = ops.moe_gmm(x, w)
+    assert out.shape == (e, g, n) and out.grad_fn is not None
+    got = torch.autograd.grad(out, (x, w), dy)
+    a = 64 if name == "bfloat16" else 8
+    (xs, ws, _, _), = calls
+    assert xs == (e, -(-g // a) * a, -(-k // a) * a)
+    assert ws == (e, -(-k // a) * a, -(-n // a) * a)
+    _hold_grads(got, _ref_vjp(xa, wa, dya, name), BACKWARD_TOL[name])
+
+
+def test_backward_wrapper_checks_and_counts_no_cpu_launch():
+    x, w = (torch.from_numpy(a) for a in _inputs(1, 2, 64, 128, 64))
+    dy = torch.ones(2, 64, 64)
+    tiles = dict(bg=64, bn=64, bk=32)
+    n0 = port_gmm.BACKWARD_LAUNCHES.count
+    dx, dw = port_gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tiles,
+                                              dw_tiles=tiles)
+    assert port_gmm.BACKWARD_LAUNCHES.count == n0
+    for g, r in zip((dx, dw), port_gmm.moe_gmm_backward_plain(x, w, dy)):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="dy"):
+        port_gmm.moe_gmm_backward_kernel(x, w, dy[:, :8], dx_tiles=tiles,
+                                         dw_tiles=tiles)
+    with pytest.raises(ValueError):         # bg 48 divides no dx row count
+        port_gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=dict(
+            bg=48, bn=64, bk=32), dw_tiles=tiles)
+    with pytest.raises(ValueError):         # bn 256 does not divide n 64
+        port_gmm.moe_gmm_backward_kernel(
+            x.bfloat16(), w.bfloat16(), dy.bfloat16(),
+            dx_tiles=dict(bg=64, bn=64, bk=64),
+            dw_tiles=dict(bg=64, bn=256, bk=128))

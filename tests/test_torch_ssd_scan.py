@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref
@@ -31,8 +32,10 @@ from repro_torch.core.kernel_spec import (SSD_COLS, SSD_SM90_CHUNKS,
                                           ssd_smem_bytes)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as port_ssd
-from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (BACKWARD_LAUNCHES, LAUNCHES,
+                                          ssd_scan_backward_kernel,
+                                          ssd_scan_backward_plain,
+                                          ssd_scan_kernel, ssd_scan_plain)
 
 ATOL, RTOL = 5e-3, 1e-3
 
@@ -375,3 +378,159 @@ def test_hi_lo_operands_keep_the_pallas_precision():
     assert to_split < 1e-5, to_split
     assert 1e-4 < to_once < 2e-2, to_once
     _close(torch.from_numpy(split), ref.ssd_scan_ref(*arrays))
+
+
+# ---------------------------------------------------------------------------
+# the backward: ssd_scan_backward_plain and the forward's entering states
+# ---------------------------------------------------------------------------
+
+def _grouped_inputs(seed, bh, h, s, dh, n):
+    """Seeded inputs with B and C (bh / h, s, n), each shared by h rows,
+    and the output's gradient dy."""
+    x, dt, B, C, A = _inputs(seed, bh, s, dh, n)
+    rng = np.random.RandomState(seed + 100)
+    B, C = B[:bh // h], C[:bh // h]
+    dy = rng.randn(bh, s, dh).astype(np.float32)
+    return x, dt, B, C, A, dy
+
+
+def _ref_vjp(fn, x, dt, B, C, A, dy, h):
+    """The JAX function's vjp on per-head B and C, the per-head dB and dC
+    summed over the h rows that share them (as the port shares them)."""
+    Bh, Ch = np.repeat(B, h, axis=0), np.repeat(C, h, axis=0)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (x, dt, Bh, Ch, A)))
+    dx, ddt, dB, dC, dA = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    g = B.shape[0]
+    return (dx, ddt, dB.reshape(g, h, *dB.shape[1:]).sum(1),
+            dC.reshape(g, h, *dC.shape[1:]).sum(1), dA)
+
+
+def _port_backward(x, dt, B, C, A, dy, chunk):
+    tx, tdt, tB, tC, tA, tdy = _t(x, dt, B, C, A, dy)
+    _, states = ssd_scan_plain(tx, tdt, tB, tC, tA, chunk=chunk,
+                               return_states=True)
+    return ssd_scan_backward_plain(tx, tdt, tB, tC, tA, states, tdy, chunk)
+
+
+GRAD_NAMES = ("dx", "ddt", "dB", "dC", "dA")
+
+
+def _hold(got, ref_grads, tol, what):
+    for name, g, r in zip(GRAD_NAMES, got, ref_grads):
+        r = np.asarray(r, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), r,
+                                   atol=tol * np.abs(r).max(), rtol=0,
+                                   err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("s,chunk", [(128, 32), (128, 64)])
+def test_backward_plain_matches_vjp_of_ssd_parallel(h, s, chunk):
+    """Every gradient against jax.vjp of the reference's chunk-parallel
+    ssd_parallel (s a multiple of its chunk), f32 at 1e-4 x max |g|."""
+    x, dt, B, C, A, dy = _grouped_inputs(3, 8, h, s, 32, 16)
+    ref_grads = _ref_vjp(lambda *a: ssd_parallel(*a, chunk=chunk),
+                         x, dt, B, C, A, dy, h)
+    _hold(_port_backward(x, dt, B, C, A, dy, chunk), ref_grads, 1e-4,
+          f"h {h} chunk {chunk}")
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("s,chunk", [(77, 32), (100, 64)])
+def test_backward_plain_matches_vjp_of_the_recurrence_ragged(h, s, chunk):
+    """A ragged last chunk: against jax.vjp of the per-step recurrence
+    ssd_scan_ref, f32 at 1e-4 x max |g|."""
+    x, dt, B, C, A, dy = _grouped_inputs(4, 8, h, s, 16, 8)
+    ref_grads = _ref_vjp(ref.ssd_scan_ref, x, dt, B, C, A, dy, h)
+    _hold(_port_backward(x, dt, B, C, A, dy, chunk), ref_grads, 1e-4,
+          f"h {h} s {s} chunk {chunk}")
+
+
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_backward_plain_matches_autograd_through_the_plain_forward(h, chunk):
+    """Against autograd through ssd_scan_plain itself (ragged s)."""
+    x, dt, B, C, A, dy = _grouped_inputs(5, 8, h, 150, 16, 16)
+    leaves = [t.requires_grad_() for t in _t(x, dt, B, C, A)]
+    y = ssd_scan_plain(*leaves, chunk=chunk)
+    ref_grads = [g.numpy() for g in torch.autograd.grad(
+        y, leaves, torch.from_numpy(dy))]
+    _hold(_port_backward(x, dt, B, C, A, dy, chunk), ref_grads, 1e-4,
+          f"h {h} chunk {chunk}")
+
+
+@pytest.mark.parametrize("grad", ["ddt", "dA"])
+@pytest.mark.parametrize("dt_range", [(0.01, 0.51), (1e-3, 1e-2)])
+def test_backward_decay_gradient_alone(grad, dt_range):
+    """The decay gradient on its own: dt and A reach y only through cum =
+    cumsum(A dt) and the direct dt_j factors; ddt and dA against the
+    recurrence's vjp, with dy on a late chunk only, so every term comes
+    through the carried states (and their exp(total) factors)."""
+    rng = np.random.RandomState(6)
+    x, dt, B, C, A = _inputs(6, 4, 96, 16, 8, dt_range)
+    dy = np.zeros((4, 96, 16), np.float32)
+    dy[:, 80:] = rng.randn(4, 16, 16)
+    ref_grads = _ref_vjp(ref.ssd_scan_ref, x, dt, B, C, A, dy, 1)
+    got = _port_backward(x, dt, B, C, A, dy, 32)
+    i = GRAD_NAMES.index(grad)
+    r = np.asarray(ref_grads[i])
+    assert np.abs(r).max() > 0
+    np.testing.assert_allclose(got[i].numpy(), r, rtol=0,
+                               atol=1e-4 * np.abs(r).max())
+
+
+def test_backward_mask_before_exp_gives_finite_gradients():
+    """Large decays: exp(cum_i - cum_j) for i < j would overflow to inf if
+    the exponent were not masked before exp, and 0 x inf is NaN; every
+    gradient stays finite and equals autograd through the plain forward
+    (which masks the same way, as layers.py's ssd_parallel does)."""
+    x, dt, B, C, A, dy = _grouped_inputs(7, 4, 1, 64, 16, 8)
+    A = (A * 200).astype(np.float32)              # |A dt| up to ~150 a step
+    leaves = [t.requires_grad_() for t in _t(x, dt, B, C, A)]
+    y = ssd_scan_plain(*leaves, chunk=64)
+    ref_grads = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    got = _port_backward(x, dt, B, C, A, dy, 64)
+    for name, g, r in zip(GRAD_NAMES, got, ref_grads):
+        assert bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()),
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("s,chunk", [(256, 64), (100, 32)])
+def test_plain_returns_the_recurrences_states_at_chunk_boundaries(s, chunk):
+    """``return_states=True`` leaves y unchanged, and each chunk's entering
+    state equals the per-step recurrence's state just before that chunk."""
+    x, dt, B, C, A = _inputs(8, 4, s, 16, 8)
+    tx, tdt, tB, tC, tA = _t(x, dt, B, C, A)
+    y0 = ssd_scan_plain(tx, tdt, tB, tC, tA, chunk=chunk)
+    y1, states = ssd_scan_plain(tx, tdt, tB, tC, tA, chunk=chunk,
+                                return_states=True)
+    assert torch.equal(y0, y1)
+    assert states.shape == (4, -(-s // chunk), 8, 16)
+    h = np.zeros((4, 8, 16), np.float32)
+    for t in range(s):
+        if t % chunk == 0:
+            np.testing.assert_allclose(states[:, t // chunk].numpy(), h,
+                                       atol=1e-5, rtol=1e-4)
+        h = np.exp(A * dt[:, t])[:, None, None] * h + dt[:, t, None, None] \
+            * B[:, t, :, None] * x[:, t, None, :]
+
+
+def test_backward_wrapper_checks_and_counts_no_cpu_launch():
+    x, dt, B, C, A, dy = _t(*_grouped_inputs(9, 4, 2, 64, 16, 8))
+    _, states = ssd_scan_plain(x, dt, B, C, A, chunk=32, return_states=True)
+    n0 = BACKWARD_LAUNCHES.count
+    got = ssd_scan_backward_kernel(x, dt, B, C, A, states, dy, chunk=32)
+    assert BACKWARD_LAUNCHES.count == n0
+    for g, r in zip(got, ssd_scan_backward_plain(x, dt, B, C, A, states, dy,
+                                                 32)):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="states"):
+        ssd_scan_backward_kernel(x, dt, B, C, A, states[:, :1], dy, chunk=32)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_backward_kernel(x, dt, B, C, A, states, dy[:, :8], chunk=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan_backward_kernel(
+            *_t(*_grouped_inputs(9, 2, 1, 64, 16, 256)[:5]),
+            torch.zeros(2, 1, 256, 16),
+            torch.zeros(2, 64, 16), chunk=256)

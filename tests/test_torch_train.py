@@ -248,6 +248,92 @@ def test_train_loss_and_every_leaf_gradient_match_reference(arch):
     assert not zero, (arch, zero)     # the reference's grads-flow test
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen3-moe-235b-a22b"])
+def test_train_gradient_through_the_ssd_and_gmm_functions(arch, monkeypatch):
+    """``Model.train_loss`` and every leaf's gradient with the SSD scan and
+    the grouped matmul running as their autograd Functions (``_SsdScan``,
+    ``_MoeGmm``; on the card they run for CUDA inputs that require grad,
+    here forced on CPU tensors), their kernel calls patched to the plain
+    forward and the plain backward, against the JAX package's
+    ``value_and_grad`` as in
+    ``test_train_loss_and_every_leaf_gradient_match_reference``."""
+    from repro_torch.kernels import moe_gmm as port_gmm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as port_ssd
+
+    calls = {"ssd": 0, "ssd_bwd": 0, "gmm": 0, "gmm_bwd": 0}
+
+    def ssd(x, dt, B, C, A, *, chunk, return_states=False):
+        calls["ssd"] += 1
+        return port_ssd.ssd_scan_plain(x, dt, B, C, A, chunk=chunk,
+                                       return_states=return_states)
+
+    def ssd_bwd(x, dt, B, C, A, states, dy, *, chunk):
+        calls["ssd_bwd"] += 1
+        return port_ssd.ssd_scan_backward_plain(x, dt, B, C, A, states, dy,
+                                                chunk)
+
+    def gmm(x, w, **tiles):
+        calls["gmm"] += 1
+        return port_gmm.moe_gmm_plain(x, w)
+
+    def gmm_bwd(x, w, dy, **tiles):
+        calls["gmm_bwd"] += 1
+        return port_gmm.moe_gmm_backward_plain(x, w, dy)
+
+    monkeypatch.setattr(ops, "_wants_grad", lambda *t: torch.is_grad_enabled()
+                        and any(a.requires_grad for a in t))
+    for name, fn in (("ssd_scan_kernel", ssd),
+                     ("ssd_scan_backward_kernel", ssd_bwd),
+                     ("moe_gmm_kernel", gmm),
+                     ("moe_gmm_backward_kernel", gmm_bwd)):
+        monkeypatch.setattr(ops, name, fn)
+    jcfg, jmodel, jparams, cfg, model = _pair(arch)
+    batch = _batch(cfg)
+    jscaled, scaled = _fan_in_scaled(arch)
+    rm, rg = _ref_loss_and_grads(jmodel, jscaled, batch)
+    tm, tg = loss_and_grads(model, scaled, batch)
+    kind = "ssd" if arch.startswith("mamba") else "gmm"
+    assert calls[kind] and calls[kind + "_bwd"], calls
+    for k in ("loss", "ce", "router_aux"):
+        np.testing.assert_allclose(float(tm[k]), float(rm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    _leafwise(tg, rg, 1e-4, arch)
+
+
+def test_loss_and_grads_ops_reach_the_layers():
+    """``loss_and_grads(ssd_op=, gmm_op=)`` (as ``attn_op=``) replaces the
+    op in every Mamba-2 and MoE layer, and the gradient flows through it."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
+    seen = []
+
+    def ssd_op(x, dt, B, C, A):
+        seen.append("ssd")
+        return ssd_scan_plain(x, dt, B, C, A, chunk=8)
+
+    def gmm_op(x, w):
+        seen.append("gmm")
+        return moe_gmm_plain(x, w)
+
+    for arch, kind in (("mamba2-130m", "ssd"), ("qwen3-moe-235b-a22b", "gmm"),
+                       ("jamba-1.5-large-398b", None)):
+        _, _, _, cfg, model = _pair(arch)
+        seen.clear()
+        _, grads = loss_and_grads(model, _fan_in_scaled(arch)[1],
+                                  _batch(cfg), ssd_op=ssd_op, gmm_op=gmm_op)
+        layers = {"ssd": sum(d.kind != "attn" for d in cfg.block_pattern),
+                  "gmm": sum(bool(d.moe) for d in cfg.block_pattern)}
+        for op in ("ssd", "gmm"):
+            want = layers[op] * cfg.n_groups * (3 if op == "gmm" else 1)
+            # remat "full" runs each block's forward again in the backward
+            assert seen.count(op) in (want, 2 * want), (arch, op, seen)
+        if kind:
+            assert seen.count(kind) > 0
+        assert all(bool((g != 0).any()) for _, g in tree_paths(grads))
+
+
 def test_grads_flow_everywhere_on_the_references_init():
     """tests/test_models.py's grads-flow test on the port, on the
     reference's own (faulted) init: no leaf's gradient is exactly zero."""
@@ -375,6 +461,40 @@ def test_adamw_update_matches_reference_over_three_steps(state, clip):
             assert leaf.dtype == tcfg.state_dtype
             np.testing.assert_allclose(_np(leaf), ref[path], rtol=ulp,
                                        atol=1e-30, err_msg=path)
+
+
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sr", [False, True])
+def test_adamw_update_in_chunks_is_bit_equal(state, sr, monkeypatch):
+    """The update runs each leaf in flat chunks of ``UPDATE_CHUNK``
+    elements (the clip's scale applied chunk by chunk): the same bits as
+    one chunk per leaf, with and without stochastic rounding (which draws
+    a leaf's noise in one piece)."""
+    from repro_torch.optim import adamw as port_adamw
+
+    rng = np.random.RandomState(0)
+    params = {"a": torch.from_numpy(rng.randn(3, 1000).astype(np.float32)
+                                    ).bfloat16(),
+              "b": torch.from_numpy(rng.randn(77).astype(np.float32))}
+    grads = {k: torch.from_numpy(rng.randn(*v.shape).astype(np.float32)
+                                 ).to(v.dtype) for k, v in params.items()}
+    cfg = AdamWConfig(lr=1e-3, state_dtype=getattr(torch, state))
+    opt = adamw_init(cfg, params)
+    opt["mu"] = tree_map(lambda m: torch.from_numpy(
+        rng.randn(*m.shape).astype(np.float32)).to(m.dtype), opt["mu"])
+    opt["nu"] = tree_map(lambda m: torch.from_numpy(
+        rng.rand(*m.shape).astype(np.float32)).to(m.dtype), opt["nu"])
+
+    def update():
+        gen = torch.Generator().manual_seed(3) if sr else None
+        p, st, m = adamw_update(cfg, grads, opt, params, sr_gen=gen)
+        return tree_leaves({"p": p, "mu": st["mu"], "nu": st["nu"]}), m
+
+    whole, m0 = update()
+    monkeypatch.setattr(port_adamw, "UPDATE_CHUNK", 7)
+    chunked, m1 = update()
+    assert all(torch.equal(a, b) for a, b in zip(whole, chunked))
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
 
 
 def test_stochastic_rounding_is_unbiased_and_within_one_ulp():

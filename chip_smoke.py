@@ -357,10 +357,12 @@ printed block:
      backward kernel's row (its launches on the training path) and the
      flash row ``train_path_launches``.
  29. training beyond llama on the card: (a) the SSD scan's backward
-     (``csrc/ssd_scan_bwd.cu``) against ``ssd_scan_backward_plain`` at
-     mamba2-130m's training shape (bh 192 = B 8 x 24 heads sharing one
-     group's B and C, S 256, dh 64, n 128, bf16 and f32) and prefill shape
-     (bh 24, S 4096), at the chunk ``ops.ssd_scan`` resolves with grad on,
+     (``csrc/ssd_scan_bwd.cu``: bf16 on the wgmma body, f32 on the SIMT
+     body) against ``ssd_scan_backward_plain`` at mamba2-130m's training
+     shape (bh 192 = B 8 x 24 heads sharing one group's B and C, S 256, dh
+     64, n 128, bf16 and f32) and prefill shape (bh 24, S 4096), at the
+     chunk ``ops.ssd_scan`` resolves with grad on, each bf16 call timed
+     beside the SIMT body at the same shape,
      and the grouped matmul's backward (``csrc/moe_gmm.cu``, dX and dW on
      wgmma with the transposed operand read in place) against
      ``moe_gmm_backward_plain`` at qwen3-moe's training shapes (the
@@ -839,7 +841,8 @@ def run(caches: list) -> int:
         if hgmma == 0 and lib.name.startswith(("libmatmul-", "libmoe_gmm-",
                                                "libflash_attention-",
                                                "libflash_attention_bwd-",
-                                               "libssd_scan-")):
+                                               "libssd_scan-",
+                                               "libssd_scan_bwd-")):
             raise AssertionError(f"{lib.name} has no wgmma (HGMMA) in its "
                                  f"SASS: the bf16 path is not on the tensor "
                                  f"cores")
@@ -5848,7 +5851,8 @@ def _ssd_backward_alone(dev, gen, time_ms) -> list:
     """Phase 29 (a), the SSD scan: the backward kernel against its plain
     version at mamba2-130m's training and prefill shapes, at the chunk
     ``ops.ssd_scan`` takes with grad on; gated and timed (see
-    ``train_more_phase``)."""
+    ``train_more_phase``), each bf16 call also timed on the SIMT body at
+    the same shape (``body="simt"``; its gradients gated the same way)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -5870,7 +5874,10 @@ def _ssd_backward_alone(dev, gen, time_ms) -> list:
             # the chunk the op trains at: one call through its Function
             leaves = [t.detach().requires_grad_() for t in ins]
             torch.autograd.grad(ops.ssd_scan(*leaves), leaves, dy)
-            chunk = ssd.BACKWARD_LAUNCHES.tiles[(bh, s, dh, n)]["chunk"]
+            tiles = ssd.BACKWARD_LAUNCHES.tiles[(bh, s, dh, n)]
+            chunk, body = tiles["chunk"], tiles["body"]
+            attrs = ssd.backward_tile_attributes(dh, n, chunk) \
+                if body == "sm90" else ssd.backward_attributes(dtype)
             y0 = ssd.ssd_scan_kernel(*ins, chunk=chunk)
             y1, states = ssd.ssd_scan_kernel(*ins, chunk=chunk,
                                              return_states=True)
@@ -5900,6 +5907,21 @@ def _ssd_backward_alone(dev, gen, time_ms) -> list:
                                          f"{errs[gname]:.3e} of max |plain|")
             worst = max(float((g.float() - r.float()).abs().max())
                         for g, r in zip(got, ref))
+            simt_ms = None
+            if body != "simt":
+                simt = ssd.ssd_scan_backward_kernel(*ins, states, dy,
+                                                    chunk=chunk, body="simt")
+                for gname, g, r in zip(("dx", "ddt", "dB", "dC", "dA"), simt,
+                                       ref):
+                    err = float((g.float() - r.float()).abs().max()) \
+                        / float(r.float().abs().max())
+                    if not bool(torch.isfinite(g).all()) or err > tol:
+                        raise AssertionError(f"{what}: the SIMT body's "
+                                             f"{gname} differs from the plain "
+                                             f"backward by {err:.3e}")
+                del simt
+                simt_ms = time_ms(lambda: ssd.ssd_scan_backward_kernel(
+                    *ins, states, dy, chunk=chunk, body="simt"))
             del got, again, ref, pstates
             ms = time_ms(lambda: ssd.ssd_scan_backward_kernel(
                 *ins, states, dy, chunk=chunk))
@@ -5911,17 +5933,25 @@ def _ssd_backward_alone(dev, gen, time_ms) -> list:
             bound, bound_by = _ssd_bwd_bound_ms(bh, bh // h, s, dh, n, chunk,
                                                 x.element_size())
             row = {"shape": name, "dtype": str(dtype)[6:], "bh": bh, "s": s,
-                   "chunk": chunk, "rel_err": errs, "max_abs_err": worst,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "chunk": chunk, "body": body,
+                   "num_regs": attrs["num_regs"],
+                   "local_bytes": attrs["local_bytes"],
+                   "rel_err": errs, "max_abs_err": worst,
+                   "ms": ms, "simt_ms": simt_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
                    "fwd_ms": fwd_ms, "fwd_states_ms": fwd_states_ms,
                    "states_mb": states.numel() * 4 / 1e6}
             rows.append(row)
-            print(f"  {what}, chunk {chunk}: rel err " + " ".join(
+            simt = "" if simt_ms is None else \
+                f" | SIMT body {simt_ms:.4f} ms ({simt_ms / ms:.2f}x)"
+            print(f"  {what}, chunk {chunk}, {body} body ({attrs['num_regs']} "
+                  f"registers, {attrs['local_bytes']} spilled bytes): rel "
+                  f"err " + " ".join(
                 f"{k} {v:.2e}" for k, v in errs.items()) + f" ok, two calls "
                 f"bit-equal, forward bit-equal with its states "
                 f"({row['states_mb']:.1f} MB); kernel {ms:.4f} ms "
-                f"({row['pct_of_bound']:.1f} % of bound) | plain "
+                f"({row['pct_of_bound']:.1f} % of bound){simt} | plain "
                 f"{plain_ms:.3f} ms | bound {bound:.4f} ms ({bound_by}); "
                 f"forward {fwd_ms:.4f} ms, with states {fwd_states_ms:.4f} "
                 f"ms", flush=True)
@@ -6213,7 +6243,9 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     training paths."""
     import torch
 
-    from repro_torch.core.kernel_spec import SM90_TILES
+    from repro_torch.core.kernel_spec import (SM90_TILES, SSD_SM90_CHUNKS,
+                                              SSD_SM90_REGS_PER_THREAD,
+                                              SSD_SM90_SHAPES)
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -6221,7 +6253,8 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     print("[29] training beyond llama on the card.  (a) the SSD scan's "
           "backward (csrc/ssd_scan_bwd.cu: one launch, the chain of state "
           "gradients in reverse chunk order, a fixed-order reduction; no "
-          "atomics) and the grouped matmul's (csrc/moe_gmm.cu: dX and dW on "
+          "atomics; bf16 at (64, 128) on the wgmma body, f32 on the SIMT "
+          "body) and the grouped matmul's (csrc/moe_gmm.cu: dX and dW on "
           "wgmma, the transposed operand read in place) against their plain "
           "versions at mamba2-130m's and qwen3-moe's training shapes (gates: "
           "each gradient within 2e-2 (bf16) / 2e-4 (f32) x max |plain|; two "
@@ -6232,6 +6265,21 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
         print(f"  ssd_scan_bwd SIMT {str(dtype)[6:]}: {attrs}", flush=True)
         if attrs["local_bytes"]:
             raise AssertionError(f"the SSD backward spills: {attrs}")
+    for dh, n in SSD_SM90_SHAPES:
+        for chunk in SSD_SM90_CHUNKS:
+            attrs = ssd.backward_tile_attributes(dh, n, chunk)
+            smem = ssd.backward_tile_smem(dh, n, chunk)
+            print(f"  ssd_scan_bwd bf16 wgmma (dh {dh}, n {n}) chunk "
+                  f"{chunk}: {attrs}, {smem} bytes of shared memory (cap "
+                  f"{SSD_SM90_REGS_PER_THREAD} registers)", flush=True)
+            if attrs["num_regs"] > SSD_SM90_REGS_PER_THREAD \
+                    or attrs["local_bytes"] \
+                    or smem != ssd.backward_smem_bytes(chunk, n, 2, dh):
+                raise AssertionError(
+                    f"SSD backward wgmma chunk {chunk}: {attrs}, {smem} "
+                    f"bytes against the cap {SSD_SM90_REGS_PER_THREAD}, no "
+                    f"spills, and the wrapper's count "
+                    f"{ssd.backward_smem_bytes(chunk, n, 2, dh)}")
     cap = gmm.MOE_GMM.regs_cap_for(torch.bfloat16)
     for layout in ("dx", "dw"):
         attrs = {t: gmm.tile_attributes(*t, layout=layout)

@@ -8,7 +8,8 @@
 //     transaction byte count, and a spin on a phase's parity;
 //   * the 3-D TMA load (cp.async.bulk.tensor) of one box, completing on an
 //     mbarrier, and the tensor-map encoder it needs (cuTensorMapEncodeTiled,
-//     taken from the loaded driver through dlopen, so nothing links -lcuda);
+//     taken from the loaded driver through dlopen, so nothing links -lcuda,
+//     called with the primary context bound to the calling thread);
 //     and the 1-D bulk copy (cp.async.bulk) of a contiguous run of bytes;
 //   * wgmma: the shared-memory matrix descriptor for 128-byte-swizzled
 //     tiles, fence / commit / wait, and m64nNk16 bf16 products with f32
@@ -322,8 +323,14 @@ template <> struct WgmmaRS<256> {
   }
 };
 
-// cuTensorMapEncodeTiled, a driver-API function, taken from the driver the
-// process has loaded (no link against libcuda).
+// The driver the process has loaded, and driver-API functions taken from it
+// (no link against libcuda).
+inline void* driver() {
+  static void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+  return lib;
+}
+
+// cuTensorMapEncodeTiled.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave,
@@ -331,12 +338,27 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapFloatOOBfill);
 
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+  static EncodeTiled fn =
+      driver() ? reinterpret_cast<EncodeTiled>(dlsym(driver(), "cuTensorMapEncodeTiled"))
                : nullptr;
-  }();
   return fn;
+}
+
+// Makes the current device's primary context current on the calling thread
+// where no context is.  The encoder needs one, and a thread whose runtime
+// calls so far needed none has none: autograd's device thread, once the
+// caching allocator serves a backward's buffers, reaches its first launch
+// with no context, and the encoder fails (CUDA_ERROR_INVALID_CONTEXT).
+// cudaSetDevice binds the primary context (CUDA 12).
+inline bool bind_context() {
+  typedef CUresult (*GetCurrent)(CUcontext*);
+  static GetCurrent get =
+      driver() ? reinterpret_cast<GetCurrent>(dlsym(driver(), "cuCtxGetCurrent")) : nullptr;
+  CUcontext ctx = nullptr;
+  if (!get || get(&ctx) != CUDA_SUCCESS) return false;
+  if (ctx) return true;
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
 }
 
 // A 3-D bf16 tensor map over a row-major (d2, d1, d0) array, boxes of
@@ -345,7 +367,7 @@ inline EncodeTiled encode_tiled() {
 inline bool make_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                      uint64_t d2, uint32_t box1) {
   const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
+  if (!fn || !bind_context()) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kAtom, box1, 1};

@@ -1,8 +1,10 @@
 // Pieces shared by the SSD scan's forward (csrc/ssd_scan.cu) and backward
 // (csrc/ssd_scan_bwd.cu): the SIMT bodies' tile constants, f32 loads and
-// stores of the input types, and the chain of chunk states passed from CTA
-// to CTA -- the ticket that orders the CTAs, and the per-warp flags a CTA
-// waits on and publishes.
+// stores of the input types, the chain of chunk states passed from CTA to
+// CTA -- the ticket that orders the CTAs, and the per-warp flags a CTA
+// waits on and publishes --, the wgmma bodies' compiled shapes and their
+// bf16 helpers, and the backward's decay gradient, which both of its
+// bodies end with.
 
 #pragma once
 
@@ -138,6 +140,90 @@ __device__ __forceinline__ void stage_transposed(T* dst, const T* src, int rows,
 #pragma unroll
     for (int t = 0; t < V; ++t) dst[(c + t) * rows + row] = e[t];
   }
+}
+
+// -- the wgmma bodies ----------------------------------------------------------
+
+// The compiled wgmma instantiations (dh, n, chunk) of the forward and the
+// backward: kernel_spec.py's SSD_SM90_SHAPES x SSD_SM90_CHUNKS.
+#define SSD_SM90_TILES(X) X(64, 128, 64) X(64, 128, 128)
+
+// 1 if (dh, n, chunk) has a wgmma instantiation.
+inline bool sm90_compiled(int dh, int n, int L) {
+#define SSD_SM90_HAS(DH, N, CH) if (dh == DH && n == N && L == CH) return true;
+  SSD_SM90_TILES(SSD_SM90_HAS)
+#undef SSD_SM90_HAS
+  return false;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as a bf16 pair hi and the bf16 pair lo of what hi leaves out:
+// hi + lo holds a and b to about 2^-17 of their size.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// Byte offset of element (row, col) of a [cols / 64][rows][64] bf16 tile
+// whose 128-byte rows hold their 16-byte chunks XOR-permuted by row % 8 (the
+// TMA's 128-byte swizzle).
+__device__ __forceinline__ int swz(int rows, int row, int col) {
+  return (col / 64) * rows * 128 + row * 128 + ((((col % 64) / 8) ^ (row % 8)) * 16) +
+         (col % 8) * 2;
+}
+
+// Generic-proxy shared-memory writes become visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- the backward's decay gradient ----------------------------------------------
+
+// The decay exponents' gradient of one chunk of lv valid rows, by warp 0
+// (the caller syncs before): with the per-row terms in shared memory --
+// rowp_i = sum_j P_ij, colv_j = sum_i G_ij M_ij, qv_i = exp(cum_i) dy_i .
+// (C_i h_in), rv_j = R_j, dt, cum and w -- and hdot = <h_in, dh_out>,
+//   dcum_i = rowp_i - dt_i colv_i + qv_i - w_i rv_i,
+//   dtotal = sum_j w_j rv_j + exp(total) hdot, added to the last entry,
+//   rev_t  = sum_{i >= t} dcum_i (a reverse running sum, 32 rows a step),
+// it writes ddt_t = colv_t + exp(total - cum_t) rv_t + a rev_t into dtp[t]
+// (t < lv) and this chunk's share of dA, sum_t dt_t rev_t, into *da_out.
+__device__ __forceinline__ void decay_gradient(const float* rowp, const float* colv,
+                                               const float* qv, const float* rv,
+                                               const float* dts, const float* cum,
+                                               const float* wts, int lv, float total,
+                                               float a, float hdot, float* dtp,
+                                               float* da_out) {
+  const int lane = threadIdx.x & 31;
+  float wr = 0.0f;                                // sum_j w_j R_j
+  for (int i = lane; i < lv; i += 32) wr = fmaf(wts[i], rv[i], wr);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) wr += __shfl_xor_sync(0xffffffffu, wr, off);
+  float carry = wr + expf(total) * hdot;          // dtotal, on the last entry
+  float da = 0.0f;
+  for (int base = ((lv + 31) & ~31) - 32; base >= 0; base -= 32) {
+    const int i = base + lane;
+    float v = i < lv ? rowp[i] - dts[i] * colv[i] + qv[i] - wts[i] * rv[i] : 0.0f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {      // suffix sum within the warp
+      const float dn = __shfl_down_sync(0xffffffffu, v, off);
+      if (lane + off < 32) v += dn;
+    }
+    const float rev = v + carry;
+    carry = __shfl_sync(0xffffffffu, rev, 0);
+    if (i < lv) {
+      dtp[i] = colv[i] + expf(total - cum[i]) * rv[i] + a * rev;
+      da = fmaf(dts[i], rev, da);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(0xffffffffu, da, off);
+  if (lane == 0) *da_out = da;
 }
 
 }  // namespace ssd

@@ -356,32 +356,6 @@ constexpr int sm90_smem_bytes() {
   return (L * DH + 2 * L * N + 2 * N * DH) * 2 + 3 * L * 4 + kSm90SmemExtra;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (a, b) as a bf16 pair hi and the bf16 pair lo of what hi leaves out:
-// hi + lo holds a and b to about 2^-17 of their size.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
-// Byte offset of element (row, col) of a [cols / 64][rows][64] bf16 tile
-// whose 128-byte rows hold their 16-byte chunks XOR-permuted by row % 8 (the
-// TMA's 128-byte swizzle).
-__device__ __forceinline__ int swz(int rows, int row, int col) {
-  return (col / 64) * rows * 128 + row * 128 + ((((col % 64) / 8) ^ (row % 8)) * 16) +
-         (col % 8) * 2;
-}
-
-// Generic-proxy shared-memory writes become visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // x: (bh, s, DH) through xmap; B, C: (bh / heads, s, N) through bmap, cmap;
 // dt: (bh, s) f32; A: (bh,) f32; out: (bh, s, DH) bf16, 4-byte aligned.
 // states: (bh, 2, N, DH) f32; sync: the ticket counter, then L / 16 flags
@@ -669,18 +643,6 @@ cudaError_t sm90_attributes(int* num_regs, int* max_threads, int* local_bytes) {
   *max_threads = attr.maxThreadsPerBlock;
   *local_bytes = (int)attr.localSizeBytes;
   return cudaSuccess;
-}
-
-// The compiled wgmma instantiations (dh, n, chunk): kernel_spec.py's
-// SSD_SM90_SHAPES x SSD_SM90_CHUNKS.
-#define SSD_SM90_TILES(X) X(64, 128, 64) X(64, 128, 128)
-
-// 1 if (dh, n, chunk) has a wgmma instantiation.
-bool sm90_compiled(int dh, int n, int L) {
-#define SSD_SM90_HAS(DH, N, CH) if (dh == DH && n == N && L == CH) return true;
-  SSD_SM90_TILES(SSD_SM90_HAS)
-#undef SSD_SM90_HAS
-  return false;
 }
 
 cudaError_t sm90_dispatch(int dh, int n, int L, const void* x, const void* dt, const void* B,

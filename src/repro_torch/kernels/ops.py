@@ -557,7 +557,7 @@ def _ssd_train_chunk(head_dim: int, d_state: int, dtype_bytes: int,
     spec = _ssd_spec(head_dim, d_state, dtype_bytes)
     fits = spec.candidates({"bh": 1, "s": 1, "chunkflops": 1})["chunk"]
     ok = [int(c) for c in fits if c <= chunk and backward_smem_bytes(
-        int(c), d_state, dtype_bytes) <= SMEM_LIMIT]
+        int(c), d_state, dtype_bytes, head_dim) <= SMEM_LIMIT]
     if not ok:
         raise ValueError(f"no chunk up to {chunk} fits the SSD backward at "
                          f"(dh {head_dim}, n {d_state}, {dtype_bytes}-byte "

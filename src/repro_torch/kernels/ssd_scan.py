@@ -32,9 +32,13 @@ f32 (bh, chunks, n, dh), which the backward reads:
 ``ssd_scan_backward_kernel`` launches ``csrc/ssd_scan_bwd.cu`` (no TPU
 counterpart: the JAX package differentiates ``ssd_parallel`` with XLA) and
 gives (dx, ddt, dB, dC, dA) from them and dy at the same chunk; its plain
-version is ``ssd_scan_backward_plain``.  ``BACKWARD_LAUNCHES`` counts its
-calls (a call launches the backward and its reduction) and keeps the chunk
-of the last call at each (bh, s, dh, n).
+version is ``ssd_scan_backward_plain``.  Like the forward it has two
+bodies: bf16 at a compiled (dh, n, chunk) runs the wgmma body (one CTA per
+(row, chunk), every product on the tensor cores), f32 and bf16 at other
+shapes the SIMT body (one CTA per (row, 16 head-dim columns, chunk)).
+``BACKWARD_LAUNCHES`` counts its calls (a call launches the backward and
+its reduction) and keeps the chunk and the body ("sm90" or "simt") of the
+last call at each (bh, s, dh, n).
 """
 
 from __future__ import annotations
@@ -53,14 +57,21 @@ from ._workspace import zeroed_ints
 from .matmul import LaunchCounter
 
 __all__ = ["BACKWARD_LAUNCHES", "DTYPES", "LAUNCHES", "backward_attributes",
-           "backward_smem_bytes", "kernel_attributes", "ssd_ctas",
-           "ssd_scan_backward_kernel", "ssd_scan_backward_plain",
-           "ssd_scan_kernel", "ssd_scan_plain", "tile_attributes"]
+           "backward_body", "backward_smem_bytes",
+           "backward_tile_attributes", "backward_tile_smem",
+           "kernel_attributes", "ssd_ctas", "ssd_scan_backward_kernel",
+           "ssd_scan_backward_plain", "ssd_scan_kernel", "ssd_scan_plain",
+           "tile_attributes"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448     # dynamic shared memory a block may opt in to
 _NEG_INF = -1e30
+# the backward's wgmma body: per-row f32 vectors of the chunk in shared
+# memory, and the bytes beyond its tiles and vectors (the 1 KiB alignment
+# slack, the per-warp sums, the mbarrier and the ticket)
+_BWD_SM90_VECTORS = 9
+_BWD_SM90_SMEM_EXTRA = 1024 + 128
 
 LAUNCHES = LaunchCounter()
 BACKWARD_LAUNCHES = LaunchCounter()
@@ -86,11 +97,16 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = load("ssd_scan_bwd")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.klaraptor_ssd_scan_bwd.argtypes = [vp] * 18 + [i] * 7 + [vp]
+    lib.klaraptor_ssd_scan_bwd.argtypes = [vp] * 18 + [i] * 8 + [vp]
     lib.klaraptor_ssd_scan_bwd.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_ssd_scan_bwd_attributes.argtypes = [i, ip, ip, ip]
     lib.klaraptor_ssd_scan_bwd_attributes.restype = i
+    lib.klaraptor_ssd_scan_bwd_tile_attributes.argtypes = [i, i, i, ip, ip,
+                                                           ip]
+    lib.klaraptor_ssd_scan_bwd_tile_attributes.restype = i
+    lib.klaraptor_ssd_scan_bwd_tile_smem.argtypes = [i, i, i]
+    lib.klaraptor_ssd_scan_bwd_tile_smem.restype = i
     lib.klaraptor_ssd_error_string.argtypes = [i]
     lib.klaraptor_ssd_error_string.restype = ctypes.c_char_p
     return lib
@@ -130,11 +146,40 @@ def backward_attributes(dtype: torch.dtype) -> dict[str, int]:
                             _DTYPE_CODE[dtype], lib=lib)
 
 
-def backward_smem_bytes(chunk: int, n: int, elem_bytes: int) -> int:
-    """Dynamic shared memory of one backward CTA: B^T and C^T (n x chunk)
-    and the x and dy columns (chunk x SSD_COLS) in the input type; h_in and
-    dh (n x SSD_COLS), dx's state term (chunk x SSD_COLS), three padded
-    score tiles (SSD_ROWS x chunk) and eight per-row vectors (chunk), f32."""
+def backward_tile_attributes(dh: int, n: int, chunk: int) -> dict[str, int]:
+    """The same for the backward's bf16 wgmma instantiation (dh, n,
+    chunk)."""
+    lib = _bwd_lib()
+    return _read_attributes(lib.klaraptor_ssd_scan_bwd_tile_attributes, dh,
+                            n, chunk, lib=lib)
+
+
+def backward_tile_smem(dh: int, n: int, chunk: int) -> int:
+    """The dynamic shared memory the compiled wgmma instantiation (dh, n,
+    chunk) launches with (-1 if there is none): what
+    ``backward_smem_bytes`` counts, as the kernel counts it."""
+    return _bwd_lib().klaraptor_ssd_scan_bwd_tile_smem(dh, n, chunk)
+
+
+def backward_body(dh: int, n: int, chunk: int, dtype: torch.dtype) -> str:
+    """The body the backward runs: "sm90" (bf16 at a compiled (dh, n,
+    chunk)) or "simt"."""
+    return "sm90" if ssd_uses_sm90(dh, n, torch.finfo(dtype).bits // 8) \
+        and chunk in SSD_SM90_CHUNKS else "simt"
+
+
+def backward_smem_bytes(chunk: int, n: int, elem_bytes: int,
+                        dh: int = SSD_COLS) -> int:
+    """Dynamic shared memory of one backward CTA.  wgmma body: x and dy
+    (chunk x dh) and B and C (chunk x n) in bf16, the hi and lo bf16 tiles
+    of h_in and of dh_out (n x dh each), nine per-row f32 vectors (chunk)
+    and the extra bytes.  SIMT body: B^T and C^T (n x chunk) and the x and
+    dy columns (chunk x SSD_COLS) in the input type; h_in and dh (n x
+    SSD_COLS), dx's state term (chunk x SSD_COLS), three padded score tiles
+    (SSD_ROWS x chunk) and eight per-row vectors (chunk), f32."""
+    if ssd_uses_sm90(dh, n, elem_bytes) and chunk in SSD_SM90_CHUNKS:
+        return ((2 * chunk * dh + 2 * chunk * n + 4 * n * dh) * 2
+                + 4 * _BWD_SM90_VECTORS * chunk + _BWD_SM90_SMEM_EXTRA)
     return ((2 * n + 2 * SSD_COLS) * chunk * elem_bytes
             + 4 * (2 * n * SSD_COLS + SSD_COLS * chunk
                    + 3 * SSD_ROWS * (chunk + SSD_GPAD) + 8 * chunk))
@@ -377,15 +422,20 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
 def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
                              B: torch.Tensor, C: torch.Tensor,
                              A: torch.Tensor, states: torch.Tensor,
-                             dy: torch.Tensor, *, chunk: int):
+                             dy: torch.Tensor, *, chunk: int,
+                             body: str | None = None):
     """(dx, ddt, dB, dC, dA) of the SSD scan: ``csrc/ssd_scan_bwd.cu`` for
     CUDA tensors, ``ssd_scan_backward_plain`` for CPU tensors (after the
     same checks).  ``states`` are the forward's entering states at the same
     chunk (``ssd_scan_kernel(..., return_states=True)``), dy has x's shape
-    and dtype.  The kernel (the SIMT body for both dtypes) runs every
-    (row, SSD_COLS head-dim columns, chunk) as a CTA, the chain of state
-    gradients in reverse chunk order, and writes f32 partials that a second
-    pass sums in a fixed order, so two calls give the same bits."""
+    and dtype.  bf16 at a compiled (dh, n, chunk) runs the wgmma body, one
+    CTA per (row, chunk); everything else the SIMT body, one per (row,
+    SSD_COLS head-dim columns, chunk) (``backward_body``).  Both run the
+    chain of state gradients in reverse chunk order and write f32 partials
+    that a second pass sums in a fixed order, so two calls give the same
+    bits.  ``body="simt"`` runs the SIMT body where the wgmma body would
+    run (to time one against the other); ``body="sm90"`` where it cannot
+    run raises."""
     _check(x, dt, B, C, A, chunk)
     bh, s, dh = x.shape
     n = B.shape[-1]
@@ -403,7 +453,14 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
     if chunk % SSD_ROWS:
         raise ValueError(f"the backward takes chunks that are multiples of "
                          f"{SSD_ROWS}, not {chunk}")
-    smem = backward_smem_bytes(chunk, n, x.element_size())
+    auto = backward_body(dh, n, chunk, x.dtype)
+    if body not in (None, "simt", auto):
+        raise ValueError(f"body={body!r}: the backward runs 'simt' or "
+                         f"{auto!r} at (dh {dh}, n {n}, chunk {chunk}, "
+                         f"{x.dtype})")
+    body = body or auto
+    smem = backward_smem_bytes(chunk, n, x.element_size(),
+                               dh if body == "sm90" else SSD_COLS)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the backward at chunk {chunk} needs {smem} bytes "
                          f"of shared memory, more than the {SMEM_LIMIT} a "
@@ -412,8 +469,13 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
         return ssd_scan_backward_plain(x, dt, B, C, A, states, dy, chunk)
     if dy.data_ptr() % 16 or states.data_ptr() % 16:
         raise ValueError("dy and states must be 16-byte aligned")
-    blocks = dh // SSD_COLS
-    chains = bh * blocks
+    # a chain per row (per SSD_COLS head-dim columns in the SIMT body), a
+    # flag per warp of a chain's CTA
+    if body == "sm90":
+        cols, warps = dh, 2 * chunk // 32
+    else:
+        cols, warps = SSD_COLS, SSD_THREADS // 32
+    chains = bh * (dh // cols)
     dx = torch.empty_like(x)
     ddt = torch.empty(bh, s, dtype=torch.float32, device=x.device)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
@@ -421,15 +483,15 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
     if x.numel() == 0 or n == 0:
         return dx.zero_(), ddt.zero_(), dB.zero_(), dC.zero_(), dA.zero_()
     f32 = dict(dtype=torch.float32, device=x.device)
-    # per (row, column block) partials of dB, dC, ddt and, per chunk, of dA
+    # per chain partials of dB, dC, ddt and, per chunk, of dA
     part_bc = torch.empty(2, chains, s, n, **f32)
     part_dt = torch.empty(chains, s, **f32)
     part_a = torch.empty(chains, chunks, **f32)
-    ring = torch.empty(chains * SSD_STATE_SLOTS * n * SSD_COLS, **f32)
+    ring = torch.empty(chains * SSD_STATE_SLOTS * n * cols, **f32)
     lib = _bwd_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        sync = zeroed_ints(x.device, stream, 1 + chains * SSD_THREADS // 32,
+        sync = zeroed_ints(x.device, stream, 1 + chains * warps,
                            "ssd_scan_bwd")
         rc = lib.klaraptor_ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -438,8 +500,8 @@ def ssd_scan_backward_kernel(x: torch.Tensor, dt: torch.Tensor,
             part_bc[0].data_ptr(), part_bc[1].data_ptr(),
             part_dt.data_ptr(), part_a.data_ptr(), ring.data_ptr(),
             sync.data_ptr(), bh, s, dh, n, chunk, bh // B.shape[0],
-            _DTYPE_CODE[x.dtype], stream)
+            _DTYPE_CODE[x.dtype], int(body == "sm90"), stream)
     if rc:
         _raise_cuda("SSD scan backward launch", rc, lib)
-    BACKWARD_LAUNCHES.launched((bh, s, dh, n), chunk=chunk)
+    BACKWARD_LAUNCHES.launched((bh, s, dh, n), chunk=chunk, body=body)
     return dx, ddt, dB, dC, dA

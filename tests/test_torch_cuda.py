@@ -935,25 +935,40 @@ def test_cuda_ssd_forward_is_bit_equal_with_states():
 @pytest.mark.cuda
 def test_cuda_ssd_backward_kernel_matches_plain():
     """Each gradient within 2e-2 (bf16) / 2e-4 (f32) x max |plain| at a
-    ragged length with B and C shared by h rows, two calls bit-equal, and
-    ``ops.ssd_scan`` with grad on launching both kernels."""
+    ragged length with several chunks (the chain makes several hops) and B
+    and C shared by h rows, two calls bit-equal, and ``ops.ssd_scan`` with
+    grad on launching both kernels.  bf16 at (64, 128), chunks 64 and 128,
+    runs the wgmma body (and the SIMT body, asked for, agrees too); f32 and
+    (32, 32) the SIMT body: ``BACKWARD_LAUNCHES`` records which ran."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(4)
     for dtype, (bh, h, s, dh, n, chunk) in itertools.product(
             (torch.bfloat16, torch.float32),
-            ((48, 24, 300, 64, 128, 64), (8, 4, 100, 32, 32, 32))):
+            ((48, 24, 300, 64, 128, 64), (48, 24, 300, 64, 128, 128),
+             (8, 4, 100, 32, 32, 32))):
         ins = _ssd_inputs(gen, bh, h, s, dh, n, dtype)
         _, states = ssd_scan_kernel(*ins, chunk=chunk, return_states=True)
         dy = torch.randn(bh, s, dh, generator=gen, device="cuda").to(dtype)
         got = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk)
+        body = ssd.BACKWARD_LAUNCHES.tiles[(bh, s, dh, n)]["body"]
         again = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk)
         ref = ssd.ssd_scan_backward_plain(*ins, states, dy, chunk)
         torch.cuda.synchronize()
+        wgmma = dtype == torch.bfloat16 and (dh, n) == (64, 128)
+        assert body == ("sm90" if wgmma else "simt"), (dtype, dh, n, body)
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
         for g, a, r in zip(got, again, ref):
             assert torch.equal(g, a)
             assert bool(torch.isfinite(g).all()) and _rel(g, r) <= tol
+        if wgmma:
+            simt = ssd.ssd_scan_backward_kernel(*ins, states, dy, chunk=chunk,
+                                                body="simt")
+            torch.cuda.synchronize()
+            assert ssd.BACKWARD_LAUNCHES.tiles[(bh, s, dh, n)]["body"] == \
+                "simt"
+            for g, r in zip(simt, ref):
+                assert _rel(g, r) <= tol
     leaves = [t.requires_grad_() for t in _ssd_inputs(
         gen, 48, 24, 256, 64, 128, torch.bfloat16)]
     f0, b0 = SSD_LAUNCHES.count, ssd.BACKWARD_LAUNCHES.count
@@ -961,6 +976,7 @@ def test_cuda_ssd_backward_kernel_matches_plain():
     torch.autograd.grad(y, leaves, torch.ones_like(y))
     assert SSD_LAUNCHES.count == f0 + 1
     assert ssd.BACKWARD_LAUNCHES.count == b0 + 1
+    assert ssd.BACKWARD_LAUNCHES.tiles[(48, 256, 64, 128)]["body"] == "sm90"
 
 
 @pytest.mark.cuda

@@ -28,11 +28,13 @@ from repro.models.layers import ssd_parallel
 from repro_torch.core import (H100, CandidateTable, HopperModel, Klaraptor,
                               registry, selection_ratio)
 from repro_torch.core.kernel_spec import (SSD_COLS, SSD_SM90_CHUNKS,
-                                          ssd_probe_data, ssd_scan_spec,
-                                          ssd_smem_bytes)
+                                          SSD_SM90_SHAPES, ssd_probe_data,
+                                          ssd_scan_spec, ssd_smem_bytes)
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as port_ssd
 from repro_torch.kernels.ssd_scan import (BACKWARD_LAUNCHES, LAUNCHES,
+                                          SMEM_LIMIT, backward_body,
+                                          backward_smem_bytes,
                                           ssd_scan_backward_kernel,
                                           ssd_scan_backward_plain,
                                           ssd_scan_kernel, ssd_scan_plain)
@@ -534,3 +536,198 @@ def test_backward_wrapper_checks_and_counts_no_cpu_launch():
             *_t(*_grouped_inputs(9, 2, 1, 64, 16, 256)[:5]),
             torch.zeros(2, 1, 256, 16),
             torch.zeros(2, 64, 16), chunk=256)
+
+
+# ---------------------------------------------------------------------------
+# the backward's wgmma body: its roundings, its body choice and its memory
+# ---------------------------------------------------------------------------
+
+BWD_OPERANDS = ("W", "G^T", "W^T", "C o exp(cum)", "h_in", "dh_out")
+
+
+def _ssd_bwd_wgmma_emulated(x, dt, B, C, A, states, dy, chunk, split):
+    """The backward's wgmma body (csrc/ssd_scan_bwd.cu,
+    ``ssd_bwd_sm90_kernel``) on the CPU, in f32, in its order of products:
+    x, dy, B and C are bf16 already, and each of its six f32 operands
+    (``BWD_OPERANDS``) goes in as bf16 hi + lo terms where ``split`` holds
+    its name, rounded to bf16 once elsewhere (``split`` True: all six).
+    The gradients come out in f32 (the kernel rounds dx, dB and dC to bf16
+    only when it stores them).  x (bh, s, dh), B and C (bh, s, n), states
+    (bh, chunks, n, dh)."""
+    if split is True:
+        split = BWD_OPERANDS
+
+    def bf16_operand(name, t):
+        hi = _bf(t)
+        return hi + _bf(t - hi) if name in split else hi
+
+    bh, s, dh = x.shape
+    n = B.shape[-1]
+    a = A[:, None]
+    dx, dB, dC = torch.empty(bh, s, dh), torch.empty(bh, s, n), \
+        torch.empty(bh, s, n)
+    ddt, dA = torch.empty(bh, s), torch.zeros(bh)
+    dh_out = torch.zeros(bh, n, dh)
+    starts = list(range(0, s, chunk))
+    for c in reversed(range(len(starts))):
+        c0, c1 = starts[c], min(starts[c] + chunk, s)
+        xc, dc, Bc, Cc, dyc = (x[:, c0:c1], dt[:, c0:c1], B[:, c0:c1],
+                               C[:, c0:c1], dy[:, c0:c1])
+        h_in = bf16_operand("h_in", states[:, c])
+        h_out = bf16_operand("dh_out", dh_out)
+        cum = torch.cumsum(a * dc, 1)
+        total = cum[:, -1:]
+        idx = torch.arange(c1 - c0)
+        causal = idx[:, None] >= idx[None, :]
+        E = torch.exp((cum[:, :, None] - cum[:, None, :]).masked_fill(
+            ~causal, -1e30))
+        CB = Cc @ Bc.transpose(1, 2)
+        M = dyc @ xc.transpose(1, 2)
+        W = M * E * dc[:, None, :]
+        G = CB * E
+        ec, et = torch.exp(cum), torch.exp(total - cum)
+        w = et * dc
+        # row side: Q, dC; the chunk's own state gradient
+        q = ec * (dyc * (Cc @ h_in)).sum(-1)
+        dC[:, c0:c1] = ec[..., None] * (dyc @ h_in.transpose(1, 2)) \
+            + bf16_operand("W", W) @ Bc
+        own = bf16_operand("C o exp(cum)",
+                           (Cc * ec[..., None]).transpose(1, 2)) @ dyc
+        # column side: B dh_out (R, then dx), dB
+        bdo = Bc @ h_out
+        r = (xc * bdo).sum(-1)
+        dx[:, c0:c1] = dc[..., None] * (
+            bf16_operand("G^T", G.transpose(1, 2)) @ dyc + et[..., None] * bdo)
+        dB[:, c0:c1] = w[..., None] * (xc @ h_out.transpose(1, 2)) \
+            + bf16_operand("W^T", W.transpose(1, 2)) @ Cc
+        # the decay exponents, in f32 (as ssd_common.cuh's decay_gradient)
+        dcum = (CB * W).sum(2) - dc * (G * M).sum(1) + q - w * r
+        dtotal = (w * r).sum(-1, keepdim=True) + torch.exp(total) * (
+            states[:, c] * dh_out).sum((1, 2))[:, None]
+        rev = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,)) \
+            + dtotal
+        ddt[:, c0:c1] = (G * M).sum(1) + et * r + a * rev
+        dA += (dc * rev).sum(-1)
+        dh_out = torch.exp(total)[..., None] * dh_out + own
+    return dx, ddt, dB, dC, dA
+
+
+def _bf16_backward_case(seed, dt_range, bh=3, s=256, dh=64, n=32, chunk=64):
+    """bf16-exact inputs (as f32), the plain forward's entering states, and
+    jax.vjp of ssd_parallel on the same values: the f32 gradients the
+    emulation is held against."""
+    x, dt, B, C, A = _inputs(seed, bh, s, dh, n, dt_range)
+    dy = np.random.RandomState(seed + 100).randn(bh, s, dh).astype(np.float32)
+    x, B, C, dy = (np.asarray(_bf(torch.from_numpy(a))) for a in (x, B, C, dy))
+    ref_grads = _ref_vjp(lambda *a: ssd_parallel(*a, chunk=chunk),
+                         x, dt, B, C, A, dy, 1)
+    t = _t(x, dt, B, C, A, dy)
+    _, states = ssd_scan_plain(*t[:5], chunk=chunk, return_states=True)
+    return t, states, ref_grads, chunk
+
+
+def _rel_errors(got, ref_grads):
+    return {name: float(np.abs(g.numpy() - np.asarray(r)).max()
+                        / np.abs(np.asarray(r)).max())
+            for name, g, r in zip(GRAD_NAMES, got, ref_grads)}
+
+
+@pytest.mark.parametrize("dt_range", [(1e-3, 1e-2), (0.01, 0.51)])
+def test_backward_hi_lo_operands_keep_the_vjp_precision(dt_range):
+    """Fed as hi + lo bf16 terms, the backward's six f32 operands keep the
+    f32 vjp's precision: every gradient of the emulated wgmma body agrees
+    with jax.vjp of ssd_parallel on bf16 inputs to 2e-5 of its largest
+    value (0.9-4.9e-6 at this seed).  Rounded once, they move every
+    gradient by bf16 roundings (1.9e-4 to 2.5e-3), more than ten times the
+    split's, still within the card's 2e-2 bf16 tolerance."""
+    t, states, ref_grads, chunk = _bf16_backward_case(21, dt_range)
+    split = _rel_errors(_ssd_bwd_wgmma_emulated(*t[:5], states, t[5], chunk,
+                                                split=True), ref_grads)
+    once = _rel_errors(_ssd_bwd_wgmma_emulated(*t[:5], states, t[5], chunk,
+                                               split=()), ref_grads)
+    for name in GRAD_NAMES:
+        assert split[name] < 2e-5, (name, split)
+        assert 1e-4 < once[name] < 2e-2, (name, once)
+        assert once[name] > 10 * split[name], (name, split, once)
+
+
+@pytest.mark.parametrize("operand", BWD_OPERANDS)
+def test_backward_every_operand_needs_its_lo_term(operand):
+    """Each f32 operand alone, rounded once while the other five stay
+    split, moves some gradient by more than 1e-4 of its largest value (a
+    bf16 rounding, 1.3-1.6e-3): none of the six can drop its lo term
+    without leaving the f32 vjp's precision."""
+    t, states, ref_grads, chunk = _bf16_backward_case(21, (1e-3, 1e-2))
+    errs = _rel_errors(_ssd_bwd_wgmma_emulated(
+        *t[:5], states, t[5], chunk,
+        split=tuple(o for o in BWD_OPERANDS if o != operand)), ref_grads)
+    assert max(errs.values()) > 1e-4, (operand, errs)
+
+
+def test_backward_emulation_matches_the_plain_backward_ragged():
+    """A ragged length with several chunks, so the chain of state gradients
+    makes several hops: the split emulation against
+    ``ssd_scan_backward_plain`` on the same bf16-exact inputs, 2e-5 x max
+    |g|."""
+    x, dt, B, C, A, dy = _grouped_inputs(12, 4, 1, 300, 64, 32)
+    x, B, C, dy = (np.asarray(_bf(torch.from_numpy(a))) for a in (x, B, C, dy))
+    t = _t(x, dt, B, C, A, dy)
+    _, states = ssd_scan_plain(*t[:5], chunk=64, return_states=True)
+    plain = ssd_scan_backward_plain(*t[:5], states, t[5], 64)
+    got = _ssd_bwd_wgmma_emulated(*t[:5], states, t[5], 64, split=True)
+    _hold(got, [p.numpy() for p in plain], 2e-5, "ragged s 300")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_backward_body_and_its_shared_memory(dtype, chunk):
+    """The body the backward runs at each (dtype, dh, n, chunk): the wgmma
+    body exactly for bf16 at a compiled (dh, n) and chunk, the SIMT body
+    elsewhere; at every compiled instantiation the wgmma body's shared
+    memory (x and dy, B and C, the hi and lo tiles of h_in and dh_out, nine
+    per-row f32 vectors, 1152 extra bytes) fits SMEM_LIMIT, and the
+    wrapper takes the chunk at that shape."""
+    elem = torch.finfo(dtype).bits // 8
+    for dh, n in SSD_SM90_SHAPES + ((32, 32), (64, 32), (128, 128)):
+        wgmma = elem == 2 and (dh, n) in SSD_SM90_SHAPES \
+            and chunk in SSD_SM90_CHUNKS
+        assert backward_body(dh, n, chunk, dtype) == \
+            ("sm90" if wgmma else "simt")
+        smem = backward_smem_bytes(chunk, n, elem, dh)
+        if wgmma:
+            assert smem == (2 * chunk * dh + 2 * chunk * n + 4 * n * dh) * 2 \
+                + 36 * chunk + 1152
+            assert smem <= SMEM_LIMIT, (dh, n, chunk, smem)
+            x = torch.zeros(2, chunk + 5, dh, dtype=dtype)
+            B = torch.zeros(1, chunk + 5, n, dtype=dtype)
+            dt, A = torch.zeros(2, chunk + 5), torch.zeros(2)
+            states = torch.zeros(2, 2, n, dh)
+            got = ssd_scan_backward_kernel(x, dt, B, B, A, states, x,
+                                           chunk=chunk)
+            assert [g.shape for g in got] == [x.shape, dt.shape, B.shape,
+                                              B.shape, A.shape]
+        else:
+            assert smem == backward_smem_bytes(chunk, n, elem)
+
+
+def test_backward_body_option_is_checked():
+    """``body="simt"`` is taken anywhere (the SIMT body runs every shape);
+    ``body="sm90"`` only where the wgmma body is compiled; either computes
+    the plain version on CPU tensors and launches nothing."""
+    bf = torch.bfloat16
+    x, dt, B, C, A, dy = _t(*_grouped_inputs(13, 4, 2, 96, 64, 128))
+    x, B, C, dy = x.to(bf), B.to(bf), C.to(bf), dy.to(bf)
+    _, states = ssd_scan_plain(x, dt, B, C, A, chunk=64, return_states=True)
+    n0 = BACKWARD_LAUNCHES.count
+    ref = ssd_scan_backward_plain(x, dt, B, C, A, states, dy, 64)
+    for body in (None, "simt", "sm90"):
+        got = ssd_scan_backward_kernel(x, dt, B, C, A, states, dy, chunk=64,
+                                       body=body)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert BACKWARD_LAUNCHES.count == n0
+    with pytest.raises(ValueError, match="body"):
+        ssd_scan_backward_kernel(x.float(), dt, B.float(), C.float(), A,
+                                 states, dy.float(), chunk=64, body="sm90")
+    with pytest.raises(ValueError, match="body"):
+        ssd_scan_backward_kernel(x, dt, B, C, A, states, dy, chunk=64,
+                                 body="wgmma")

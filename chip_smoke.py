@@ -18,8 +18,9 @@ out to spawned workers taking turns on the card, watches the serving
 side through the observatory, trains llama3.2-1b at full width through
 the hand-written flash-attention backward kernel, and mamba2-130m,
 qwen3-moe (1 layer), internlm2-1.8b and whisper-medium through it and the
-SSD scan's and the grouped matmul's backward kernels, one phase per
-printed block:
+SSD scan's and the grouped matmul's backward kernels, and gemma2-2b
+through the flash backward with its softcap, window and head dim 256, one
+phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -392,6 +393,31 @@ printed block:
      busy share; then one JSON line ``{"train_more": ...}``.  The
      ``kernels`` line gains the two backward rows and the SSD, grouped
      matmul and flash rows ``train_more_path_launches``.
+ 30. gemma2-2b trained on the card: (a) the flash-attention backward with
+     the forward's softcap and window against ``flash_attention_backward_
+     plain``, bf16 on the wgmma body: gemma2's attention (8 / 4 heads, d
+     256, softcap 50) at S 8192, global (causal) and local (window 4096),
+     and at the training shape B 8 x S 256, where the window trims
+     nothing; grok-1's (48 / 8 heads, d 128, softcap 30) at S 4096; a d 64
+     shape with a window of 1024 at S 4096; and f32 on the SIMT body at a
+     small softcapped and windowed shape; with a softcap q is scaled so
+     the scores have std softcap / 2 (gated: dq, dk, dv each within 2e-2
+     (bf16) / 2e-4 (f32) x max |plain|; the body, and whether its capped
+     kernels ran; with a softcap, the plain backward with no cap and the
+     one without the cap's derivative each fail that gate; two calls
+     bit-equal; no spilled bytes in the wgmma kernels, registers printed
+     at d 256; the profiler sees the three kernels), each timed beside its
+     bound (2.5 x the forward's FLOPs over the pairs the mask leaves, or
+     the bytes) and the plain version; no library time (SDPA takes no
+     softcap); (b) ``TrainLoop`` on gemma2-2b at full width (26 layers,
+     d 2304, bf16, f32 AdamW moments) as phase 29 (b) trains its models,
+     with the flash forward and backward launches made with a window
+     counted too (the counters' ``windowed``; gated as 29 (b), and: 26
+     backward launches a step, 13 of them windowed, the capped wgmma
+     body); (c) one step at B 1 x S 8192, where the window trims the
+     local layers' backward (gated: a finite loss, the windowed backward
+     launched).  The ``kernels`` line gains the backward's row for these
+     paths, ``flash_attention_backward_softcap_window``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -411,8 +437,9 @@ loop's probes and refit and the captured step, flash attention under
 the SSD and the grouped matmul in the farm's workers, the f32 matmul in
 the kill drill, the serving side's probes and the farm's retune) and 28
 (b) (flash attention's forward and backward kernels in ``TrainLoop``) and
-29 (b) (flash attention's, the SSD scan's and the grouped matmul's
-forward and backward kernels in ``TrainLoop``, one path per model):
+29 (b) and 30 (b) (flash attention's, the SSD scan's and the grouped
+matmul's forward and backward kernels in ``TrainLoop``, one path per
+model):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -532,6 +559,20 @@ STEP1_F32 = ("mamba2-130m", "qwen3-moe-235b-a22b")
 BF16_MOMENTS = ("qwen3-moe-235b-a22b",)
 SSD_BWD_SHAPES = (("train", TRAIN_B * 24, 24, TRAIN_S),
                   ("prefill", 24, 24, PREFILL_S))
+# Phase 30: gemma2-2b, its long-context length ([24]'s prefill), and the
+# backward alone: (name, B, S, q heads, kv heads, d, window, softcap,
+# dtype), causal; the window trims nothing at S 256.
+GEMMA2_ARCH = "gemma2-2b"
+GEMMA2_S = 8192
+MASKED_BWD_SHAPES = (
+    ("gemma2_global", 1, GEMMA2_S, 8, 4, 256, None, 50.0, "bf16"),
+    ("gemma2_local", 1, GEMMA2_S, 8, 4, 256, 4096, 50.0, "bf16"),
+    ("gemma2_train_global", TRAIN_B, TRAIN_S, 8, 4, 256, None, 50.0, "bf16"),
+    ("gemma2_train_local", TRAIN_B, TRAIN_S, 8, 4, 256, 4096, 50.0, "bf16"),
+    ("grok1", 1, PREFILL_S, 48, 8, 128, None, 30.0, "bf16"),
+    ("d64_window1024", 1, PREFILL_S, 32, 8, 64, 1024, None, "bf16"),
+    ("f32_simt", 2, 333, 4, 2, 64, 100, 30.0, "f32"),
+)
 
 
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -1193,9 +1234,14 @@ def run(caches: list) -> int:
                       (gmm_row, "moe_gmm"),
                       (train["row"], "flash_attention_backward")):
         row["train_more_path_launches"] = more["launches"][name]
+    gemma = gemma2_phase(dev, gen, time_ms, phase_done, card)
+    for row, name in ((flash_row, "flash_attention"),
+                      (train["row"], "flash_attention_backward")):
+        row["gemma2_path_launches"] = gemma["launches"][name]
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
                                   ln_row, cs_row, simt_row, gmm32_row,
-                                  train["row"], *more["rows"]],
+                                  train["row"], *more["rows"],
+                                  gemma["row"]],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5349,18 +5395,21 @@ def fleet_phase(hw, phase_done, caches: list, card: str,
     return {"launches": launches}
 
 
-def _bwd_bound_ms(bh: int, hkv_rows: int, s: int, d: int) -> tuple[float,
-                                                                    str]:
+def _bwd_bound_ms(bh: int, hkv_rows: int, s: int, d: int,
+                  window: int | None = None,
+                  elem: int = 2) -> tuple[float, str]:
     """Least time of one causal flash-attention backward on the card: q,
     k, v, the output, its gradient and the f32 lse read once, dq, dk and dv
-    written once (bf16), and 2.5 times the forward's FLOPs (five products
-    of 2 d FLOPs per visible pair against two) at the bf16 tensor-core
-    peak."""
-    pairs = _visible_pairs(s, s, True)
-    t_ops = 2.5 * 4.0 * d * bh * pairs / PEAK_BF16
+    written once (``elem`` bytes each), and 2.5 times the forward's FLOPs
+    (five products of 2 d FLOPs per visible pair against two; the window's
+    pairs only) at the tensor-core peak of bf16 inputs (the FP32 rate for
+    f32)."""
+    pairs = _visible_pairs(s, s, True, window)
+    t_ops = 2.5 * 4.0 * d * bh * pairs / (PEAK_BF16 if elem == 2
+                                          else PEAK_F32)
     reads = (3 * bh * s + 2 * hkv_rows * s) * d     # q, o, dO; k, v
     writes = (bh * s + 2 * hkv_rows * s) * d        # dq; dk, dv
-    t_bytes = ((reads + writes) * 2 + bh * s * 4) / HBM_BW
+    t_bytes = ((reads + writes) * elem + bh * s * 4) / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -5376,14 +5425,19 @@ def _leaf_rel(a: dict, b: dict) -> dict:
     return out
 
 
-def _long_context_step(dev, flash) -> dict:
-    """Phase 28 (d): one llama3.2-1b train step at full width, B 1 x S
-    4096 (``loss_and_grads`` and ``adamw_update`` through
-    ``make_train_step``; weights at std 1 / sqrt(fan-in)): a warm-up step,
-    a timed one with its peak memory, and a profiled one for the flash
-    backward's share of device-busy.  Gated: finite losses and that the
-    wgmma backward ran at S 4096; a step that does not fit in memory fails
-    the phase."""
+def _long_context_step(dev, flash, arch: str = "llama3.2-1b",
+                       seq: int = PREFILL_S, part: str = "(d)",
+                       windowed: bool = False) -> dict:
+    """One train step of ``arch`` at full width, B 1 x S ``seq``
+    (``loss_and_grads`` and ``adamw_update`` through ``make_train_step``;
+    weights at std 1 / sqrt(fan-in)): a warm-up step, a timed one with its
+    peak memory, and a profiled one for the flash backward's share of
+    device-busy.  Phase 28 (d) is llama3.2-1b at S 4096, phase 30 (c)
+    gemma2-2b at S 8192 with ``windowed``: the timed step's backward
+    launches made with a window are read and gated.  Gated: finite losses,
+    that the wgmma backward ran at S ``seq``, and with ``windowed`` that a
+    windowed backward ran; a step that does not fit in memory fails the
+    phase."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5392,11 +5446,12 @@ def _long_context_step(dev, flash) -> dict:
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     model = Model(cfg)
-    print(f"  (d) one long-context step: {cfg.name} at full width, B 1 x S "
-          f"{PREFILL_S}, loss_and_grads + adamw_update (gates: finite "
-          f"losses, the wgmma backward ran)", flush=True)
+    print(f"  {part} one long-context step: {cfg.name} at full width, B 1 x "
+          f"S {seq}, loss_and_grads + adamw_update (gates: finite losses, "
+          f"the wgmma backward ran"
+          + (", a windowed backward ran)" if windowed else ")"), flush=True)
     try:
         params = model.init(SEED + 2)
         _fan_in_scaled(model, params)
@@ -5404,7 +5459,7 @@ def _long_context_step(dev, flash) -> dict:
         opt_state = adamw_init(opt_cfg, params)
         step = make_train_step(model, opt_cfg)
         batch = {"tokens": torch.as_tensor(SyntheticStream(SyntheticConfig(
-            cfg.vocab_size, PREFILL_S, 1, seed=SEED + 2)).next_batch()[
+            cfg.vocab_size, seq, 1, seed=SEED + 2)).next_batch()[
                 "tokens"], device=dev)}
         params, opt_state, m0 = step(params, opt_state, batch)   # warm-up
         torch.cuda.synchronize()
@@ -5415,14 +5470,16 @@ def _long_context_step(dev, flash) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
-        ran = flash.BACKWARD_LAUNCHES.tiles.get((32, PREFILL_S, PREFILL_S,
-                                                 64, True), {})
+        ran = flash.BACKWARD_LAUNCHES.tiles.get(
+            (cfg.n_heads, seq, seq, cfg.head_dim, True), {})
         launches = flash.BACKWARD_LAUNCHES.count
+        n_windowed = flash.BACKWARD_LAUNCHES.windowed.count if windowed \
+            else None
         losses = [float(m0["loss"]), float(m1["loss"])]
         out = {}
         prof = _device_profile(
             lambda: out.update(m=step(params, opt_state, batch)[2]),
-            f"one train step at B 1 x S {PREFILL_S}",
+            f"one {cfg.name} train step at B 1 x S {seq}",
             groups=TRAIN_PROFILE_GROUPS, ranges=("adamw_update",))
         losses.append(float(out["m"]["loss"]))
     finally:
@@ -5430,18 +5487,24 @@ def _long_context_step(dev, flash) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     share = prof["flash_bwd"] / prof["busy_ms"] if prof else float("nan")
-    print(f"  (d) {step_ms:.2f} ms a step (the second), peak memory "
+    print(f"  {part} {step_ms:.2f} ms a step (the second), peak memory "
           f"{peak:.2f} GiB, losses {', '.join(f'{x:.4f}' for x in losses)}; "
-          f"flash backward {launches} launches a step, body {ran}, "
-          f"{share:.1%} of device-busy", flush=True)
+          f"flash backward {launches} launches a step"
+          + (f" ({n_windowed} windowed)" if windowed else "")
+          + f", body {ran}, {share:.1%} of device-busy", flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"a long-context loss is not finite: {losses}")
     if not launches or ran.get("body") != "wgmma":
         raise AssertionError(f"the long-context step ran the flash backward "
                              f"{launches} times, body {ran}")
-    return {"step_ms": step_ms, "peak_gib": peak,
-            "losses": losses, "flash_bwd_launches": launches,
-            "flash_bwd_share": share, "profile": prof}
+    if windowed and not n_windowed:
+        raise AssertionError(f"the long-context step ran no windowed flash "
+                             f"backward ({launches} launches)")
+    return {"arch": cfg.name, "seq": seq, "step_ms": step_ms,
+            "peak_gib": peak, "losses": losses,
+            "flash_bwd_launches": launches,
+            "flash_bwd_windowed": n_windowed, "flash_bwd_share": share,
+            "profile": prof}
 
 
 def train_phase(dev, hw, gen, check, time_ms, phase_done,
@@ -5480,7 +5543,7 @@ def train_phase(dev, hw, gen, check, time_ms, phase_done,
           "max |plain|; the wgmma body ran; two calls bit-equal; no spilled "
           "bytes in the wgmma kernels; the profiler sees each of its three "
           "kernels)", flush=True)
-    for hd in flash.BACKWARD_HEAD_DIMS:
+    for hd in flash.SIMT_BACKWARD_HEAD_DIMS:      # d 256: phase 30
         for dt, body in ((torch.float32, "f32 SIMT"),
                          (torch.bfloat16, "bf16 wgmma")):
             attrs = {k: flash.backward_attributes(dt, hd, k)
@@ -6049,10 +6112,13 @@ def _gmm_backward_alone(dev, gen, time_ms) -> list:
     return rows
 
 
-def _train_model(dev, gen, arch: str, n_layers, index: int) -> dict:
-    """Phase 29 (b) for one model: the step-1 gradient against the plain
-    ops' step, then ``TrainLoop`` with every launch counter set to 0 just
-    before it and read just after; one more step profiled."""
+def _train_model(dev, gen, arch: str, n_layers, index: int,
+                 extra: dict | None = None) -> dict:
+    """Phase 29 (b) (and 30 (b)) for one model: the step-1 gradient against
+    the plain ops' step, then ``TrainLoop`` with every launch counter (and
+    each of ``extra``, name -> an object with ``reset()`` and ``count``)
+    set to 0 just before it and read just after; one more step
+    profiled."""
     import numpy as np
     import torch
 
@@ -6179,7 +6245,7 @@ def _train_model(dev, gen, arch: str, n_layers, index: int) -> dict:
     loop = TrainLoop(cfg, preset, seed=SEED, params=params, opt_cfg=opt_cfg)
     loop.init_state()
     loop.initial_params = params = None   # the loop trains its own copy
-    counters = _train_more_counters()
+    counters = {**_train_more_counters(), **(extra or {})}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -6337,6 +6403,288 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
             if name == "moe_gmm_backward" else None,
             "shapes": shapes})
     return {"rows": out_rows, "launches": launches}
+
+
+
+def _backward_without_cap_derivative(q, k, v, out, dout, lse, *,
+                                     num_q_heads: int, num_kv_heads: int,
+                                     causal: bool, window, softcap: float):
+    """dq and dk of capped attention with dS = P (dP - delta), the cap's
+    derivative left out (P from the capped score, as in
+    ``flash_attention_backward_plain``): the control that shows phase
+    30 (a)'s gate fails a kernel that drops it."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    bhq, sq, d = q.shape
+    skv = k.shape[1]
+    b, group, scale = bhq // num_q_heads, num_q_heads // num_kv_heads, \
+        d ** -0.5
+    qf, of, dof = (t.float().reshape(b, num_kv_heads, group, sq, d)
+                   for t in (q, out, dout))
+    kf, vf = (t.float().reshape(b, num_kv_heads, skv, d) for t in (k, v))
+    l = lse.reshape(b, num_kv_heads, group, sq, 1)
+    seen = flash._visible(sq, skv, causal, window, 0, 0, q.device) \
+        & torch.isfinite(l)
+    s = softcap * torch.tanh(
+        torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * (scale / softcap))
+    p = torch.exp(s - l.masked_fill(~torch.isfinite(l), 0.0)) \
+        .masked_fill(~seen, 0.0)
+    del s
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+              - (dof * of).sum(-1, keepdim=True))
+    del p
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return dq.reshape(bhq, sq, d), dk.reshape(-1, skv, d)
+
+
+def _masked_backward_alone(dev, gen, time_ms) -> tuple[list, float, dict]:
+    """Phase 30 (a): the backward at each of ``MASKED_BWD_SHAPES`` against
+    its plain version on the forward's output and lse, timed beside its
+    bound and the plain version; then one profile of 10 calls at each
+    bf16 shape.  With a softcap, q is scaled so that the scores scale q.k
+    have std softcap / 2 and the cap bends them; two controls must then
+    fail the same gate against the plain version: the plain backward with
+    no cap (a kernel that ran its uncapped instantiation on the capped
+    lse) and the one without the cap's derivative in dS.  Returns (rows,
+    the largest absolute error, the profile's device time by kernel)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    rows, calls = [], []
+    worst = 0.0
+    for name, B, S, hq, hkv, d, window, softcap, dt in MASKED_BWD_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        q = torch.randn(B * hq, S, d, generator=gen, device=dev)
+        if softcap:
+            q *= softcap / 2            # scores of std softcap / 2
+        q = q.to(dtype)
+        k, v = (torch.randn(B * hkv, S, d, generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=True,
+                  window=window, softcap=softcap)
+        if dtype == torch.float32:
+            tiles = dict(bq=32, bkv=64)
+        else:
+            tiles = dict(bq=64, bkv=64 if d == 256 else 128)
+        out0 = flash.flash_attention_kernel(q, k, v, **tiles, **kw)
+        out, lse = flash.flash_attention_kernel(q, k, v, **tiles, **kw,
+                                                return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out0):
+            raise AssertionError(f"{name}: the forward's output changed "
+                                 f"when it also wrote lse")
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+
+        def bwd(q=q, k=k, v=v, out=out, dout=dout, lse=lse, kw=kw):
+            return flash.flash_attention_backward_kernel(q, k, v, out, dout,
+                                                         lse, **kw)
+
+        def plain(q=q, k=k, v=v, out=out, dout=dout, lse=lse, kw=kw):
+            return flash.flash_attention_backward_plain(q, k, v, out, dout,
+                                                        lse, **kw)
+
+        got, again = bwd(), bwd()
+        ran = flash.BACKWARD_LAUNCHES.tiles[(B * hq, S, S, d, True)]
+        ref = plain()
+        torch.cuda.synchronize()
+        body = flash.backward_body(dtype, d)
+        if ran["body"] != body or ran["capped"] != (softcap is not None):
+            raise AssertionError(f"{name}: ran {ran}, not the {body} body "
+                                 f"with capped={softcap is not None}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
+        errs = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: non-finite {gname}")
+            scale = float(r.float().abs().max())
+            errs[gname] = float((g.float() - r.float()).abs().max()) / scale
+            if not errs[gname] <= tol:
+                raise AssertionError(f"{name}: {gname} differs from the "
+                                     f"plain backward by {errs[gname]:.3e} "
+                                     f"of max |plain| (gate {tol:g})")
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        worst = max(worst, err)
+        del got, again
+        controls = {}
+        if softcap:
+            uncapped = flash.flash_attention_backward_plain(
+                q, k, v, out, dout, lse, **{**kw, "softcap": None})
+            no_g = _backward_without_cap_derivative(q, k, v, out, dout, lse,
+                                                    **kw)
+            for cname, grads in (("uncapped", uncapped), ("no_g", no_g)):
+                # non-finite (exp of uncapped scores overflows): recorded
+                # as None, and it fails the gate
+                e = max(float(torch.nan_to_num(
+                    (c.float() - r.float()).abs().max(), nan=math.inf))
+                        / float(r.float().abs().max())
+                        for c, r in zip(grads, ref))
+                controls[cname] = e if math.isfinite(e) else None
+                if e <= tol:
+                    raise AssertionError(
+                        f"{name}: the {cname} control is within the gate "
+                        f"({e:.3e} <= {tol:g}): the inputs do not exercise "
+                        f"the cap")
+            del uncapped, no_g
+        del ref
+        bound, bound_by = _bwd_bound_ms(B * hq, B * hkv, S, d, window,
+                                        q.element_size())
+        ms = time_ms(bwd)
+        plain_ms = time_ms(plain, max_iters=1)
+        row = {"shape": name, "bh": B * hq, "s": S, "d": d,
+               "gqa": hq // hkv, "window": window, "softcap": softcap,
+               "dtype": dt, "body": body, "rel_err": errs,
+               "control_rel_err": controls,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "pct_of_bound": 100.0 * bound / ms, "library_ms": None}
+        rows.append(row)
+        print(f"  {name} (bh {B * hq}, S {S}, d {d}, GQA {hq // hkv}, "
+              f"window {window}, softcap {softcap}, {dt}): rel err dq "
+              f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} "
+              f"ok, {body} body, two calls bit-equal"
+              + "".join(f"; control {c} "
+                        + ("non-finite" if e is None else f"{e:.3g}")
+                        + " fails the gate" for c, e in controls.items())
+              + f"; kernel {ms:.4f} ms "
+              f"({row['pct_of_bound']:.1f} % of bound) | plain "
+              f"{plain_ms:.3f} ms | bound {bound:.4f} ms ({bound_by}) | "
+              f"library: none (SDPA takes no softcap)", flush=True)
+        if dtype == torch.bfloat16:
+            calls.append(bwd)
+        del q, k, v, out, out0, lse, dout
+        torch.cuda.empty_cache()
+
+    def profiled():
+        # as in phase 28 (a): host waits on both sides keep the calls clear
+        # of the ends of the window, where the profiler loses kernels
+        time.sleep(BWD_PROFILE_PAD_S)
+        for fn in calls:
+            for _ in range(BWD_PROFILE_CALLS):
+                fn()
+        torch.cuda.synchronize()
+        time.sleep(BWD_PROFILE_PAD_S)
+
+    prof = _device_profile(
+        profiled, f"{BWD_PROFILE_CALLS} backward calls at each bf16 shape",
+        groups=BWD_SPLIT_GROUPS, cpu=False)
+    if not prof or not all(prof[g] > 0 for g, _ in BWD_SPLIT_GROUPS):
+        raise AssertionError(f"the profile shows not all of the backward's "
+                             f"kernels: {prof}")
+    del calls
+    torch.cuda.empty_cache()
+    return rows, worst, prof
+
+
+def gemma2_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
+    """Phase 30: gemma2-2b trained on the card.  (a) the flash-attention
+    backward with the forward's softcap and window alone
+    (``_masked_backward_alone``); (b) ``TrainLoop`` on gemma2-2b at full
+    width (``_train_model``, the windowed launches read from the flash
+    counters' ``windowed``);
+    (c) one step at B 1 x S 8192 (``_long_context_step``).  Returns the
+    backward's row of the ``kernels`` line for these paths and each flash
+    kernel's launches on the training path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+
+    t_phase = time.perf_counter()
+    print(f"[30] {GEMMA2_ARCH} trained on the card.  (a) the flash-attention "
+          f"backward with the forward's softcap and window "
+          f"(csrc/flash_attention_bwd.cu: bf16 on the wgmma body, two dK / "
+          f"dV warpgroups at d 256; f32 on the SIMT body) against "
+          f"flash_attention_backward_plain at gemma2-2b's attention (8 / 4 "
+          f"heads, d 256, softcap 50; global and window 4096) at S "
+          f"{GEMMA2_S} and B {TRAIN_B} x S {TRAIN_S}, grok-1's (48 / 8 "
+          f"heads, d 128, softcap 30) at S {PREFILL_S}, d 64 with a window "
+          f"of 1024, and f32 at a small shape (gates: each of dq, dk, dv "
+          f"within 2e-2 (bf16) / 2e-4 (f32) x max |plain|; the body; two "
+          f"calls bit-equal; no spilled bytes in the wgmma kernels; the "
+          f"profiler sees each of its three kernels)", flush=True)
+    for d in flash.BACKWARD_HEAD_DIMS:
+        attrs = {k: flash.backward_attributes(torch.bfloat16, d, k)
+                 for k in flash.BACKWARD_KERNELS}
+        attrs.update({f"{k}_softcap": flash.backward_attributes(
+            torch.bfloat16, d, k, capped=True) for k in ("dkdv", "dq")})
+        print(f"  registers / spilled bytes, bf16 wgmma body, d {d}: "
+              + ", ".join(f"{k} {a['num_regs']} / {a['local_bytes']}"
+                          for k, a in attrs.items()), flush=True)
+        if any(a["local_bytes"] for a in attrs.values()):
+            raise AssertionError(f"the wgmma backward spills at d {d}: "
+                                 f"{attrs}")
+    rows, worst, split = _masked_backward_alone(dev, gen, time_ms)
+
+    # -- (b) TrainLoop on gemma2-2b at full width ----------------------------
+    cfg = get_config(GEMMA2_ARCH)
+    per_step = cfg.n_layers
+    windowed_per_step = sum(
+        cfg.block_pattern[i % len(cfg.block_pattern)].window is not None
+        for i in range(cfg.n_layers))
+    fwd_per_layer = 2 if cfg.remat == "full" else 1   # remat runs it again
+    print(f"  (b) TrainLoop at full width, bf16, f32 AdamW moments, B "
+          f"{TRAIN_B} x S {TRAIN_S} from SyntheticStream, weights at std 1 / "
+          f"sqrt(fan-in), {TRAIN_MORE_STEPS} steps; gated as phase 29 (b), "
+          f"and: {per_step} backward launches a step, {windowed_per_step} "
+          f"of them windowed, and {fwd_per_layer * per_step} forward "
+          f"launches a step (remat {cfg.remat!r}), "
+          f"{fwd_per_layer * windowed_per_step} windowed", flush=True)
+    model = _train_model(dev, gen, GEMMA2_ARCH, None, len(TRAIN_MORE),
+                         extra={"flash_attention_windowed":
+                                    flash.LAUNCHES.windowed,
+                                "flash_attention_backward_windowed":
+                                    flash.BACKWARD_LAUNCHES.windowed})
+    launches = model["launches"]
+    want = {"flash_attention": fwd_per_layer * per_step,
+            "flash_attention_windowed": fwd_per_layer * windowed_per_step,
+            "flash_attention_backward": per_step,
+            "flash_attention_backward_windowed": windowed_per_step}
+    got = {k: launches[k] / TRAIN_MORE_STEPS for k in want}
+    if got != want:
+        raise AssertionError(f"{GEMMA2_ARCH}: launches a step {got}, "
+                             f"expected {want}")
+    ran = flash.BACKWARD_LAUNCHES.tiles[
+        (TRAIN_B * cfg.n_heads, TRAIN_S, TRAIN_S, cfg.head_dim, True)]
+    if ran != {"body": "wgmma", "capped": True}:
+        raise AssertionError(f"{GEMMA2_ARCH}: the training path's backward "
+                             f"ran {ran}, not the capped wgmma body")
+    # -- (c) one step at S 8192 ----------------------------------------------
+    long_step = _long_context_step(dev, flash, GEMMA2_ARCH, GEMMA2_S, "(c)",
+                                   windowed=True)
+    print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    phase_done(30)
+    print(json.dumps({"gemma2": {"backward_alone": rows,
+                                 "backward_split": split, "model": model,
+                                 "long_context_step": long_step},
+                      "card": card}, default=str))
+    row = {
+        "name": "flash_attention_backward_softcap_window",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:70",
+        "replaces_note": "no TPU kernel: the JAX package differentiates "
+                         "flash_attention_ref (window=, softcap=) with XLA",
+        "launches": launches["flash_attention_backward"],
+        "windowed_launches": launches["flash_attention_backward_windowed"],
+        "long_context_launches": long_step["flash_bwd_launches"],
+        "max_abs_err": worst,
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in rows) else "bytes",
+        "library_ms": None,
+        "library_note": "none: SDPA takes no softcap",
+        "shapes": rows,
+    }
+    return {"row": row, "launches": launches}
 
 
 if __name__ == "__main__":

@@ -3,9 +3,12 @@
 //   dq[bh, i] = scale * sum_j ds[i, j] k[kvh, j]
 //   dk[kvh, j] = scale * sum_{bh in kvh's group, i} ds[i, j] q[bh, i]
 //   dv[kvh, j] = sum_{bh in kvh's group, i} p[i, j] do[bh, i]
-// with p[i, j] = exp(scale * q[bh, i] . k[kvh, j] - lse[bh, i]) on the
-// visible (query, key) pairs (causal or not; GQA), dp[i, j] = do[bh, i] .
-// v[kvh, j] and ds = p * (dp - delta[bh, i]), delta = rowsum(do * o).
+// with c[i, j] = scale * q[bh, i] . k[kvh, j], soft-capped to softcap *
+// tanh(c / softcap) when a cap is given, p[i, j] = exp(c[i, j] - lse[bh, i])
+// on the visible (query, key) pairs (causal or not, a sliding window
+// qpos - kpos < window or none; GQA), dp[i, j] = do[bh, i] . v[kvh, j] and
+// ds = p * (dp - delta[bh, i]) * g, delta = rowsum(do * o), g = 1 - (c /
+// softcap)^2 the cap's derivative (1 with no cap).
 //
 // Replaces no TPU kernel: the JAX package trains with its plain attention
 // (use_pallas=False) and takes XLA's autodiff of it
@@ -27,44 +30,70 @@
 // tensor-core rate (989 TFLOP/s), 0.174 ms.  At its training shape (bh 256,
 // S 256) it is 5.4 GFLOP on 42 MB: bound by bytes (3.35 TB/s), 12.6 us.
 //
+// The window and the cap.  Every kernel takes them as the forward does
+// (flash_attention.cu): the window trims each CTA's range of blocks -- a kv
+// block at k0 sees q rows below k0 + 63 + window, a q block at q0 sees kv
+// rows from q0 - window + 1 -- and only the blocks that straddle an edge
+// (the diagonal, the window's far edge, skv) test each pair.  With a cap,
+// P must come from exactly the capped score the forward normalised, or its
+// rows no longer sum to 1 and dV drifts with no single element far off: the
+// wgmma body recomputes it by the forward's own formula in the log2 domain,
+// x = post - 2 post / (2^(pre s) + 1) (pre = 2 scale log2(e) / softcap, post
+// = softcap log2(e)), and g = 1 - (x / post)^2 goes into dS in registers
+// before dS is rounded to bf16; the SIMT body uses tanhf as its forward
+// does.  What the first wgmma version of this taught on the card (PERF.md
+// §6): with the cap tested per score at run time and every block
+// testing each score against the mask, llama's uncapped shapes ran 37-46 %
+// slower than before the cap and window came in.  So the cap is a template
+// parameter of both wgmma kernels (kCapped: the uncapped ones hold no trace
+// of it), P is formed by one of two copies of its loop -- the blocks that
+// straddle an edge test each score against its row's visible range, one
+// unsigned compare (Range), the others test nothing -- and the uncapped
+// d 64 dQ kernel is held to 128 registers for four CTAs an SM
+// (dq_min_ctas).  What is left is within a few per cent of the kernels
+// before them at llama's and internlm2's shapes.
+//
 // Two bodies, one C interface.
 //
-// bf16 at head dims 64 and 128 -- the wgmma + TMA-ring body, three kernels:
+// bf16 at head dims 64, 128 and 256 -- the wgmma + TMA-ring body, three
+// kernels:
 //   * flash_bwd_prep_kernel: one warp per row; delta = rowsum(do * o) and
 //     lse2 = lse * log2(e), both f32 (bh, sq_pad) with sq_pad = sq rounded up
 //     to 64.  A row that sees no key (lse -inf) and a padding row get
 //     lse2 = +inf, so 2^(x - lse2) is exactly 0 there with no test in the
 //     products' loops; padding rows get delta 0.  Padded rows keep every
 //     64-row run of lse2 and delta 256-byte aligned for the bulk copy.
-//   * flash_bwd_dkdv_sm90_kernel<D>: one CTA per (b * hkv, block of 64 kv
-//     rows), one consumer warpgroup (128 threads).  Thread 0 loads the
-//     (64, D) K and V tiles once by TMA (3-D maps over (d, s,
-//     b * heads), 128-byte swizzle, a ragged tail zero-filled), then walks
-//     the (q head of the group, 64-row q block) pairs that can see the block
-//     -- from the diagonal on when causal -- loading each pair's Q and dO
-//     tiles by TMA and its 64 lse2 and delta values by bulk copy into a ring
-//     of kStages slots with full and empty mbarriers, the forward's
-//     protocol.  Per pair a warpgroup computes
+//   * flash_bwd_dkdv_sm90_kernel<D, kCapped>: one CTA per (b * hkv, block
+//     of 64 kv rows), one consumer warpgroup (128 threads) at D 64 and
+//     128, two at D 256.  Thread 0 loads the (64, D) K and V tiles once by TMA (3-D maps
+//     over (d, s, b * heads), 128-byte swizzle, a ragged tail zero-filled),
+//     then walks the (q head of the group, 64-row q block) pairs that can
+//     see the block -- from the diagonal on when causal, up to the window's
+//     edge with one -- loading each pair's Q and dO tiles by TMA and its 64
+//     lse2 and delta values by bulk copy into a ring of kStages slots with
+//     full and empty mbarriers, the forward's protocol.  Per pair a
+//     warpgroup computes
 //       S^T = K Q^T      Wgmma<64, kKMajor>, A = K, B = Q (both K-major),
-//       P^T = 2^(S^T scale log2(e) - lse2[col]) in registers,
+//       P^T = 2^(x(S^T) - lse2[col]) in registers,
 //       dP^T = V dO^T    Wgmma<64, kKMajor>, A = V, B = dO,
-//       dV += P^T dO     WgmmaRS<D>: P^T's accumulator fragment is the A
+//       dV += P^T dO     WgmmaRS<DW>: P^T's accumulator fragment is the A
 //                        fragment (flash_attention.cu's note), B = dO read
 //                        MN-major from the same tile under a second
 //                        descriptor (the transpose bit),
-//       dS^T = P^T (dP^T - delta[col]) in registers,
-//       dK += dS^T Q     WgmmaRS<D>, B = Q MN-major.
+//       dS^T = P^T g (dP^T - delta[col]) in registers,
+//       dK += dS^T Q     WgmmaRS<DW>, B = Q MN-major,
+//     DW = D / warpgroups: the columns of dK and dV a warpgroup holds.
 //     lse2 and delta are indexed by column, read from the slot.  dV's
-//     product is in flight while dS^T is formed (at D = 64; at D = 128 its
+//     product is in flight while dS^T is formed (at DW = 64; at DW = 128 its
 //     A fragments would cost the registers dS^T needs).  The epilogue
 //     scales dK, converts both to bf16 and writes rows clipped at skv.
-//   * flash_bwd_dq_sm90_kernel<D>: one CTA per (b * hq, block of 64 q rows),
-//     one warpgroup.  Q and dO come in once by TMA and
+//   * flash_bwd_dq_sm90_kernel<D, kCapped>: one CTA per (b * hq, block of
+//     64 q rows), one warpgroup.  Q and dO come in once by TMA and
 //     the rows' lse2 and delta once into registers; the (64, D) K and V tiles
 //     of each visible kv block stream through the ring.  Per block
 //       S = Q K^T, dP = dO V^T   Wgmma<64, kKMajor>, issued together,
-//       P and dS = P (dP - delta[row]) in registers, masked on the blocks
-//       that straddle the diagonal or skv,
+//       P g and dS = P g (dP - delta[row]) in registers, masked on the
+//       blocks that straddle the diagonal, the window's edge or skv,
 //       dQ += dS K               WgmmaRS<D>, B = K MN-major.
 //     The epilogue scales dQ, converts it to bf16 and writes rows clipped
 //     at sq.
@@ -77,10 +106,20 @@
 //   and dV are 2 x 64 x 128 f32 / 128 threads = 128 registers a thread
 //   before S^T and dP^T (32 each), so P^T's bf16 fragments are formed
 //   before dP^T is issued and __launch_bounds__(128, 1) lets a thread have
-//   255 with no spill (chip_smoke.py [28] gates zero spilled bytes).  What
-//   is left is latency: within a warpgroup each product waits for the one
-//   it feeds on (S^T, then P^T, then dV and dS^T, then dK), and the CTAs an
-//   SM holds fill few of the gaps, so the tensor cores idle most of a step;
+//   255 with no spill (chip_smoke.py [28] gates zero spilled bytes).  At
+//   D = 256 they would be 256 registers a thread, over the 255 a thread can
+//   have, so dK / dV splits D over two consumer warpgroups: each holds dK
+//   and dV for 128 columns (the D = 128 kernel's registers) and recomputes
+//   S^T and dP^T over the full D itself.  That costs two of the seven
+//   products twice (9 against 7 per visible pair), where an exchange of
+//   P^T and dS^T through shared memory would need 32 KB more than the 195
+//   KB of K, V and the two ring slots leave under the 227 KB opt-in, and
+//   two passes over the q blocks (dV, then dK) would cost the same products
+//   twice and the loads of Q and dO twice as well.  dQ at D = 256 keeps one
+//   warpgroup: 128 accumulator registers plus S and dP (32 each).  What is
+//   left is latency: within a warpgroup each product waits for the one it
+//   feeds on (S^T, then P^T, then dV and dS^T, then dK), and the CTAs an SM
+//   holds fill few of the gaps, so the tensor cores idle most of a step;
 //   the dK / dV kernel takes most of the time.  Both kernels work on 64-row
 //   blocks: 128-row blocks (two warpgroups a CTA) were no faster at the
 //   shapes PERF.md §6 lists.  A deeper ring, a register cap for a third CTA
@@ -110,10 +149,11 @@
 //   (a row's stride is 4 words past a multiple of 32 banks, so the 16-byte
 //   reads of 8 consecutive rows fall in 32 distinct banks), rows past sq or
 //   skv zero-filled by the copy.  P and dS go through f32 shared memory, rows
-//   padded by 16 words.  Every product is FP32 FMAs.
+//   padded by 16 words.  Every product is FP32 FMAs.  Head dims 64 and 128:
+//   at 256 its four staged tiles and two P / dS tiles need 307 KB of shared
+//   memory, so the wrapper refuses f32 at head dim 256.
 //
-// Head dims 64 and 128, any sq and skv.  Softcap and window are not taken:
-// the wrapper refuses them.
+// Any sq and skv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,6 +169,68 @@ constexpr int kTile = 64;              // q rows and kv rows per block
 constexpr int kLdp = kTile + 16;       // f32 row stride of the P and dS tiles
 
 enum DType { kF32 = 0, kBF16 = 1 };
+
+// A compile-time flag for a generic lambda's argument (std::integral_constant
+// converts to bool on the host only).
+template <bool B> struct Flag {
+  static constexpr bool value = B;
+};
+
+// A range of positions [lo, lo + span) tested with one unsigned compare.
+struct Range {
+  unsigned lo, span;
+  __host__ __device__ bool has(int pos) const { return (unsigned)pos - lo < span; }
+  __host__ __device__ static Range of(long long lo, long long hi) {
+    return {(unsigned)lo, hi > lo ? (unsigned)(hi - lo) : 0u};
+  }
+};
+
+// Which (query, key) pairs attention computes, and the score's scale and cap
+// (softcap <= 0: none): the forward's arguments, one struct for all kernels.
+struct Attn {
+  float scale;
+  float softcap;
+  int causal;
+  int has_window;
+  int window;
+  __host__ __device__ bool visible(int qpos, int kpos) const {
+    return (!causal || kpos <= qpos) && (!has_window || qpos - kpos < window);
+  }
+  // First q row of a kv block at k0 that can see it, and the row past the
+  // last (64-row blocks; q_end <= q_begin: none).
+  __host__ __device__ int q_begin(int k0) const { return causal ? k0 : 0; }
+  __host__ __device__ int q_end(int k0, int sq) const {
+    if (!has_window) return sq;
+    const long long e = (long long)k0 + 63 + window;   // qpos - kpos < window
+    return (int)(e < sq ? (e > 0 ? e : 0) : sq);
+  }
+  // First kv row of the 64-row block where a q block at q0 starts seeing
+  // keys (a multiple of 64, at most skv), and the kv row past the last.
+  __host__ __device__ int kv_begin(int q0, int skv) const {
+    if (!has_window) return 0;
+    const long long lo = (long long)q0 - window + 1;  // first key row q0 sees
+    return lo > 0 ? (int)(lo / 64 * 64 < skv ? lo / 64 * 64 : skv) : 0;
+  }
+  __host__ __device__ int kv_end(int q0, int skv) const {
+    return causal ? (q0 + 64 < skv ? q0 + 64 : skv) : skv;
+  }
+  // The keys below skv query qpos sees, and the queries that see key kpos:
+  // what the wgmma kernels test each score against, one compare a score.
+  __host__ __device__ Range keys_of(int qpos, int skv) const {
+    const long long lo = has_window ? (long long)qpos - window + 1 : 0;
+    const long long hi = causal ? (qpos + 1LL < skv ? qpos + 1LL : skv) : skv;
+    return Range::of(lo > 0 ? lo : 0, hi);
+  }
+  __host__ __device__ Range queries_of(int kpos) const {
+    const long long hi = has_window ? (long long)kpos + window : 0x7fffffffLL;
+    return Range::of(causal ? kpos : 0, hi < 0x7fffffffLL ? hi : 0x7fffffffLL);
+  }
+  // Whether the 64 x 64 block of q rows from q0 and kv rows from k0 holds a
+  // pair that is not visible (tails past sq or skv aside).
+  __host__ __device__ bool straddles(int q0, int k0) const {
+    return (causal && q0 < k0 + 63) || (has_window && q0 + 63 - k0 >= window);
+  }
+};
 
 // Elements per 16-byte chunk, and the padded row stride of a staged tile.
 template <typename T> constexpr int kVec = 16 / sizeof(T);
@@ -272,13 +374,13 @@ __device__ __forceinline__ void write_rows(T* dst, int row0, int rows, int ty, i
 }
 
 // P and dS of one 64 x 64 tile from its scores s and dp: ps[row][col] = p,
-// dss[row][col] = p (dp - delta[row]); p = 0 off the visible pairs and on
-// rows that see no key (lse -inf).
+// dss[row][col] = p g (dp - delta[row]); p = 0 off the visible pairs and on
+// rows that see no key (lse -inf).  The cap as the SIMT forward takes it:
+// c = softcap tanhf(scale s / softcap), g = 1 - (c / softcap)^2.
 __device__ __forceinline__ void softmax_grad(const float (&s)[4][4], const float (&dp)[4][4],
                                              const float* lses, const float* dels,
                                              float* ps, float* dss, int q0, int k0, int sq,
-                                             int skv, float scale, int causal, int ty,
-                                             int tx) {
+                                             int skv, const Attn& at, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = ty + 16 * i;
@@ -289,11 +391,18 @@ __device__ __forceinline__ void softmax_grad(const float (&s)[4][4], const float
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
       const int kpos = k0 + col;
-      const bool vis = qpos < sq && kpos < skv && (!causal || kpos <= qpos) &&
+      const bool vis = qpos < sq && kpos < skv && at.visible(qpos, kpos) &&
                        lse != -INFINITY;
-      const float p = vis ? expf(fmaf(s[i][j], scale, -lse)) : 0.0f;
+      float c = s[i][j] * at.scale;
+      float g = 1.0f;
+      if (at.softcap > 0.0f) {
+        const float t = tanhf(c / at.softcap);
+        c = at.softcap * t;
+        g = fmaf(-t, t, 1.0f);
+      }
+      const float p = vis ? expf(c - lse) : 0.0f;
       if (ps != nullptr) ps[row * kLdp + col] = p;
-      dss[row * kLdp + col] = p * (dp[i][j] - delta);
+      dss[row * kLdp + col] = p * g * (dp[i][j] - delta);
     }
   }
 }
@@ -345,7 +454,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int sq, int skv, int hq,
-                      int hkv, float scale, int causal) {
+                      int hkv, Attn at) {
   constexpr int LD = kLd<T, D>;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -374,11 +483,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
 
-  // q rows before k0 see no key of this block when causal
-  const int q_begin = causal ? k0 : 0;
+  // q rows before k0 see no key of this block when causal, and rows from
+  // k0 + 63 + window none with a window
+  const int q_begin = at.q_begin(k0);
+  const int q_end = at.q_end(k0, sq);
   for (int g = 0; g < group; ++g) {
     const int bh = b * hq + kvh * group + g;
-    for (int q0 = q_begin; q0 < sq; q0 += kTile) {
+    for (int q0 = q_begin; q0 < q_end; q0 += kTile) {
       __syncthreads();   // the last iteration is done with qs, dos, ps, dss
       stage<T, D>(qs, q + ((size_t)bh * sq + q0) * D, sq - q0);
       stage<T, D>(dos, dout + ((size_t)bh * sq + q0) * D, sq - q0);
@@ -388,16 +499,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[4][4], dp[4][4];
       tile_abt<T, D>(qs, ks, ty, tx, s);
       tile_abt<T, D>(dos, vs, ty, tx, dp);
-      softmax_grad(s, dp, lses, dels, ps, dss, q0, k0, sq, skv, scale, causal, ty, tx);
+      softmax_grad(s, dp, lses, dels, ps, dss, q0, k0, sq, skv, at, ty, tx);
       __syncthreads();
       tile_acc<T, D, true>(ps, dos, ty, tx, dv_acc);    // dV += P^T dO
       tile_acc<T, D, true>(dss, qs, ty, tx, dk_acc);    // dK += dS^T Q
     }
   }
-  if (q_begin >= sq) cp_async_wait_all();     // no q row: K and V still in flight
+  cp_async_wait_all();     // no q row: K and V may still be in flight
   T* dkg = dk + (size_t)bkv * skv * D;
   T* dvg = dv + (size_t)bkv * skv * D;
-  write_rows<T, D>(dkg, k0, skv, ty, tx, dk_acc, scale);
+  write_rows<T, D>(dkg, k0, skv, ty, tx, dk_acc, at.scale);
   write_rows<T, D>(dvg, k0, skv, ty, tx, dv_acc, 1.0f);
 }
 
@@ -408,8 +519,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int sq, int skv, int hq, int hkv, float scale,
-                    int causal) {
+                    T* __restrict__ dq, int sq, int skv, int hq, int hkv, Attn at) {
   constexpr int LD = kLd<T, D>;
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -438,8 +548,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) dq_acc[i][c] = 0.0f;
 
-  const int kv_end = causal ? min(skv, q0 + kTile) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  const int kv_end = at.kv_end(q0, skv);
+  for (int k0 = at.kv_begin(q0, skv); k0 < kv_end; k0 += kTile) {
     __syncthreads();   // the last iteration is done with ks, vs, dss
     stage<T, D>(ks, kg + (size_t)k0 * D, skv - k0);
     stage<T, D>(vs, vg + (size_t)k0 * D, skv - k0);
@@ -448,19 +558,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[4][4], dp[4][4];
     tile_abt<T, D>(qs, ks, ty, tx, s);
     tile_abt<T, D>(dos, vs, ty, tx, dp);
-    softmax_grad(s, dp, lses, dels, nullptr, dss, q0, k0, sq, skv, scale, causal, ty, tx);
+    softmax_grad(s, dp, lses, dels, nullptr, dss, q0, k0, sq, skv, at, ty, tx);
     __syncthreads();
     tile_acc<T, D, false>(dss, ks, ty, tx, dq_acc);      // dQ += dS K
   }
-  if (kv_end <= 0) cp_async_wait_all();       // no kv block: Q and dO still in flight
-  write_rows<T, D>(dq + (size_t)bh * sq * D, q0, sq, ty, tx, dq_acc, scale);
+  cp_async_wait_all();     // no kv block: Q and dO may still be in flight
+  write_rows<T, D>(dq + (size_t)bh * sq * D, q0, sq, ty, tx, dq_acc, at.scale);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                   void* dv, int bh, int sq, int skv, int hq, int hkv, float scale,
-                   int causal, cudaStream_t stream) {
+                   void* dv, int bh, int sq, int skv, int hq, int hkv, Attn at,
+                   cudaStream_t stream) {
   const int bhkv = bh / hq * hkv;
   const long long rows = (long long)bh * sq;
   flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
@@ -475,7 +585,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                                 stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq,
-      skv, hq, hkv, scale, causal);
+      skv, hq, hkv, at);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   constexpr size_t q_smem = dq_smem_bytes<T, D>();
@@ -485,20 +595,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dq_kernel<T, D><<<dim3((sq + kTile - 1) / kTile, bh), kThreads, q_smem,
                               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv, scale,
-      causal);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv, at);
   return cudaGetLastError();
 }
 
 cudaError_t simt_launch_d(int d, const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* delta, void* dq,
                           void* dk, void* dv, int bh, int sq, int skv, int hq, int hkv,
-                          float scale, int causal, cudaStream_t stream) {
+                          Attn at, cudaStream_t stream) {
   switch (d) {
     case 64: return launch<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq, skv,
-                                      hq, hkv, scale, causal, stream);
+                                      hq, hkv, at, stream);
     case 128: return launch<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq,
-                                        skv, hq, hkv, scale, causal, stream);
+                                        skv, hq, hkv, at, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -537,7 +646,7 @@ cudaError_t simt_attributes_d(int d, int which, int* num_regs, int* max_threads,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 128: the wgmma + TMA-ring body
+// bf16, head dims 64, 128 and 256: the wgmma + TMA-ring body
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;             // slots of each kernel's TMA ring
@@ -548,6 +657,13 @@ constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may opt 
 // full, empty and once-loaded tiles' barriers.
 constexpr int kSm90SmemExtra = sm90::kAlign + (2 * kStages + 1) * 8;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The dK / dV kernel's consumer warpgroups at head dim D: two at D = 256,
+// each holding dK and dV for D / 2 columns (the header's note on registers).
+template <int D>
+__host__ __device__ constexpr int dkdv_groups() {
+  return D > 128 ? 2 : 1;
+}
 
 // A dK / dV ring slot: the Q and dO tiles, then 64 lse2 and 64 delta values
 // (512 bytes, rounded up to keep the next slot's tiles 1 KiB aligned).
@@ -571,25 +687,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// 2^x on the special function unit (relative error about 2^-22; 2^-inf is 0).
+// 2^x and 1 / x on the special function unit, one instruction each, as the
+// forward computes them (relative error about 2^-22; 2^-inf is 0).
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// A (64, D) accumulator fragment times `mul`, in bf16, into dst, a row-major
-// (rows, D) array: this thread's rows row0 and row0 + 8, those below `rows`.
-template <int D>
+// The score in the log2 domain, exactly as the forward's wgmma body forms
+// it (flash_attention.cu): x = s pre, or with a cap (kCapped) post - 2 post
+// / (2^(s pre) + 1); g = 1 - (x / post)^2 is the cap's derivative (a
+// template parameter: the header says why).
+template <bool kCapped>
+struct Score {
+  float pre, post, inv_post;
+  __device__ Score(float scale, float softcap)
+      : pre(kCapped ? 2.0f * kLog2e * scale / softcap : scale * kLog2e),
+        post(softcap * kLog2e),
+        inv_post(kCapped ? 1.0f / (softcap * kLog2e) : 0.0f) {}
+  // p = 2^(x - l2), 0 where `hidden`; g into *g (the constant 1 with no
+  // cap, which the callers' p g folds away).
+  __device__ __forceinline__ float p(float s, float l2, bool hidden, float* g) const {
+    float x;
+    if constexpr (kCapped) {
+      x = fmaf(rcp(ex2(s * pre) + 1.0f), -2.0f * post, post);
+      const float c = x * inv_post;
+      *g = fmaf(-c, c, 1.0f);
+      x -= l2;
+    } else {
+      x = fmaf(s, pre, -l2);
+      *g = 1.0f;
+    }
+    if (hidden) x = __uint_as_float(0xff800000u);   // -inf: p = 0 exactly
+    return ex2(x);
+  }
+};
+
+// N columns of a (64, N) accumulator fragment times `mul`, in bf16, into
+// dst, a row-major array of rows LD elements apart: this thread's rows row0
+// and row0 + 8, those below `rows`.
+template <int N, int LD>
 __device__ __forceinline__ void write_fragment(__nv_bfloat16* dst, int row0, int rows,
                                                const float* acc, float mul, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
     if (r >= rows) continue;
-    __nv_bfloat16* p = dst + (size_t)r * D + 2 * (lane % 4);
+    __nv_bfloat16* p = dst + (size_t)r * LD + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<uint32_t*>(p + 8 * j) =
           pack_bf16(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
@@ -635,10 +787,10 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
 
 // q, dout: (bh, sq, D) through qmap and domap, k, v: (bh / hq * hkv, skv, D)
 // through kmap and vmap, all in boxes of 64 rows; lse2, delta: f32 (bh,
-// sq_pad); dk, dv: like k, row-major.  blockDim.x == 128, gridDim =
-// (ceil(skv / 64), bh / hq * hkv).
-template <int D>
-__global__ void __launch_bounds__(kSm90Threads, 1)
+// sq_pad); dk, dv: like k, row-major.  blockDim.x == 128 * dkdv_groups<D>(),
+// gridDim = (ceil(skv / 64), bh / hq * hkv).
+template <int D, bool kCapped>
+__global__ void __launch_bounds__(kSm90Threads * dkdv_groups<D>(), 1)
 flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap domap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -646,10 +798,10 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const float* __restrict__ lse2,
                            const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int sq, int sq_pad, int skv, int hq, int hkv, float scale,
-                           int causal) {
+                           int sq, int sq_pad, int skv, int hq, int hkv, Attn at) {
   using namespace sm90;
-  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes; registers");
+  constexpr int DW = D / dkdv_groups<D>();       // dK and dV columns a warpgroup holds
+  static_assert(D % kAtom == 0 && DW <= 128, "whole swizzle boxes; registers");
   static_assert(dkdv_sm90_smem_bytes<D>() <= kSmemLimit, "shared memory");
   constexpr int kKVBytes = kBlock * D * 2;        // the K or the V tile
   constexpr int kTileBytes = kBlock * D * 2;      // a Q or a dO tile
@@ -664,33 +816,38 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
 
-  const int t = threadIdx.x;
+  constexpr bool kSplit = dkdv_groups<D>() > 1;
+  const int tid = threadIdx.x;
+  const int wg = kSplit ? tid / kSm90Threads : 0;   // its columns: [wg DW, wg DW + DW)
+  const int t = kSplit ? tid % kSm90Threads : tid;
   const int lane = t % 32;
   const int bkv = blockIdx.y;                 // b * hkv + kv head
   const int k0 = blockIdx.x * kBlock;         // kv block 0 sees the most q rows
   const int group = hq / hkv;
   const int bh0 = (bkv / hkv) * hq + (bkv % hkv) * group;   // the group's first q head
-  // q rows before k0 see no key of this block when causal (k0 % 64 == 0)
-  const int q_begin = causal ? k0 : 0;
-  const int nq = q_begin < sq ? (sq - q_begin + kBlock - 1) / kBlock : 0;
+  // q rows before k0 see no key of this block when causal (k0 % 64 == 0),
+  // and rows from k0 + 63 + window none with a window
+  const int q_begin = at.q_begin(k0);
+  const int q_end = at.q_end(k0, sq);
+  const int nq = q_begin < q_end ? (q_end - q_begin + kBlock - 1) / kBlock : 0;
   const int n_it = group * nq;                // (q head, q block) pairs
 
   auto load_q = [&](int it, int s) {
     unsigned char* slot = ring + s * kSlotBytes;
     const int bh = bh0 + it / nq;
     const int q0 = q_begin + (it % nq) * kBlock;
-    const size_t at = (size_t)bh * sq_pad + q0;
+    const size_t row = (size_t)bh * sq_pad + q0;
     mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kRowBytes);
 #pragma unroll
     for (int b = 0; b < D / kAtom; ++b) {
       tma_load(slot + b * kBlock * 128, &qmap, &full[s], b * kAtom, q0, bh);
       tma_load(slot + kTileBytes + b * kBlock * 128, &domap, &full[s], b * kAtom, q0, bh);
     }
-    bulk_load(slot + 2 * kTileBytes, lse2 + at, kRowBytes, &full[s]);
-    bulk_load(slot + 2 * kTileBytes + kRowBytes, delta + at, kRowBytes, &full[s]);
+    bulk_load(slot + 2 * kTileBytes, lse2 + row, kRowBytes, &full[s]);
+    bulk_load(slot + 2 * kTileBytes + kRowBytes, delta + row, kRowBytes, &full[s]);
   };
 
-  if (t == 0) {
+  if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], blockDim.x);
@@ -699,7 +856,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_fence_init();
   }
   __syncthreads();
-  if (t == 0 && n_it > 0) {
+  if (tid == 0 && n_it > 0) {
     mbar_expect_tx(kvbar, 2 * kKVBytes);
 #pragma unroll
     for (int b = 0; b < D / kAtom; ++b) {
@@ -709,13 +866,16 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kStages && s < n_it; ++s) load_q(s, s);
   }
 
-  const float pre = scale * kLog2e;
+  const Score<kCapped> score(at.scale, at.softcap);
   const int krow = k0 + (t / 32) * 16 + lane / 4;       // rows krow and krow + 8
   const int col0 = 2 * (lane % 4);                     // first fragment column
+  const Range seen_by[2] = {at.queries_of(krow), at.queries_of(krow + 8)};
+  // this warpgroup's columns of a Q or dO tile, read MN-major
+  const uint32_t cols = wg * (DW / kAtom) * kBlock * 128;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
   if (n_it > 0) mbar_wait(kvbar, 0);
   const uint32_t k_base = smem_addr(ks);
@@ -729,7 +889,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const float* drow = lrow + kBlock;
     const int q0 = q_begin + (it % nq) * kBlock;
 
-    // S^T = K Q^T
+    // S^T = K Q^T, over the full D in every warpgroup
     float st[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = 0.0f;
@@ -743,27 +903,32 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<0>();
 
-    // P^T = 2^(S^T pre - lse2[col]), 0 where q < k when causal
-    const bool masked = causal && q0 < k0 + 63;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * j + col0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = fmaf(st[4 * j + 2 * h + e], pre, -(e ? l2.y : l2.x));
-          if (masked && q0 + 8 * j + col0 + e < krow + 8 * h)
-            x = __uint_as_float(0xff800000u);       // -inf: p = 0 exactly
-          st[4 * j + 2 * h + e] = ex2(x);
-        }
-    }
+    // P^T = 2^(x(S^T) - lse2[col]), 0 off the visible pairs (tested only
+    // in the blocks that straddle an edge: two copies of the loop); P^T in
+    // bf16 as dV's A fragments, and P^T g kept in st for dS^T
     uint32_t pa[4][4];
+    auto probabilities = [&](auto flag) {
+      constexpr bool masked = decltype(flag)::value;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + 8 * j + col0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+        for (int h = 0; h < 2; ++h) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const bool hidden = masked && !seen_by[h].has(q0 + 8 * j + col0 + e);
+            float g;
+            p[e] = score.p(st[i], e ? l2.y : l2.x, hidden, &g);
+            st[i] = p[e] * g;
+          }
+          pa[j / 2][2 * (j % 2) + h] = pack_bf16(p[0], p[1]);
+        }
+      }
+    };
+    if (at.straddles(q0, k0)) probabilities(Flag<true>{});
+    else probabilities(Flag<false>{});
 
     // dP^T = V dO^T, then dV += P^T dO (dO MN-major: the transpose bit)
     float dpt[32];
@@ -779,12 +944,13 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::mma(dv_acc, pa[kk], make_desc(do_base + kk * 16 * 128, kBlock * 128, 1024));
+      WgmmaRS<DW>::mma(dv_acc, pa[kk],
+                       make_desc(do_base + cols + kk * 16 * 128, kBlock * 128, 1024));
     wgmma_commit();
-    if constexpr (D <= 64) wgmma_wait<1>();   // dP^T is done; dV may run on
-    else wgmma_wait<0>();                      // pa's registers are dS^T's
+    if constexpr (DW <= 64) wgmma_wait<1>();   // dP^T is done; dV may run on
+    else wgmma_wait<0>();                       // pa's registers are dS^T's
 
-    // dS^T = P^T (dP^T - delta[col]), then dK += dS^T Q
+    // dS^T = P^T g (dP^T - delta[col]), then dK += dS^T Q
     uint32_t dsa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -799,38 +965,48 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::mma(dk_acc, dsa[kk], make_desc(q_base + kk * 16 * 128, kBlock * 128, 1024));
+      WgmmaRS<DW>::mma(dk_acc, dsa[kk],
+                       make_desc(q_base + cols + kk * 16 * 128, kBlock * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
 
     // this slot's Q, dO, lse2 and delta are consumed: release it, and refill it
     mbar_arrive(&empty[s]);
-    if (t == 0 && it + kStages < n_it) {
+    if (tid == 0 && it + kStages < n_it) {
       mbar_wait(&empty[s], (it / kStages) & 1);
       load_q(it + kStages, s);
     }
   }
 
-  const size_t base = (size_t)bkv * skv * D;
-  write_fragment<D>(dk + base, krow, skv, dk_acc, scale, lane);
-  write_fragment<D>(dv + base, krow, skv, dv_acc, 1.0f, lane);
+  const size_t base = (size_t)bkv * skv * D + wg * DW;
+  write_fragment<DW, D>(dk + base, krow, skv, dk_acc, at.scale, lane);
+  write_fragment<DW, D>(dv + base, krow, skv, dv_acc, 1.0f, lane);
+}
+
+// CTAs an SM the dQ kernel asks its registers to leave room for: at D = 64
+// without a cap four (at most 128 registers a thread, as the kernel used
+// before it took the cap and window; left to itself ptxas takes 142 and an
+// SM holds three), else one (the capped D = 64 kernel spills at 128).
+template <int D, bool kCapped>
+__host__ __device__ constexpr int dq_min_ctas() {
+  return D == 64 && !kCapped ? 4 : 1;
 }
 
 // q, dout: (bh, sq, D) through qmap and domap, k, v: (bh / hq * hkv, skv, D)
 // through kmap and vmap, all in boxes of 64 rows; lse2, delta: f32 (bh,
 // sq_pad); dq: like q, row-major.  blockDim.x == 128, gridDim = (ceil(sq /
 // 64), bh).
-template <int D>
-__global__ void __launch_bounds__(kSm90Threads, 1)
+template <int D, bool kCapped>
+__global__ void __launch_bounds__(kSm90Threads, dq_min_ctas<D, kCapped>())
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap domap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const float* __restrict__ lse2, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int sq, int sq_pad, int skv,
-                         int hq, int hkv, float scale, int causal) {
+                         int hq, int hkv, Attn at) {
   using namespace sm90;
-  static_assert(D % kAtom == 0 && D <= 128, "whole swizzle boxes; registers");
+  static_assert(D % kAtom == 0 && D <= 256, "whole swizzle boxes, wgmma N <= 256");
   static_assert(dq_sm90_smem_bytes<D>() <= kSmemLimit, "shared memory");
   constexpr int kQBytes = kBlock * D * 2;       // the Q or the dO tile
   constexpr int kKVBytes = kBlock * D * 2;      // a K or a V tile
@@ -849,17 +1025,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;   // longest causal rows first
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
-  const int n_tiles = (kv_end + kBlock - 1) / kBlock;
+  // the kv blocks any row of this q block can see
+  const int kv_begin = at.kv_begin(q0, skv);
+  const int kv_end = at.kv_end(q0, skv);
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBlock - 1) / kBlock : 0;
 
   auto load_kv = [&](int it, int s) {
     unsigned char* slot = ring + s * kSlotBytes;
+    const int k0 = kv_begin + it * kBlock;
     mbar_expect_tx(&full[s], kSlotBytes);
 #pragma unroll
     for (int b = 0; b < D / kAtom; ++b) {
-      tma_load(slot + b * kBlock * 128, &kmap, &full[s], b * kAtom, it * kBlock, kvh);
-      tma_load(slot + kKVBytes + b * kBlock * 128, &vmap, &full[s], b * kAtom,
-               it * kBlock, kvh);
+      tma_load(slot + b * kBlock * 128, &kmap, &full[s], b * kAtom, k0, kvh);
+      tma_load(slot + kKVBytes + b * kBlock * 128, &vmap, &full[s], b * kAtom, k0, kvh);
     }
   };
 
@@ -882,9 +1060,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, s);
   }
 
-  const float pre = scale * kLog2e;
+  const Score<kCapped> score(at.scale, at.softcap);
   const int qrow = q0 + (t / 32) * 16 + lane / 4;       // rows qrow and qrow + 8
   const int col0 = 2 * (lane % 4);
+  const Range sees[2] = {at.keys_of(qrow, skv), at.keys_of(qrow + 8, skv)};
   float l2[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -926,26 +1105,29 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<1>();
 
-    // P = 2^(S pre - lse2[row]), 0 off the visible pairs
-    const int k0 = it * kBlock;
-    const bool masked = k0 + kBlock > skv || (causal && k0 + kBlock - 1 > q0);
+    // P g = 2^(x(S) - lse2[row]) g, 0 off the visible pairs (tested only in
+    // the blocks that straddle an edge or skv: two copies of the loop)
+    const int k0 = kv_begin + it * kBlock;
+    auto probabilities = [&](auto flag) {
+      constexpr bool masked = decltype(flag)::value;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = fmaf(sc[4 * j + 2 * h + e], pre, -l2[h]);
-          if (masked) {
-            const int kpos = k0 + 8 * j + col0 + e;
-            if (kpos >= skv || (causal && kpos > qrow + 8 * h))
-              x = __uint_as_float(0xff800000u);
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const bool hidden = masked && !sees[h].has(k0 + 8 * j + col0 + e);
+            float g;
+            const float p = score.p(sc[i], l2[h], hidden, &g);
+            sc[i] = p * g;
           }
-          sc[4 * j + 2 * h + e] = ex2(x);
-        }
+    };
+    if (k0 + kBlock > skv || at.straddles(q0, k0)) probabilities(Flag<true>{});
+    else probabilities(Flag<false>{});
     wgmma_wait<0>();
 
-    // dS = P (dP - delta[row]), then dQ += dS K (K MN-major)
+    // dS = P g (dP - delta[row]), then dQ += dS K (K MN-major)
     uint32_t dsa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -970,14 +1152,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  write_fragment<D>(dq + (size_t)bh * sq * D, qrow, sq, acc, scale, lane);
+  write_fragment<D, D>(dq + (size_t)bh * sq * D, qrow, sq, acc, at.scale, lane);
 }
 
-template <int D>
+template <int D, bool kCapped>
 cudaError_t sm90_launch(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* work, void* dq, void* dk,
-                        void* dv, int bh, int sq, int skv, int hq, int hkv, float scale,
-                        int causal, cudaStream_t stream) {
+                        void* dv, int bh, int sq, int skv, int hq, int hkv, Attn at,
+                        cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int bhkv = bh / hq * hkv;
   const int sq_pad = (sq + kBlock - 1) / kBlock * kBlock;
@@ -998,47 +1180,57 @@ cudaError_t sm90_launch(const void* q, const void* k, const void* v, const void*
     return cudaErrorInvalidValue;
 
   constexpr int kv_smem = dkdv_sm90_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90_kernel<D, kCapped>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_sm90_kernel<D><<<dim3((skv + kBlock - 1) / kBlock, bhkv), kSm90Threads,
-                                  kv_smem, stream>>>(
+  flash_bwd_dkdv_sm90_kernel<D, kCapped><<<dim3((skv + kBlock - 1) / kBlock, bhkv),
+                                  kSm90Threads * dkdv_groups<D>(), kv_smem, stream>>>(
       qmap, domap, kmap, vmap, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      sq, sq_pad, skv, hq, hkv, scale, causal);
+      sq, sq_pad, skv, hq, hkv, at);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr int q_smem = dq_sm90_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<D, kCapped>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_sm90_kernel<D><<<dim3((sq + kBlock - 1) / kBlock, bh), kSm90Threads, q_smem,
-                                stream>>>(
+  flash_bwd_dq_sm90_kernel<D, kCapped><<<dim3((sq + kBlock - 1) / kBlock, bh), kSm90Threads,
+                                         q_smem, stream>>>(
       qmap, domap, kmap, vmap, lse2, delta, static_cast<bf16*>(dq), sq, sq_pad, skv, hq, hkv,
-      scale, causal);
+      at);
   return cudaGetLastError();
 }
 
 cudaError_t sm90_launch_d(int d, const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* work, void* dq,
                           void* dk, void* dv, int bh, int sq, int skv, int hq, int hkv,
-                          float scale, int causal, cudaStream_t stream) {
+                          Attn at, cudaStream_t stream) {
+  const bool capped = at.softcap > 0.0f;
+#define KLARAPTOR_SM90_LAUNCH(D)                                                          \
+  (capped ? sm90_launch<D, true>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv, hq, \
+                                 hkv, at, stream)                                         \
+          : sm90_launch<D, false>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv, hq, \
+                                  hkv, at, stream))
   switch (d) {
-    case 64: return sm90_launch<64>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv, hq,
-                                    hkv, scale, causal, stream);
-    case 128: return sm90_launch<128>(q, k, v, o, dout, lse, work, dq, dk, dv, bh, sq, skv,
-                                      hq, hkv, scale, causal, stream);
+    case 64: return KLARAPTOR_SM90_LAUNCH(64);
+    case 128: return KLARAPTOR_SM90_LAUNCH(128);
+    case 256: return KLARAPTOR_SM90_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
+#undef KLARAPTOR_SM90_LAUNCH
 }
 
 template <int D>
 cudaError_t sm90_attributes(int which, int* num_regs, int* max_threads, int* local_bytes) {
   switch (which) {
     case 0: return attributes(flash_bwd_prep_kernel<D>, num_regs, max_threads, local_bytes);
-    case 1: return attributes(flash_bwd_dkdv_sm90_kernel<D>, num_regs, max_threads,
+    case 1: return attributes(flash_bwd_dkdv_sm90_kernel<D, false>, num_regs, max_threads,
                               local_bytes);
-    case 2: return attributes(flash_bwd_dq_sm90_kernel<D>, num_regs, max_threads,
+    case 2: return attributes(flash_bwd_dq_sm90_kernel<D, false>, num_regs, max_threads,
+                              local_bytes);
+    case 3: return attributes(flash_bwd_dkdv_sm90_kernel<D, true>, num_regs, max_threads,
+                              local_bytes);
+    case 4: return attributes(flash_bwd_dq_sm90_kernel<D, true>, num_regs, max_threads,
                               local_bytes);
     default: return cudaErrorInvalidValue;
   }
@@ -1049,6 +1241,7 @@ cudaError_t sm90_attributes_d(int d, int which, int* num_regs, int* max_threads,
   switch (d) {
     case 64: return sm90_attributes<64>(which, num_regs, max_threads, local_bytes);
     case 128: return sm90_attributes<128>(which, num_regs, max_threads, local_bytes);
+    case 256: return sm90_attributes<256>(which, num_regs, max_threads, local_bytes);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1059,32 +1252,37 @@ extern "C" {
 
 // Launches the backward's three kernels on `stream` and returns
 // cudaGetLastError() (0 on success); the caller has checked shapes, dtypes,
-// alignment and head dim (64 or 128).  bf16 runs the wgmma body; work is f32
-// scratch of 2 * bh * sq_pad (delta, then lse2; sq_pad = sq rounded up to
-// 64).  f32 runs the SIMT body with delta in the first bh * sq floats of
-// work.
+// alignment and head dim (bf16 64, 128 or 256; f32 64 or 128).  The window
+// (has_window, window) and the cap (softcap <= 0: none) are the forward's.
+// bf16 runs the wgmma body; work is f32 scratch of 2 * bh * sq_pad (delta,
+// then lse2; sq_pad = sq rounded up to 64).  f32 runs the SIMT body with
+// delta in the first bh * sq floats of work.
 int klaraptor_flash_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout, const void* lse,
                                   void* work, void* dq, void* dk, void* dv, int bh, int sq,
                                   int skv, int d, int hq, int hkv, float scale, int causal,
-                                  int dtype, void* stream) {
+                                  int has_window, int window, float softcap, int dtype,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(work);
+  const Attn at{scale, softcap, causal, has_window, window};
   switch (dtype) {
     case kF32:
-      return simt_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv,
-                           scale, causal, s);
+      return simt_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv, at,
+                           s);
     case kBF16:
-      return sm90_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv,
-                           scale, causal, s);
+      return sm90_launch_d(d, q, k, v, o, dout, l, w, dq, dk, dv, bh, sq, skv, hq, hkv, at,
+                           s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Registers per thread, launch-bound thread limit and local (spill) bytes of
 // kernel `which` of the body that (dtype, d) runs: f32, the SIMT body's (0
-// delta, 1 dK / dV, 2 dQ); bf16, the wgmma body's (0 prep, 1 dK / dV, 2 dQ).
+// delta, 1 dK / dV, 2 dQ; they take the cap at run time); bf16, the wgmma
+// body's (0 prep, 1 dK / dV, 2 dQ, 3 and 4 those two compiled for a
+// softcap).
 int klaraptor_flash_attention_bwd_attributes(int dtype, int d, int which, int* num_regs,
                                              int* max_threads, int* local_bytes) {
   switch (dtype) {

@@ -22,28 +22,33 @@ and the Pallas kernel do (the JAX oracle casts them to v's dtype first,
 which is the same in f32 and within the bf16 tolerance in bf16).  The tests
 use it, and the wrapper takes it only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES.count`` counts kernel launches
-and nothing else; ``LAUNCHES.tiles[(bh, sq, skv, d, causal)]`` holds the
-(bq, bkv) of the last launch at that shape.  With ``return_lse=True`` both
+and nothing else, ``LAUNCHES.windowed.count`` those made with a window;
+``LAUNCHES.tiles[(bh, sq, skv, d, causal)]`` holds the (bq, bkv) of the
+last launch at that shape.  With ``return_lse=True`` both
 also return lse, f32 (b * hq, sq): the natural-log log-sum-exp of each row's
 scaled, masked scores, -inf for a row that sees no key.
 
 ``flash_attention_backward_kernel`` launches ``csrc/flash_attention_bwd.cu``
 (FlashAttention-2's backward, no atomics, so deterministic): from q, k, v,
 the forward's output and lse and the output's gradient it gives dq, dk and
-dv (GQA: dk and dv summed over each kv head's group), causal or not, head
-dims 64 and 128, accumulated in f32.  bf16 runs the wgmma + TMA-ring body
-(``backward_body``): a prep kernel (delta = rowsum(dO * O) and lse in the
-log2 domain, rows padded to ``BACKWARD_ROW_PAD``), dK / dV per (kv head, 64
-kv rows) and dQ per (q head, 64 q rows), every product on wgmma, P and dS in
-registers and rounded once to bf16 for the products that take them.  f32
-runs the SIMT body (FP32 FMAs; wgmma takes f32 only as TF32).
-``flash_attention_backward_plain`` is its plain version: P recomputed from
-lse, delta = rowsum(dO * O) from the stored output, the same five products
-in f32.  Neither takes a window or a softcap yet.
+dv (GQA: dk and dv summed over each kv head's group), causal or not, with
+the forward's window and softcap, accumulated in f32.  bf16 runs the wgmma +
+TMA-ring body (``backward_body``) at head dims 64, 128 and 256: a prep
+kernel (delta = rowsum(dO * O) and lse in the log2 domain, rows padded to
+``BACKWARD_ROW_PAD``), dK / dV per (kv head, 64 kv rows; two warpgroups
+splitting D at 256) and dQ per (q head, 64 q rows), every product on wgmma,
+P and dS in registers and rounded once to bf16 for the products that take
+them.  f32 runs the SIMT body (FP32 FMAs; wgmma takes f32 only as TF32) at
+head dims 64 and 128; its tiles do not fit shared memory at 256, where it
+is refused.  ``flash_attention_backward_plain`` is its plain version: P
+recomputed from lse (from the capped score with a softcap), delta =
+rowsum(dO * O) from the stored output, the same five products in f32.
 ``BACKWARD_LAUNCHES.count`` counts calls of the backward kernel (one call
-launches its three kernels); ``BACKWARD_LAUNCHES.tiles[(bh, sq, skv, d,
-causal)]`` holds the body ("wgmma" or "simt") of the last call at that
-shape.
+launches its three kernels), ``BACKWARD_LAUNCHES.windowed.count`` those
+made with a window; ``BACKWARD_LAUNCHES.tiles[(bh, sq, skv, d, causal)]``
+holds the body ("wgmma" or "simt") of the last call at that shape and
+whether it was capped (``capped``: a softcap was given; the wgmma body then
+runs its kernels compiled for the cap).
 """
 
 from __future__ import annotations
@@ -60,9 +65,9 @@ from ..core.kernel_spec import (FLASH_HEAD_DIMS, FLASH_PAD,
 from ._build import load
 from .matmul import LaunchCounter
 
-__all__ = ["BACKWARD_HEAD_DIMS", "BACKWARD_LAUNCHES", "BKV_TILES", "DTYPES",
-           "LAUNCHES", "backward_attributes", "backward_body",
-           "flash_attention_backward_kernel", "flash_attention_backward_plain",
+__all__ = ["AttentionLaunchCounter", "BACKWARD_HEAD_DIMS",
+           "BACKWARD_LAUNCHES", "BKV_TILES", "DTYPES", "LAUNCHES", "SIMT_BACKWARD_HEAD_DIMS", "backward_attributes",
+           "backward_body", "flash_attention_backward_kernel", "flash_attention_backward_plain",
            "flash_attention_kernel", "flash_attention_plain",
            "kernel_attributes", "smem_bytes", "tile_attributes"]
 
@@ -74,23 +79,54 @@ SMEM_LIMIT = 232448             # dynamic shared memory a block may opt in to
 REGS_PER_SM = 65536
 MAX_GRID_Y = 65535
 _NEG_INF = -1e30
-BACKWARD_HEAD_DIMS = (64, 128)  # the backward kernel's instantiations
+BACKWARD_HEAD_DIMS = (64, 128, 256)     # the wgmma body's instantiations
+SIMT_BACKWARD_HEAD_DIMS = (64, 128)     # the f32 SIMT body's
 # Its three kernels: delta (for bf16 the prep kernel, which also writes lse
-# in the log2 domain), dK / dV, dQ.
+# in the log2 domain), dK / dV, dQ.  The wgmma body compiles dK / dV and dQ
+# twice, with and without the cap (``backward_attributes(capped=)``); the
+# SIMT body takes the cap at run time.
 BACKWARD_KERNELS = ("delta", "dkdv", "dq")
 BACKWARD_ROW_PAD = 64   # bf16: lse and delta rows padded to the 64-row block
 
 
 def backward_body(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward body that runs for (dtype, head_dim): "wgmma" for bf16,
-    "simt" for f32."""
-    if dtype not in DTYPES or head_dim not in BACKWARD_HEAD_DIMS:
-        raise ValueError(f"the backward kernel takes {DTYPES} at head dims "
-                         f"{BACKWARD_HEAD_DIMS}, not {dtype} at {head_dim}")
+    """The backward body that runs for (dtype, head_dim): "wgmma" for bf16
+    (head dims ``BACKWARD_HEAD_DIMS``), "simt" for f32 (head dims
+    ``SIMT_BACKWARD_HEAD_DIMS``)."""
+    dims = SIMT_BACKWARD_HEAD_DIMS if dtype == torch.float32 \
+        else BACKWARD_HEAD_DIMS
+    if dtype not in DTYPES or head_dim not in dims:
+        raise ValueError(f"the backward kernel takes bf16 at head dims "
+                         f"{BACKWARD_HEAD_DIMS} and f32 at head dims "
+                         f"{SIMT_BACKWARD_HEAD_DIMS}, not {dtype} at "
+                         f"{head_dim}")
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
-LAUNCHES = LaunchCounter()
-BACKWARD_LAUNCHES = LaunchCounter()
+
+
+class AttentionLaunchCounter(LaunchCounter):
+    """A ``LaunchCounter`` that also counts the launches made with a window
+    in ``windowed`` (a ``LaunchCounter`` of its own, reset with it)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.windowed = LaunchCounter()
+
+    def reset(self) -> None:
+        super().reset()
+        self.windowed.reset()
+
+    def launched(self, shape: tuple, *, windowed: bool = False,
+                 **tiles: int | str) -> None:
+        """Count one launch, made at ``shape`` with ``tiles``, and with
+        ``windowed`` one made with a window."""
+        super().launched(shape, **tiles)
+        if windowed:
+            self.windowed.launched(shape, **tiles)
+
+
+LAUNCHES = AttentionLaunchCounter()
+BACKWARD_LAUNCHES = AttentionLaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,7 +152,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = load("flash_attention_bwd")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.klaraptor_flash_attention_bwd.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, i, vp]
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, i, i, i, f,
+        i, vp]
     lib.klaraptor_flash_attention_bwd.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.klaraptor_flash_attention_bwd_attributes.argtypes = [i, i, i, ip, ip,
@@ -157,14 +194,22 @@ def tile_attributes(head_dim: int, bq: int, bkv: int) -> dict[str, int]:
                        head_dim, bq, bkv)
 
 
-def backward_attributes(dtype: torch.dtype, head_dim: int,
-                        kernel: str) -> dict[str, int]:
+def backward_attributes(dtype: torch.dtype, head_dim: int, kernel: str,
+                        capped: bool = False) -> dict[str, int]:
     """The same for kernel ``kernel`` ("delta", "dkdv" or "dq") of the
-    backward body that (dtype, head_dim) runs (builds it if needed)."""
+    backward body that (dtype, head_dim) runs (builds it if needed); with
+    ``capped``, the wgmma body's dK / dV or dQ compiled for a softcap (bf16
+    only: the SIMT body has one kernel with and without the cap)."""
+    which = BACKWARD_KERNELS.index(kernel)
+    if capped:
+        if dtype != torch.bfloat16 or kernel == "delta":
+            raise ValueError(f"only the wgmma body's dkdv and dq are compiled "
+                             f"for a softcap, not {dtype} {kernel}")
+        which += 2
     lib = _bwd_lib()
     vals = [ctypes.c_int() for _ in range(3)]
     rc = lib.klaraptor_flash_attention_bwd_attributes(
-        _DTYPE_CODE[dtype], head_dim, BACKWARD_KERNELS.index(kernel),
+        _DTYPE_CODE[dtype], head_dim, which,
         *[ctypes.byref(v) for v in vals])
     if rc:
         _raise_cuda("cudaFuncGetAttributes", rc, lib)
@@ -328,6 +373,10 @@ def _check(q, k, v, num_q_heads, num_kv_heads, bq, bkv, window,
         if smem > SMEM_LIMIT:
             raise ValueError(f"tiles need {smem} bytes of shared memory, "
                              f"more than the {SMEM_LIMIT} a block can have")
+    _check_window_softcap(window, softcap)
+
+
+def _check_window_softcap(window, softcap) -> None:
     if window is not None and (not isinstance(window, int)
                                or abs(window) >= 2**31):
         raise ValueError(f"window={window!r} must be an int32 or None")
@@ -375,7 +424,8 @@ def flash_attention_kernel(
             _DTYPE_CODE[q.dtype], stream)
     if rc:
         _raise_cuda("flash attention kernel launch", rc)
-    LAUNCHES.launched((bhq, sq, skv, d, bool(causal)), bq=bq, bkv=bkv)
+    LAUNCHES.launched((bhq, sq, skv, d, bool(causal)),
+                      windowed=window is not None, bq=bq, bkv=bkv)
     return (out, lse) if return_lse else out
 
 
@@ -386,10 +436,12 @@ def flash_attention_backward_plain(
     softcap: float | None = None, scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention in plain PyTorch, f32 math, each in its
-    input's dtype: P = exp(scale q k^T - lse) on the visible pairs,
-    delta = rowsum(dout * out), dS = P (dout v^T - delta), dq = scale dS k,
-    dk = scale dS^T q and dv = P^T dout, summed over each kv head's group."""
-    _refuse_backward(window, softcap)
+    input's dtype: c = scale q k^T (soft-capped to softcap tanh(c /
+    softcap)), P = exp(c - lse) on the visible pairs (``_visible``, with
+    the window), delta = rowsum(dout * out), dS = P (dout v^T - delta) g
+    with g = 1 - (c / softcap)^2 the cap's derivative (1 with no cap), dq =
+    scale dS k, dk = scale dS^T q and dv = P^T dout, summed over each kv
+    head's group.  A row that sees no key (lse -inf) gets a zero gradient."""
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
     b = bhq // num_q_heads
@@ -403,27 +455,24 @@ def flash_attention_backward_plain(
     kf = k.float().reshape(b, num_kv_heads, skv, d)
     vf = v.float().reshape(b, num_kv_heads, skv, d)
     l = lse.float().reshape(b, num_kv_heads, group, sq, 1)
-    mask = _visible(sq, skv, causal, None, 0, 0, q.device) \
+    mask = _visible(sq, skv, causal, window, 0, 0, q.device) \
         & torch.isfinite(l)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     p = torch.exp(s - l.masked_fill(~torch.isfinite(l), 0.0)) \
         .masked_fill(~mask, 0.0)
     delta = (dof * of).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
     ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - (s / softcap) ** 2)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
     return (dq.reshape(bhq, sq, d).to(q.dtype),
             dk.reshape(bhkv, skv, d).to(k.dtype),
             dv.reshape(bhkv, skv, d).to(v.dtype))
-
-
-def _refuse_backward(window, softcap) -> None:
-    if window is not None or softcap is not None:
-        raise ValueError(f"the flash-attention backward takes no window or "
-                         f"softcap yet (window={window!r}, "
-                         f"softcap={softcap!r})")
 
 
 def flash_attention_backward_kernel(
@@ -435,10 +484,11 @@ def flash_attention_backward_kernel(
     """(dq, dk, dv): the CUDA backward kernel for CUDA tensors,
     ``flash_attention_backward_plain`` for CPU tensors (after the same
     checks).  q, out, dout (b * hq, sq, d) and k, v (b * hkv, skv, d) of one
-    dtype and lse f32 (b * hq, sq), all contiguous; head dim 64 or 128.
-    bf16 runs the wgmma body, f32 the SIMT body."""
-    _refuse_backward(window, softcap)
+    dtype and lse f32 (b * hq, sq), all contiguous; the forward's window
+    and softcap.  bf16 runs the wgmma body (head dims 64, 128, 256), f32
+    the SIMT body (64, 128)."""
     _check_operands(q, k, v, num_q_heads, num_kv_heads)
+    _check_window_softcap(window, softcap)
     bhq, sq, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -448,14 +498,12 @@ def flash_attention_backward_kernel(
     if lse.shape != (bhq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be f32 {(bhq, sq)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if d not in BACKWARD_HEAD_DIMS:
-        raise ValueError(f"the backward kernel is built for head dims "
-                         f"{BACKWARD_HEAD_DIMS}, not {d}")
+    body = backward_body(q.dtype, d)        # raises on an unbuilt head dim
     for name, t in (("out", out), ("dout", dout), ("lse", lse)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
     kw = dict(num_q_heads=num_q_heads, num_kv_heads=num_kv_heads,
-              causal=causal, scale=scale)
+              causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
     if any(t.data_ptr() % 16 for t in (out, dout)):
@@ -477,9 +525,12 @@ def flash_attention_backward_kernel(
             dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bhq, sq, skv, d, num_q_heads,
             num_kv_heads, float(scale), int(bool(causal)),
+            int(window is not None), int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0,
             _DTYPE_CODE[q.dtype], stream)
     if rc:
         _raise_cuda("flash attention backward launch", rc, lib)
     BACKWARD_LAUNCHES.launched((bhq, sq, skv, d, bool(causal)),
-                               body=backward_body(q.dtype, d))
+                               windowed=window is not None, body=body,
+                               capped=softcap is not None)
     return dq, dk, dv

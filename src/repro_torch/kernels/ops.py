@@ -68,8 +68,7 @@ from ..core.kernel_spec import (CandidateTable, flash_attention_spec,
 from ..introspect import AutoKernel, auto_register, get_auto
 from ..trace import span as _span
 from ..trace.span import Span
-from .flash_attention import (_refuse_backward,
-                              flash_attention_backward_kernel,
+from .flash_attention import (flash_attention_backward_kernel,
                               flash_attention_kernel, flash_attention_plain)
 from .layernorm import LAYERNORM, layernorm_grid_spec, layernorm_kernel
 from .matmul import matmul_kernel
@@ -391,7 +390,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query rows, as the JAX path does).  CUDA tensors resolve (bq, bkv)
     through ``choose_or_default`` at D = (bh, sq, skv) and launch the
     kernel, which masks ragged tails, so no shape is padded; ``q_chunk``
-    does not apply to the kernel, which streams by construction.
+    does not apply to the kernel, which streams by construction.  With
+    grad on and a CUDA input that requires it the call runs as
+    ``_FlashAttention``: the forward kernel writing lse, and the backward
+    kernel with the same window and softcap.
 
     With ``in_graph=`` the operands are envelope-padded and ``dims``
     carries the raw ``{bh, sq, skv}``.  Only causal self-attention with
@@ -450,7 +452,6 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bq, bkv, kw):
-        _refuse_backward(kw["window"], kw["softcap"])   # before the forward
         out, lse = flash_attention_kernel(q, k, v, bq=bq, bkv=bkv,
                                           return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -848,24 +848,94 @@ def test_cuda_flash_backward_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_backward_kernel_takes_softcap_window_and_d256():
+    """The backward kernel with the forward's softcap and window against
+    its plain version on the forward's output and lse: bf16 (the wgmma
+    body, two dK / dV warpgroups at d 256) at d 64, 128 and 256, f32 (the
+    SIMT body) at d 64 and 128; causal and not, GQA 2, a ragged length and
+    sq > skv (whose rows past skv + window - 1 see no key); windows of 3,
+    100 and 4096 (which trims nothing here; a window of 1 would leave each
+    causal row its own key alone, where dS is 0 but for rounding); two
+    calls bit-equal.  With a softcap, q is scaled so that the scores have
+    std softcap / 2, where the cap bends them, the launch records the
+    capped kernels, and the plain backward with no cap on the capped lse
+    (a kernel that ran its uncapped instantiation) fails the tolerance.
+    f32 at d 256 raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, d, causal, (sq, skv), (window, softcap) in itertools.product(
+            (torch.bfloat16, torch.float32), (64, 128, 256), (True, False),
+            ((333, 333), (300, 130)),
+            ((100, None), (None, 50.0), (100, 30.0), (3, 50.0),
+             (4096, 50.0))):
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        q = torch.randn(4, sq, d, generator=gen, device="cuda")
+        if softcap:
+            q *= softcap / 2            # scores of std softcap / 2
+        q = q.to(dtype)
+        k = torch.randn(2, skv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(2, skv, d, generator=gen, device="cuda").to(dtype)
+        kw = dict(num_q_heads=2, num_kv_heads=1, causal=causal,
+                  window=window, softcap=softcap)
+        out, lse = flash_attention_kernel(q, k, v, bq=64, bkv=64,
+                                          return_lse=True, **kw)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        if dtype == torch.float32 and d == 256:
+            with pytest.raises(ValueError, match="head dims"):
+                flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+            continue
+        ref = flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
+        got = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+        again = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+        ran = BACKWARD_LAUNCHES.tiles[(4, sq, skv, d, causal)]
+        assert ran == {"body": "wgmma" if dtype == torch.bfloat16
+                       else "simt", "capped": softcap is not None}, ran
+        for g, a, r in zip(got, again, ref):
+            assert g.dtype == dtype and bool(torch.isfinite(g).all())
+            assert torch.equal(g, a), (dtype, d, "not bit-equal")
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= tol * max(float(r.float().abs().max()), 1e-30), \
+                (dtype, d, causal, sq, skv, window, softcap, err)
+        if softcap:
+            uncapped = flash_attention_backward_plain(
+                q, k, v, out, dout, lse, **{**kw, "softcap": None})
+            assert not any(
+                float((u.float() - r.float()).abs().max())
+                <= tol * float(r.float().abs().max())
+                for u, r in zip(uncapped, ref)), (d, causal, window, softcap)
+
+
+@pytest.mark.cuda
 def test_cuda_ops_flash_attention_gradient_goes_through_the_kernels():
     """``ops.flash_attention`` on card tensors that require grad is the
     autograd Function: one forward launch (with lse), one backward launch,
-    and gradients that agree with autograd through the plain version."""
+    and gradients that agree with autograd through the plain version; with
+    a window and a softcap too, where both launches count as windowed and
+    the backward's as capped."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, extra in itertools.product(
+            (torch.bfloat16, torch.float32),
+            ({}, dict(window=50, softcap=30.0))):
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
         leaves = [torch.randn(b, 200, 64, generator=gen, device="cuda"
                               ).to(dtype).requires_grad_() for b in (8, 2, 2)]
-        kw = dict(num_q_heads=4, num_kv_heads=1, causal=True)
+        kw = dict(num_q_heads=4, num_kv_heads=1, causal=True, **extra)
         f0, b0 = FLASH_LAUNCHES.count, BACKWARD_LAUNCHES.count
+        fw0 = FLASH_LAUNCHES.windowed.count
+        bw0 = BACKWARD_LAUNCHES.windowed.count
         out = ops.flash_attention(*leaves, **kw)
         assert out.requires_grad and FLASH_LAUNCHES.count == f0 + 1
         dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
         got = torch.autograd.grad(out, leaves, dout)
         assert BACKWARD_LAUNCHES.count == b0 + 1
+        windowed = int("window" in extra)
+        assert FLASH_LAUNCHES.windowed.count == fw0 + windowed
+        assert BACKWARD_LAUNCHES.windowed.count == bw0 + windowed
+        assert BACKWARD_LAUNCHES.tiles[(8, 200, 200, 64, True)]["capped"] \
+            == ("softcap" in extra)
         ref = torch.autograd.grad(flash_attention_plain(*leaves, **kw),
                                   leaves, dout)
         for g, r in zip(got, ref):
@@ -873,8 +943,6 @@ def test_cuda_ops_flash_attention_gradient_goes_through_the_kernels():
             assert err <= tol * float(r.float().abs().max()), (dtype, err)
         with torch.no_grad():                  # serving: no Function, no lse
             assert not ops.flash_attention(*leaves, **kw).requires_grad
-        with pytest.raises(ValueError, match="window or softcap"):
-            ops.flash_attention(*leaves, **kw, softcap=30.0)
 
 
 @pytest.mark.cuda

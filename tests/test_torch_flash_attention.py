@@ -11,11 +11,12 @@ card: tests/test_torch_cuda.py holds it against the plain version there and
 skips elsewhere.
 
 The backward: ``flash_attention_backward_plain`` (the backward kernel's
-plain version, P recomputed from the forward's lse) against
-``torch.autograd.grad`` of ``flash_attention_plain`` and ``jax.vjp`` of the
-reference's ``flash_attention_ref`` (what the JAX package trains through):
-2e-4 x max |grad| in f32, 2e-2 in bf16; and the forward's ``return_lse``
-against ``torch.logsumexp`` of the masked scaled scores.
+plain version, P recomputed from the forward's lse), with and without a
+window and a softcap, against ``torch.autograd.grad`` of
+``flash_attention_plain`` and ``jax.vjp`` of the reference's
+``flash_attention_ref`` (what the JAX package trains through): 2e-4 x max
+|grad| in f32, 2e-2 in bf16; and the forward's ``return_lse`` against
+``torch.logsumexp`` of the masked scaled scores.
 """
 
 import itertools
@@ -61,6 +62,13 @@ def _qkv(seed, bhq, bhkv, sq, skv, d):
     k = (rng.randn(bhkv, skv, d) * 0.3).astype(np.float32)
     v = (rng.randn(bhkv, skv, d) * 0.3).astype(np.float32)
     return q, k, v
+
+
+def _span_the_cap(q, softcap):
+    """q scaled so that the scores scale * q.k (std 0.09 from ``_qkv``)
+    have std softcap / 2: the cap then bends them (its derivative ranges
+    over (0, 1]) where at std 0.09 it would pass them nearly unchanged."""
+    return q if softcap is None else q * np.float32(softcap / 2 / 0.09)
 
 
 def _t(*arrays):
@@ -494,6 +502,15 @@ BWD_CASES = [
     (8, 2, 50, 130, 64),       # GQA 4, sq < skv
     (4, 1, 130, 50, 128),      # GQA 4, sq > skv
 ]
+BWD_D256 = (2, 1, 90, 70, 256)  # gemma2's head dim: GQA 2, sq > skv, ragged
+# The forward's window and softcap.  With the window of 24, (130, 50) has
+# query rows that see no key (qpos >= skv + 23), causal or not.
+BWD_MASKS = {
+    "plain": dict(),
+    "softcap": dict(softcap=30.0),
+    "window": dict(window=24),
+    "window-softcap": dict(window=24, softcap=50.0),
+}
 
 
 def _rel(got, ref) -> float:
@@ -502,14 +519,19 @@ def _rel(got, ref) -> float:
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
+@pytest.mark.parametrize("mask", sorted(BWD_MASKS))
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", BWD_CASES + [BWD_D256],
+                         ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_backward_plain_matches_autograd_and_jax_vjp(dtype, case, causal):
+def test_backward_plain_matches_autograd_and_jax_vjp(dtype, case, causal,
+                                                     mask):
     hq, hkv, sq, skv, d = case
     q, k, v = _qkv(sq * d + skv, 2 * hq, 2 * hkv, sq, skv, d)
+    q = _span_the_cap(q, BWD_MASKS[mask].get("softcap"))
     dout = (np.random.RandomState(sq).randn(2 * hq, sq, d)).astype(np.float32)
-    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal,
+              **BWD_MASKS[mask])
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     tol = 2e-4 if dtype == "f32" else 2e-2
@@ -517,12 +539,21 @@ def test_backward_plain_matches_autograd_and_jax_vjp(dtype, case, causal):
     out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
     got = flash_attention_backward_plain(tq, tk, tv, out, tdo, lse, **kw)
     assert [g.dtype for g in got] == [tdt] * 3
-    # the wrapper takes the plain version for CPU tensors
+    blind = torch.isneginf(lse)                 # rows that see no key
+    if blind.any():
+        assert not bool(got[0][blind].any())
+    # the wrapper takes the plain version for CPU tensors (f32 at d 256:
+    # the SIMT body it stands for is not built there, so it refuses)
     before = BACKWARD_LAUNCHES.count
-    wrapped = flash_attention_backward_kernel(tq, tk, tv, out, tdo, lse, **kw)
+    if dtype == "f32" and d == 256:
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_backward_kernel(tq, tk, tv, out, tdo, lse, **kw)
+    else:
+        wrapped = flash_attention_backward_kernel(tq, tk, tv, out, tdo, lse,
+                                                  **kw)
+        for a, b in zip(wrapped, got):
+            assert torch.equal(a, b)
     assert BACKWARD_LAUNCHES.count == before
-    for a, b in zip(wrapped, got):
-        assert torch.equal(a, b)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves,
                                tdo)
@@ -533,23 +564,38 @@ def test_backward_plain_matches_autograd_and_jax_vjp(dtype, case, causal):
     for name, g, a, j in zip("qkv", got, auto, jax_grads):
         assert _rel(g.float(), a.float()) <= tol, (name, "autograd")
         assert _rel(g.float(), j) <= tol, (name, "jax.vjp")
+    if kw.get("softcap"):
+        # control: the uncapped backward on the capped forward's lse (a
+        # kernel that ran its uncapped instantiation) fails the tolerance
+        uncapped = flash_attention_backward_plain(
+            tq, tk, tv, out, tdo, lse, **{**kw, "softcap": None})
+        assert all(_rel(u.float(), g.float()) > tol
+                   for u, g in zip(uncapped, got))
 
 
 def test_backward_body_is_wgmma_for_bf16_and_simt_for_f32():
+    assert port_flash.BACKWARD_HEAD_DIMS == (64, 128, 256)
     for d in port_flash.BACKWARD_HEAD_DIMS:
         assert port_flash.backward_body(torch.bfloat16, d) == "wgmma"
+    for d in port_flash.SIMT_BACKWARD_HEAD_DIMS:
         assert port_flash.backward_body(torch.float32, d) == "simt"
+    # f32 at d 256: the SIMT body's tiles need more shared memory than a
+    # block may have, so it is not built and the wrapper refuses it
     with pytest.raises(ValueError, match="head dims"):
-        port_flash.backward_body(torch.bfloat16, 256)
+        port_flash.backward_body(torch.float32, 256)
+    with pytest.raises(ValueError, match="head dims"):
+        port_flash.backward_body(torch.bfloat16, 32)
 
 
 def _backward_bf16_operands(q, k, v, out, dout, lse, hq, hkv, causal,
-                            split=False):
+                            split=False, softcap=None, cap_derivative=True):
     """The wgmma backward's arithmetic in torch, f32 but for the register
-    operands: P and dS formed in f32 from f32 products of the bf16 inputs,
-    then rounded once to bf16 for dV = P^T dO, dK = dS^T Q and dQ = dS K, as
-    the kernel feeds them; with ``split`` as hi = bf16(x) plus lo = bf16(x -
-    hi), the forward's two-term PV."""
+    operands: P and dS (with the cap's derivative) formed in f32 from f32
+    products of the bf16 inputs, then rounded once to bf16 for dV = P^T dO,
+    dK = dS^T Q and dQ = dS K, as the kernel feeds them; with ``split`` as
+    hi = bf16(x) plus lo = bf16(x - hi), the forward's two-term PV.
+    ``cap_derivative=False`` leaves the cap's derivative out of dS (a
+    faulty kernel, for the control)."""
     bhq, sq, d = q.shape
     skv = k.shape[1]
     b, group, scale = bhq // hq, hq // hkv, d ** -0.5
@@ -561,9 +607,13 @@ def _backward_bf16_operands(q, k, v, out, dout, lse, hq, hkv, causal,
     if causal:
         mask &= torch.arange(sq)[:, None] >= torch.arange(skv)[None, :]
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     p = torch.exp(s - l).masked_fill(~mask, 0.0)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
     ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    if softcap is not None and cap_derivative:
+        ds = ds * (1.0 - (s / softcap) ** 2)
 
     def operand(x):
         hi = x.to(torch.bfloat16).float()
@@ -576,39 +626,61 @@ def _backward_bf16_operands(q, k, v, out, dout, lse, hq, hkv, causal,
             dv.reshape(-1, skv, d))
 
 
+@pytest.mark.parametrize("softcap", [None, 50.0])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_backward_p_and_ds_in_bf16_hold_the_tolerance(case, causal):
+def test_backward_p_and_ds_in_bf16_hold_the_tolerance(case, causal, softcap):
     """Why the wgmma backward rounds P and dS once to bf16 (FlashAttention-2
     and -3's choice) and needs no hi + lo split: on bf16 inputs (held as
     f32) and the bf16 forward output, dq, dk and dv so computed agree with
     ``flash_attention_backward_plain`` within 3.4e-3 of max |plain| at
     these shapes (the card's gate is 2e-2), and with ``jax.vjp`` of the
     JAX oracle within 3.4e-3 (that includes the output's bf16 rounding in
-    delta); the split would keep them within 1e-5 of the plain version."""
+    delta); the split would keep them within 1e-5 of the plain version.
+    With gemma2's softcap of 50, at scores of std 25 that the cap bends,
+    dS carries the cap's derivative before it is rounded, as the kernel
+    forms it: the same bounds hold against the plain version, and against
+    ``jax.vjp`` from the f32 forward output; the bf16 output's rounding in
+    delta alone then moves dq and dk by up to 9.6e-3 of max |jax.vjp|
+    (the plain version's own distance), so from the bf16 output they are
+    held within the card's 2e-2.  Leaving the cap's derivative out moves dq
+    and dk by 0.3 to 2.3 of max |plain| (the control)."""
     hq, hkv, sq, skv, d = case
     rng = np.random.RandomState(sq * d + skv)
+    q, k, v = _qkv(sq * d + skv, 2 * hq, 2 * hkv, sq, skv, d)
     q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
-               for a in _qkv(sq * d + skv, 2 * hq, 2 * hkv, sq, skv, d))
+               for a in (_span_the_cap(q, softcap), k, v))
     dout = np.asarray(jnp.asarray(rng.randn(2 * hq, sq, d), jnp.bfloat16),
                       np.float32)
-    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal)
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=causal,
+              softcap=softcap)
     tq, tk, tv, tdo = _t(q, k, v, dout)
-    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
-    out = out.to(torch.bfloat16).float()
+    out32, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    out = out32.to(torch.bfloat16).float()
     plain = flash_attention_backward_plain(tq, tk, tv, out, tdo, lse, **kw)
     _, vjp = jax.vjp(lambda a, b, c: ref.flash_attention_ref(a, b, c, **kw),
                      *(jnp.asarray(a) for a in (q, k, v)))
     jax_grads = vjp(jnp.asarray(dout))
     once = _backward_bf16_operands(tq, tk, tv, out, tdo, lse, hq, hkv,
-                                   causal)
+                                   causal, softcap=softcap)
     split = _backward_bf16_operands(tq, tk, tv, out, tdo, lse, hq, hkv,
-                                    causal, split=True)
-    for name, o, sp, pl, jg in zip("qkv", once, split, plain, jax_grads):
+                                    causal, split=True, softcap=softcap)
+    from_f32_out = _backward_bf16_operands(tq, tk, tv, out32, tdo, lse, hq,
+                                           hkv, causal, softcap=softcap)
+    for name, o, sp, pl, jg, o32 in zip("qkv", once, split, plain,
+                                        jax_grads, from_f32_out):
         drift = _rel(o, pl)
         assert 1e-4 < drift < 5e-3, (name, drift)
-        assert _rel(o, jg) < 5e-3, (name, "jax.vjp")
+        assert _rel(o, jg) < (5e-3 if softcap is None else 2e-2), \
+            (name, "jax.vjp")
+        assert _rel(o32, jg) < 5e-3, (name, "jax.vjp, f32 output")
         assert _rel(sp, pl) < 1e-5, (name, "split")
+    if softcap is not None:
+        no_g = _backward_bf16_operands(tq, tk, tv, out, tdo, lse, hq, hkv,
+                                       causal, softcap=softcap,
+                                       cap_derivative=False)
+        for name, o, pl in zip("qk", no_g, plain):
+            assert _rel(o, pl) > 2e-2, (name, "without the cap's derivative")
 
 
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
@@ -662,21 +734,61 @@ def test_lse_is_minus_inf_for_a_row_that_sees_no_key():
     assert not bool(no_key[0].any()) and bool(torch.isneginf(no_key[1]).all())
 
 
+def test_attention_launch_counter_counts_windowed_launches():
+    """The flash wrappers' counters count every launch and, in
+    ``windowed``, those made with a window; a reset clears both."""
+    counter = port_flash.AttentionLaunchCounter()
+    counter.launched((4, 64, 64, 64, True), windowed=True, body="wgmma",
+                     capped=True)
+    counter.launched((4, 64, 64, 64, True), body="wgmma", capped=False)
+    counter.launched((2, 32, 32, 128, False), windowed=True, bq=64, bkv=64)
+    assert counter.count == 3 and counter.windowed.count == 2
+    assert counter.tiles[(4, 64, 64, 64, True)] == {"body": "wgmma",
+                                                    "capped": False}
+    assert counter.windowed.tiles[(4, 64, 64, 64, True)]["capped"]
+    counter.reset()
+    assert counter.count == counter.windowed.count == 0
+    assert not counter.tiles and not counter.windowed.tiles
+    # only the wgmma body compiles dK / dV and dQ for a cap (checked before
+    # the library is built)
+    for dtype, kernel in ((torch.float32, "dkdv"), (torch.bfloat16, "delta")):
+        with pytest.raises(ValueError, match="compiled for a softcap"):
+            port_flash.backward_attributes(dtype, 64, kernel, capped=True)
+
+
 def test_backward_refuses_window_softcap_and_other_head_dims():
-    q, k, v = (torch.zeros(4, 32, 64), torch.zeros(2, 32, 64),
-               torch.zeros(2, 32, 64))
-    out, lse = flash_attention_plain(q, k, v, num_q_heads=2, num_kv_heads=1,
-                                     return_lse=True)
+    """The backward takes the forward's window and softcap (no longer
+    refused) and refuses what the forward refuses of them (a window that
+    is not an int32, a softcap that is not positive); it refuses f32 at
+    head dim 256 (the SIMT body is not built there, bf16 is), an lse of
+    the wrong shape, and launches nothing for CPU tensors."""
+    q, k, v = _t(*_qkv(6, 4, 2, 32, 32, 64))
     heads = dict(num_q_heads=2, num_kv_heads=1)
-    for fn in (flash_attention_backward_kernel,
-               flash_attention_backward_plain):
-        for kw in (dict(window=8), dict(softcap=30.0)):
-            with pytest.raises(ValueError, match="window or softcap"):
-                fn(q, k, v, out, out, lse, **heads, **kw)
+    before = BACKWARD_LAUNCHES.count
+    for kw in (dict(window=8), dict(softcap=30.0),
+               dict(window=8, softcap=30.0, causal=False)):
+        out, lse = flash_attention_plain(q, k, v, return_lse=True, **heads,
+                                         **kw)
+        got = flash_attention_backward_kernel(q, k, v, out, out, lse,
+                                              **heads, **kw)
+        ref = flash_attention_backward_plain(q, k, v, out, out, lse,
+                                             **heads, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), kw
+    out, lse = flash_attention_plain(q, k, v, return_lse=True, **heads)
+    for kw, match in ((dict(window=1.5), "window"),
+                      (dict(softcap=0.0), "softcap")):
+        with pytest.raises(ValueError, match=match):
+            flash_attention_backward_kernel(q, k, v, out, out, lse, **heads,
+                                            **kw)
     q2, k2, v2 = (torch.zeros(4, 32, 256), torch.zeros(2, 32, 256),
                   torch.zeros(2, 32, 256))
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_backward_kernel(q2, k2, v2, q2, q2, lse, **heads)
+    bf = [t.to(torch.bfloat16) for t in (q2, k2, v2)]
+    assert all(g.shape == t.shape for g, t in zip(
+        flash_attention_backward_kernel(*bf, bf[0], bf[0], lse, **heads,
+                                        window=8, softcap=50.0), bf))
+    assert BACKWARD_LAUNCHES.count == before
     with pytest.raises(ValueError, match="lse"):
         flash_attention_backward_kernel(q, k, v, out, out, lse[:, :5],
                                         **heads)

@@ -175,13 +175,16 @@ def test_chunked_loss_gradient_matches_reference():
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _pair(arch: str, dtype=jnp.float32):
+def _pair(arch: str, dtype=jnp.float32, head_dim=None):
+    """Both packages' smoke config of ``arch`` (at ``head_dim`` if given),
+    the JAX model and its weights, and the port's model."""
+    more = {} if head_dim is None else {"head_dim": head_dim}
     jcfg = ref_get_config(arch, smoke=True).replace(dtype=dtype,
-                                                    use_pallas=False)
+                                                    use_pallas=False, **more)
     jmodel = RefModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    cfg = get_config(arch, smoke=True).replace(dtype=tdtype)
+    cfg = get_config(arch, smoke=True).replace(dtype=tdtype, **more)
     model = Model(cfg, device="cpu")
     return jcfg, jmodel, jparams, cfg, model
 
@@ -192,10 +195,10 @@ def _params(jparams) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _fan_in_scaled(arch: str, dtype=jnp.float32):
+def _fan_in_scaled(arch: str, dtype=jnp.float32, head_dim=None):
     """The reference's weights with every stacked "scaled" leaf rescaled to
     std 1 / sqrt(its fan-in), as (JAX tree, the port's tree)."""
-    _, _, jparams, _, model = _pair(arch, dtype)
+    _, _, jparams, _, model = _pair(arch, dtype, head_dim)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
     for path, spec in spec_leaves(model.specs()):
         if spec.init == "scaled" and spec.axes[:1] == ("layers",):
@@ -299,6 +302,52 @@ def test_train_gradient_through_the_ssd_and_gmm_functions(arch, monkeypatch):
         np.testing.assert_allclose(float(tm[k]), float(rm[k]), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
     _leafwise(tg, rg, 1e-4, arch)
+
+
+def test_gemma2_gradient_through_the_flash_backward(monkeypatch):
+    """gemma2-2b's smoke config (a window of 16 on every other layer, the
+    attention softcap 50, the final one 30) at head dim 64, the smallest
+    the flash kernels are built for: ``loss_and_grads`` with
+    ``ops.flash_attention`` running as ``_FlashAttention`` (on the card it
+    does for CUDA inputs that require grad; here its CPU branch is sent
+    there, and the Function's wrappers take the plain forward with lse and
+    the plain backward for CPU tensors), at S 40 so that the window hides
+    pairs, against the JAX package's ``value_and_grad`` as in
+    ``test_train_loss_and_every_leaf_gradient_match_reference``; the
+    backward ran once a layer, with that layer's window and the softcap."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    real_bwd = ops.flash_attention_backward_kernel
+
+    def function(q, k, v, *, q_chunk=None, **kw):
+        assert torch.is_grad_enabled() and q.requires_grad
+        return ops._FlashAttention.apply(q, k, v, 32, 64, kw)
+
+    def bwd(*args, **kw):
+        calls.append((kw["window"], kw["softcap"]))
+        return real_bwd(*args, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_plain", function)
+    monkeypatch.setattr(ops, "flash_attention_backward_kernel", bwd)
+    arch = "gemma2-2b"
+    jcfg, jmodel, jparams, cfg, model = _pair(arch, head_dim=64)
+    assert [d.window for d in cfg.block_pattern] == [16, None]
+    assert cfg.attn_softcap == 50.0
+    batch = _batch(cfg, S=40)
+    jscaled, scaled = _fan_in_scaled(arch, head_dim=64)
+    rm, rg = _ref_loss_and_grads(jmodel, jscaled, batch)
+    tm, tg = loss_and_grads(model, scaled, batch)
+    windows = [cfg.block_pattern[i % len(cfg.block_pattern)].window
+               for i in range(cfg.n_layers)]
+    assert sorted(calls, key=str) == sorted(
+        ((w, cfg.attn_softcap) for w in windows), key=str), calls
+    for k in ("loss", "ce"):
+        np.testing.assert_allclose(float(tm[k]), float(rm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    _leafwise(tg, rg, 1e-4, arch)
+    zero = [p for p, g in tree_paths(tg) if not bool((g != 0).any())]
+    assert not zero, zero
 
 
 def test_loss_and_grads_ops_reach_the_layers():

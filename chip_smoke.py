@@ -490,6 +490,7 @@ PEAK_F32 = 67e12       # H100 SXM FP32 on the CUDA cores
 HBM_BW = 3.35e12       # H100 SXM HBM3
 SEED = 0
 SPIN_CYCLES = 4_000_000   # about 2 ms at the H100's boost clock
+PARENT_SRC = None         # --parent-src: a checkout's src timed in [29] (a)
 
 # Flash attention: the prefill shape (llama3.2-1b, B = 1, S = 4096) and the
 # sweep of phase 7.
@@ -557,6 +558,14 @@ STEP1_F32 = ("mamba2-130m", "qwen3-moe-235b-a22b")
 # qwen3-moe's functional update holds old and new moments at once and runs
 # out of the card's 80 GB at any batch.
 BF16_MOMENTS = ("qwen3-moe-235b-a22b",)
+# Phase 29 (a): the grouped matmul's backward at the MoE layers' training
+# shapes (B 8 x S 256), (arch, dtype); grok-1 (whose step does not fit one
+# card) is gated against the plain version on these experts of its eight
+# (the plain backward takes seconds an expert there).
+GMM_BWD_SHAPES = (("qwen3-moe-235b-a22b", "bf16"), ("qwen3-moe-235b-a22b",
+                                                    "f32"),
+                  ("grok-1-314b", "bf16"))
+GMM_BWD_GATED_EXPERTS = (0, 7)
 SSD_BWD_SHAPES = (("train", TRAIN_B * 24, 24, TRAIN_S),
                   ("prefill", 24, 24, PREFILL_S))
 # Phase 30: gemma2-2b, its long-context length ([24]'s prefill), and the
@@ -583,6 +592,7 @@ TRAIN_PROFILE_GROUPS = (("flash_fwd", ("flash_sm90", "flash_fwd")),
 TRAIN_MORE_PROFILE_GROUPS = (
     ("flash_fwd", ("flash_sm90", "flash_fwd")), ("flash_bwd", ("flash_bwd",)),
     ("ssd_fwd", ("ssd_sm90", "ssd_simt")), ("ssd_bwd", ("ssd_bwd",)),
+    ("gmm_fwd", ("gemm_sm90::",)), ("gmm_bwd", ("gmm_bwd_sm90::",)),
     ("gemm", GEMM_NAMES))
 # The bf16 flash backward's three kernels, the calls of it and of SDPA's
 # backward in one profile of [28] (a), and the seconds the host waits before
@@ -602,9 +612,17 @@ def _device_profile(fn, what: str,
     (inflated by the profiler's own overhead).  ``groups`` = ((group, name
     fragments), ...): a kernel joins the first group one of whose fragments
     its name holds, else "other".  ``ranges`` names ``record_function``
-    ranges inside ``fn``: the kernels launched by the ops under each form a
-    group of the range's name, before ``groups`` are tried.  ``cpu=False``
-    traces the device alone (no host op events: less overhead, and less to
+    ranges inside ``fn``: a kernel that ran inside a range's span on the
+    device (the range's device-side annotation, from the start of its first
+    kernel to the end of its last; the run is one stream) forms a group of
+    the range's name, before ``groups`` are tried.  Every kernel execution
+    is counted once, in one group, so no group can read below 0 (gated).
+    Beside each range it prints what the walk of the range's nested ops
+    lists (``walk_ms``), the split's earlier way, which counted some kernels
+    twice: where the launch queue fills, the profiler nests a "Command
+    Buffer Full" event under the launching op with the op's correlation id,
+    and attaches the op's kernels to it too.  ``cpu=False`` traces
+    the device alone (no host op events: less overhead, and less to
     aggregate; no ``ranges``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -620,44 +638,63 @@ def _device_profile(fn, what: str,
         wall_ms = (time.perf_counter() - t0) * 1e3
     totals = {r: 0.0 for r in ranges} | {g: 0.0 for g, _ in groups} \
         | {"other": 0.0}
-    moved = {}                  # kernel name -> ms counted under a range
+    events = prof.events()
+    on_device = [ev for ev in events
+                 if str(ev.device_type).endswith("CUDA")]
+    spans = {r: [(ev.time_range.start, ev.time_range.end)
+                 for ev in on_device if ev.name == r] for r in ranges}
+    by_name = {}
+    for ev in on_device:
+        if ev.name in ranges or getattr(ev, "is_user_annotation", False):
+            continue                # a range's own span on the device
+        t0_, t1_ = ev.time_range.start, ev.time_range.end
+        ms = (t1_ - t0_) / 1e3
+        group = next((r for r in ranges if any(a <= t0_ and t1_ <= b
+                                               for a, b in spans[r])), None)
+        if group is None:
+            name = ev.name.lower()
+            group = next((g for g, frags in groups
+                          if any(f in name for f in frags)), "other")
+        totals[group] += ms
+        n_ms, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (n_ms + ms, n + 1)
+    # the op walk the split used before: each nested op's kernels
+    walk = {}
 
     def under(ev):
         for child in ev.cpu_children:
-            yield from child.kernels
+            yield child
             yield from under(child)
 
-    for ev in (prof.events() if ranges else ()):
+    for ev in events:
         if ev.name in ranges and str(ev.device_type).endswith("CPU"):
-            for k in under(ev):
-                totals[ev.name] += k.duration / 1e3
-                moved[k.name] = moved.get(k.name, 0.0) + k.duration / 1e3
-    kernels = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA") or ev.key in ranges:
-            continue                # a range's own span on the device
-        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3 \
-            - moved.get(ev.key, 0.0)
-        name = ev.key.lower()
-        group = next((g for g, frags in groups
-                      if any(f in name for f in frags)), "other")
-        totals[group] += ms
-        kernels.append((ms, ev.count, ev.key))
+            walk[ev.name] = walk.get(ev.name, 0.0) + sum(
+                k.duration for op in under(ev) for k in op.kernels) / 1e3
+    missing = [r for r in ranges if not spans[r]]
+    if missing:
+        raise AssertionError(f"profile of {what}: no device-side span of "
+                             f"the ranges {missing}")
     busy = sum(totals.values())
     if busy <= 0.0:
-        seen = prof.key_averages()
         print(f"  profile of {what}: the profiler saw no device time ("
-              f"{len(seen)} event keys, device types "
-              f"{sorted({str(ev.device_type) for ev in seen})}); device time "
-              f"not measured")
+              f"{len(events)} events, device types "
+              f"{sorted({str(ev.device_type) for ev in events})}); device "
+              f"time not measured")
         return {}
+    below = {g: ms for g, ms in totals.items() if ms < 0.0}
+    if below:
+        raise AssertionError(f"profile of {what}: groups below 0: {below}")
     print(f"  profile of {what} (torch.profiler): wall {wall_ms:.2f} ms, "
           f"device busy {busy:.2f} ms ({busy / wall_ms:.1%}); "
           + ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})"
-                      for g, ms in totals.items()), flush=True)
-    for ms, count, name in sorted(kernels, reverse=True)[:6]:
+                      for g, ms in totals.items())
+          + "".join(f"; {r} by the op walk {walk.get(r, 0.0):.2f} ms"
+                    for r in ranges), flush=True)
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, **totals}
+    return {"wall_ms": wall_ms, "busy_ms": busy, **totals,
+            **{f"{r}_walk_ms": walk.get(r, 0.0) for r in ranges}}
 
 
 def _visible_pairs(sq: int, skv: int, causal: bool,
@@ -749,6 +786,13 @@ def _cuobjdump() -> str:
 
 
 def main() -> int:
+    global PARENT_SRC
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--parent-src", help="another checkout's src: phase 29 "
+                    "(a) times its grouped-matmul backward beside this one's, "
+                    "in turns")
+    PARENT_SRC = ap.parse_args().parent_src
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from the root of a checkout of the "
               "repository (src/repro_torch is missing)", file=sys.stderr)
@@ -6025,91 +6069,147 @@ def _ssd_backward_alone(dev, gen, time_ms) -> list:
 
 def _gmm_backward_alone(dev, gen, time_ms) -> list:
     """Phase 29 (a), the grouped matmul: the backward kernel against its
-    plain version at qwen3-moe's training shapes (one layer's gate / up and
-    down products at B 8 x S 256), at the tiles ``ops.moe_gmm`` resolves
-    with grad on; gated and timed beside ``torch.bmm`` of the same two
-    products (see ``train_more_phase``)."""
+    plain version at qwen3-moe's and grok-1's training shapes (one layer's
+    gate / up and down products at B 8 x S 256; qwen3-moe's gate / up in f32
+    too), at the launch parameters ``ops.moe_gmm`` resolves with grad on;
+    gated (grok-1 on ``GMM_BWD_GATED_EXPERTS`` of the same call's outputs)
+    and timed whole and, in bf16, dX and dW each alone, beside ``torch.bmm``
+    of the same products and the bounds (see ``train_more_phase``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    rows = []
+    for arch, dt in GMM_BWD_SHAPES:
+        cfg = get_config(arch)
+        G, _, C = L.moe_groups(cfg, TRAIN_B * TRAIN_S)
+        e, g = cfg.n_experts, G * C
+        d, ff = cfg.d_model, cfg.moe_d_ff
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        for name, k, n in (("gate_up", d, ff), ("down", ff, d))[
+                :1 if dt == "f32" else 2]:
+            row = _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k,
+                                      n, dtype)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k, n,
+                        dtype) -> dict:
+    """One row of ``_gmm_backward_alone``."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.benchmarks.gmm_backward import bound_ms
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ops
-    from repro_torch.models import layers as L
 
-    cfg = get_config("qwen3-moe-235b-a22b")
-    G, _, C = L.moe_groups(cfg, TRAIN_B * TRAIN_S)
-    e, g = cfg.n_experts, G * C
-    d, ff = cfg.d_model, cfg.moe_d_ff
-    rows = []
-    for name, k, n, dtype in (("gate_up", d, ff, torch.bfloat16),
-                              ("down", ff, d, torch.bfloat16),
-                              ("gate_up", d, ff, torch.float32)):
-        x = torch.randn(e, g, k, generator=gen, device=dev).to(dtype)
-        w = (torch.randn(e, k, n, generator=gen, device=dev) * k ** -0.5
-             ).to(dtype)
-        dy = torch.randn(e, g, n, generator=gen, device=dev).to(dtype)
-        # the tiles the op trains at: one call through its Function
-        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
-        torch.autograd.grad(ops.moe_gmm(xl, wl), (xl, wl), dy)
-        gp = ops.gemm_dims(ops.gmm_kernel_name(dtype),
-                           {"e": e, "g": g, "k": k, "n": n})["g"]
-        tiles = gmm.BACKWARD_LAUNCHES.tiles[(e, gp, k, n)]
-        dx_t, dw_t = ({p: t[i] for i, p in enumerate(("bg", "bn", "bk"))}
-                      for t in (tiles["dx"], tiles["dw"]))
-        xp, dyp = (F.pad(t, (0, 0, 0, gp - g)) for t in (x, dy))
+    x = torch.randn(e, g, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(e, k, n, generator=gen, device=dev) * k ** -0.5
+         ).to(dtype)
+    dy = torch.randn(e, g, n, generator=gen, device=dev).to(dtype)
+    # the launch parameters the op trains at: one call through its Function
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    torch.autograd.grad(ops.moe_gmm(xl, wl), (xl, wl), dy)
+    del xl, wl
+    gp = ops.gemm_dims(ops.gmm_kernel_name(dtype),
+                       {"e": e, "g": g, "k": k, "n": n})["g"]
+    tiles = gmm.BACKWARD_LAUNCHES.tiles[(e, gp, k, n)]
+    keys = gmm.BACKWARD_KEYS if dtype == torch.bfloat16 \
+        else ("bg", "bn", "bk")
+    kw = {p + "_tiles": dict(zip(keys, tiles[p])) for p in ("dx", "dw")}
+    xp, dyp = (F.pad(t, (0, 0, 0, gp - g)) for t in (x, dy))
+    del x, dy
 
-        def bwd():
-            return gmm.moe_gmm_backward_kernel(xp, w, dyp, dx_tiles=dx_t,
-                                               dw_tiles=dw_t)
+    def bwd(products=("dx", "dw")):
+        return gmm.moe_gmm_backward_kernel(xp, w, dyp, products=products,
+                                           **kw)
 
-        got, again = bwd(), bwd()
-        ref = gmm.moe_gmm_backward_plain(xp, w, dyp)
-        torch.cuda.synchronize()
-        what = (f"grouped-matmul backward {name} {str(dtype)[6:]} (e {e}, g "
-                f"{g} -> {gp}, {k} -> {n})")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{what}: two backward calls differ")
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        errs = {}
-        for gname, a, r in zip(("dx", "dw"), got, ref):
-            errs[gname] = float((a.float() - r.float()).abs().max()) \
-                / float(r.float().abs().max())
-            if not bool(torch.isfinite(a).all()) or errs[gname] > tol:
-                raise AssertionError(f"{what}: {gname} differs from the "
-                                     f"plain backward by {errs[gname]:.3e} "
-                                     f"of max |plain|")
-        worst = max(float((a.float() - r.float()).abs().max())
-                    for a, r in zip(got, ref))
-        del got, again, ref
-        wt = w.transpose(1, 2)
+    got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    what = (f"grouped-matmul backward {arch} {name} {str(dtype)[6:]} (e {e}, "
+            f"g {g} -> {gp}, {k} -> {n})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two backward calls differ")
+    del again
+    sel = list(range(e) if arch.startswith("qwen")
+               else GMM_BWD_GATED_EXPERTS)
+    t0 = time.perf_counter()
+    ref = gmm.moe_gmm_backward_plain(xp[sel], w[sel], dyp[sel])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    errs, worst = {}, 0.0
+    for gname, a, r in zip(("dx", "dw"), got, ref):
+        a = a[sel]
+        diff = float((a.float() - r.float()).abs().max())
+        errs[gname] = diff / float(r.float().abs().max())
+        worst = max(worst, diff)
+        if not bool(torch.isfinite(a).all()) or errs[gname] > tol:
+            raise AssertionError(f"{what}: {gname} differs from the plain "
+                                 f"backward by {errs[gname]:.3e} of max "
+                                 f"|plain| (experts {sel})")
+    del got, ref
+    wt, xt = w.transpose(1, 2), xp.transpose(1, 2)
+    ms = time_ms(bwd)
+    library_ms = time_ms(lambda: (torch.bmm(dyp, wt), torch.bmm(xt, dyp)))
+    row = {"arch": arch, "shape": name, "dtype": str(dtype)[6:], "e": e,
+           "g": gp, "k": k, "n": n, "dx_tiles": tiles["dx"],
+           "dw_tiles": tiles["dw"], "rel_err": errs, "gated_experts": sel,
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "plain_experts": len(sel), "library_ms": library_ms,
+           "main_path": arch.startswith("qwen")}
+    if dtype == torch.bfloat16:
+        for p in ("dx", "dw"):
+            row[f"{p}_ms"] = time_ms(lambda p=p: bwd((p,)))
+            row[f"bound_{p}_ms"] = bound_ms(e, gp, k, n, p)
+        row["library_dx_ms"] = time_ms(lambda: torch.bmm(dyp, wt))
+        row["library_dw_ms"] = time_ms(lambda: torch.bmm(xt, dyp))
+    bound, bound_by = _gmm_bwd_bound_ms(e, gp, k, n, xp.element_size())
+    row.update({"bound_ms": bound, "bound_by": bound_by,
+                "pct_of_bound": 100.0 * bound / ms,
+                "tflops": 4.0 * e * gp * k * n / ms / 1e9})
+    split = "" if dtype != torch.bfloat16 else (
+        f"; alone dX {row['dx_ms']:.4f} ms (torch.bmm "
+        f"{row['library_dx_ms']:.4f}, bound {row['bound_dx_ms']:.4f}), dW "
+        f"{row['dw_ms']:.4f} ms (torch.bmm {row['library_dw_ms']:.4f}, bound "
+        f"{row['bound_dw_ms']:.4f})")
+    print(f"  {what}: dx tiles {tiles['dx']}, dw tiles {tiles['dw']}; rel "
+          f"err dx {errs['dx']:.2e} dw {errs['dw']:.2e} ok (experts "
+          f"{sel if len(sel) < e else 'all'} of {e} gated), two calls "
+          f"bit-equal; kernel "
+          f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+          f"{row['pct_of_bound']:.1f} % of bound) | torch.bmm x2 "
+          f"{library_ms:.4f} ms ({ms / library_ms:.2f}x) | plain "
+          f"{plain_ms:.1f} ms on {len(sel)} experts | bound {bound:.4f} ms "
+          f"({bound_by}){split}", flush=True)
+    return row
 
-        def library():
-            return (torch.bmm(dyp, wt), torch.bmm(xp.transpose(1, 2), dyp))
 
-        ms = time_ms(bwd)
-        library_ms = time_ms(library)
-        plain_ms = time_ms(lambda: gmm.moe_gmm_backward_plain(xp, w, dyp),
-                           max_iters=1)
-        bound, bound_by = _gmm_bwd_bound_ms(e, gp, k, n, x.element_size())
-        row = {"shape": name, "dtype": str(dtype)[6:], "e": e, "g": gp,
-               "k": k, "n": n, "dx_tiles": tiles["dx"],
-               "dw_tiles": tiles["dw"], "rel_err": errs,
-               "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound,
-               "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms,
-               "tflops": 4.0 * e * gp * k * n / ms / 1e9}
-        rows.append(row)
-        print(f"  {what}: dx tiles {tiles['dx']}, dw tiles {tiles['dw']}; "
-              f"rel err dx {errs['dx']:.2e} dw {errs['dw']:.2e} ok, two "
-              f"calls bit-equal; kernel {ms:.4f} ms ({row['tflops']:.1f} "
-              f"TFLOP/s, {row['pct_of_bound']:.1f} % of bound) | torch.bmm "
-              f"x2 {library_ms:.4f} ms ({ms / library_ms:.2f}x) | plain "
-              f"{plain_ms:.1f} ms | bound {bound:.4f} ms ({bound_by})",
-              flush=True)
-        del x, w, dy, xl, wl, xp, dyp, wt
-        torch.cuda.empty_cache()
-    return rows
+def _parent_gmm_backward(src: str) -> list:
+    """The grouped-matmul backward of the checkout whose ``src`` is given
+    beside this one's, in turns (parent, this, this, parent, each a process
+    of its own: ``src/repro_torch/benchmarks/gmm_backward.py --parent``),
+    at the shapes of ``_gmm_backward_alone`` in bf16: each run's call ms
+    and dX / dW device ms."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"  the parent's kernel ({src}) and this one in turns:", flush=True)
+    proc = subprocess.run(
+        [sys.executable, str(SRC / "repro_torch" / "benchmarks" /
+                             "gmm_backward.py"), "--parent", src],
+        capture_output=True, text=True, timeout=1200)
+    if proc.returncode:
+        raise AssertionError(f"the parent's timing failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(ln for ln in lines[:-1] if ln.startswith(("  ", "["))),
+          flush=True)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return json.loads(lines[-1])["in_turns"]
 
 
 def _train_model(dev, gen, arch: str, n_layers, index: int,
@@ -6309,7 +6409,7 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     training paths."""
     import torch
 
-    from repro_torch.core.kernel_spec import (SM90_TILES, SSD_SM90_CHUNKS,
+    from repro_torch.core.kernel_spec import (SSD_SM90_CHUNKS,
                                               SSD_SM90_REGS_PER_THREAD,
                                               SSD_SM90_SHAPES)
     from repro_torch.kernels import moe_gmm as gmm
@@ -6320,9 +6420,10 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
           "backward (csrc/ssd_scan_bwd.cu: one launch, the chain of state "
           "gradients in reverse chunk order, a fixed-order reduction; no "
           "atomics; bf16 at (64, 128) on the wgmma body, f32 on the SIMT "
-          "body) and the grouped matmul's (csrc/moe_gmm.cu: dX and dW on "
-          "wgmma, the transposed operand read in place) against their plain "
-          "versions at mamba2-130m's and qwen3-moe's training shapes (gates: "
+          "body) and the grouped matmul's (csrc/gmm_bwd_sm90.cuh: dX and dW "
+          "on a persistent wgmma body, the transposed operand read in place, "
+          "a TMA-store epilogue) against their plain versions at "
+          "mamba2-130m's, qwen3-moe's and grok-1's training shapes (gates: "
           "each gradient within 2e-2 (bf16) / 2e-4 (f32) x max |plain|; two "
           "calls bit-equal; the SSD forward bit-equal with its states; no "
           "spilled bytes)", flush=True)
@@ -6347,19 +6448,23 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
                     f"spills, and the wrapper's count "
                     f"{ssd.backward_smem_bytes(chunk, n, 2, dh)}")
     cap = gmm.MOE_GMM.regs_cap_for(torch.bfloat16)
-    for layout in ("dx", "dw"):
-        attrs = {t: gmm.tile_attributes(*t, layout=layout)
-                 for t in SM90_TILES}
-        print(f"  moe_gmm backward {layout} wgmma tiles (registers / spilled "
-              f"bytes, cap {cap}): " + ", ".join(
-                  f"{t} {a['num_regs']}/{a['local_bytes']}"
+    for product in gmm.PRODUCTS:
+        attrs = {t: gmm.backward_attributes(product, *t)
+                 for t in gmm.BACKWARD_SM90_TILES}
+        print(f"  moe_gmm backward {product} (gmm_bwd_sm90) tiles (bm, bn): "
+              f"registers / spilled bytes / shared memory (cap {cap}, "
+              f"65536 / threads): " + ", ".join(
+                  f"{t} {a['num_regs']}/{a['local_bytes']}/{a['smem_bytes']}"
                   for t, a in attrs.items()), flush=True)
         bad = {t: a for t, a in attrs.items()
-               if a["num_regs"] > cap or a["local_bytes"]}
+               if a["num_regs"] > min(cap, 65536 // (2 * t[0]))
+               or a["local_bytes"]
+               or a["smem_bytes"] != gmm.backward_smem_bytes(*t)}
         if bad:
-            raise AssertionError(f"moe_gmm backward {layout}: {bad}")
+            raise AssertionError(f"moe_gmm backward {product}: {bad}")
     ssd_rows = _ssd_backward_alone(dev, gen, time_ms)
     gmm_rows = _gmm_backward_alone(dev, gen, time_ms)
+    parent = _parent_gmm_backward(PARENT_SRC) if PARENT_SRC else None
 
     # -- (b) TrainLoop on the four models ------------------------------------
     print(f"  (b) TrainLoop at full width, bf16, B {TRAIN_B} x S {TRAIN_S} "
@@ -6377,6 +6482,7 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     phase_done(29)
     print(json.dumps({"train_more": {"ssd_backward": ssd_rows,
                                      "gmm_backward": gmm_rows,
+                                     "gmm_backward_parent": parent,
                                      "models": models},
                       "card": card}, default=str))
     out_rows = []
@@ -6385,21 +6491,24 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
              "src/repro/models/layers.py:355",
              "no TPU kernel: the JAX package differentiates ssd_parallel "
              "with XLA", ssd_rows),
-            ("moe_gmm_backward", "moe_gmm.cu", "src/repro/kernels/ref.py:122",
+            ("moe_gmm_backward", "moe_gmm.cu + gmm_bwd_sm90.cuh",
+             "src/repro/kernels/ref.py:122",
              "no TPU kernel: the JAX package differentiates moe_gmm_ref "
-             "with XLA", gmm_rows)):
+             "with XLA; the top-level times are qwen3-moe's (its training "
+             "path), grok-1's rows are in shapes", gmm_rows)):
+        main = [r for r in shapes if r.get("main_path", True)]
         out_rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "replaces_note": note,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
-            "ms": sum(r["ms"] for r in shapes),
-            "plain_ms": sum(r["plain_ms"] for r in shapes),
-            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
             "bound_by": "operations" if all(
-                r["bound_by"] == "operations" for r in shapes) else "bytes",
-            "library_ms": sum(r["library_ms"] for r in shapes)
+                r["bound_by"] == "operations" for r in main) else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main)
             if name == "moe_gmm_backward" else None,
             "shapes": shapes})
     return {"rows": out_rows, "launches": launches}

@@ -41,18 +41,6 @@
 // attention.  Warp specialisation,
 // persistent CTAs (one tile's epilogue overlapping the next one's loads) and
 // clusters with TMA multicast are later work.
-//
-// The grouped matmul's backward runs the same mainloop on its two products
-// with the operands read in place, in another layout (a template parameter,
-// so the forward's instantiations are the code they were):
-//   * kNT, dX[e] = dY[e] W[e]^T: B = W^T is W (k, n) row-major read along
-//     its rows, K-major for wgmma; its (BK, BN) tile comes in as BK / 64
-//     boxes of (BN rows, 64) over a map of W and takes a K-major descriptor
-//     (the transpose bit clear), as flash attention's K does;
-//   * kTN, dW[e] = X[e]^T dY[e]: A = X^T is X (g, k) row-major, MN-major
-//     for wgmma; its (BM, BK) tile comes in as BM / 64 boxes of (BK rows,
-//     64), and wgmma reads it through the A transpose bit with the
-//     descriptor of an MN-major B.
 
 #pragma once
 
@@ -71,10 +59,6 @@ constexpr int kMaxThreads = 256;   // two consumer warpgroups
 constexpr int kSmemExtra = kAlign + 2 * kStages * 8;
 
 enum OutType { kF32 = 0, kBF16 = 1, kF16 = 2 };
-// Operand layouts: x (m, k) or, with kTN, (k, m); y (k, n) or, with kNT,
-// (n, k); both row-major, out (m, n) = x @ y of the stored operands read as
-// (m, k) @ (k, n).
-enum Layout { kNN = 0, kNT = 1, kTN = 2 };
 
 template <int BM, int BN, int BK>
 constexpr int smem_bytes() {
@@ -129,9 +113,9 @@ __device__ __forceinline__ void store_tile(const float* d, unsigned char* smem, 
 }
 
 // out[e] = x[e] @ y[e] for e = blockIdx.z, the (BM, BN) tile at (blockIdx.x,
-// blockIdx.y), the operands in layout LAYOUT.  Requires m % BM == n % BN ==
-// k % BK == 0 and blockDim.x == 2 * BM.
-template <int BM, int BN, int BK, int LAYOUT = kNN>
+// blockIdx.y).  Requires m % BM == n % BN == k % BK == 0 and
+// blockDim.x == 2 * BM.
+template <int BM, int BN, int BK>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap xmap,
             const __grid_constant__ CUtensorMap ymap, void* out, int out_type,
@@ -143,7 +127,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   constexpr int kBBytes = BK * BN * 2;          // one slot of y
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
-  // kTN: [kStages][BM/64][BK][64]; kNT: [kStages][BK/64][BN][64]
   unsigned char* sa = smem;                                  // [kStages][BK/64][BM][64]
   unsigned char* sb = smem + kStages * kABytes;              // [kStages][BN/64][BK][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kBBytes);
@@ -158,24 +141,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
 
   auto load = [&](int kt, int s) {
     mbar_expect_tx(&full[s], kABytes + kBBytes);
-    if constexpr (LAYOUT == kTN) {
 #pragma unroll
-      for (int b = 0; b < BM / kAtom; ++b)
-        tma_load(sa + s * kABytes + b * BK * 128, &xmap, &full[s], m0 + b * kAtom, kt * BK, e);
-    } else {
+    for (int b = 0; b < BK / kAtom; ++b)
+      tma_load(sa + s * kABytes + b * BM * 128, &xmap, &full[s], kt * BK + b * kAtom, m0, e);
 #pragma unroll
-      for (int b = 0; b < BK / kAtom; ++b)
-        tma_load(sa + s * kABytes + b * BM * 128, &xmap, &full[s], kt * BK + b * kAtom, m0, e);
-    }
-    if constexpr (LAYOUT == kNT) {
-#pragma unroll
-      for (int b = 0; b < BK / kAtom; ++b)
-        tma_load(sb + s * kBBytes + b * BN * 128, &ymap, &full[s], kt * BK + b * kAtom, n0, e);
-    } else {
-#pragma unroll
-      for (int b = 0; b < BN / kAtom; ++b)
-        tma_load(sb + s * kBBytes + b * BK * 128, &ymap, &full[s], n0 + b * kAtom, kt * BK, e);
-    }
+    for (int b = 0; b < BN / kAtom; ++b)
+      tma_load(sb + s * kBBytes + b * BK * 128, &ymap, &full[s], n0 + b * kAtom, kt * BK, e);
   };
 
   if (tid == 0) {
@@ -194,7 +165,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
 
-  const uint32_t a_base = smem_addr(sa) + wg * (LAYOUT == kTN ? BK : 64) * 128;
+  const uint32_t a_base = smem_addr(sa) + wg * 64 * 128;
   const uint32_t b_base = smem_addr(sb);
   for (int kt = 0; kt < ktiles; ++kt) {
     const int s = kt % kStages;
@@ -202,16 +173,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t da =
-          LAYOUT == kTN
-              ? make_desc(a_base + s * kABytes + kk * 16 * 128, BK * 128, 1024)
-              : make_desc(a_base + s * kABytes + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024);
-      const uint64_t db =
-          LAYOUT == kNT
-              ? make_desc(b_base + s * kBBytes + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024)
-              : make_desc(b_base + s * kBBytes + kk * 16 * 128, BK * 128, 1024);
-      Wgmma<BN, LAYOUT == kNT ? kKMajor : kMNMajor,
-            LAYOUT == kTN ? kMNMajor : kKMajor>::mma(acc, da, db);
+      const uint64_t da = make_desc(
+          a_base + s * kABytes + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = make_desc(b_base + s * kBBytes + kk * 16 * 128, BK * 128, 1024);
+      Wgmma<BN, kMNMajor>::mma(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -236,29 +201,25 @@ gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int BM, int BN, int BK, int LAYOUT = kNN>
+template <int BM, int BN, int BK>
 cudaError_t launch(const void* x, const void* y, void* out, int out_type, int e, int m,
                    int n, int k, cudaStream_t stream) {
   CUtensorMap xmap, ymap;
-  const bool x_ok = LAYOUT == kTN ? make_map(&xmap, x, m, k, e, BK)
-                                  : make_map(&xmap, x, k, m, e, BM);
-  const bool y_ok = LAYOUT == kNT ? make_map(&ymap, y, k, n, e, BN)
-                                  : make_map(&ymap, y, n, k, e, BK);
-  if (!x_ok || !y_ok) return cudaErrorInvalidValue;
+  if (!make_map(&xmap, x, k, m, e, BM) || !make_map(&ymap, y, n, k, e, BK))
+    return cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<BM, BN, BK>();
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<BM, BN, BK, LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gemm_kernel<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(m / BM, n / BN, e);
-  gemm_kernel<BM, BN, BK, LAYOUT><<<grid, 2 * BM, smem, stream>>>(xmap, ymap, out, out_type, m,
-                                                                  n, k);
+  gemm_kernel<BM, BN, BK><<<grid, 2 * BM, smem, stream>>>(xmap, ymap, out, out_type, m, n, k);
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int BK, int LAYOUT = kNN>
+template <int BM, int BN, int BK>
 cudaError_t attributes(int* num_regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel<BM, BN, BK, LAYOUT>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gemm_kernel<BM, BN, BK>);
   if (err != cudaSuccess) return err;
   *num_regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
@@ -271,31 +232,28 @@ cudaError_t attributes(int* num_regs, int* local_bytes) {
   X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128) X(64, 256, 64) \
   X(128, 64, 64) X(128, 64, 128) X(128, 128, 64) X(128, 256, 64)
 
-// Launches the instantiation of tile (bm, bn, bk) in layout LAYOUT;
-// cudaErrorInvalidValue for a tile that is not compiled.
-template <int LAYOUT = kNN>
+// Launches the instantiation of tile (bm, bn, bk); cudaErrorInvalidValue for
+// a tile that is not compiled.
 inline cudaError_t dispatch(const void* x, const void* y, void* out, int out_type, int e,
                             int m, int n, int k, int bm, int bn, int bk,
                             cudaStream_t stream) {
 #define GEMM_SM90_CASE(BM, BN, BK)                                              \
   if (bm == BM && bn == BN && bk == BK)                                          \
-    return launch<BM, BN, BK, LAYOUT>(x, y, out, out_type, e, m, n, k, stream);
+    return launch<BM, BN, BK>(x, y, out, out_type, e, m, n, k, stream);
   GEMM_SM90_TILES(GEMM_SM90_CASE)
 #undef GEMM_SM90_CASE
   return cudaErrorInvalidValue;
 }
 
-// Registers per thread and spilled local bytes of tile (bm, bn, bk) in
-// layout LAYOUT; with bm = 0 the largest register count and spill over all
-// compiled tiles.
-template <int LAYOUT = kNN>
+// Registers per thread and spilled local bytes of tile (bm, bn, bk); with
+// bm = 0 the largest register count and spill over all compiled tiles.
 inline cudaError_t dispatch_attributes(int bm, int bn, int bk, int* num_regs,
                                        int* local_bytes) {
   int regs = 0, local = 0, found = 0;
 #define GEMM_SM90_ATTR(BM, BN, BK)                                              \
   if (bm == 0 || (bm == BM && bn == BN && bk == BK)) {                           \
     int r, l;                                                                    \
-    const cudaError_t err = attributes<BM, BN, BK, LAYOUT>(&r, &l);              \
+    const cudaError_t err = attributes<BM, BN, BK>(&r, &l);                      \
     if (err != cudaSuccess) return err;                                          \
     regs = r > regs ? r : regs;                                                  \
     local = l > local ? l : local;                                               \

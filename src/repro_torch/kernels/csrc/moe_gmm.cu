@@ -33,15 +33,14 @@
 // The backward (klaraptor_moe_gmm_backward) replaces no TPU kernel either:
 // the JAX package differentiates moe_gmm_ref with XLA.  It is two grouped
 // products, dX[e] = dY[e] W[e]^T (e, g, k) and dW[e] = X[e]^T dY[e] (e, k,
-// n), each bound by operations on the tensor cores as the forward is (the
-// same 2 g n k FLOPs on the same bytes).  bf16 runs both on the forward's
-// mainloop with the transposed operand read in place -- W^T as a K-major B
-// (gemm_sm90::kNT), X^T as an MN-major A through wgmma's A transpose bit
-// (gemm_sm90::kTN) -- so no pass copies a transpose, and each product's tile
-// is one of the nine compiled ones, chosen by the caller.  f32 has no
-// backward entry here: the wrapper feeds the f32 SIMT mainloop
-// klaraptor_moe_gmm a transposed contiguous copy of W and of X (no model
-// trains in f32 on the card).
+// n), with the forward's 2 g n k FLOPs each.  bf16 runs both on
+// csrc/gmm_bwd_sm90.cuh, a persistent wgmma body of their own with the
+// transposed operand read in place and an asynchronous TMA-store epilogue
+// (its header says why: at an MoE layer's short capacity dX is bound by
+// reading W and dW by writing it), one launch per product at the tile (bm,
+// bn), CTA count and walk order the caller chose.  f32 has no backward entry here: the
+// wrapper feeds the f32 SIMT mainloop klaraptor_moe_gmm a transposed
+// contiguous copy of W and of X (no model trains in f32 on the card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +48,7 @@
 
 #include "gemm_simt.cuh"
 #include "gemm_sm90.cuh"
+#include "gmm_bwd_sm90.cuh"
 
 namespace {
 
@@ -58,20 +58,41 @@ enum DType { kF32 = 0, kBF16 = 1 };
 
 extern "C" {
 
-// The bf16 backward on `stream`: dx (e, g, k) = dy (e, g, n) @ w^T at tile
-// (xg, xn, xk) over (g, k, n), and dw (e, k, n) = x^T @ dy at tile (wg, wn,
-// wk) over (k, n, g); returns cudaGetLastError() (0 on success) or
+// One bf16 backward product on `stream` (gmm_bwd_sm90::Product: 1 dX, 2
+// dW): out (e, m, n) from a and b as gmm_bwd_sm90::launch reads them, at
+// tile (bm, bn) on `ctas` persistent CTAs, walking each expert's tiles n
+// fastest when n_fast is 1; returns cudaGetLastError() (0 on success) or
 // cudaErrorInvalidValue for a tile that is not compiled.  The caller has
 // checked shapes, alignment and tile divisibility.
-int klaraptor_moe_gmm_backward(const void* x, const void* w, const void* dy, void* dx,
-                               void* dw, int e, int g, int n, int k, int xg, int xn, int xk,
-                               int wg, int wn, int wk, void* stream) {
+int klaraptor_moe_gmm_backward(int product, const void* a, const void* b, void* out, int e,
+                               int m, int n, int k, int bm, int bn, int ctas, int n_fast,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = gemm_sm90::dispatch<gemm_sm90::kNT>(dy, w, dx, gemm_sm90::kBF16, e, g, k,
-                                                      n, xg, xn, xk, s);
-  if (err) return err;
-  return gemm_sm90::dispatch<gemm_sm90::kTN>(x, dy, dw, gemm_sm90::kBF16, e, k, n, g, wg, wn,
-                                             wk, s);
+  switch (product) {
+    case gmm_bwd_sm90::kDX:
+      return gmm_bwd_sm90::dispatch<gmm_bwd_sm90::kDX>(a, b, out, e, m, n, k, bm, bn, ctas,
+                                                       n_fast, s);
+    case gmm_bwd_sm90::kDW:
+      return gmm_bwd_sm90::dispatch<gmm_bwd_sm90::kDW>(a, b, out, e, m, n, k, bm, bn, ctas,
+                                                       n_fast, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Registers per thread, spilled local bytes and dynamic shared memory of
+// backward product `product` at tile (bm, bn); cudaErrorInvalidValue if it
+// is not compiled.
+int klaraptor_moe_gmm_backward_attributes(int product, int bm, int bn, int* num_regs,
+                                          int* local_bytes, int* smem_bytes) {
+  switch (product) {
+    case gmm_bwd_sm90::kDX:
+      return gmm_bwd_sm90::dispatch_attributes<gmm_bwd_sm90::kDX>(bm, bn, num_regs,
+                                                                 local_bytes, smem_bytes);
+    case gmm_bwd_sm90::kDW:
+      return gmm_bwd_sm90::dispatch_attributes<gmm_bwd_sm90::kDW>(bm, bn, num_regs,
+                                                                 local_bytes, smem_bytes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success); the
@@ -104,19 +125,10 @@ int klaraptor_moe_gmm_attributes(int dtype, int* num_regs, int* max_threads,
 }
 
 // Registers per thread and local (spill) bytes of the bf16 wgmma tile
-// (bg, bn, bk) in layout `layout` (gemm_sm90::Layout: 0 the forward, 1 dX,
-// 2 dW); cudaErrorInvalidValue if it is not compiled.
-int klaraptor_moe_gmm_tile_attributes(int bg, int bn, int bk, int layout, int* num_regs,
+// (bg, bn, bk); cudaErrorInvalidValue if it is not compiled.
+int klaraptor_moe_gmm_tile_attributes(int bg, int bn, int bk, int* num_regs,
                                       int* local_bytes) {
-  switch (layout) {
-    case gemm_sm90::kNN:
-      return gemm_sm90::dispatch_attributes(bg, bn, bk, num_regs, local_bytes);
-    case gemm_sm90::kNT:
-      return gemm_sm90::dispatch_attributes<gemm_sm90::kNT>(bg, bn, bk, num_regs, local_bytes);
-    case gemm_sm90::kTN:
-      return gemm_sm90::dispatch_attributes<gemm_sm90::kTN>(bg, bn, bk, num_regs, local_bytes);
-    default: return cudaErrorInvalidValue;
-  }
+  return gemm_sm90::dispatch_attributes(bg, bn, bk, num_regs, local_bytes);
 }
 
 const char* klaraptor_moe_gmm_error_string(int err) {

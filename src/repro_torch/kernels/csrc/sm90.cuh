@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// csrc/gemm_sm90.cuh (the bf16 matmul and grouped matmul) and
+// csrc/gemm_sm90.cuh (the bf16 matmul and grouped matmul),
+// csrc/gmm_bwd_sm90.cuh (the grouped matmul's bf16 backward),
 // csrc/flash_attention.cu (bf16 flash attention at head dims 64, 128 and
-// 256), csrc/flash_attention_bwd.cu (its bf16 backward at 64 and 128) and
-// csrc/ssd_scan.cu.
+// 256), csrc/flash_attention_bwd.cu (its bf16 backward) and the SSD scan's
+// forward and backward.
 //
 //   * mbarriers in shared memory: init, arrive, arrive with an expected
 //     transaction byte count, and a spin on a phase's parity;
@@ -11,6 +12,8 @@
 //     taken from the loaded driver through dlopen, so nothing links -lcuda,
 //     called with the primary context bound to the calling thread);
 //     and the 1-D bulk copy (cp.async.bulk) of a contiguous run of bytes;
+//   * the 3-D TMA store of one box from shared memory, its bulk async-group
+//     commit and waits, the proxy fence before it, and named barriers;
 //   * wgmma: the shared-memory matrix descriptor for 128-byte-swizzled
 //     tiles, fence / commit / wait, and m64nNk16 bf16 products with f32
 //     accumulators -- A and B both from shared memory (Wgmma<N, TransB>), or
@@ -97,6 +100,46 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 3-D TMA store of one box from shared memory at src to coordinates (c0,
+// c1, c2) of the map's tensor, innermost first, in the calling thread's
+// bulk async-group; elements outside the tensor are not written.  The
+// threads that wrote src must have run fence_proxy_async() and met the
+// issuing thread at a barrier first.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// Closes the calling thread's bulk async-group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the calling thread's bulk groups are pending
+// reading their shared memory (READ) or pending altogether.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes the calling thread's shared-memory writes visible to the async
+// proxy: to wgmma, or to a TMA store that reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // 1-D bulk copy of `bytes` (a multiple of 16) from global memory at src to

@@ -177,11 +177,6 @@ __device__ __forceinline__ int swz(int rows, int row, int col) {
          (col % 8) * 2;
 }
 
-// Generic-proxy shared-memory writes become visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // -- the backward's decay gradient ----------------------------------------------
 
 // The decay exponents' gradient of one chunk of lv valid rows, by warp 0

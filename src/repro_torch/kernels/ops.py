@@ -325,8 +325,11 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, *,
 class _MoeGmm(torch.autograd.Function):
     """The grouped matmul on the card with its gradient: the tuned forward
     kernel, and the backward kernel's two products (dx = dy w^T, dw = x^T
-    dy), each at the tile ``_resolve`` gives under the forward's spec at
-    that product's own (padded) dims."""
+    dy).  bf16 takes the backward body's launch parameters from
+    ``moe_gmm.backward_tiles`` (the forward's spec cannot express them: a
+    persistent grid, a capacity tile of 192 rows); f32 tiles each product at
+    the tile ``_resolve`` gives under the forward's spec at that product's
+    own (padded) dims."""
 
     @staticmethod
     def forward(ctx, x, w, tiles):
@@ -336,6 +339,9 @@ class _MoeGmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        if x.dtype == torch.bfloat16:
+            dx, dw = moe_gmm_backward_kernel(x, w, dy.contiguous())
+            return dx, dw, None
         kernel = gmm_kernel_name(x.dtype)
         e, g, k = x.shape
         n = w.shape[2]

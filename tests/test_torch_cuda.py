@@ -1049,33 +1049,72 @@ def test_cuda_ssd_backward_kernel_matches_plain():
 
 @pytest.mark.cuda
 def test_cuda_moe_gmm_backward_kernel_matches_plain():
-    """dx and dw at every compiled bf16 tile (both layouts read in place)
-    and at two f32 SIMT tiles, within 2e-2 / 2e-4 x max |plain|, two calls
-    bit-equal, and ``ops.moe_gmm`` with grad on at a shape that needs
+    """The bf16 backward body (``csrc/gmm_bwd_sm90.cuh``) at every compiled
+    (bm, bn) of each product, each at the rule's CTA count, at one CTA (a
+    CTA walks every tile, its ring running across their k steps), at five
+    (an uneven share) walking n tiles fastest and walking m tiles fastest,
+    all bit-equal to one another and within 2e-2 x max |plain|, with no
+    spilled bytes; the rule's launch at g 192 (three 64-row warpgroups, 3 k
+    steps in dw) and at k 2048 in dx; two f32 SIMT tiles at 2e-4; two calls
+    bit-equal; and ``ops.moe_gmm`` with grad on at a shape that needs
     padding launching both kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    e, g, k, n = 2, 256, 512, 256
-    for dtype in (torch.bfloat16, torch.float32):
+
+    def inputs(e, g, k, n, dtype):
         x = torch.randn(e, g, k, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(e, k, n, generator=gen, device="cuda") * 0.05
              ).to(dtype)
         dy = torch.randn(e, g, n, generator=gen, device="cuda").to(dtype)
+        return x, w, dy
+
+    # every tile divides (e 2, g 384, k 768, n 256) in both products
+    x, w, dy = inputs(2, 384, 768, 256, torch.bfloat16)
+    ref = gmm.moe_gmm_backward_plain(x, w, dy)
+    for product, i in (("dx", 0), ("dw", 1)):
+        for bm, bn in gmm.BACKWARD_SM90_TILES:
+            attrs = gmm.backward_attributes(product, bm, bn)
+            assert attrs["local_bytes"] == 0, (product, bm, bn, attrs)
+            assert attrs["smem_bytes"] == gmm.backward_smem_bytes(bm, bn)
+            first = None
+            for extra in ({}, {"ctas": 1}, {"ctas": 5, "n_fast": 1},
+                          {"n_fast": 0}):
+                t = {"bm": bm, "bn": bn, **extra}
+                got = gmm.moe_gmm_backward_kernel(
+                    x, w, dy, products=(product,), **{product + "_tiles": t})
+                torch.cuda.synchronize()
+                assert got[1 - i] is None
+                if first is None:
+                    first = got[i]
+                    assert _rel(first, ref[i]) <= 2e-2, (product, t)
+                else:
+                    assert torch.equal(got[i], first), (product, t)
+    for e, g, k, n in ((2, 192, 512, 256), (2, 128, 256, 2048)):
+        x, w, dy = inputs(e, g, k, n, torch.bfloat16)
         ref = gmm.moe_gmm_backward_plain(x, w, dy)
-        tiles = SM90_TILES if dtype == torch.bfloat16 else \
-            ((64, 64, 32), (128, 128, 32))
-        for t in tiles:
-            tt = dict(zip(("bg", "bn", "bk"), t))
-            got = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt,
-                                              dw_tiles=tt)
-            again = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt,
-                                                dw_tiles=tt)
-            torch.cuda.synchronize()
-            tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
-            for a, b, r in zip(got, again, ref):
-                assert torch.equal(a, b)
-                assert _rel(a, r) <= tol, (dtype, t)
+        got = gmm.moe_gmm_backward_kernel(x, w, dy)
+        again = gmm.moe_gmm_backward_kernel(x, w, dy)
+        torch.cuda.synchronize()
+        tiles = gmm.BACKWARD_LAUNCHES.tiles[(e, g, k, n)]
+        assert tiles == {p: tuple(t.values()) for p, t in
+                         gmm.backward_tiles(e, g, k, n, torch.cuda.
+                                            get_device_properties(0).
+                                            multi_processor_count).items()}
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert _rel(a, r) <= 2e-2, (e, g, k, n)
+    x, w, dy = inputs(2, 256, 512, 256, torch.float32)
+    ref = gmm.moe_gmm_backward_plain(x, w, dy)
+    for t in ((64, 64, 32), (128, 128, 32)):
+        tt = dict(zip(("bg", "bn", "bk"), t))
+        got = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt, dw_tiles=tt)
+        again = gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=tt,
+                                            dw_tiles=tt)
+        torch.cuda.synchronize()
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert _rel(a, r) <= 2e-4, t
     x = torch.randn(3, 100, 200, generator=gen, device="cuda"
                     ).to(torch.bfloat16).requires_grad_()
     w = torch.randn(3, 200, 96, generator=gen, device="cuda"

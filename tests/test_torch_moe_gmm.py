@@ -259,15 +259,21 @@ def test_ops_moe_gmm_gradient_through_the_function(e, g, k, n, name,
     takes its plain version on the CPU), the padding's slice stays
     autograd's, and (dx, dw) equal jax.vjp of moe_gmm_ref at the unpadded
     shape; the backward's two products are tiled at tiles the kernel
-    takes for their own dims."""
+    takes for their own dims (bf16: ``backward_tiles``'s rule, f32: the
+    SIMT tiles ``_resolve`` gives)."""
     calls = []
 
-    def recording(x, w, dy, *, dx_tiles, dw_tiles):
+    def recording(x, w, dy, *, dx_tiles=None, dw_tiles=None):
         calls.append((tuple(x.shape), tuple(w.shape), dx_tiles, dw_tiles))
-        port_gmm._check_tiles(x.shape[0], x.shape[1], w.shape[2],
-                              x.shape[2], x.dtype, **dx_tiles)
-        port_gmm._check_tiles(x.shape[0], x.shape[2], x.shape[1],
-                              w.shape[2], x.dtype, **dw_tiles)
+        e_, g_, k_ = x.shape
+        n_ = w.shape[2]
+        if x.dtype == torch.float32:
+            port_gmm._check_tiles(e_, g_, n_, k_, x.dtype, **dx_tiles)
+            port_gmm._check_tiles(e_, k_, g_, n_, x.dtype, **dw_tiles)
+        else:                   # bf16: the body's own rule
+            assert dx_tiles is None and dw_tiles is None
+            for p, t in port_gmm.backward_tiles(e_, g_, k_, n_).items():
+                port_gmm._check_backward_tiles(e_, g_, k_, n_, p, **t)
         return port_gmm.moe_gmm_backward_kernel(
             x, w, dy, dx_tiles=dx_tiles, dw_tiles=dw_tiles)
 
@@ -299,14 +305,73 @@ def test_backward_wrapper_checks_and_counts_no_cpu_launch():
     assert port_gmm.BACKWARD_LAUNCHES.count == n0
     for g, r in zip((dx, dw), port_gmm.moe_gmm_backward_plain(x, w, dy)):
         assert torch.equal(g, r)
+    xb, wb, dyb = x.bfloat16(), w.bfloat16(), dy.bfloat16()
+    for products in (("dx",), ("dw",)):     # one product alone
+        got = port_gmm.moe_gmm_backward_kernel(xb, wb, dyb, products=products)
+        for name, g, r in zip(("dx", "dw"), got, port_gmm.
+                              moe_gmm_backward_plain(xb, wb, dyb)):
+            assert (g is None) == (name not in products)
+            assert g is None or torch.equal(g, r)
+    assert port_gmm.BACKWARD_LAUNCHES.count == n0
     with pytest.raises(ValueError, match="dy"):
         port_gmm.moe_gmm_backward_kernel(x, w, dy[:, :8], dx_tiles=tiles,
                                          dw_tiles=tiles)
     with pytest.raises(ValueError):         # bg 48 divides no dx row count
         port_gmm.moe_gmm_backward_kernel(x, w, dy, dx_tiles=dict(
             bg=48, bn=64, bk=32), dw_tiles=tiles)
+    with pytest.raises(ValueError, match="dx_tiles and dw_tiles"):
+        port_gmm.moe_gmm_backward_kernel(x, w, dy)      # f32 takes tiles
     with pytest.raises(ValueError):         # bn 256 does not divide n 64
         port_gmm.moe_gmm_backward_kernel(
-            x.bfloat16(), w.bfloat16(), dy.bfloat16(),
-            dx_tiles=dict(bg=64, bn=64, bk=64),
-            dw_tiles=dict(bg=64, bn=256, bk=128))
+            xb, wb, dyb, dx_tiles=dict(bm=64, bn=64),
+            dw_tiles=dict(bm=64, bn=256))
+    for bad, match in ((dict(dx_tiles=dict(bm=192, bn=256)), "compiled"),
+                       (dict(dx_tiles=dict(bm=128)), "divide"),
+                       (dict(dw_tiles=dict(ctas=0)), "ctas"),
+                       (dict(dw_tiles=dict(bg=64, bn=64, bk=64)), "take"),
+                       (dict(dw_tiles=dict(n_fast=2)), "n_fast"),
+                       (dict(products=("dz",)), "products"),
+                       (dict(products=()), "products")):
+        with pytest.raises(ValueError, match=match):
+            port_gmm.moe_gmm_backward_kernel(xb, wb, dyb, **bad)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        # dx's k (n = 96) is not a whole number of 64-deep steps
+        port_gmm.moe_gmm_backward_kernel(
+            torch.zeros(1, 64, 64, dtype=torch.bfloat16),
+            torch.zeros(1, 64, 96, dtype=torch.bfloat16),
+            torch.zeros(1, 64, 96, dtype=torch.bfloat16),
+            dx_tiles=dict(bm=64, bn=64), dw_tiles=dict(bm=64, bn=64))
+
+
+@pytest.mark.parametrize("e,g,k,n,dx,dw", [
+    # qwen3-moe's layer in training (B 8 x S 256: capacity 160 -> 192):
+    # (bm, bn, ctas, n_fast)
+    (128, 192, 4096, 1536, (192, 128, 132, 0), (128, 256, 132, 0)),
+    (128, 192, 1536, 4096, (192, 128, 132, 0), (128, 256, 132, 0)),
+    # grok-1's (2 groups x capacity 320 = 640 rows): the down product's dw
+    # has an A of 42 MB an expert, walked n tiles fastest
+    (8, 640, 6144, 32768, (128, 256, 132, 0), (128, 256, 132, 0)),
+    (8, 640, 32768, 6144, (128, 256, 132, 0), (128, 256, 132, 1)),
+    # small and ragged widths: fewer tiles than SMs, narrower tiles
+    (2, 64, 128, 64, (64, 128, 2, 0), (128, 64, 2, 0)),
+    (3, 320, 192, 320, (64, 64, 45, 0), (64, 64, 45, 0)),
+])
+def test_backward_tiles_rule(e, g, k, n, dx, dw):
+    """``backward_tiles``: dx's rows the largest of 192 / 128 / 64 dividing
+    the capacity, dw's 128 or 64, bn the largest compiled width dividing N,
+    the walk n tiles fastest only where A's expert is the larger and more
+    than a quarter of the L2, one persistent CTA per SM or per tile; every
+    launch it gives passes the wrapper's checks, and every compiled tile's
+    shared memory fits a block."""
+    got = port_gmm.backward_tiles(e, g, k, n)
+    assert tuple(got["dx"].values()) == dx
+    assert tuple(got["dw"].values()) == dw
+    for p, t in got.items():
+        port_gmm._check_backward_tiles(e, g, k, n, p, **t)
+    assert port_gmm.backward_tiles(e, g, k, n, sms=7)["dx"]["ctas"] == \
+        min(7, dx[2])
+    for bm, bn in port_gmm.BACKWARD_SM90_TILES:
+        smem = port_gmm.backward_smem_bytes(bm, bn)
+        assert smem <= port_gmm.SMEM_LIMIT
+        # at least two ring slots of (bm + bn) x 64 bf16
+        assert smem >= 2 * (bm + bn) * 128 + (bm // 64) * 64 * bn * 2

@@ -819,6 +819,74 @@ def test_three_train_steps_match_reference():
     _leafwise(ts["nu"], js["nu"], 1e-4, "nu")
 
 
+def test_three_qwen3_moe_train_steps_with_bf16_moments_match_reference(
+        monkeypatch):
+    """qwen3-moe's smoke config, three steps of ``make_train_step`` with f32
+    parameters and bf16 AdamW moments (the state qwen3-moe trains with on
+    the card; f32 parameters, so no stochastic rounding enters) against the
+    JAX package's train step with ``state_dtype`` bf16.  The experts'
+    products run through ``_MoeGmm``, the Function the card trains through
+    (its forward and backward wrappers take their plain versions on CPU
+    tensors).  Held:
+
+    * loss, ce, grad_norm and lr at each step within 1e-4 relative;
+    * both moments within one bf16 ulp (2^-7) of the leaf's max |ref|.  Not
+      element by element: once the two gradients differ in their last bits
+      a moment's rounding may fall either side, and a later step whose
+      gradient cancels the moment leaves that one-ulp step larger than one
+      ulp of what remains;
+    * the parameters within 1e-4 x max |ref| per leaf plus one bf16 ulp of
+      each step's update (2^-7 x the sum of the three learning rates):
+      Adam's update m / (sqrt(v) + eps) is near 1 in size and inherits the
+      moments' rounding, so a leaf that is the sum of its updates (the
+      zero-initialised norm scales) differs by that term and no less."""
+    from repro_torch.kernels import ops
+
+    monkeypatch.setattr(ops, "_wants_grad", lambda *t: torch.is_grad_enabled()
+                        and any(a.requires_grad for a in t))
+    calls = []
+    real_backward = ops.moe_gmm_backward_kernel
+
+    def recording(*a, **kw):
+        calls.append(1)
+        return real_backward(*a, **kw)
+
+    monkeypatch.setattr(ops, "moe_gmm_backward_kernel", recording)
+    arch = "qwen3-moe-235b-a22b"
+    jcfg, jmodel, _, cfg, model = _pair(arch)
+    jparams, params = _fan_in_scaled(arch)
+    rcfg = RefAdamWConfig(lr=ref_warmup_cosine(5e-3, 10, 10_000),
+                          weight_decay=0.01, state_dtype=jnp.bfloat16)
+    tcfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000), weight_decay=0.01,
+                       state_dtype=torch.bfloat16)
+    rstep = jax.jit(ref_make_train_step(jmodel, rcfg, SH))
+    tstep = make_train_step(model, tcfg)
+    jp, tp = jparams, params
+    js, ts = ref_adamw_init(rcfg, jp), adamw_init(tcfg, tp)
+    stream = SyntheticStream(SyntheticConfig(cfg.vocab_size, 32, 4, seed=3))
+    lr_sum = 0.0
+    for _ in range(3):
+        batch = stream.next_batch()
+        jp, js, jm = rstep(jp, js, {"tokens": jnp.asarray(batch["tokens"])})
+        tp, ts, tm = tstep(tp, ts, batch)
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-4, err_msg=k)
+        lr_sum += float(jm["lr"])
+    assert calls, "the steps ran no grouped-matmul backward"
+    ulp = 2.0 ** -7                                 # one bf16 ulp, relative
+    for key in ("mu", "nu"):
+        for _, leaf in tree_paths(ts[key]):
+            assert leaf.dtype == torch.bfloat16
+        _leafwise(ts[key], js[key], ulp, key)
+    ref = {jax.tree_util.keystr(p): np.asarray(v, np.float32)
+           for p, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+    for path, leaf in tree_paths(tp):
+        d = float(np.abs(_np(leaf) - ref[path]).max())
+        assert d <= 1e-4 * float(np.abs(ref[path]).max()) + ulp * lr_sum, \
+            (path, d)
+
+
 def test_train_step_profiles_the_optimizer_in_a_range_of_its_own():
     """The step's update runs inside the ``adamw_update`` profiler range,
     and every op of the update (and no op of the loss or its gradient)

@@ -17,10 +17,11 @@ installed, farms the tier-1 builds, a kill drill and a ledger-fed retune
 out to spawned workers taking turns on the card, watches the serving
 side through the observatory, trains llama3.2-1b at full width through
 the hand-written flash-attention backward kernel, and mamba2-130m,
-qwen3-moe (1 layer), internlm2-1.8b and whisper-medium through it and the
-SSD scan's and the grouped matmul's backward kernels, and gemma2-2b
-through the flash backward with its softcap, window and head dim 256, one
-phase per printed block:
+qwen3-moe (1 layer), internlm2-1.8b, whisper-medium and grok-1 (1 layer)
+through it and the SSD scan's and the grouped matmul's backward kernels,
+and gemma2-2b through the flash backward with its softcap, window and
+head dim 256 (every train step updating its parameters and AdamW moments
+in place), one phase per printed block:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: nvcc compiles every CUDA source of the port (timed), with each
@@ -216,7 +217,7 @@ phase per printed block:
      their configs with seeded random weights, every stacked matrix
      rescaled to std 1 / sqrt(fan-in) (the reference's init takes the
      stack's depth as the fan-in, which makes attention near one-hot and
-     two correct bf16 steps drift apart with depth): grok-1-314b (4 of 64
+     two correct bf16 steps drift apart with depth): grok-1-314b (2 of 64
      layers, MoE 8 experts top-2, softcaps 30), qwen3-14b (qk-norm),
      internlm2-1.8b, gemma2-2b (head dim 256 on the flash kernel's wgmma
      body, 4096-token windows on every other layer, softcap 50),
@@ -376,21 +377,30 @@ phase per printed block:
      the grouped matmul, ``torch.bmm`` of the same two products; (b)
      ``TrainLoop`` at full width, bf16, B 8 x S 256 from
      ``SyntheticStream``, weights at std 1 / sqrt(fan-in), on mamba2-130m
-     (24 layers), qwen3-moe-235b-a22b cut to 1 of 94 layers (bf16 AdamW
-     moments, as the reference trains it), internlm2-1.8b and
+     (24 layers), qwen3-moe-235b-a22b cut to 1 of 94 layers, internlm2-1.8b,
      whisper-medium (its encoder and cross attention
      the first non-causal and cross uses of the flash backward on a model
-     path): first the step-1 gradient against the same step with the
+     path) and grok-1-314b cut to 1 of 64 layers (6.53 B parameters: the
+     softcapped d 128 flash backward and the grouped matmul's backward at
+     8 experts x 640 rows); the models of ``BF16_OPT_STATE`` (qwen3-moe,
+     grok-1) with bf16 AdamW moments, as the reference trains them: first
+     the step-1 gradient against the same step with the
      plain ops (``flash_attention_plain``, ``ssd_scan_plain``,
      ``moe_gmm_plain`` with ``moe_gmm_backward_plain`` as its gradient;
      gated: every leaf finite and non-zero, each within
      5e-2 x max |g|, the loss within 1e-2; mamba2-130m's and qwen3-moe's
      gates hold the step in f32, the bf16 difference printed beside the
      bf16 floor of two plain SSDs at different chunks, or beside the two
-     steps' routing agreement), then 3 steps (gated: finite
+     steps' routing agreement; grok-1's plain step keeps the grouped
+     matmul's kernel, held alone in (a), and replays the kernel step's
+     routing), then 3 steps (gated: finite
      losses; each forward and backward kernel of the model's path
-     launched), ms per step, tokens/s, peak memory and one step's device
-     busy share; then one JSON line ``{"train_more": ...}``.  The
+     launched; a softcapped model's flash backward on the capped wgmma
+     body, a MoE model's grouped-matmul backward at its capacity rows; the
+     loop's parameter and moment tensors at the same addresses after the
+     steps, which update them in place), ms per step, tokens/s, peak
+     memory and one step's device busy share; then one JSON line
+     ``{"train_more": ...}``.  The
      ``kernels`` line gains the two backward rows and the SSD, grouped
      matmul and flash rows ``train_more_path_launches``.
  30. gemma2-2b trained on the card: (a) the flash-attention backward with
@@ -412,9 +422,9 @@ phase per printed block:
      softcap); (b) ``TrainLoop`` on gemma2-2b at full width (26 layers,
      d 2304, bf16, f32 AdamW moments) as phase 29 (b) trains its models,
      with the flash forward and backward launches made with a window
-     counted too (the counters' ``windowed``; gated as 29 (b), and: 26
-     backward launches a step, 13 of them windowed, the capped wgmma
-     body); (c) one step at B 1 x S 8192, where the window trims the
+     counted too (the counters' ``windowed``; gated as 29 (b), the capped
+     wgmma body among it, and: 26 backward launches a step, 13 of them
+     windowed); (c) one step at B 1 x S 8192, where the window trims the
      local layers' backward (gated: a finite loss, the windowed backward
      launched).  The ``kernels`` line gains the backward's row for these
      paths, ``flash_attention_backward_softcap_window``.
@@ -450,10 +460,11 @@ replays times those.  The
 driver cache (``$KLARAPTOR_CACHE_DIR``) is an empty temporary directory
 for the whole run, so every phase probes on the card and no run reads an
 earlier run's drivers.
-The line before the last is one JSON object with each kernel's numbers; the
-last is ``{"ok": true, "device": {...}}``.  Any failed check raises and the
-script exits nonzero.  Without a CUDA device, or outside a checkout, it
-exits nonzero and prints no result.
+After the last phase one line gives every phase's wall seconds and their
+sum.  The line before the last is one JSON object with each kernel's
+numbers; the last is ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits nonzero.  Without a CUDA device, or outside a
+checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -542,7 +553,8 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 10
 # all) at phase 28's batch, and the loop's steps; the SSD backward's shapes
 # at mamba2-130m's (dh 64, n 128): (name, bh, heads sharing B and C, S).
 TRAIN_MORE = (("mamba2-130m", None), ("qwen3-moe-235b-a22b", 1),
-              ("internlm2-1.8b", None), ("whisper-medium", None))
+              ("internlm2-1.8b", None), ("whisper-medium", None),
+              ("grok-1-314b", 1))
 TRAIN_MORE_STEPS = 3
 # Models whose step-1 gradient is gated in f32.  In bf16 two correct SSDs
 # that round in different places (the plain version at chunks 256 and 64)
@@ -553,15 +565,20 @@ TRAIN_MORE_STEPS = 3
 # gradients (phase 29 prints the two steps' routing agreement).  In f32
 # both hold the gate.
 STEP1_F32 = ("mamba2-130m", "qwen3-moe-235b-a22b")
-# Models whose AdamW moments are bf16, as the reference trains them
-# (src/repro/configs/__init__.py's BF16_OPT_STATE): with f32 moments
-# qwen3-moe's functional update holds old and new moments at once and runs
-# out of the card's 80 GB at any batch.
-BF16_MOMENTS = ("qwen3-moe-235b-a22b",)
+# Models whose step 1 is held in bf16 against a step with plain attention
+# that keeps the grouped matmul's kernel (its forward and backward held
+# alone against the plain ones at the same shapes, on
+# GMM_BWD_GATED_EXPERTS, in phase 29 (a); the plain version takes seconds
+# an expert there) and
+# replays the kernel step's routing, so that no bf16 rounding moves a
+# top-k choice: grok-1, whose f32 step (26 GB of parameters and two
+# 26 GB gradients) does not fit the card.  The models of the port's
+# BF16_OPT_STATE (the reference's) train with bf16 AdamW moments.
+STEP1_REPLAYED_ROUTING = ("grok-1-314b",)
 # Phase 29 (a): the grouped matmul's backward at the MoE layers' training
-# shapes (B 8 x S 256), (arch, dtype); grok-1 (whose step does not fit one
-# card) is gated against the plain version on these experts of its eight
-# (the plain backward takes seconds an expert there).
+# shapes (B 8 x S 256), (arch, dtype); grok-1 is gated against the plain
+# version on these experts of its eight (the plain backward takes seconds
+# an expert there).
 GMM_BWD_SHAPES = (("qwen3-moe-235b-a22b", "bf16"), ("qwen3-moe-235b-a22b",
                                                     "f32"),
                   ("grok-1-314b", "bf16"))
@@ -893,10 +910,12 @@ def run(caches: list) -> int:
         return err
 
     clock = [time.perf_counter()]
+    walls: dict[int, float] = {}
 
     def phase_done(n: int) -> None:
         now = time.perf_counter()
-        print(f"  (phase {n}: {now - clock[0]:.2f} s wall)", flush=True)
+        walls[n] = now - clock[0]
+        print(f"  (phase {n}: {walls[n]:.2f} s wall)", flush=True)
         clock[0] = now
 
     # -- 1. the card -----------------------------------------------------------
@@ -1282,6 +1301,16 @@ def run(caches: list) -> int:
     for row, name in ((flash_row, "flash_attention"),
                       (train["row"], "flash_attention_backward")):
         row["gemma2_path_launches"] = gemma["launches"][name]
+    # grok-1's training path (phase 29 (b)): the softcapped d 128 flash
+    # backward and the grouped-matmul backward at 8 experts x 640 rows
+    grok = more["by_model"]["grok-1-314b"]
+    gemma["row"]["grok1_train_path_launches"] = \
+        grok["flash_attention_backward"]
+    for row in more["rows"]:
+        row["grok1_train_path_launches"] = grok[row["name"]]
+    print("phase walls (s): " + ", ".join(
+        f"[{n}] {w:.2f}" for n, w in sorted(walls.items()))
+        + f"; sum {sum(walls.values()):.2f}", flush=True)
     print(json.dumps({"kernels": [matmul_row, flash_row, ssd_row, gmm_row,
                                   ln_row, cs_row, simt_row, gmm32_row,
                                   train["row"], *more["rows"],
@@ -3965,13 +3994,14 @@ def engine_phase(dev, hw, gen, check, phase_done, caches, card: str,
 # full width of their configs with seeded random weights: (arch, layers on
 # the card or None for the config's all, tokens of the prefill, its prefix
 # rows: patch embeddings of a vlm, frame embeddings of an encdec).  grok-1
-# and internvl2 are cut in depth to fit the card beside the run's other
-# buffers (4 of 64 layers, about 42.6 GB; 16 of 80, about 31.6 GB); gemma2
+# and internvl2 are cut in depth (2 of 64 layers, about 22.9 GB, whose
+# plain-kernel step takes most of the phase's time; 16 of 80, about 31.6 GB
+# to fit the card beside the run's other buffers); gemma2
 # prefills its context length, 8192, so that its 4096-token windows mask;
 # whisper its 448-token decoder context after the encoder's 1500 frames.
 # jamba-1.5-large does not fit: one period of 8 layers is about 90 GB.
 ARCH_RUNS = (
-    ("grok-1-314b", 4, PREFILL_S, 0),
+    ("grok-1-314b", 2, PREFILL_S, 0),
     ("qwen3-14b", None, PREFILL_S, 0),
     ("internlm2-1.8b", None, PREFILL_S, 0),
     ("gemma2-2b", None, 8192, 0),
@@ -5459,13 +5489,21 @@ def _bwd_bound_ms(bh: int, hkv_rows: int, s: int, d: int,
 
 
 def _leaf_rel(a: dict, b: dict) -> dict:
-    """max |a - b| / max |b| per leaf path of two gradient trees."""
+    """max |a - b| / max |b| per leaf path of two gradient trees, each leaf
+    read in flat chunks of 2^26 elements (the f32 copies of grok-1's 1.6
+    G-element expert gradients would take 19 GB at once)."""
+    import torch
+
     from repro_torch.tree import tree_paths
     out = {}
     for (path, x), (_, y) in zip(tree_paths(a), tree_paths(b)):
-        ref = float(y.float().abs().max())
-        out[path] = float((x.float() - y.float()).abs().max()) \
-            / max(ref, 1e-30)
+        pairs = list(zip(x.reshape(-1).split(1 << 26),
+                         y.reshape(-1).split(1 << 26)))
+        ref = float(torch.stack([q.float().abs().max() for _, q in pairs])
+                    .max())
+        diff = float(torch.stack([(p.float() - q.float()).abs().max()
+                                  for p, q in pairs]).max())
+        out[path] = diff / max(ref, 1e-30)
     return out
 
 
@@ -6071,7 +6109,8 @@ def _gmm_backward_alone(dev, gen, time_ms) -> list:
     """Phase 29 (a), the grouped matmul: the backward kernel against its
     plain version at qwen3-moe's and grok-1's training shapes (one layer's
     gate / up and down products at B 8 x S 256; qwen3-moe's gate / up in f32
-    too), at the launch parameters ``ops.moe_gmm`` resolves with grad on;
+    too), at the launch parameters ``ops.moe_gmm`` resolves with grad on,
+    and that call's forward against the plain product; both
     gated (grok-1 on ``GMM_BWD_GATED_EXPERTS`` of the same call's outputs)
     and timed whole and, in bf16, dX and dW each alone, beside ``torch.bmm``
     of the same products and the bounds (see ``train_more_phase``)."""
@@ -6110,9 +6149,12 @@ def _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k, n,
     w = (torch.randn(e, k, n, generator=gen, device=dev) * k ** -0.5
          ).to(dtype)
     dy = torch.randn(e, g, n, generator=gen, device=dev).to(dtype)
-    # the launch parameters the op trains at: one call through its Function
+    # the launch parameters the op trains at: one call through its Function,
+    # whose forward is held against the plain product below
     xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
-    torch.autograd.grad(ops.moe_gmm(xl, wl), (xl, wl), dy)
+    out = ops.moe_gmm(xl, wl)
+    torch.autograd.grad(out, (xl, wl), dy)
+    out = out.detach()
     del xl, wl
     gp = ops.gemm_dims(ops.gmm_kernel_name(dtype),
                        {"e": e, "g": g, "k": k, "n": n})["g"]
@@ -6141,6 +6183,15 @@ def _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k, n,
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    fwd_ref = gmm.moe_gmm_plain(xp[sel, :g], w[sel])
+    fwd = out[sel]
+    fwd_err = float((fwd.float() - fwd_ref.float()).abs().max()) / float(
+        fwd_ref.float().abs().max())
+    if not bool(torch.isfinite(fwd).all()) or fwd_err > tol:
+        raise AssertionError(f"{what}: the forward differs from the plain "
+                             f"product by {fwd_err:.3e} of max |plain| "
+                             f"(experts {sel})")
+    del out, fwd, fwd_ref
     errs, worst = {}, 0.0
     for gname, a, r in zip(("dx", "dw"), got, ref):
         a = a[sel]
@@ -6158,9 +6209,10 @@ def _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k, n,
     row = {"arch": arch, "shape": name, "dtype": str(dtype)[6:], "e": e,
            "g": gp, "k": k, "n": n, "dx_tiles": tiles["dx"],
            "dw_tiles": tiles["dw"], "rel_err": errs, "gated_experts": sel,
+           "fwd_rel_err": fwd_err,
            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
            "plain_experts": len(sel), "library_ms": library_ms,
-           "main_path": arch.startswith("qwen")}
+           "in_totals": arch.startswith("qwen")}
     if dtype == torch.bfloat16:
         for p in ("dx", "dw"):
             row[f"{p}_ms"] = time_ms(lambda p=p: bwd((p,)))
@@ -6177,7 +6229,8 @@ def _gmm_backward_shape(dev, gen, time_ms, arch, name, e, g, k, n,
         f"{row['dw_ms']:.4f} ms (torch.bmm {row['library_dw_ms']:.4f}, bound "
         f"{row['bound_dw_ms']:.4f})")
     print(f"  {what}: dx tiles {tiles['dx']}, dw tiles {tiles['dw']}; rel "
-          f"err dx {errs['dx']:.2e} dw {errs['dw']:.2e} ok (experts "
+          f"err forward {fwd_err:.2e} dx {errs['dx']:.2e} dw "
+          f"{errs['dw']:.2e} ok (experts "
           f"{sel if len(sel) < e else 'all'} of {e} gated), two calls "
           f"bit-equal; kernel "
           f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
@@ -6217,16 +6270,18 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
     """Phase 29 (b) (and 30 (b)) for one model: the step-1 gradient against
     the plain ops' step, then ``TrainLoop`` with every launch counter (and
     each of ``extra``, name -> an object with ``reset()`` and ``count``)
-    set to 0 just before it and read just after; one more step
+    set to 0 just before it and read just after, its tensors' addresses
+    read before and after (the steps update them in place); one more step
     profiled."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import BF16_OPT_STATE, get_config
     from repro_torch.configs.base import ShapePreset
     from repro_torch.data import SyntheticConfig, SyntheticStream
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.launch.train import TrainLoop
@@ -6254,7 +6309,7 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
         ("ssd_scan", any(d.kind != "attn" for d in cfg.block_pattern)),
         ("moe_gmm", any(d.moe for d in cfg.block_pattern))) if on]
     depth = "" if n_layers is None else f" (cut to {n_layers} layer)"
-    moments = "bf16" if arch in BF16_MOMENTS else "f32"
+    moments = "bf16" if arch in BF16_OPT_STATE else "f32"
     print(f"  (b) {arch}{depth}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{model.param_count() / 1e9:.3f} B parameters, bf16, {moments} "
           f"AdamW moments, remat {cfg.remat!r}; kernels on its path: "
@@ -6278,7 +6333,7 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
     plain = dict(attn_op=flash.flash_attention_plain,
                  ssd_op=ssd.ssd_scan_plain, gmm_op=PlainGmm.apply)
 
-    routes, marks = [], []
+    routes, marks, replay = [], [], []
     real_route = L.moe_route
 
     def recording_route(c, p, xg):
@@ -6286,13 +6341,32 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
         routes.append(out[2])
         return out
 
-    def step1(mdl, tree, what: str, **ops) -> tuple:
+    def replaying_route(c, p, xg):
+        """The router's probabilities, with the experts the kernel step's
+        route chose at the same call (gates renormalised as ``moe_route``
+        does)."""
+        probs = real_route(c, p, xg)[0]
+        expert = replay.pop(0)
+        gate = probs.gather(-1, expert)
+        return (probs, gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9), expert)
+
+    def step1(mdl, tree, what: str, replayed: bool = False,
+              **other) -> tuple:
         """(per-leaf rel difference, losses) of the kernels' step against
-        the plain ops' (or ``ops``') step."""
+        the plain ops' (or ``other``'s) step; with ``replayed`` the second
+        step routes as the first did."""
+        start = len(routes)
         m_k, g_k = loss_and_grads(mdl, tree, batch)
         marks.append(len(routes))
-        m_p, g_p = loss_and_grads(mdl, tree, batch, **(ops or plain))
+        if replayed:
+            replay[:] = routes[start:]
+            L.moe_route = replaying_route
+        m_p, g_p = loss_and_grads(mdl, tree, batch, **(other or plain))
         torch.cuda.synchronize()
+        if replay:
+            raise AssertionError(f"{arch} step 1: {len(replay)} recorded "
+                                 f"routes were not replayed")
         for path, g in tree_paths(g_k):
             if not bool(torch.isfinite(g).all()) or not bool((g != 0).any()):
                 raise AssertionError(f"{arch} step 1 ({what}): the gradient "
@@ -6306,13 +6380,18 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
               + ", ".join(f"{p} {r:.3e}" for p, r in top), flush=True)
         return rel, losses, top
 
+    t_gate = time.perf_counter()
+    replayed = arch in STEP1_REPLAYED_ROUTING
     L.moe_route = recording_route
     try:
-        rel, (loss_k, loss_p), top = step1(model, params, "bf16")
+        rel, (loss_k, loss_p), top = step1(
+            model, params, "bf16, the kernels' routing replayed" if replayed
+            else "bf16", replayed=replayed,
+            **({"attn_op": flash.flash_attention_plain} if replayed else {}))
     finally:
         L.moe_route = real_route
     floor = None
-    if routes:
+    if routes and not replayed:
         agree = _routing_agreement(routes[0], routes[marks[0]])
         print(f"    bf16 routing of the two steps' first forward: "
               f"{agree[0]:.4%} of the (token, choice) pairs among the same "
@@ -6333,19 +6412,30 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
         model32 = Model(cfg.replace(dtype=torch.float32))
         rel, (loss_k, loss_p), top = step1(model32, _upcast(params), "f32")
         del model32
+    gate_s = time.perf_counter() - t_gate
+    print(f"    step-1 gate: {gate_s:.2f} s wall"
+          + (f"; the plain step keeps the grouped matmul's kernel and "
+             f"replays the kernel step's {marks[0]} routes (remat "
+             f"{cfg.remat!r})" if replayed else ""), flush=True)
     if max(rel.values()) > 5e-2 or abs(loss_k - loss_p) > 1e-2 * abs(loss_p):
         raise AssertionError(f"{arch} step 1 disagrees with the plain-op "
                              f"step: {top}, loss {loss_k} vs {loss_p}")
     torch.cuda.empty_cache()
     preset = ShapePreset("chip", "train", TRAIN_S, TRAIN_B)
     opt_cfg = None
-    if arch in BF16_MOMENTS:      # TrainLoop's own schedule, bf16 moments
+    if arch in BF16_OPT_STATE:    # TrainLoop's own schedule, bf16 moments
         opt_cfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000),
                               weight_decay=0.01, state_dtype=torch.bfloat16)
     loop = TrainLoop(cfg, preset, seed=SEED, params=params, opt_cfg=opt_cfg)
     loop.init_state()
     loop.initial_params = params = None   # the loop trains its own copy
     counters = {**_train_more_counters(), **(extra or {})}
+
+    def addresses() -> list:
+        return [t.data_ptr() for t in _leaves(
+            {"params": loop.params, **loop.opt_state})]
+
+    before = addresses()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -6353,7 +6443,13 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
     hist = loop.run(TRAIN_MORE_STEPS, log_every=1)     # the main path
     launches = {k: c.count for k, c in counters.items()}
     flash_keys = list(flash.BACKWARD_LAUNCHES.tiles)
+    gmm_keys = list(gmm.BACKWARD_LAUNCHES.tiles)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    kept = addresses() == before
+    if not kept:
+        raise AssertionError(f"{arch}: the loop's parameter or moment "
+                             f"tensors moved in {TRAIN_MORE_STEPS} steps: the "
+                             f"update did not write them in place")
     losses = [m["loss"] for m in hist]
     if not all(np.isfinite(x) for x in losses):
         raise AssertionError(f"{arch}: a training loss is not finite: "
@@ -6368,6 +6464,22 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
             and any(key[1] != key[2] for key in flash_keys)):
         raise AssertionError(f"whisper's training path ran no non-causal or "
                              f"no cross flash backward: {flash_keys}")
+    if cfg.attn_softcap is not None:
+        ran = flash.BACKWARD_LAUNCHES.tiles.get(
+            (TRAIN_B * cfg.n_heads, TRAIN_S, TRAIN_S, cfg.head_dim, True))
+        if ran != {"body": "wgmma", "capped": True}:
+            raise AssertionError(f"{arch}: the training path's flash "
+                                 f"backward ran {ran}, not the capped wgmma "
+                                 f"body")
+    if "moe_gmm" in kinds:
+        G, _, C = L.moe_groups(cfg, TRAIN_B * TRAIN_S)
+        rows = ops.gemm_dims(ops.gmm_kernel_name(cfg.dtype), {
+            "e": cfg.n_experts, "g": G * C, "k": cfg.d_model,
+            "n": cfg.moe_d_ff})["g"]
+        if (cfg.n_experts, rows) not in {key[:2] for key in gmm_keys}:
+            raise AssertionError(f"{arch}: the grouped-matmul backward ran "
+                                 f"at {gmm_keys}, not at {cfg.n_experts} "
+                                 f"experts x {rows} rows")
     step_ms = float(np.median([m["step_time_s"] for m in hist[1:]])) * 1e3
     batch = loop.next_batch()
     prof = _device_profile(
@@ -6382,7 +6494,15 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
           f"{peak:.2f} GiB, device busy {busy:.1%} of a profiled step; "
           f"launches per step: " + ", ".join(
               f"{k} {v / TRAIN_MORE_STEPS:g}" for k, v in launches.items()
-              if v) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+              if v)
+          + (f"; flash backward at (bh, sq, skv, d, causal) "
+             f"{sorted(flash.BACKWARD_LAUNCHES.tiles.items())}"
+             if cfg.attn_softcap is not None else "")
+          + (f"; grouped-matmul backward at (e, g, k, n) "
+             f"{sorted(gmm_keys)}" if "moe_gmm" in kinds else "")
+          + f"; parameter and moment tensors at the same addresses after "
+          f"the steps: {kept} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     del loop
     gc.collect()
     torch.cuda.empty_cache()
@@ -6390,23 +6510,25 @@ def _train_model(dev, gen, arch: str, n_layers, index: int,
             "params_b": model.param_count() / 1e9, "step_ms": step_ms,
             "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
             "peak_gib": peak, "losses": losses,
-            "moments": "bfloat16" if arch in BF16_MOMENTS else "float32",
+            "moments": "bfloat16" if arch in BF16_OPT_STATE else "float32",
             "grad_norms": [m["grad_norm"] for m in hist],
             "step1_max_leaf_rel": max(rel.values()),
             "step1_dtype": "float32" if arch in STEP1_F32 else "bfloat16",
             "step1_bf16_floor": floor,
-            "step1_loss": [loss_k, loss_p], "busy_share": busy,
+            "step1_loss": [loss_k, loss_p], "step1_gate_s": gate_s,
+            "step1_routing_replayed": replayed,
+            "in_place": kept, "busy_share": busy,
             "profile": prof, "launches": launches}
 
 
 def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     """Phase 29: training beyond llama on the card.  (a) the SSD scan's and
-    the grouped matmul's backward kernels alone at mamba2-130m's and
-    qwen3-moe's training shapes (and the SSD's prefill shape); (b)
-    ``TrainLoop`` on mamba2-130m, qwen3-moe (1 layer), internlm2-1.8b and
-    whisper-medium at full width.  Returns the two backward kernels' rows
-    of the ``kernels`` line and each kernel's launches on the four
-    training paths."""
+    the grouped matmul's backward kernels alone at mamba2-130m's,
+    qwen3-moe's and grok-1's training shapes (and the SSD's prefill shape);
+    (b) ``TrainLoop`` on mamba2-130m, qwen3-moe (1 layer), internlm2-1.8b,
+    whisper-medium and grok-1 (1 layer) at full width.  Returns the two
+    backward kernels' rows of the ``kernels`` line and each kernel's
+    launches on the five training paths, summed and by model."""
     import torch
 
     from repro_torch.core.kernel_spec import (SSD_SM90_CHUNKS,
@@ -6478,6 +6600,7 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
               for i, (arch, n_layers) in enumerate(TRAIN_MORE)]
     launches = {name: sum(m["launches"][name] for m in models)
                 for name in _train_more_counters()}
+    by_model = {m["arch"]: m["launches"] for m in models}
     print(f"  phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
     phase_done(29)
     print(json.dumps({"train_more": {"ssd_backward": ssd_rows,
@@ -6494,9 +6617,9 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
             ("moe_gmm_backward", "moe_gmm.cu + gmm_bwd_sm90.cuh",
              "src/repro/kernels/ref.py:122",
              "no TPU kernel: the JAX package differentiates moe_gmm_ref "
-             "with XLA; the top-level times are qwen3-moe's (its training "
-             "path), grok-1's rows are in shapes", gmm_rows)):
-        main = [r for r in shapes if r.get("main_path", True)]
+             "with XLA; the top-level times are qwen3-moe's, grok-1's rows "
+             "(its plain time on 2 experts) are in shapes", gmm_rows)):
+        main = [r for r in shapes if r.get("in_totals", True)]
         out_rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -6511,8 +6634,7 @@ def train_more_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
             "library_ms": sum(r["library_ms"] for r in main)
             if name == "moe_gmm_backward" else None,
             "shapes": shapes})
-    return {"rows": out_rows, "launches": launches}
-
+    return {"rows": out_rows, "launches": launches, "by_model": by_model}
 
 
 def _backward_without_cap_derivative(q, k, v, out, dout, lse, *,
@@ -6759,11 +6881,6 @@ def gemma2_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
     if got != want:
         raise AssertionError(f"{GEMMA2_ARCH}: launches a step {got}, "
                              f"expected {want}")
-    ran = flash.BACKWARD_LAUNCHES.tiles[
-        (TRAIN_B * cfg.n_heads, TRAIN_S, TRAIN_S, cfg.head_dim, True)]
-    if ran != {"body": "wgmma", "capped": True}:
-        raise AssertionError(f"{GEMMA2_ARCH}: the training path's backward "
-                             f"ran {ran}, not the capped wgmma body")
     # -- (c) one step at S 8192 ----------------------------------------------
     long_step = _long_context_step(dev, flash, GEMMA2_ARCH, GEMMA2_S, "(c)",
                                    windowed=True)

@@ -13,10 +13,10 @@ Leaf paths are spelt as ``jax.tree_util.keystr`` spells them
 uint16 bit pattern with dtype ``"bfloat16"``, so a checkpoint either
 package writes restores in the other.  ``save`` copies every leaf to host
 memory on the calling thread (a consistent cut; the card's queue is drained
-by the copy) and writes on a background thread.  ``restore`` takes a
-template whose leaves have ``shape`` and ``dtype`` (tensors or specs) and
-puts each leaf on ``device``; the reference's ``shardings=`` waits for the
-``torch.distributed`` port.
+by the copy; a CPU leaf is copied too) and writes on a background thread.
+``restore`` takes a template whose leaves have ``shape`` and ``dtype``
+(tensors or specs) and puts each leaf on ``device``; the reference's
+``shardings=`` waits for the ``torch.distributed`` port.
 """
 
 from __future__ import annotations
@@ -43,8 +43,11 @@ _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
 
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """(numpy array to save, the manifest's dtype string) of one leaf."""
-    t = torch.as_tensor(t).detach().to("cpu").contiguous()
+    """(numpy array to save, the manifest's dtype string) of one leaf: a
+    copy on every device (a CPU leaf's ``.to("cpu")`` would be the live
+    tensor, which the next in-place train step overwrites while the write
+    thread reads it)."""
+    t = torch.as_tensor(t).detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     if t.dtype not in _NP_DTYPES:

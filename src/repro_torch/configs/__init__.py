@@ -19,6 +19,12 @@ _MODULES = (
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)
 
+# Architectures whose optimizer state is stored bf16: the JAX package's
+# ``BF16_OPT_STATE`` (its configs/__init__.py), which its dry-run reckons
+# memory by.
+BF16_OPT_STATE = {"jamba-1.5-large-398b", "qwen3-moe-235b-a22b",
+                  "grok-1-314b"}
+
 
 def get_config(arch: str, smoke: bool = False):
     if arch not in REGISTRY:
@@ -27,5 +33,5 @@ def get_config(arch: str, smoke: bool = False):
     return mod.smoke() if smoke else mod.full()
 
 
-__all__ = ["ARCH_IDS", "REGISTRY", "SHAPES", "ShapePreset", "get_config",
-           "polybench", "shape_applicable"]
+__all__ = ["ARCH_IDS", "BF16_OPT_STATE", "REGISTRY", "SHAPES", "ShapePreset",
+           "get_config", "polybench", "shape_applicable"]

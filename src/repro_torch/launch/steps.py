@@ -15,7 +15,9 @@ The train step (``make_train_step``) is the JAX package's: the model's
 training loss, its gradient over every parameter leaf, then AdamW.  The JAX
 step is ``jax.value_and_grad`` under ``jit``; the port's runs eagerly, its
 gradient from ``torch.autograd.grad`` -- on the card through the
-hand-written flash-attention backward kernel (``ops.flash_attention``).
+hand-written backward kernels (``ops.flash_attention``, ``ops.ssd_scan``,
+``ops.moe_gmm``).  As the JAX step is lowered with its parameters and
+optimizer state donated, the port's writes the update into them.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from ..models import transformer as T
 from ..models.api import Model
 from ..models.layers import AttnOp, GmmOp, SsdOp
-from ..optim import AdamWConfig, adamw_update
+from ..optim import AdamWConfig, adamw_update_
 from ..tree import tree_leaves, tree_unflatten
 
 __all__ = ["make_prefill_step", "make_train_step"]
@@ -100,16 +102,23 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
 def make_train_step(model: Model, opt_cfg: AdamWConfig) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     metrics are ``loss``, ``ce`` and ``router_aux`` from the loss and
-    ``grad_norm`` (with clipping) and ``lr`` from AdamW, 0-d tensors.  The
-    update runs inside a profiler range named ``adamw_update``, so a
-    ``torch.profiler`` trace of a step tells the optimizer's kernels from
-    the rest."""
+    ``grad_norm`` (with clipping) and ``lr`` from AdamW, 0-d tensors.
+
+    The step updates ``params`` and ``opt_state`` in place
+    (``adamw_update_``, bit-equal to the functional ``adamw_update``) and
+    returns those same trees: the JAX package lowers its train step with
+    both donated (``src/repro/launch/steps.py:42-50``, ``StepBundle.lower``:
+    "train steps update (params, opt_state) in place"), so no step holds an
+    old and a new copy of them.  A caller that needs the trees from before
+    a step clones them first.  The gradients are freed when the step
+    returns.  The update runs inside a profiler range named
+    ``adamw_update``, so a ``torch.profiler`` trace of a step tells the
+    optimizer's kernels from the rest."""
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         metrics, grads = loss_and_grads(model, params, batch)
         with torch.profiler.record_function("adamw_update"):
-            params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
-                                                 params)
+            _, _, om = adamw_update_(opt_cfg, grads, opt_state, params)
         return params, opt_state, {**metrics, **om}
 
     return train_step

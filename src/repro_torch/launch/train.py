@@ -7,7 +7,10 @@ and the step watchdog (``distributed/fault_tolerance``).  It trains on one
 device, the card unless ``device="cpu"`` (``--device cpu``); the JAX
 trainer's ``mesh`` must be None here until ``distributed/`` is ported.
 ``params=`` starts from given weights instead of the seeded init (the tests
-start both packages' loops from the same converted weights).
+start both packages' loops from the same converted weights).  The loop's
+own parameter and optimizer trees (``params``, ``opt_state``) are updated
+in place by every step (``make_train_step``); ``init_state`` clones a given
+``params=``, so the caller's tree is never the one updated.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --smoke \\
         --device cpu --steps 30 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt
@@ -71,7 +74,8 @@ class TrainLoop:
 
     # -- state ----------------------------------------------------------------
     def init_state(self) -> None:
-        """The seeded init (or the ``params=`` given), fresh AdamW state."""
+        """The seeded init (or a clone of the ``params=`` given: the steps
+        update the loop's trees in place), fresh AdamW state."""
         if self.initial_params is not None:
             self.params = tree_map(
                 lambda p: p.detach().to(self.model.device).clone(),

@@ -1,17 +1,25 @@
 """AdamW, as the JAX package writes it: f32 arithmetic per leaf, the same
 bias correction, clipping by the global norm before the moments.
 
-``adamw_update`` returns new trees, as the reference does.  It updates each
-leaf in flat chunks of at most ``UPDATE_CHUNK`` elements, applying the
-clip's scale chunk by chunk: the bits are those of one whole-leaf pass, but
-the f32 temporaries stay at a chunk's size and no scaled copy of the
-gradients is made (a 3.7 B-parameter model's 805 M-element expert leaves
-would otherwise need ~20 GB of them).  The moments'
-dtype is ``AdamWConfig.state_dtype`` (f32 by default).  The reference can round a bf16 parameter
-stochastically from a ``jax.random`` key (``sr_key``); the port draws the
-rounding noise from a ``torch.Generator`` (``sr_gen``), leaf by leaf in
-tree order, so its bits differ from the reference's by design.  The train
-step passes neither, so it rounds to nearest in both packages.
+``adamw_update_`` writes the step into the parameter and moment tensors it
+is given (and the step counter), as the reference's train step does under
+donation; ``adamw_update`` returns new trees, as the reference does, by
+running it on fresh copies, so their bits agree.  It updates each leaf in
+flat chunks of at most ``UPDATE_CHUNK`` elements, applying the clip's scale
+chunk by chunk: the bits are those of one whole-leaf pass, but the f32
+temporaries stay at a chunk's size and no scaled copy of the gradients is
+made (a 3.7 B-parameter model's 805 M-element expert leaves would otherwise
+need ~20 GB of them).  A chunk's new values are computed from its old ones
+before they are written, so writing in place is safe.  The global norm
+squares a leaf of more than ``NORM_CHUNK`` elements in chunks too, which
+changes the order of its f32 sum, not the arithmetic; it is a constant of
+its own so that the update's chunk can change without moving the norm's
+bits.  The moments' dtype is ``AdamWConfig.state_dtype`` (f32 by
+default).  The reference can round a bf16 parameter stochastically from a
+``jax.random`` key (``sr_key``); the port draws the rounding noise from a
+``torch.Generator`` (``sr_gen``), leaf by leaf in tree order, so its bits
+differ from the reference's by design.  The train step passes neither, so
+it rounds to nearest in both packages.
 """
 
 from __future__ import annotations
@@ -21,13 +29,15 @@ from typing import Any, Callable
 
 import torch
 
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..tree import tree_leaves, tree_map, tree_paths
 
-__all__ = ["AdamWConfig", "UPDATE_CHUNK", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "global_norm", "stochastic_round"]
+__all__ = ["AdamWConfig", "NORM_CHUNK", "UPDATE_CHUNK", "adamw_init",
+           "adamw_update", "adamw_update_", "clip_by_global_norm",
+           "global_norm", "stochastic_round"]
 
 f32 = torch.float32
 UPDATE_CHUNK = 1 << 26      # elements of a leaf updated at a time
+NORM_CHUNK = 1 << 26        # elements of a leaf squared at a time
 
 
 @dataclass(frozen=True)
@@ -51,10 +61,19 @@ def adamw_init(cfg: AdamWConfig, params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _sum_of_squares(leaf: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a leaf's squares; a leaf of more than ``NORM_CHUNK``
+    elements is summed chunk by chunk, so its f32 copy and square stay at
+    a chunk's size."""
+    if leaf.numel() <= NORM_CHUNK:
+        return torch.sum(torch.square(leaf.to(f32)))
+    return sum(torch.sum(torch.square(c.to(f32)))
+               for c in leaf.reshape(-1).split(NORM_CHUNK))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(f32)))
-                          for l in tree_leaves(tree)))
+    return torch.sqrt(sum(_sum_of_squares(l) for l in tree_leaves(tree)))
 
 
 def _clip_scale(tree, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,11 +106,38 @@ def stochastic_round(x: torch.Tensor, generator: torch.Generator
         torch.int16).view(torch.bfloat16)
 
 
+def _check_in_place(cfg: AdamWConfig, params, state: dict) -> None:
+    """Refuse trees that an in-place step would corrupt: a leaf that is not
+    contiguous (its flat view would be a copy), a moment not in
+    ``cfg.state_dtype``, or two leaves on one storage (the step would apply
+    twice to it)."""
+    moments = tree_paths({"mu": state["mu"], "nu": state["nu"]})
+    for path, t in moments:
+        if t.dtype != cfg.state_dtype:
+            raise ValueError(f"{path} is {t.dtype}, not the config's "
+                             f"state dtype {cfg.state_dtype}")
+    seen = {}
+    for path, t in tree_paths({"params": params}) + moments:
+        if not t.is_contiguous():
+            raise ValueError(f"{path} is not contiguous: an in-place AdamW "
+                             f"step cannot write it")
+        if t.numel() == 0:
+            continue
+        key = (t.device, t.untyped_storage().data_ptr())
+        if key in seen:
+            raise ValueError(f"{path} shares its storage with {seen[key]}: "
+                             f"an in-place AdamW step would apply twice to it")
+        seen[key] = path
+
+
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
-                 sr_gen: torch.Generator | None = None):
-    """One AdamW step.  Returns (new_params, new_state, metrics): metrics
-    holds ``lr`` and, when clipping, ``grad_norm`` (before the clip)."""
+def adamw_update_(cfg: AdamWConfig, grads, state: dict, params,
+                  sr_gen: torch.Generator | None = None):
+    """One AdamW step written into ``params``' and ``state``'s own tensors
+    (the step counter too).  Returns (params, state, metrics), the trees it
+    was given: metrics holds ``lr`` and, when clipping, ``grad_norm``
+    (before the clip)."""
+    _check_in_place(cfg, params, state)
     step = state["step"] + 1
     lr = cfg.lr(step) if callable(cfg.lr) else torch.full(
         (), cfg.lr, dtype=f32, device=step.device)
@@ -107,20 +153,16 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=f32, device=sf.device),
                           sf)
 
-    new_p, new_mu, new_nu = [], [], []
     for g, p, mu, nu in zip(tree_leaves(grads), tree_leaves(params),
                             tree_leaves(state["mu"]),
                             tree_leaves(state["nu"])):
-        out_p = torch.empty_like(p, memory_format=torch.contiguous_format)
-        out_mu, out_nu = (torch.empty(p.shape, dtype=cfg.state_dtype,
-                                      device=p.device) for _ in range(2))
         # stochastic rounding draws the leaf's noise in one piece
         whole = sr_gen is not None and p.dtype == torch.bfloat16
         n = p.numel()
         chunk = max(n, 1) if whole else UPDATE_CHUNK
-        flat = [t.reshape(-1) for t in (g, p, mu, nu, out_p, out_mu, out_nu)]
+        flat = [t.reshape(-1) for t in (g, p, mu, nu)]
         for a in range(0, n, chunk):
-            gc, pc, muc, nuc, op, om, on = (t[a:a + chunk] for t in flat)
+            gc, pc, muc, nuc = (t[a:a + chunk] for t in flat)
             if scale is not None:
                 gc = _scaled(gc, scale)
             g32 = gc.to(f32)
@@ -129,18 +171,30 @@ def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
             upd = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
             p32 = pc.to(f32) * (1.0 - lr * cfg.weight_decay) - lr * upd
             if whole:
-                op.copy_(stochastic_round(p32.view(p.shape), sr_gen)
+                pc.copy_(stochastic_round(p32.view(p.shape), sr_gen)
                          .reshape(-1))
             else:
-                op.copy_(p32.to(p.dtype))
-            om.copy_(mu32.to(cfg.state_dtype))
-            on.copy_(nu32.to(cfg.state_dtype))
-        new_p.append(out_p)
-        new_mu.append(out_mu)
-        new_nu.append(out_nu)
-
+                pc.copy_(p32.to(p.dtype))
+            muc.copy_(mu32.to(cfg.state_dtype))
+            nuc.copy_(nu32.to(cfg.state_dtype))
+    state["step"].copy_(step)
     metrics["lr"] = lr
-    return (tree_unflatten(params, new_p),
-            {"mu": tree_unflatten(params, new_mu),
-             "nu": tree_unflatten(params, new_nu), "step": step},
-            metrics)
+    return params, state, metrics
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
+                 sr_gen: torch.Generator | None = None):
+    """One AdamW step into new tensors, as the reference returns it:
+    ``adamw_update_`` on fresh contiguous copies of the parameters, of the
+    moments (in ``cfg.state_dtype``) and of the step.  Returns (new_params,
+    new_state, metrics)."""
+    def moment(m):
+        return m.to(cfg.state_dtype, memory_format=torch.contiguous_format,
+                    copy=True)
+    new_p = tree_map(lambda p: p.clone(
+        memory_format=torch.contiguous_format), params)
+    new_state = {"mu": tree_map(moment, state["mu"]),
+                 "nu": tree_map(moment, state["nu"]),
+                 "step": state["step"].clone()}
+    return adamw_update_(cfg, grads, new_state, new_p, sr_gen)

@@ -58,7 +58,7 @@ from repro.optim import warmup_linear as ref_warmup_linear
 from repro.optim import constant as ref_constant
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, BF16_OPT_STATE, get_config
 from repro_torch.configs.base import ShapePreset
 from repro_torch.data import Prefetcher, SyntheticConfig, SyntheticStream
 from repro_torch.launch.steps import loss_and_grads, make_train_step
@@ -67,7 +67,7 @@ from repro_torch.models import Model, params_from_reference, spec_leaves
 from repro_torch.models.loss import chunked_cross_entropy, lm_loss
 from repro_torch.models.module import ParamSpec
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                               clip_by_global_norm, compress, constant,
+                               adamw_update_, clip_by_global_norm, compress, constant,
                                decompress, ef_compress_tree, ef_update_tree,
                                global_norm, init_error_feedback,
                                stochastic_round, warmup_cosine,
@@ -175,10 +175,12 @@ def test_chunked_loss_gradient_matches_reference():
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _pair(arch: str, dtype=jnp.float32, head_dim=None):
-    """Both packages' smoke config of ``arch`` (at ``head_dim`` if given),
-    the JAX model and its weights, and the port's model."""
-    more = {} if head_dim is None else {"head_dim": head_dim}
+def _pair(arch: str, dtype=jnp.float32, head_dim=None, n_experts=None):
+    """Both packages' smoke config of ``arch`` (at ``head_dim`` and with
+    ``n_experts`` if given), the JAX model and its weights, and the port's
+    model."""
+    more = {k: v for k, v in (("head_dim", head_dim),
+                              ("n_experts", n_experts)) if v is not None}
     jcfg = ref_get_config(arch, smoke=True).replace(dtype=dtype,
                                                     use_pallas=False, **more)
     jmodel = RefModel(jcfg)
@@ -195,10 +197,13 @@ def _params(jparams) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _fan_in_scaled(arch: str, dtype=jnp.float32, head_dim=None):
+def _fan_in_scaled(arch: str, dtype=jnp.float32, head_dim=None,
+                   n_experts=None):
     """The reference's weights with every stacked "scaled" leaf rescaled to
-    std 1 / sqrt(its fan-in), as (JAX tree, the port's tree)."""
-    _, _, jparams, _, model = _pair(arch, dtype, head_dim)
+    std 1 / sqrt(its fan-in), as (JAX tree, the port's tree).  Cached: a
+    test that steps the port's tree (the train step updates it in place)
+    steps a clone."""
+    _, _, jparams, _, model = _pair(arch, dtype, head_dim, n_experts)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
     for path, spec in spec_leaves(model.specs()):
         if spec.init == "scaled" and spec.axes[:1] == ("layers",):
@@ -546,6 +551,90 @@ def test_adamw_update_in_chunks_is_bit_equal(state, sr, monkeypatch):
     assert torch.equal(m0["grad_norm"], m1["grad_norm"])
 
 
+@pytest.mark.parametrize("param", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip", [1.0, None])
+def test_adamw_update_in_place_is_bit_equal_to_functional(param, state,
+                                                          clip):
+    """``adamw_update_`` writes three steps into the parameter and moment
+    tensors it is given (and the step counter), leaf by leaf the bits of
+    ``adamw_update``'s new trees; its outputs are its inputs."""
+    rng = np.random.RandomState(11)
+    p_np, _ = _opt_trees(rng)
+    cfg = AdamWConfig(lr=warmup_cosine(1e-2, 2, 10), weight_decay=0.1,
+                      clip_norm=clip, state_dtype=getattr(torch, state))
+    fp = tree_map(lambda a: torch.from_numpy(a).to(getattr(torch, param)),
+                  p_np)
+    ip = tree_map(torch.clone, fp)
+    fs, is_ = adamw_init(cfg, fp), adamw_init(cfg, ip)
+    ptrs = [t.data_ptr() for t in tree_leaves({"p": ip, "s": is_})]
+    for _ in range(3):
+        g = tree_map(lambda a: torch.from_numpy(
+            (rng.randn(*a.shape) * 2).astype(np.float32)).to(
+                getattr(torch, param)), p_np)
+        fp, fs, fm = adamw_update(cfg, g, fs, fp)
+        out_p, out_s, im = adamw_update_(cfg, g, is_, ip)
+        assert out_p is ip and out_s is is_
+        assert sorted(fm) == sorted(im)
+        assert all(torch.equal(fm[k], im[k]) for k in fm)
+    assert [t.data_ptr() for t in tree_leaves({"p": ip, "s": is_})] == ptrs
+    assert int(is_["step"]) == int(fs["step"]) == 3
+    for (path, a), (_, b) in zip(tree_paths({"p": fp, "s": fs}),
+                                 tree_paths({"p": ip, "s": is_})):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("fault", ["shared", "overlapping", "strided",
+                                   "moment_dtype"])
+def test_adamw_update_in_place_refuses_trees_it_would_corrupt(fault):
+    """Two leaves on one storage (the step would apply twice to it), a
+    leaf that is not contiguous (its flat view would be a copy) and a
+    moment in another dtype than the config's are refused before anything
+    is written."""
+    cfg = AdamWConfig(lr=1e-2)
+    base = torch.arange(12, dtype=torch.float32)
+    params = {"a": base[:6].view(2, 3).clone(), "b": base[6:].clone()}
+    if fault == "shared":
+        params["b"] = params["a"]
+    elif fault == "overlapping":
+        whole = base.clone()
+        params = {"a": whole[:6], "b": whole[6:]}
+    elif fault == "strided":
+        params["a"] = base.clone().view(3, 4).t()[:, :2]
+    state = adamw_init(cfg, params)
+    if fault == "moment_dtype":
+        state["mu"]["a"] = state["mu"]["a"].bfloat16()
+    before = tree_map(torch.clone, {"p": params, "s": state})
+    grads = tree_map(torch.ones_like, params)
+    with pytest.raises(ValueError):
+        adamw_update_(cfg, grads, state, params)
+    for a, b in zip(tree_leaves(before), tree_leaves({"p": params,
+                                                      "s": state})):
+        assert torch.equal(a, b)
+
+
+def test_global_norm_sums_a_large_leaf_in_chunks(monkeypatch):
+    """A leaf of more than ``NORM_CHUNK`` elements is squared and summed in
+    chunks (its f32 copy and square stay at a chunk's size): the norm
+    within f32 rounding of the whole-leaf sum and of the reference's; a
+    leaf of at most one chunk keeps the whole-leaf sum's bits."""
+    from repro.optim import global_norm as ref_global_norm
+    from repro_torch.optim import adamw as port_adamw
+
+    rng = np.random.RandomState(4)
+    tree = {"a": rng.randn(40, 25).astype(np.float32),
+            "b": rng.randn(7).astype(np.float32)}
+    port = tree_map(torch.from_numpy, tree)
+    whole = global_norm(port)
+    monkeypatch.setattr(port_adamw, "NORM_CHUNK", 64)
+    chunked = global_norm(port)
+    assert torch.equal(global_norm({"b": port["b"]}),
+                       torch.sqrt(torch.sum(torch.square(port["b"]))))
+    ref = float(ref_global_norm(jax.tree.map(jnp.asarray, tree)))
+    np.testing.assert_allclose(float(chunked), float(whole), rtol=1e-6)
+    np.testing.assert_allclose(float(chunked), ref, rtol=1e-6)
+
+
 def test_stochastic_rounding_is_unbiased_and_within_one_ulp():
     """The port's rounding noise comes from a torch.Generator, so its bits
     differ from the reference's jax.random draws (a divergence by design);
@@ -788,6 +877,40 @@ def test_checkpoint_restores_across_packages(tmp_path):
                                       np.asarray(y, np.float32))
 
 
+def test_checkpoint_save_then_an_in_place_step_writes_the_values_before_it(
+        tmp_path, monkeypatch):
+    """``save`` takes its host copy on the calling thread, a CPU leaf's
+    too: an in-place AdamW step right after an async save (the write
+    thread held until the step is done) leaves the checkpoint at the
+    values from before the step."""
+    import threading
+
+    gate = threading.Event()
+    real_write = CheckpointManager._write
+
+    def held_write(self, *args):
+        assert gate.wait(timeout=60)
+        real_write(self, *args)
+
+    monkeypatch.setattr(CheckpointManager, "_write", held_write)
+    cfg = AdamWConfig(lr=1e-2)
+    rng = np.random.RandomState(9)
+    params = tree_map(torch.from_numpy, _opt_trees(rng)[0])
+    state = adamw_init(cfg, params)
+    tree = {"params": params, "mu": state["mu"], "nu": state["nu"]}
+    before = tree_map(torch.clone, tree)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, tree)
+    adamw_update_(cfg, tree_map(torch.ones_like, params), state, params)
+    gate.set()
+    mgr.wait()
+    assert not torch.equal(params["a"], before["params"]["a"])
+    restored, _, step = mgr.restore(before)
+    assert step == 1
+    for a, b in zip(tree_leaves(before), tree_leaves(restored)):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the train step and the trainer
 # ---------------------------------------------------------------------------
@@ -802,7 +925,7 @@ def test_three_train_steps_match_reference():
     tcfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000), weight_decay=0.01)
     rstep = jax.jit(ref_make_train_step(jmodel, rcfg, SH))
     tstep = make_train_step(model, tcfg)
-    jp, tp = jparams, params
+    jp, tp = jparams, tree_map(torch.clone, params)   # stepped in place
     js, ts = ref_adamw_init(rcfg, jp), adamw_init(tcfg, tp)
     stream = SyntheticStream(SyntheticConfig(cfg.vocab_size, 32, 4, seed=3))
     for _ in range(3):
@@ -817,6 +940,81 @@ def test_three_train_steps_match_reference():
     _leafwise(tp, jp, 1e-4, "params after 3 steps")
     _leafwise(ts["mu"], js["mu"], 1e-4, "mu")
     _leafwise(ts["nu"], js["nu"], 1e-4, "nu")
+
+
+def _three_bf16_moment_steps(arch: str, monkeypatch, head_dim=None,
+                             n_experts=None) -> None:
+    """Three steps of ``make_train_step`` on ``arch``'s smoke config (at
+    ``head_dim`` and ``n_experts`` if given) with f32 parameters and bf16
+    AdamW moments against the JAX package's train step with
+    ``state_dtype`` bf16; the bounds are those of
+    ``test_three_qwen3_moe_train_steps_with_bf16_moments_match_reference``.
+    The experts' products run through ``_MoeGmm``, and with ``head_dim``
+    attention through ``_FlashAttention`` (as in
+    ``test_gemma2_gradient_through_the_flash_backward``): the Functions the
+    card trains through, whose forward and backward wrappers take their
+    plain versions on CPU tensors."""
+    from repro_torch.kernels import ops
+
+    monkeypatch.setattr(ops, "_wants_grad", lambda *t: torch.is_grad_enabled()
+                        and any(a.requires_grad for a in t))
+    calls, flash_calls = [], []
+    real_backward = ops.moe_gmm_backward_kernel
+    real_flash_backward = ops.flash_attention_backward_kernel
+
+    def recording(*a, **kw):
+        calls.append(1)
+        return real_backward(*a, **kw)
+
+    def function(q, k, v, *, q_chunk=None, **kw):
+        return ops._FlashAttention.apply(q, k, v, 32, 64, kw)
+
+    def flash_recording(*a, **kw):
+        flash_calls.append(kw["softcap"])
+        return real_flash_backward(*a, **kw)
+
+    monkeypatch.setattr(ops, "moe_gmm_backward_kernel", recording)
+    if head_dim is not None:
+        monkeypatch.setattr(ops, "flash_attention_plain", function)
+        monkeypatch.setattr(ops, "flash_attention_backward_kernel",
+                            flash_recording)
+    jcfg, jmodel, _, cfg, model = _pair(arch, head_dim=head_dim,
+                                        n_experts=n_experts)
+    jparams, params = _fan_in_scaled(arch, head_dim=head_dim,
+                                     n_experts=n_experts)
+    rcfg = RefAdamWConfig(lr=ref_warmup_cosine(5e-3, 10, 10_000),
+                          weight_decay=0.01, state_dtype=jnp.bfloat16)
+    tcfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000), weight_decay=0.01,
+                       state_dtype=torch.bfloat16)
+    rstep = jax.jit(ref_make_train_step(jmodel, rcfg, SH))
+    tstep = make_train_step(model, tcfg)
+    jp, tp = jparams, tree_map(torch.clone, params)   # stepped in place
+    js, ts = ref_adamw_init(rcfg, jp), adamw_init(tcfg, tp)
+    stream = SyntheticStream(SyntheticConfig(cfg.vocab_size, 32, 4, seed=3))
+    lr_sum = 0.0
+    for _ in range(3):
+        batch = stream.next_batch()
+        jp, js, jm = rstep(jp, js, {"tokens": jnp.asarray(batch["tokens"])})
+        tp, ts, tm = tstep(tp, ts, batch)
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-4, err_msg=k)
+        lr_sum += float(jm["lr"])
+    assert calls, "the steps ran no grouped-matmul backward"
+    if head_dim is not None:
+        assert flash_calls == [cfg.attn_softcap] * (3 * cfg.n_layers), \
+            flash_calls
+    ulp = 2.0 ** -7                                 # one bf16 ulp, relative
+    for key in ("mu", "nu"):
+        for _, leaf in tree_paths(ts[key]):
+            assert leaf.dtype == torch.bfloat16
+        _leafwise(ts[key], js[key], ulp, key)
+    ref = {jax.tree_util.keystr(p): np.asarray(v, np.float32)
+           for p, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+    for path, leaf in tree_paths(tp):
+        d = float(np.abs(_np(leaf) - ref[path]).max())
+        assert d <= 1e-4 * float(np.abs(ref[path]).max()) + ulp * lr_sum, \
+            (path, d)
 
 
 def test_three_qwen3_moe_train_steps_with_bf16_moments_match_reference(
@@ -840,51 +1038,49 @@ def test_three_qwen3_moe_train_steps_with_bf16_moments_match_reference(
       Adam's update m / (sqrt(v) + eps) is near 1 in size and inherits the
       moments' rounding, so a leaf that is the sum of its updates (the
       zero-initialised norm scales) differs by that term and no less."""
-    from repro_torch.kernels import ops
+    _three_bf16_moment_steps("qwen3-moe-235b-a22b", monkeypatch)
 
-    monkeypatch.setattr(ops, "_wants_grad", lambda *t: torch.is_grad_enabled()
-                        and any(a.requires_grad for a in t))
-    calls = []
-    real_backward = ops.moe_gmm_backward_kernel
 
-    def recording(*a, **kw):
-        calls.append(1)
-        return real_backward(*a, **kw)
+def test_three_grok1_train_steps_with_bf16_moments_match_reference(
+        monkeypatch):
+    """grok-1's smoke config with grok-1's 8 experts (top-2) at head dim 64
+    (the smallest the flash kernels are built for), three steps of the
+    in-place ``make_train_step`` with bf16 AdamW moments (grok-1 is in
+    ``BF16_OPT_STATE``) against the JAX package's train step, within the
+    qwen3-moe test's bounds: the softcapped attention (30) through
+    ``_FlashAttention``, the final softcap (30) and the 8-expert top-2 MoE
+    through ``_MoeGmm``, the path grok-1 trains on the card."""
+    assert "grok-1-314b" in BF16_OPT_STATE
+    _three_bf16_moment_steps("grok-1-314b", monkeypatch, head_dim=64,
+                             n_experts=8)
 
-    monkeypatch.setattr(ops, "moe_gmm_backward_kernel", recording)
-    arch = "qwen3-moe-235b-a22b"
-    jcfg, jmodel, _, cfg, model = _pair(arch)
-    jparams, params = _fan_in_scaled(arch)
-    rcfg = RefAdamWConfig(lr=ref_warmup_cosine(5e-3, 10, 10_000),
-                          weight_decay=0.01, state_dtype=jnp.bfloat16)
-    tcfg = AdamWConfig(lr=warmup_cosine(5e-3, 10, 10_000), weight_decay=0.01,
-                       state_dtype=torch.bfloat16)
-    rstep = jax.jit(ref_make_train_step(jmodel, rcfg, SH))
-    tstep = make_train_step(model, tcfg)
-    jp, tp = jparams, params
-    js, ts = ref_adamw_init(rcfg, jp), adamw_init(tcfg, tp)
-    stream = SyntheticStream(SyntheticConfig(cfg.vocab_size, 32, 4, seed=3))
-    lr_sum = 0.0
-    for _ in range(3):
+
+def test_train_step_updates_params_and_state_in_place():
+    """``make_train_step`` returns the very trees (and tensors) it was
+    given, each updated in place, bit-equal to the functional step
+    (``loss_and_grads`` then ``adamw_update``) on clones of them."""
+    cfg = get_config("llama3.2-1b", smoke=True).replace(dtype=torch.float32)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    opt_cfg = AdamWConfig(lr=warmup_cosine(5e-3, 2, 100))
+    state = adamw_init(opt_cfg, params)
+    fp, fs = tree_map(torch.clone, params), tree_map(torch.clone, state)
+    step = make_train_step(model, opt_cfg)
+    tensors = tree_leaves({"p": params, "s": state})
+    stream = SyntheticStream(SyntheticConfig(cfg.vocab_size, 16, 2, seed=1))
+    for _ in range(2):
         batch = stream.next_batch()
-        jp, js, jm = rstep(jp, js, {"tokens": jnp.asarray(batch["tokens"])})
-        tp, ts, tm = tstep(tp, ts, batch)
-        for k in ("loss", "ce", "grad_norm", "lr"):
-            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
-                                       rtol=1e-4, err_msg=k)
-        lr_sum += float(jm["lr"])
-    assert calls, "the steps ran no grouped-matmul backward"
-    ulp = 2.0 ** -7                                 # one bf16 ulp, relative
-    for key in ("mu", "nu"):
-        for _, leaf in tree_paths(ts[key]):
-            assert leaf.dtype == torch.bfloat16
-        _leafwise(ts[key], js[key], ulp, key)
-    ref = {jax.tree_util.keystr(p): np.asarray(v, np.float32)
-           for p, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
-    for path, leaf in tree_paths(tp):
-        d = float(np.abs(_np(leaf) - ref[path]).max())
-        assert d <= 1e-4 * float(np.abs(ref[path]).max()) + ulp * lr_sum, \
-            (path, d)
+        out_p, out_s, m = step(params, state, batch)
+        assert out_p is params and out_s is state
+        assert all(a is b for a, b in zip(
+            tree_leaves({"p": out_p, "s": out_s}), tensors))
+        fm, grads = loss_and_grads(model, fp, batch)
+        fp, fs, om = adamw_update(opt_cfg, grads, fs, fp)
+        for k, v in {**fm, **om}.items():
+            assert torch.equal(m[k], v), k
+    for (path, a), (_, b) in zip(tree_paths({"p": fp, "s": fs}),
+                                 tree_paths({"p": params, "s": state})):
+        assert torch.equal(a, b), path
 
 
 def test_train_step_profiles_the_optimizer_in_a_range_of_its_own():
@@ -963,6 +1159,33 @@ def test_trainloop_params_hook_and_mesh_refused(tmp_path):
     assert all(np.isfinite(m["loss"]) for m in hist)
     with pytest.raises(NotImplementedError):
         TrainLoop(cfg, preset, mesh=object(), device="cpu")
+
+
+def test_trainloop_updates_its_own_trees_in_place(tmp_path):
+    """The loop's parameter and moment tensors keep their storage across
+    steps (the step updates them in place), and the ``params=`` given stay
+    as they were (``init_state`` cloned them)."""
+    _, _, jparams, cfg, _ = _pair("llama3.2-1b")
+    params = _params(jparams)
+    given = tree_map(torch.clone, params)
+    loop = TrainLoop(cfg, ShapePreset("t", "train", 16, 2), device="cpu",
+                     params=params)
+    loop.init_state()
+    tensors = tree_leaves({"p": loop.params, "s": loop.opt_state})
+    start = [t.clone() for t in tensors]
+    loop.run(2, log_every=1)
+    now = tree_leaves({"p": loop.params, "s": loop.opt_state})
+    assert all(a is b for a, b in zip(now, tensors))
+    assert int(loop.opt_state["step"]) == 2
+    assert not all(torch.equal(a, b) for a, b in zip(now, start))
+    for a, b in zip(tree_leaves(params), tree_leaves(given)):
+        assert torch.equal(a, b)
+
+
+def test_bf16_opt_state_is_the_references():
+    from repro.configs import BF16_OPT_STATE as REF_BF16_OPT_STATE
+    assert BF16_OPT_STATE == REF_BF16_OPT_STATE
+    assert BF16_OPT_STATE <= set(ARCH_IDS)
 
 
 def test_train_cli_runs_on_the_cpu():

@@ -15,8 +15,12 @@ package writes restores in the other.  ``save`` copies every leaf to host
 memory on the calling thread (a consistent cut; the card's queue is drained
 by the copy; a CPU leaf is copied too) and writes on a background thread.
 ``restore`` takes a template whose leaves have ``shape`` and ``dtype``
-(tensors or specs) and puts each leaf on ``device``; the reference's
-``shardings=`` waits for the ``torch.distributed`` port.
+(tensors or specs) and puts each leaf on ``device`` (the card by default,
+as the reference restores onto the default device), or, given the
+reference's ``shardings=`` (a matching tree of
+``distributed.sharding.TensorSharding``), makes each leaf a ``DTensor`` on
+its mesh from this rank's block of the host array
+(``distributed.elastic``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.device_model import resolve_device
 from ..tree import tree_paths, tree_unflatten
 
 __all__ = ["CheckpointManager"]
@@ -138,11 +143,13 @@ class CheckpointManager:
         return sorted(out)
 
     def restore(self, template: Any, step: int | None = None,
-                device: str | torch.device = "cpu"
+                shardings: Any = None,
+                device: str | torch.device = "cuda"
                 ) -> tuple[Any, dict, int]:
         """Load a checkpoint into ``template``'s tree structure, each leaf
-        cast to the template leaf's dtype on ``device``.  Returns (tree,
-        aux, step)."""
+        cast to the template leaf's dtype on ``device``, or with
+        ``shardings`` a ``DTensor`` on its sharding's mesh (``device`` is
+        then unused).  Returns (tree, aux, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -150,8 +157,13 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {p: i for i, p in enumerate(manifest["paths"])}
+        leaves = tree_paths(template)
+        shards = ([s for _, s in tree_paths(shardings)]
+                  if shardings is not None else [None] * len(leaves))
+        if shardings is None:
+            device = resolve_device(device)
         out = []
-        for p, tmpl in tree_paths(template):
+        for (p, tmpl), shard in zip(leaves, shards, strict=True):
             if p not in by_path:
                 raise KeyError(f"checkpoint {d} missing leaf {p}")
             i = by_path[p]
@@ -161,7 +173,10 @@ class CheckpointManager:
                     f"{p}: checkpoint shape {arr.shape} != "
                     f"{tuple(tmpl.shape)}")
             t = _from_host(arr, manifest["dtypes"][i])
-            out.append(t.to(device=device, dtype=tmpl.dtype))
+            if shard is not None:
+                out.append(shard.distribute(t.to(tmpl.dtype)))
+            else:
+                out.append(t.to(device=device, dtype=tmpl.dtype))
         return tree_unflatten(template, out), manifest["aux"], step
 
     # -- internals ---------------------------------------------------------------

@@ -9,6 +9,10 @@
     done = engine.run()
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
+``mesh=`` (a mesh of ``launch.mesh.make_mesh``) gives the engine the
+reference's decode rules on it (``engine.sharder``); a mesh whose "model"
+or "pipe" axis is larger than 1, or that would shard a parameter, raises
+``NotImplementedError`` (ROADMAP Queue A item 6.4's second half).
 
 From the command line (random weights from a seed):
 
@@ -49,6 +53,7 @@ from typing import Sequence
 import torch
 
 from ..configs import get_config
+from ..distributed.sharding import Sharder, decode_rules
 from ..models import Model
 from ..models.config import ModelConfig
 from ..serving.engine import Request, ServingEngine, model_kernel_specs
@@ -59,7 +64,7 @@ __all__ = ["build_auto_kernels", "build_engine", "build_telemetry",
 
 
 def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
-                 params: dict | None = None, seed: int = 0,
+                 mesh=None, params: dict | None = None, seed: int = 0,
                  eos_id: int = 1,
                  device: str | torch.device = "cuda",
                  plan_envelope=None, auto_kernels=None,
@@ -67,8 +72,11 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                  bucket_lattices=None, trace=None,
                  telemetry=None) -> ServingEngine:
     """An engine over ``cfg`` with ``params`` (seeded random weights if
-    None) on ``device``; the other arguments are ``ServingEngine``'s."""
+    None) on ``device``, with ``Sharder(mesh, decode_rules())``; the other
+    arguments are ``ServingEngine``'s."""
+    sharder = Sharder(mesh=mesh, rules=decode_rules())
     model = Model(cfg, device=device)
+    sharder.check_runnable(model.specs(), "serving")
     if params is None:
         params = model.init(seed)
     return ServingEngine(model, params, batch=batch, max_seq=max_seq,
@@ -77,7 +85,7 @@ def build_engine(cfg: ModelConfig, batch: int, max_seq: int,
                          auto_kernels=auto_kernels, step_plans=step_plans,
                          prefill_chunk=prefill_chunk,
                          bucket_lattices=bucket_lattices, trace=trace,
-                         telemetry=telemetry)
+                         telemetry=telemetry, sharder=sharder)
 
 
 def build_telemetry(seed: int = 0, auto_kernels=(), ledger=None,

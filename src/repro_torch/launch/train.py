@@ -3,11 +3,18 @@
 The JAX package's ``launch/train.py``: the train step of
 ``launch/steps.py``, async atomic checkpoints with keep-k and resume
 (``checkpoint/``), the deterministic resumable data stream (``data/``)
-and the step watchdog (``distributed/fault_tolerance``).  It trains on one
-device, the card unless ``device="cpu"`` (``--device cpu``); the JAX
-trainer's ``mesh`` must be None here until ``distributed/`` is ported.
-``params=`` starts from given weights instead of the seeded init (the tests
-start both packages' loops from the same converted weights).  The loop's
+and the step watchdog (``distributed/fault_tolerance``).  It trains on the
+card unless ``device="cpu"`` (``--device cpu``).  With ``mesh=`` (a
+``DeviceMesh`` of ``launch.mesh.make_mesh``; NCCL on the card, gloo on the
+CPU) it trains data parallel: ``build_sharder`` gives the step's rules,
+every rank draws the same global batch from the stream and keeps its rows
+(``global_batch % dp_size == 0``), rank 0 writes the checkpoints (every
+rank waits at a barrier after a blocking save), and every rank restores
+through ``shardings=`` (``distributed.elastic``).  A mesh the port cannot
+run (an axis other than "pod" / "data" larger than 1, a parameter sharded
+over one) raises ``NotImplementedError``.  ``params=`` starts from given
+weights instead of the seeded init (the tests start both packages' loops
+from the same converted weights).  The loop's
 own parameter and optimizer trees (``params``, ``opt_state``) are updated
 in place by every step (``make_train_step``); ``init_state`` clones a given
 ``params=``, so the caller's tree is never the one updated.
@@ -27,12 +34,12 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config
 from ..configs.base import ShapePreset
 from ..data import Prefetcher, SyntheticConfig, SyntheticStream
-from ..distributed import Watchdog
+from ..distributed import Watchdog, elastic_restore
 from ..models.api import Model
 from ..models.module import ParamSpec, spec_tree_map
 from ..optim import AdamWConfig, adamw_init, warmup_cosine
 from ..tree import tree_map
-from .steps import make_train_step
+from .steps import build_sharder, make_train_step
 
 __all__ = ["TrainLoop", "main"]
 
@@ -45,10 +52,12 @@ class TrainLoop:
                  watchdog_timeout: float = 0.0,
                  device: str | torch.device = "cuda",
                  params: dict | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device: mesh must be None until "
-                "distributed/ is ported")
+        self.sharder = (build_sharder(cfg, preset, mesh)
+                        if mesh is not None else None)
+        dp = self.sharder.dp_size() if mesh is not None else 1
+        if preset.global_batch % dp:
+            raise ValueError(f"global batch {preset.global_batch} does not "
+                             f"split over {dp} data-parallel ranks")
         self.cfg = cfg
         self.preset = preset
         opt_cfg = opt_cfg or AdamWConfig(
@@ -56,7 +65,14 @@ class TrainLoop:
         self.model = Model(cfg, device=device)
         self.opt_cfg = opt_cfg
         self.mesh = mesh
-        self.step_fn = make_train_step(self.model, opt_cfg)
+        self.step_fn = make_train_step(self.model, opt_cfg, self.sharder)
+        if mesh is not None and mesh.device_type != self.model.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train a "
+                             f"model on {self.model.device}")
+        rank = self.sharder.dp_rank() if mesh is not None else 0
+        self.rows = (rank * (preset.global_batch // dp),
+                     preset.global_batch // dp)     # this rank's rows
+        self.writer = mesh is None or torch.distributed.get_rank() == 0
         self.manager = (CheckpointManager(ckpt_dir, keep=keep)
                         if ckpt_dir else None)
         self.ckpt_every = ckpt_every
@@ -95,8 +111,18 @@ class TrainLoop:
 
     def restore_or_init(self) -> int:
         if self.manager is not None and self.manager.latest_step() is not None:
-            tree, aux, step = self.manager.restore(self._template(),
-                                                   device=self.model.device)
+            template = self._template()
+            if self.sharder is not None:
+                # every parameter is replicated (check_runnable): each
+                # rank's block is the whole leaf
+                specs = self.model.specs()
+                tree, aux, step = elastic_restore(
+                    self.manager, {k: specs for k in template},
+                    self.sharder, template)
+                tree = tree_map(lambda t: t.to_local(), tree)
+            else:
+                tree, aux, step = self.manager.restore(
+                    template, device=self.model.device)
             self.params = tree["params"]
             self.opt_state = {"mu": tree["mu"], "nu": tree["nu"],
                               "step": torch.tensor(step, dtype=torch.int32,
@@ -109,19 +135,25 @@ class TrainLoop:
         return self.step
 
     def save(self, block: bool = False) -> None:
+        """Checkpoint the loop (on rank 0 of a mesh; after a blocking save
+        every rank waits for it at a barrier)."""
         if self.manager is None:
             return
-        tree = {"params": self.params, "mu": self.opt_state["mu"],
-                "nu": self.opt_state["nu"]}
-        aux = {"stream": self.stream.state_dict(),
-               "prefetch": self.prefetch.state_dict()}
-        self.manager.save(self.step, tree, aux=aux, block=block)
+        if self.writer:
+            tree = {"params": self.params, "mu": self.opt_state["mu"],
+                    "nu": self.opt_state["nu"]}
+            aux = {"stream": self.stream.state_dict(),
+                   "prefetch": self.prefetch.state_dict()}
+            self.manager.save(self.step, tree, aux=aux, block=block)
+        if block and self.mesh is not None:
+            torch.distributed.barrier()
 
     def next_batch(self) -> dict:
-        """The stream's next batch as tensors on the model's device (a
-        vlm's zero patches, an encdec's zero frames)."""
+        """This rank's rows of the stream's next batch as tensors on the
+        model's device (a vlm's zero patches, an encdec's zero frames)."""
         cfg, dev = self.cfg, self.model.device
-        batch = {k: torch.as_tensor(v, device=dev)
+        lo, n = self.rows
+        batch = {k: torch.as_tensor(v[lo:lo + n], device=dev)
                  for k, v in self.prefetch.next_batch().items()}
         B = batch["tokens"].shape[0]
         if cfg.arch_kind == "vlm":
@@ -160,7 +192,8 @@ class TrainLoop:
                 self.save()
         if self.manager is not None:
             self.save(block=True)
-            self.manager.wait()
+            if self.writer:
+                self.manager.wait()
         return history
 
 

@@ -2,9 +2,10 @@
 as the JAX package's ``optim/compression.py``.
 
 The reference wires ``compress`` / ``decompress`` around a ``lax.psum`` for
-cross-pod data parallelism; the port keeps the functions for the
-``torch.distributed`` port (ROADMAP Queue A item 6), which has no caller
-yet.
+cross-pod data parallelism.  In the port the cross-pod mean is
+``distributed.collectives.compressed_pmean``, whose residual the caller
+folds in here (``ef_compress_tree(grads, residual)``), as
+``chip_smoke.py`` [31] (c) and ``tests/test_torch_distributed.py`` do.
 """
 
 from __future__ import annotations

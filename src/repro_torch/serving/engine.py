@@ -133,9 +133,14 @@ class ServingEngine:
                  eos_id: int = 1, seed: int = 0, warm_start: bool = True,
                  plan_envelope=None, auto_kernels=None,
                  step_plans: bool = True, prefill_chunk: int = 32,
-                 bucket_lattices=None, trace=None, telemetry=None):
+                 bucket_lattices=None, trace=None, telemetry=None,
+                 sharder=None):
         self.model = model
         self.params = params
+        # the decode rules on the engine's mesh (``launch.serve.
+        # build_engine(mesh=)``): every parameter replicated, so the steps
+        # run as on one device
+        self.sharder = sharder
         self.batch = batch
         self.max_seq = max_seq
         self.eos_id = eos_id

@@ -61,6 +61,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, BF16_OPT_STATE, get_config
 from repro_torch.configs.base import ShapePreset
 from repro_torch.data import Prefetcher, SyntheticConfig, SyntheticStream
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.launch.steps import loss_and_grads, make_train_step
 from repro_torch.launch.train import TrainLoop
 from repro_torch.models import Model, params_from_reference, spec_leaves
@@ -824,7 +825,7 @@ def test_checkpoint_roundtrip_and_layout(tmp_path):
     assert sorted(os.listdir(d)) == ["arr_0000.npy", "arr_0001.npy",
                                      "arr_0002.npy", "manifest.json"]
     assert np.load(d / "arr_0001.npy").dtype == np.uint16
-    restored, aux, step = mgr.restore(tree)
+    restored, aux, step = mgr.restore(tree, device="cpu")
     assert step == 7 and aux["stream"]["step"] == 7
     for x, y in zip(tree_leaves(tree), tree_leaves(restored)):
         assert x.dtype == y.dtype and torch.equal(x, y)
@@ -847,9 +848,9 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
     mgr.save(1, tree)
     bad = dict(tree, a=torch.zeros(3, 3))
     with pytest.raises(ValueError):
-        mgr.restore(bad)
+        mgr.restore(bad, device="cpu")
     with pytest.raises(KeyError):
-        mgr.restore(dict(tree, e=torch.zeros(1)))
+        mgr.restore(dict(tree, e=torch.zeros(1)), device="cpu")
 
 
 def test_checkpoint_restores_across_packages(tmp_path):
@@ -859,7 +860,8 @@ def test_checkpoint_restores_across_packages(tmp_path):
         3, _ref_tree(np_tree), aux={"x": 1})
     template = tree_map(lambda t: ParamSpec(tuple(t.shape), t.dtype),
                         _port_tree(np_tree))
-    got, aux, step = CheckpointManager(str(tmp_path / "r")).restore(template)
+    got, aux, step = CheckpointManager(str(tmp_path / "r")).restore(
+        template, device="cpu")
     assert (aux, step) == ({"x": 1}, 3)
     for x, y in zip(tree_leaves(_port_tree(np_tree)), tree_leaves(got)):
         assert x.dtype == y.dtype and torch.equal(x, y)
@@ -905,7 +907,7 @@ def test_checkpoint_save_then_an_in_place_step_writes_the_values_before_it(
     gate.set()
     mgr.wait()
     assert not torch.equal(params["a"], before["params"]["a"])
-    restored, _, step = mgr.restore(before)
+    restored, _, step = mgr.restore(before, device="cpu")
     assert step == 1
     for a, b in zip(tree_leaves(before), tree_leaves(restored)):
         assert torch.equal(a, b)
@@ -1157,8 +1159,11 @@ def test_trainloop_params_hook_and_mesh_refused(tmp_path):
     hist = loop.run(2, log_every=1)
     assert [m["step"] for m in hist] == [1, 2]
     assert all(np.isfinite(m["loss"]) for m in hist)
-    with pytest.raises(NotImplementedError):
-        TrainLoop(cfg, preset, mesh=object(), device="cpu")
+    # a mesh trains data parallel; one the port cannot run
+    # (a "model" axis of 2: tensor parallelism) is refused
+    with pytest.raises(NotImplementedError, match="6.4"):
+        TrainLoop(cfg, preset, mesh=AbstractMesh((1, 2), ("data", "model")),
+                  device="cpu")
 
 
 def test_trainloop_updates_its_own_trees_in_place(tmp_path):

@@ -460,6 +460,22 @@ the collectives, GPipe, the elastic restore) over NCCL and
      flash backward, SSD and SSD backward rows gain
      ``dp_train_path_launches`` (the mesh loops'), and the flash row
      ``gpipe_path_launches``.
+[32] tensor parallelism (~11 s): (a) ``TrainLoop(mesh=make_mesh((1, 1),
+     ("data", "model")), rules=train_rules(fsdp=True))`` beside
+     ``TrainLoop(mesh=None)`` on llama3.2-1b at full width, B 8 x S 256,
+     3 steps from the same weights: the tensor-parallel step at size 1 on
+     NCCL (FSDP and sequence-parallel gathers and scatters over groups of
+     one, the vocab-parallel loss, the gradients reduced by their
+     partition specs) (gated: losses and grad norms within 1e-5
+     relative, the flash forward and backward launches equal), then one
+     more step of each loop profiled (wall, device busy, NCCL, AdamW,
+     device kernels: where the size-1 loop's extra time goes); (b) the
+     flash forward and backward kernels at qwen3-14b's rank shape under
+     model 4 (B 1 x S 4096, 10 q heads, 2 kv heads, d 128, bf16) against
+     their plain versions (gated 2e-2 x max |plain|), timed beside SDPA's
+     forward and backward, the plain versions and the bound.  The flash
+     and flash backward rows gain ``tp_train_path_launches`` (the mesh
+     loop's) and ``qwen3_14b_tp4_rank``.
 
 The kernels' main paths are phases 4-5 (matmul), 8-9 (flash attention),
 12-13 (SSD scan), 16 (grouped matmul, bf16, then f32), 18 (layernorm and
@@ -483,7 +499,8 @@ the kill drill, the serving side's probes and the farm's retune) and 28
 matmul's forward and backward kernels in ``TrainLoop``, one path per
 model) and 31 (b) and (d) (flash attention's and the SSD scan's forward
 and backward kernels in the data-parallel ``TrainLoop``, flash attention
-in GPipe's stages):
+in GPipe's stages) and 32 (a) (flash attention's forward and backward
+kernels in the tensor-parallel ``TrainLoop``):
 each launch counter is set to 0
 just before its path and read just after it; launches made to compare a
 kernel with its plain version or to time it come after the read.  A
@@ -628,6 +645,11 @@ SSD_BWD_SHAPES = (("train", TRAIN_B * 24, 24, TRAIN_S),
 DP_ARCHS = ("llama3.2-1b", "mamba2-130m")
 DP_STEPS = 3
 GPIPE_MICRO, GPIPE_B, GPIPE_S = 4, 2, 1024
+# Phase 32: the tensor-parallel step at size 1 (llama3.2-1b, FSDP forced),
+# and the flash kernels at qwen3-14b's rank shape under tensor parallelism
+# over 4 cards: (B, S, q heads, kv heads, d) of one rank.
+TP_STEPS = 3
+TP_RANK_SHAPE = (1, PREFILL_S, 40 // 4, 8 // 4, 128)
 GEMMA2_ARCH = "gemma2-2b"
 GEMMA2_S = 8192
 MASKED_BWD_SHAPES = (
@@ -750,7 +772,8 @@ def _device_profile(fn, what: str,
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:6]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, **totals,
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "kernels": sum(n for _, n in by_name.values()), **totals,
             **{f"{r}_walk_ms": walk.get(r, 0.0) for r in ranges}}
 
 
@@ -1357,6 +1380,11 @@ def run(caches: list) -> int:
                        "ssd_scan_backward")):
         row["dp_train_path_launches"] = dist31["dp_train_launches"][name]
     flash_row["gpipe_path_launches"] = dist31["gpipe_launches"]
+    tp32 = tensor_parallel_phase(dev, gen, time_ms, phase_done, card)
+    for row, name in ((flash_row, "flash_attention"),
+                      (train["row"], "flash_attention_backward")):
+        row["tp_train_path_launches"] = tp32["launches"][name]
+        row["qwen3_14b_tp4_rank"] = tp32[name]
     print("phase walls (s): " + ", ".join(
         f"[{n}] {w:.2f}" for n, w in sorted(walls.items()))
         + f"; sum {sum(walls.values()):.2f}", flush=True)
@@ -7251,6 +7279,174 @@ def distributed_phase(dev, gen, phase_done, card: str) -> dict:
                 "compressed_max_err_over_scale": worst, "wall_s": wall})
     print(json.dumps({"distributed": out, "card": card}, default=str))
     return out
+
+def tensor_parallel_phase(dev, gen, time_ms, phase_done, card: str) -> dict:
+    """Phase 32: (a) ``TrainLoop(mesh=make_mesh((1, 1), ("data",
+    "model")))`` with ``train_rules(fsdp=True)`` -- the tensor-parallel
+    step at size 1 on NCCL (the FSDP gathers, the sequence-parallel
+    gathers and scatters, the vocab-parallel loss, the gradients reduced by
+    their partition specs, the norm over the blocks) -- against
+    ``TrainLoop(mesh=None)`` on llama3.2-1b; (b) the flash forward and
+    backward kernels at qwen3-14b's rank shape under tensor parallelism
+    over 4 cards (``TP_RANK_SHAPE``) against their plain versions, timed
+    beside SDPA's forward and backward and the bound.  Returns the
+    launches of (a)'s mesh loop and (b)'s rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapePreset
+    from repro_torch.distributed import train_rules
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    print(f"[32] tensor parallelism.  (a) TrainLoop(mesh=make_mesh((1, 1), "
+          f"('data', 'model')), rules=train_rules(fsdp=True)) beside "
+          f"TrainLoop(mesh=None) on llama3.2-1b at full width, B {TRAIN_B} x "
+          f"S {TRAIN_S}, {TP_STEPS} steps (gated: losses and grad norms "
+          f"within 1e-5 relative, each kernel's launches equal)", flush=True)
+    cfg = get_config("llama3.2-1b")
+    model = Model(cfg)
+    params = model.init(SEED + 32)
+    _fan_in_scaled(model, params)
+    preset = ShapePreset("chip", "train", TRAIN_S, TRAIN_B)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the mesh runs {dist.get_backend()}")
+    counters = {"flash_attention": flash.LAUNCHES,
+                "flash_attention_backward": flash.BACKWARD_LAUNCHES}
+    runs, profiles = {}, {}
+    for name, m in (("mesh=None", None), ("mesh", mesh)):
+        loop = TrainLoop(cfg, preset, mesh=m, seed=SEED, params=params,
+                         rules=train_rules(fsdp=True) if m else None)
+        loop.init_state()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        hist = loop.run(TP_STEPS, log_every=1)          # the main path
+        runs[name] = (hist, {k: c.count for k, c in counters.items()},
+                      loop.shardings is not None)
+        # where a step's time goes: one more step profiled
+        batch = loop.next_batch()
+        profiles[name] = _device_profile(
+            lambda: loop.step_fn(loop.params, loop.opt_state, batch),
+            f"one llama3.2-1b step ({name})",
+            groups=(("nccl", ("nccl",)),) + TRAIN_MORE_PROFILE_GROUPS,
+            ranges=("adamw_update",))
+        del loop, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    (ha, la, _), (hb, lb, sharded) = runs["mesh=None"], runs["mesh"]
+    rel = {k: max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(hb, ha))
+           for k in ("loss", "grad_norm")}
+    ms = {name: float(np.median([x["step_time_s"] for x in h[1:]])) * 1e3
+          for name, (h, _, _) in runs.items()}
+    print(f"  losses (mesh) " + ", ".join(f"{x['loss']:.6f}" for x in hb)
+          + "; (mesh=None) " + ", ".join(f"{x['loss']:.6f}" for x in ha)
+          + f"; max rel diff loss {rel['loss']:.2e}, grad norm "
+          f"{rel['grad_norm']:.2e}; tensor-parallel path {sharded}; "
+          f"launches a step (mesh / mesh=None): " + ", ".join(
+              f"{k} {lb[k] / TP_STEPS:g} / {la[k] / TP_STEPS:g}"
+              for k in counters)
+          + f"; ms a step {ms['mesh']:.2f} / {ms['mesh=None']:.2f}",
+          flush=True)
+    print("  a profiled step (mesh / mesh=None): " + "; ".join(
+        f"{k} {profiles['mesh'].get(k, float('nan')):.2f} / "
+        f"{profiles['mesh=None'].get(k, float('nan')):.2f}"
+        for k in ("wall_ms", "busy_ms", "nccl", "adamw_update", "kernels"))
+        + " (kernels: device kernels in the step)", flush=True)
+    if not sharded or max(rel.values()) > 1e-5 or la != lb or not all(
+            lb.values()):
+        raise AssertionError(f"the tensor-parallel loop at size 1 is not the "
+                             f"one-process loop: {rel}, launches {lb} vs {la}")
+
+    # -- (b) the flash kernels at qwen3-14b's rank shape -----------------------
+    B, S, hq, hkv, d = TP_RANK_SHAPE
+    print(f"  (b) flash forward and backward at qwen3-14b's rank shape under "
+          f"model 4 (B {B} x S {S}, {hq} q heads, {hkv} kv heads, GQA "
+          f"{hq // hkv}, d {d}, bf16, causal) against the plain versions "
+          f"(gated 2e-2 x max |plain|)", flush=True)
+    q = torch.randn(B * hq, S, d, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B * hkv, S, d, generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    kw = dict(num_q_heads=hq, num_kv_heads=hkv, causal=True)
+    tiles = dict(bq=64, bkv=128)
+    out, lse = flash.flash_attention_kernel(q, k, v, **tiles, **kw,
+                                            return_lse=True)
+    dout = torch.randn(out.shape, generator=gen, device=dev
+                       ).to(torch.bfloat16)
+    grads = flash.flash_attention_backward_kernel(q, k, v, out, dout, lse,
+                                                  **kw)
+    ran = flash.BACKWARD_LAUNCHES.tiles[(B * hq, S, S, d, True)]
+    plain_out = flash.flash_attention_plain(q, k, v, **kw)
+    plain_grads = flash.flash_attention_backward_plain(q, k, v, out, dout,
+                                                       lse, **kw)
+    torch.cuda.synchronize()
+    errs, abs_err = {}, 0.0
+    for gname, g, r in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                           (plain_out, *plain_grads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"(b): non-finite {gname}")
+        err = float((g.float() - r.float()).abs().max())
+        abs_err = max(abs_err, err)
+        errs[gname] = err / float(r.float().abs().max())
+    if max(errs.values()) > 2e-2 or ran["body"] != "wgmma":
+        raise AssertionError(f"(b): the kernels differ from the plain "
+                             f"versions: {errs}, body {ran['body']}")
+    q4 = q.reshape(B, hq, S, d).detach().requires_grad_()
+    k4, v4 = (t.reshape(B, hkv, S, d).detach().requires_grad_()
+              for t in (k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        enable_gqa=True)
+    do4 = dout.reshape(o4.shape)
+    rows = {}
+    for name, fn, plain, library, (bound, bound_by) in (
+            ("flash_attention",
+             lambda: flash.flash_attention_kernel(q, k, v, **tiles, **kw),
+             lambda: flash.flash_attention_plain(q, k, v, **kw),
+             lambda: F.scaled_dot_product_attention(
+                 q4.detach(), k4.detach(), v4.detach(), is_causal=True,
+                 enable_gqa=True),
+             _flash_bound_ms(B * hq, S, S, B * hkv, d, True, 2)),
+            ("flash_attention_backward",
+             lambda: flash.flash_attention_backward_kernel(
+                 q, k, v, out, dout, lse, **kw),
+             lambda: flash.flash_attention_backward_plain(
+                 q, k, v, out, dout, lse, **kw),
+             lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                         retain_graph=True),
+             _bwd_bound_ms(B * hq, B * hkv, S, d))):
+        ms_k = time_ms(fn)
+        r = {"bh": B * hq, "s": S, "d": d, "gqa": hq // hkv,
+             "max_abs_err": abs_err, "rel_err": errs, "ms": ms_k,
+             "plain_ms": time_ms(plain, max_iters=1),
+             "library_ms": time_ms(library), "bound_ms": bound,
+             "bound_by": bound_by, "pct_of_bound": 100.0 * bound / ms_k}
+        rows[name] = r
+        print(f"  {name}: kernel {ms_k:.4f} ms ({r['pct_of_bound']:.1f} % of "
+              f"bound) | SDPA {r['library_ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.3f} ms | bound {bound:.4f} ms ({bound_by})",
+              flush=True)
+    print(f"  rel err " + ", ".join(f"{g} {e:.2e}" for g, e in errs.items())
+          + f"; backward body {ran['body']}; card {card}", flush=True)
+    del q, k, v, out, lse, dout, grads, plain_out, plain_grads, q4, k4, v4
+    del o4, do4
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  [32] wall {wall:.2f} s", flush=True)
+    dist.destroy_process_group()
+    phase_done(32)
+    out = {"launches": lb, "rel_diff": rel, "ms": ms, "wall_s": wall,
+           "losses": [x["loss"] for x in hb], "profiles": profiles, **rows}
+    print(json.dumps({"tensor_parallel": out, "card": card}, default=str))
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

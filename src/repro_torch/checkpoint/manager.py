@@ -13,7 +13,10 @@ Leaf paths are spelt as ``jax.tree_util.keystr`` spells them
 uint16 bit pattern with dtype ``"bfloat16"``, so a checkpoint either
 package writes restores in the other.  ``save`` copies every leaf to host
 memory on the calling thread (a consistent cut; the card's queue is drained
-by the copy; a CPU leaf is copied too) and writes on a background thread.
+by the copy; a CPU leaf is copied too) and writes on a background thread;
+given ``shardings=`` (this rank's blocks of a sharded tree), every rank of
+the mesh calls it, each leaf is gathered whole one leaf at a time, and only
+the world's rank 0 copies it to its host and writes.
 ``restore`` takes a template whose leaves have ``shape`` and ``dtype``
 (tensors or specs) and puts each leaf on ``device`` (the card by default,
 as the reference restores onto the default device), or, given the
@@ -82,13 +85,30 @@ class CheckpointManager:
 
     # -- save --------------------------------------------------------------------
     def save(self, step: int, tree: Any, aux: dict | None = None,
-             block: bool = False) -> None:
+             block: bool = False, shardings: Any = None) -> None:
         """Checkpoint ``tree`` at ``step``.  aux: small JSON state (data
-        iterator position, etc.)."""
+        iterator position, etc.).  ``shardings``: a tree like ``tree`` of
+        ``distributed.sharding.TensorSharding`` whose leaves are this
+        rank's blocks; every rank must call, rank 0 writes."""
         self.wait()  # one in-flight save at a time; also surfaces errors
         t0 = time.perf_counter()
         leaves = tree_paths(tree)
-        host = [_to_host(leaf) for _, leaf in leaves]
+        if shardings is None:
+            host = [_to_host(leaf) for _, leaf in leaves]
+        else:
+            import torch.distributed as dist
+
+            from ..distributed.tensor_parallel import gather_full
+            writer = dist.get_rank() == 0
+            host = []
+            for (_, leaf), (_, sh) in zip(leaves, tree_paths(shardings),
+                                          strict=True):
+                whole = gather_full(leaf, sh.spec, sh.mesh)
+                if writer:
+                    host.append(_to_host(whole))
+                del whole
+            if not writer:
+                return
         timing = {"step": step, "copy_s": time.perf_counter() - t0}
         self.timings.append(timing)
         payload = (step, [p for p, _ in leaves], host, aux or {}, timing)

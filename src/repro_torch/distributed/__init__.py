@@ -1,10 +1,12 @@
 """Distribution: sharding rules, collectives, pipeline parallelism, fault
 tolerance and elastic restore, on ``torch.distributed``.
 
-The port runs data parallelism over the batch axes ("pod", "data") and a
-GPipe schedule over a "pipe" axis; it computes shardings for any mesh, and
-refuses to run tensor, sequence and expert parallelism and FSDP
-(``Sharder.check_runnable``; ROADMAP Queue A item 6.4's second half).
+The port runs data parallelism over the batch axes ("pod", "data"), a
+GPipe schedule over a "pipe" axis, and tensor and sequence parallelism
+over "model" with FSDP over "data" in the train step of the dense
+attention decoders (``tensor_parallel``); it computes shardings for any
+mesh, and refuses what ROADMAP Queue A items 6.4.1-6.4.6 still have to
+port (``Sharder.check_runnable``, ``sharding.LEFT``).
 """
 
 from .collectives import compressed_pmean, hierarchical_pmean

@@ -15,11 +15,13 @@ dim sharded over ("pod", "data") is ``Shard(d)`` on both mesh dims,
 pod-major, as in JAX.
 
 The port *computes* shardings on any mesh (a ``DeviceMesh`` or an
-``AbstractMesh``), but *runs* only meshes where every parameter is
-replicated and every axis other than the batch axes has size 1:
-``check_runnable`` raises ``NotImplementedError`` for the rest (tensor,
-sequence and expert parallelism over "model", FSDP over "data", pipeline
-stages in a train step; ROADMAP Queue A item 6.4's second half).
+``AbstractMesh``).  It *runs* data parallelism over the batch axes and, in
+the train step of the dense attention decoders, tensor and sequence
+parallelism over "model" and FSDP over "data" (``distributed.
+tensor_parallel``).  ``check_runnable`` raises ``NotImplementedError`` for
+the rest, each refusal naming the ROADMAP item that ports it (``LEFT``).
+``act`` checks that a rank's local tensor is the block that the spec's split
+of the global shape gives.
 
 One divergence: ``dp_size`` counts a batch axis the mesh lacks as size 1
 (the reference's ``_axes_size`` raises ``KeyError`` there, while its own
@@ -36,15 +38,30 @@ import torch
 
 from ..models.module import ParamSpec, spec_leaves
 
-__all__ = ["Sharder", "TensorSharding", "train_rules", "decode_rules",
-           "mesh_shape"]
+__all__ = ["LEFT", "Sharder", "TensorSharding", "train_rules",
+           "decode_rules", "mesh_shape", "tp_refusal"]
 
 AxisAssign = str | tuple[str, ...] | None
 PartitionSpec = tuple[AxisAssign, ...]
 
-UNPORTED = ("ROADMAP Queue A item 6.4's second half (tensor, sequence and "
-            "expert parallelism over 'model', FSDP over 'data', pipeline "
-            "stages in a step) is not ported")
+# what is left of ROADMAP Queue A item 6.4, in the order it is to be ported
+LEFT = {
+    "moe": "ROADMAP Queue A item 6.4.1 (experts over 'model', and MoE "
+           "under data parallelism) is not ported",
+    "mamba": "ROADMAP Queue A item 6.4.2 (mamba_inner / mamba_bh over "
+             "'model') is not ported",
+    "prefix": "ROADMAP Queue A item 6.4.3 (whisper's and internvl2's paths "
+              "over 'model' and FSDP) is not ported",
+    "serving": "ROADMAP Queue A item 6.4.4 (serving on a 'model' mesh with "
+               "decode_rules) is not ported",
+    "pipe": "ROADMAP Queue A item 6.4.6 (GPipe inside a train step) is not "
+            "ported",
+    "layout": "the port holds activations in the Sharder's layout only "
+              "(ROADMAP Queue A item 6.4)",
+}
+# logical axes whose split over "model" the train step's layers take: a
+# leaf where one of them is dropped would have to run replicated
+_TP_AXES = ("heads", "mlp", "vocab")
 
 
 def mesh_shape(mesh) -> dict[str, int]:
@@ -137,8 +154,8 @@ class Sharder:
     rules: dict[str, AxisAssign] = field(default_factory=dict)
     dropped: list[tuple[str, str, int]] = field(default_factory=list)
 
-    def _assign(self, dim: int, name: str | None, taken: set[str]
-                ) -> AxisAssign:
+    def _assign(self, dim: int, name: str | None, taken: set[str],
+                record: bool = True) -> AxisAssign:
         if name is None or self.mesh is None:
             return None
         assign = self.rules.get(name)
@@ -151,16 +168,19 @@ class Sharder:
             return None
         size = math.prod(sizes[a] for a in axes)
         if dim % size != 0:
-            self.dropped.append((name, "x".join(axes), dim))
+            if record:
+                self.dropped.append((name, "x".join(axes), dim))
             return None
         return axes if len(axes) > 1 else axes[0]
 
-    def pspec(self, shape: Sequence[int],
-              axes: Sequence[str | None]) -> PartitionSpec:
+    def pspec(self, shape: Sequence[int], axes: Sequence[str | None],
+              record: bool = True) -> PartitionSpec:
+        """``record=False`` leaves ``dropped`` (the reference's record of
+        its calls) as it is: the port's own layout checks ask too."""
         taken: set[str] = set()
         parts: list[AxisAssign] = []
         for dim, name in zip(shape, axes):
-            a = self._assign(dim, name, taken)
+            a = self._assign(dim, name, taken, record)
             taken.update(_names(a))
             parts.append(a)
         return tuple(parts)
@@ -175,21 +195,23 @@ class Sharder:
         axes = spec.axes if spec.axes else tuple(None for _ in spec.shape)
         return self.named(spec.shape, axes)
 
-    def act(self, x: torch.Tensor, axes: Sequence[str | None]
-            ) -> torch.Tensor:
-        """The reference's sharding constraint on an activation.  The port
-        holds an activation's local rows only, so the constraint is ``x``
-        itself where every axis of its spec has size 1 or is a batch axis;
-        any other split raises."""
+    def act(self, x: torch.Tensor, axes: Sequence[str | None],
+            shape: Sequence[int] | None = None) -> torch.Tensor:
+        """The reference's sharding constraint on an activation, as a
+        layout check: ``x`` is this rank's block of a tensor of global
+        ``shape`` (default ``x.shape``, a tensor held whole), and must have
+        the shape that the spec of ``axes`` splits ``shape`` into.  Returns
+        ``x``; raises ``ValueError`` on another shape (the port moves no
+        data here: its collectives sit where the layers call them)."""
         if self.mesh is None:
             return x
-        sizes = mesh_shape(self.mesh)
-        batch = self.batch_axes()
-        split = [a for assign in self.pspec(x.shape, axes)
-                 for a in _names(assign) if sizes[a] > 1 and a not in batch]
-        if split:
-            raise NotImplementedError(f"an activation split over {split}: "
-                                      f"{UNPORTED}")
+        shape = tuple(x.shape) if shape is None else tuple(shape)
+        spec = self.pspec(shape, axes, record=False)
+        want = _local_shape(self.mesh, shape, spec)
+        if tuple(x.shape) != want:
+            raise ValueError(f"a local {tuple(x.shape)} is not the block "
+                             f"{want} of {shape} under {spec} on "
+                             f"{mesh_shape(self.mesh)}: {LEFT['layout']}")
         return x
 
     def dp_size(self) -> int:
@@ -217,24 +239,95 @@ class Sharder:
         return tuple(a for a in _names(self.rules.get("batch"))
                      if a in sizes)
 
-    def check_runnable(self, specs, what: str) -> None:
+    def check_runnable(self, specs, what: str, cfg=None) -> None:
         """Raise ``NotImplementedError`` unless the port can run ``what``
-        on the mesh: every axis but the batch axes of size 1, and no leaf
-        of ``specs`` (a ParamSpec tree) sharded over an axis of size > 1."""
+        on the mesh.
+
+        Without ``cfg`` (serving), every axis but the batch axes must have
+        size 1 and no leaf of ``specs`` (a ParamSpec tree) may be sharded
+        over an axis of size > 1.  With ``cfg`` (a train step's model
+        config), "model" may be larger than 1 and leaves may be sharded
+        over it and over "data" (FSDP), for a decoder of dense attention
+        blocks (``tp_refusal``) whose heads, MLP and vocab split over
+        "model" (kv heads may be dropped: each rank then takes the kv
+        heads its q heads read, as where "model" splits their columns
+        mid-head)."""
         if self.mesh is None:
             return
         sizes = mesh_shape(self.mesh)
+        batch = self.batch_axes()
+        if cfg is None:
+            big = {a: n for a, n in sizes.items() if n > 1 and a not in batch}
+            if big:
+                raise NotImplementedError(f"{what} on a mesh with {big}: "
+                                          f"{LEFT['serving']}")
+            for path, spec in spec_leaves(specs):
+                over = self.param_sharding(spec).sharded_over()
+                if over:
+                    raise NotImplementedError(
+                        f"{what}: parameter {path} {spec.shape} would be "
+                        f"sharded over {over}: {LEFT['serving']}")
+            return
         big = {a: n for a, n in sizes.items()
-               if n > 1 and a not in self.batch_axes()}
+               if n > 1 and a not in batch + ("model",)}
         if big:
-            raise NotImplementedError(f"{what} on a mesh with {big}: "
-                                      f"{UNPORTED}")
-        for path, spec in spec_leaves(specs):
-            over = self.param_sharding(spec).sharded_over()
-            if over:
-                raise NotImplementedError(
-                    f"{what}: parameter {path} {spec.shape} would be "
-                    f"sharded over {over}: {UNPORTED}")
+            raise NotImplementedError(
+                f"{what} on a mesh with {big}: the step splits over the "
+                f"batch axes and 'model' only; {LEFT['pipe']}")
+        leaves = spec_leaves(specs)
+        if sizes.get("model", 1) == 1 and not any(
+                self.param_sharding(s).sharded_over() for _, s in leaves):
+            return                  # data parallel, every leaf replicated
+        reason = tp_refusal(cfg)
+        if reason is not None:
+            raise NotImplementedError(
+                f"{what} of {cfg.name} ({cfg.arch_kind}) over "
+                f"{mesh_shape(self.mesh)} with its parameters sharded: "
+                f"{reason}")
+        m = sizes.get("model", 1)
+        for path, spec in leaves:
+            if not spec.axes:
+                continue
+            got = self.pspec(spec.shape, spec.axes, record=False)
+            for dim, name, a in zip(spec.shape, spec.axes, got):
+                if name in _TP_AXES and self.rules.get(name) == "model" \
+                        and m > 1 and a != "model":
+                    raise NotImplementedError(
+                        f"{what}: {path}'s {name} ({dim}) does not split "
+                        f"over 'model' ({m}), so its layer would run "
+                        f"replicated: {LEFT['layout']}")
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        hl, group = H // m, H // KV
+        if H % m:
+            raise NotImplementedError(
+                f"{what}: {H} q heads do not split whole over 'model' "
+                f"({m}): {LEFT['layout']}")
+        if KV % m and hl % group and group % hl:
+            raise NotImplementedError(
+                f"{what}: {H} q heads over {m} ranks ({hl} each) do not map "
+                f"onto whole kv heads (GQA {group}): {LEFT['layout']}")
+
+
+def tp_refusal(cfg) -> str | None:
+    """Why the train step's tensor-parallel layers cannot run ``cfg``
+    (the ``LEFT`` item that ports it), or None for a decoder of dense
+    attention blocks: "lm", no MoE, no Mamba-2, no cross-attention."""
+    if any(d.moe for d in cfg.block_pattern):
+        return LEFT["moe"]
+    if {d.kind for d in cfg.block_pattern} != {"attn"}:
+        return LEFT["mamba"]
+    if cfg.arch_kind != "lm" or any(d.cross_attn for d in cfg.block_pattern):
+        return LEFT["prefix"]
+    return None
+
+
+def _local_shape(mesh, shape: Sequence[int], spec: PartitionSpec
+                ) -> tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` tensor under
+    ``spec``."""
+    sizes = mesh_shape(mesh)
+    return tuple(n // math.prod(sizes[a] for a in _names(assign))
+                 for n, assign in zip(shape, spec))
 
 
 def train_rules(fsdp: bool = True) -> dict[str, AxisAssign]:

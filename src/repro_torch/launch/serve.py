@@ -12,7 +12,7 @@ The engine runs on the card unless the caller passes ``device="cpu"``.
 ``mesh=`` (a mesh of ``launch.mesh.make_mesh``) gives the engine the
 reference's decode rules on it (``engine.sharder``); a mesh whose "model"
 or "pipe" axis is larger than 1, or that would shard a parameter, raises
-``NotImplementedError`` (ROADMAP Queue A item 6.4's second half).
+``NotImplementedError`` (ROADMAP Queue A item 6.4.4).
 
 From the command line (random weights from a seed):
 

@@ -6,15 +6,23 @@ The JAX package's ``launch/train.py``: the train step of
 and the step watchdog (``distributed/fault_tolerance``).  It trains on the
 card unless ``device="cpu"`` (``--device cpu``).  With ``mesh=`` (a
 ``DeviceMesh`` of ``launch.mesh.make_mesh``; NCCL on the card, gloo on the
-CPU) it trains data parallel: ``build_sharder`` gives the step's rules,
+CPU) it trains over the mesh: ``build_sharder`` gives the step's rules,
 every rank draws the same global batch from the stream and keeps its rows
-(``global_batch % dp_size == 0``), rank 0 writes the checkpoints (every
-rank waits at a barrier after a blocking save), and every rank restores
-through ``shardings=`` (``distributed.elastic``).  A mesh the port cannot
-run (an axis other than "pod" / "data" larger than 1, a parameter sharded
-over one) raises ``NotImplementedError``.  ``params=`` starts from given
-weights instead of the seeded init (the tests start both packages' loops
-from the same converted weights).  The loop's
+by its index over the batch axes alone (``global_batch % dp_size == 0``),
+so every rank of one model group reads the same rows.  On a mesh with a
+"model" axis or FSDP leaves the loop holds this rank's blocks of the
+parameters and moments (``Model.init(shardings=)``: the blocks of the
+one-process init) and the step runs tensor parallel (``launch.steps``).
+Rank 0 writes the checkpoints, each sharded leaf gathered to its host one
+leaf at a time (``CheckpointManager.save(shardings=)``; every rank waits at
+a barrier after a blocking save), and every rank restores its blocks
+through ``shardings=`` (``distributed.elastic``), from a checkpoint of any
+mesh.  A mesh or model the port cannot run raises
+``NotImplementedError``.  ``rules=`` replaces ``build_sharder``'s rules
+(``distributed.train_rules(fsdp=True)`` forces FSDP on a small model).
+``params=`` starts from given whole weights
+instead of the seeded init (the tests start both packages' loops from the
+same converted weights).  The loop's
 own parameter and optimizer trees (``params``, ``opt_state``) are updated
 in place by every step (``make_train_step``); ``init_state`` clones a given
 ``params=``, so the caller's tree is never the one updated.
@@ -34,7 +42,8 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config
 from ..configs.base import ShapePreset
 from ..data import Prefetcher, SyntheticConfig, SyntheticStream
-from ..distributed import Watchdog, elastic_restore
+from ..distributed import Sharder, Watchdog, elastic_restore
+from ..distributed.tensor_parallel import local_tree, sharded_step
 from ..models.api import Model
 from ..models.module import ParamSpec, spec_tree_map
 from ..optim import AdamWConfig, adamw_init, warmup_cosine
@@ -51,9 +60,11 @@ class TrainLoop:
                  keep: int = 3, seed: int = 0,
                  watchdog_timeout: float = 0.0,
                  device: str | torch.device = "cuda",
-                 params: dict | None = None):
-        self.sharder = (build_sharder(cfg, preset, mesh)
-                        if mesh is not None else None)
+                 params: dict | None = None, rules: dict | None = None):
+        self.sharder = None
+        if mesh is not None:
+            self.sharder = (Sharder(mesh, rules) if rules is not None
+                            else build_sharder(cfg, preset, mesh))
         dp = self.sharder.dp_size() if mesh is not None else 1
         if preset.global_batch % dp:
             raise ValueError(f"global batch {preset.global_batch} does not "
@@ -69,6 +80,11 @@ class TrainLoop:
         if mesh is not None and mesh.device_type != self.model.device.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot train a "
                              f"model on {self.model.device}")
+        # this rank's blocks of every leaf (None: each rank holds them whole)
+        self.shardings = None
+        if sharded_step(self.sharder, self.model.specs(), cfg):
+            self.shardings = spec_tree_map(self.sharder.param_sharding,
+                                           self.model.specs())
         rank = self.sharder.dp_rank() if mesh is not None else 0
         self.rows = (rank * (preset.global_batch // dp),
                      preset.global_batch // dp)     # this rank's rows
@@ -96,8 +112,10 @@ class TrainLoop:
             self.params = tree_map(
                 lambda p: p.detach().to(self.model.device).clone(),
                 self.initial_params)
+            if self.shardings is not None:
+                self.params = local_tree(self.params, self.shardings)
         else:
-            self.params = self.model.init(self.seed)
+            self.params = self.model.init(self.seed, self.shardings)
         self.opt_state = adamw_init(self.opt_cfg, self.params)
         self.step = 0
 
@@ -113,13 +131,12 @@ class TrainLoop:
         if self.manager is not None and self.manager.latest_step() is not None:
             template = self._template()
             if self.sharder is not None:
-                # every parameter is replicated (check_runnable): each
-                # rank's block is the whole leaf
+                # each rank's block of every leaf
                 specs = self.model.specs()
                 tree, aux, step = elastic_restore(
                     self.manager, {k: specs for k in template},
                     self.sharder, template)
-                tree = tree_map(lambda t: t.to_local(), tree)
+                tree = tree_map(lambda t: t.to_local().contiguous(), tree)
             else:
                 tree, aux, step = self.manager.restore(
                     template, device=self.model.device)
@@ -135,15 +152,19 @@ class TrainLoop:
         return self.step
 
     def save(self, block: bool = False) -> None:
-        """Checkpoint the loop (on rank 0 of a mesh; after a blocking save
-        every rank waits for it at a barrier)."""
+        """Checkpoint the loop (on rank 0 of a mesh, every rank taking part
+        in gathering the sharded leaves; after a blocking save every rank
+        waits for it at a barrier)."""
         if self.manager is None:
             return
-        if self.writer:
-            tree = {"params": self.params, "mu": self.opt_state["mu"],
-                    "nu": self.opt_state["nu"]}
-            aux = {"stream": self.stream.state_dict(),
-                   "prefetch": self.prefetch.state_dict()}
+        tree = {"params": self.params, "mu": self.opt_state["mu"],
+                "nu": self.opt_state["nu"]}
+        aux = {"stream": self.stream.state_dict(),
+               "prefetch": self.prefetch.state_dict()}
+        if self.shardings is not None:
+            self.manager.save(self.step, tree, aux=aux, block=block,
+                              shardings={k: self.shardings for k in tree})
+        elif self.writer:
             self.manager.save(self.step, tree, aux=aux, block=block)
         if block and self.mesh is not None:
             torch.distributed.barrier()

@@ -80,10 +80,12 @@ class Model:
             }
         return specs
 
-    def init(self, seed: int = 0) -> dict:
-        """Random weights from a generator on the model's device."""
+    def init(self, seed: int = 0, shardings=None) -> dict:
+        """Random weights from a generator on the model's device; with
+        ``shardings`` (a tree of ``TensorSharding`` like ``specs()``) each
+        rank's blocks of the one-process init (``init_params``)."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        return init_params(self.specs(), gen)
+        return init_params(self.specs(), gen, shardings)
 
     def param_count(self) -> int:
         return param_count(self.specs())
@@ -92,7 +94,7 @@ class Model:
     def train_loss(self, params: dict, batch: dict,
                    attn_op: AttnOp | None = None,
                    ssd_op: SsdOp | None = None,
-                   gmm_op: GmmOp | None = None
+                   gmm_op: GmmOp | None = None, tp=None
                    ) -> tuple[torch.Tensor, dict]:
         """(loss, {"loss", "ce", "router_aux"}) of one batch: next-token
         cross-entropy over the tokens' positions plus the MoE aux loss
@@ -102,11 +104,22 @@ class Model:
         stack, non-causal (the prefill step adds no positions to them).
         ``attn_op``, ``ssd_op`` and ``gmm_op`` replace
         ``ops.flash_attention``, ``ops.ssd_scan`` and ``ops.moe_gmm`` as in
-        ``transformer.forward``."""
+        ``transformer.forward``.
+
+        ``tp`` (a ``distributed.tensor_parallel.TensorParallel``, which the
+        train step builds for a dense attention decoder on a mesh with a
+        "model" axis or sharded leaves) runs the loss on this rank's blocks
+        of ``params`` and its rows of the batch: the layers take it, and
+        the loss is the one of these rows, the same on every rank of a
+        model group."""
         ops = dict(attn_op=attn_op, ssd_op=ssd_op, gmm_op=gmm_op)
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        if tp is not None:
+            x = T.embed_tokens(cfg, params, inputs, tp=tp)
+            hidden, aux = T.forward(cfg, params, x, tp=tp, **ops)
+            return lm_loss(cfg, params, hidden, labels, aux, tp=tp)
         x = T.embed_tokens(cfg, params, inputs)
         if cfg.arch_kind == "vlm":
             patches = torch.as_tensor(batch["patches"],

@@ -14,7 +14,11 @@ which the JAX package tunes for serving but calls from no layer.  One-token
 decode attention and the Mamba-2 recurrence are plain PyTorch, as the JAX
 package computes them outside any kernel.  The projections and the router
 are ``@`` (``torch.matmul``), as they are ``@`` / ``einsum`` in JAX.  The
-JAX functions' ``sharder`` argument is dropped: the port runs on one device.
+JAX functions' ``sharder`` argument becomes ``tp`` in ``attention`` and
+``mlp`` (a ``distributed.tensor_parallel.TensorParallel``, the train step
+on a mesh with a "model" axis): each then runs on this rank's heads or MLP
+columns between the sequence-parallel gather and scatter.  Elsewhere the
+layers run on one device.
 """
 
 from __future__ import annotations
@@ -98,14 +102,17 @@ def spec_attention(cfg: ModelConfig, prefix: str = "") -> dict:
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, xq: torch.Tensor,
-                 xkv: torch.Tensor, prefix: str = ""):
+                 xkv: torch.Tensor, prefix: str = "", heads=None):
+    """q, k, v (B, S, heads, dh).  ``heads`` = (wq, wk, wv, q heads, kv
+    heads) of a tensor-parallel rank; default all of ``p``'s."""
+    wq, wk, wv, H, KV = heads or (p[f"{prefix}wq"], p[f"{prefix}wk"],
+                                  p[f"{prefix}wv"], cfg.n_heads,
+                                  cfg.n_kv_heads)
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
-    q = (xq @ p[f"{prefix}wq"]).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
-    k = (xkv @ p[f"{prefix}wk"]).reshape(B, Skv, cfg.n_kv_heads,
-                                         cfg.head_dim)
-    v = (xkv @ p[f"{prefix}wv"]).reshape(B, Skv, cfg.n_kv_heads,
-                                         cfg.head_dim)
+    q = (xq @ wq).reshape(B, Sq, H, cfg.head_dim)
+    k = (xkv @ wk).reshape(B, Skv, KV, cfg.head_dim)
+    v = (xkv @ wv).reshape(B, Skv, KV, cfg.head_dim)
     if cfg.qk_norm and f"{prefix}q_norm" in p:
         q = rmsnorm(q, p[f"{prefix}q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p[f"{prefix}k_norm"], cfg.rms_eps)
@@ -121,17 +128,26 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
 def attention(cfg: ModelConfig, p: dict, xq: torch.Tensor, desc: BlockDesc,
               positions: torch.Tensor, xkv: torch.Tensor | None = None,
               causal: bool | None = None, prefix: str = "",
-              attn_op: AttnOp | None = None) -> torch.Tensor:
+              attn_op: AttnOp | None = None, tp=None) -> torch.Tensor:
     """Full-sequence attention (prefill).  Self unless xkv given.
 
     ``attn_op`` defaults to ``ops.flash_attention``; it takes and returns
-    the kernel layout (b * heads, s, head_dim).
+    the kernel layout (b * heads, s, head_dim).  With ``tp`` (self
+    attention only) ``xq`` is the residual's layout: it is gathered over
+    the sequence, wq / wk / wv are column-parallel (this rank's heads; the
+    GQA mapping on the local q and kv heads), wo row-parallel, and the
+    output goes back to the residual's layout (``scatter_seq``).
     """
     attn_op = attn_op or ops.flash_attention
     cross = xkv is not None
+    heads = None
+    if tp is not None:
+        xq = tp.gather_seq(xq)
+        heads = tp.heads(cfg, p, prefix)
     xkv = xq if xkv is None else xkv
     B, Sq, _ = xq.shape
-    q, k, v = _project_qkv(cfg, p, xq, xkv, prefix)
+    q, k, v = _project_qkv(cfg, p, xq, xkv, prefix, heads)
+    H, KV = q.shape[2], k.shape[2]
     if not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -139,10 +155,15 @@ def attention(cfg: ModelConfig, p: dict, xq: torch.Tensor, desc: BlockDesc,
     causal = causal and not cross
     out = attn_op(
         _heads_first(q), _heads_first(k), _heads_first(v),
-        num_q_heads=cfg.n_heads, num_kv_heads=cfg.n_kv_heads, causal=causal,
+        num_q_heads=H, num_kv_heads=KV, causal=causal,
         window=desc.window, softcap=cfg.attn_softcap, q_chunk=cfg.attn_chunk)
-    out = out.reshape(B, cfg.n_heads, Sq, cfg.head_dim).transpose(1, 2)
-    return out.reshape(B, Sq, cfg.q_dim) @ p[f"{prefix}wo"]
+    out = out.reshape(B, H, Sq, cfg.head_dim).transpose(1, 2)
+    out = out.reshape(B, Sq, H * cfg.head_dim)
+    if tp is not None:
+        tp.check(out, ("batch", None, "act_heads"),
+                 (tp.rows, tp.seq, cfg.q_dim))
+        return tp.scatter_seq(out @ p[f"{prefix}wo"])
+    return out @ p[f"{prefix}wo"]
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x1: torch.Tensor,
@@ -227,8 +248,17 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, tp=None
+        ) -> torch.Tensor:
+    """The gated MLP.  With ``tp``, ``x`` is the residual's layout: it is
+    gathered over the sequence, w_gate / w_up are column-parallel, w_down
+    row-parallel, and the output goes back to the residual's layout."""
+    if tp is not None:
+        x = tp.gather_seq(x)
     h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
+    if tp is not None:
+        tp.check(h, ("batch", None, "act_mlp"), (tp.rows, tp.seq, cfg.d_ff))
+        return tp.scatter_seq(h @ p["w_down"])
     return h @ p["w_down"]
 
 

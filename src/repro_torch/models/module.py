@@ -91,12 +91,24 @@ def spec_leaves(specs, prefix: str = "") -> list[tuple[str, ParamSpec]]:
     return out
 
 
-def init_params(specs, generator: torch.Generator):
+def init_params(specs, generator: torch.Generator, shardings=None):
     """Materialize a spec tree on ``generator.device``, leaves in sorted
-    key order from the one generator."""
+    key order from the one generator.
+
+    With ``shardings`` (a matching tree of ``distributed.sharding.
+    TensorSharding``) each leaf is this rank's block of the leaf the
+    one-process init draws: the whole leaf is drawn, its block copied out
+    and the whole freed before the next leaf, so the whole tree is never
+    held."""
     if isinstance(specs, ParamSpec):
-        return specs.materialize(generator)
-    return {k: init_params(specs[k], generator) for k in sorted(specs)}
+        leaf = specs.materialize(generator)
+        if shardings is None:
+            return leaf
+        return shardings.local(leaf).clone(
+            memory_format=torch.contiguous_format)
+    return {k: init_params(specs[k], generator,
+                           None if shardings is None else shardings[k])
+            for k in sorted(specs)}
 
 
 def param_count(specs) -> int:

@@ -10,6 +10,13 @@ the port loops over them in Python and runs each layer on views of the
 stacked leaves.  The decode cache carries the same leading axis and is
 updated in place; its cross-attention k / v stay as initialised (zeros), as
 in the JAX package, where nothing fills them either.
+
+``tp`` (a ``distributed.tensor_parallel.TensorParallel``) runs the train
+step's forward on a rank's blocks: the vocab-parallel embedding, the
+residual in the ``act_seq`` layout between blocks, each block's FSDP
+gathers and sequence-parallel collectives inside the block (so remat
+"full" recomputes them in the same order on every rank), and the head's
+vocab shard.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from .module import ParamSpec, spec_tree_map
 
 __all__ = [
     "decode_kernel_requests", "decode_step", "embed_tokens",
-    "forward", "init_cache_specs", "model_specs", "stack_specs", "unembed",
+    "forward", "init_cache_specs", "lm_head", "mask_logits", "model_specs",
+    "stack_specs", "unembed",
 ]
 
 f32 = torch.float32
@@ -84,27 +92,61 @@ def model_specs(cfg: ModelConfig) -> dict:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 tp=None) -> torch.Tensor:
+    """Token embeddings (B, S, d).  With ``tp``, a vocab-parallel lookup in
+    this rank's rows of the table (its "embed" columns gathered first),
+    out-of-shard ids giving zeros, summed over "model" into the residual's
+    layout (``scatter_seq``)."""
+    table = params["embed"]
+    if tp is not None:
+        table = tp.gather(table, tp.specs["embed"])
+        lo, n = tp.vocab(cfg)
+        ids = tokens.long() - lo
+        inside = (ids >= 0) & (ids < n)
+        tokens = torch.where(inside, ids, 0)
     # F.embedding, not indexing: its backward accumulates each row in index
     # order on the CPU and the card alike (deterministic, so a resumed
     # training run repeats the uninterrupted one bit for bit)
-    x = F.embedding(tokens, params["embed"])
+    x = F.embedding(tokens, table)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if tp is not None:
+        x = tp.scatter_seq(torch.where(inside[..., None], x, 0))
+        tp.check_residual(x)
     return x
 
 
-def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> (softcapped) f32 logits over the padded vocab."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    z = x.float() @ head.float()
+def lm_head(cfg: ModelConfig, params: dict, tp=None
+            ) -> tuple[torch.Tensor, int]:
+    """(the head (d, V) -- the tied embedding's transpose or ``lm_head``
+    -- and the global column of its first column).  With ``tp``, this
+    rank's vocab shard, its "embed" rows gathered."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head, col0 = params[name], 0
+    if tp is not None:
+        head, col0 = tp.gather(head, tp.specs[name]), tp.vocab(cfg)[0]
+    return (head.T if cfg.tie_embeddings else head), col0
+
+
+def mask_logits(cfg: ModelConfig, z: torch.Tensor, col0: int = 0
+                ) -> torch.Tensor:
+    """The softcap, then -1e30 in the padded vocab's columns (``z``'s
+    last dim holds the global columns from ``col0``)."""
     if cfg.final_softcap is not None:
         z = cfg.final_softcap * torch.tanh(z / cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
-        col = torch.arange(cfg.padded_vocab, device=z.device)
+        col = col0 + torch.arange(z.shape[-1], device=z.device)
         z = z.masked_fill(col >= cfg.vocab_size, -1e30)
     return z
+
+
+def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None
+            ) -> torch.Tensor:
+    """Hidden states -> (softcapped) f32 logits over the padded vocab
+    (with ``tp``, over this rank's vocab shard)."""
+    head, col0 = lm_head(cfg, params, tp)
+    return mask_logits(cfg, x.float() @ head.float(), col0)
 
 
 def _group(tree: dict, g: int) -> dict:
@@ -112,16 +154,23 @@ def _group(tree: dict, g: int) -> dict:
     return {k: v[g] for k, v in tree.items()}
 
 
-def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, enc_out: torch.Tensor | None,
-                 causal: bool, attn_op, ssd_op, gmm_op
+def _apply_block(cfg: ModelConfig, desc: BlockDesc, key: str, blocks: dict,
+                 g: int, x: torch.Tensor, positions: torch.Tensor,
+                 enc_out: torch.Tensor | None, causal: bool, attn_op, ssd_op,
+                 gmm_op, tp=None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One block; returns (x, its MoE aux loss, None without a MoE MLP)."""
+    """Block ``key`` of layer group ``g``; returns (x, its MoE aux loss,
+    None without a MoE MLP).  The group's views of the stacked leaves and,
+    with ``tp``, their FSDP gathers are taken here, inside the recomputed
+    block."""
+    p = _group(blocks, g)
+    if tp is not None:
+        p = tp.block(p, key)
     aux = None
     h = L.rmsnorm(x, p["norm"], cfg.rms_eps)
     if desc.kind == "attn":
         x = x + L.attention(cfg, p, h, desc, positions, causal=causal,
-                            attn_op=attn_op)
+                            attn_op=attn_op, tp=tp)
     else:
         x = x + L.mamba(cfg, p, h, ssd_op=ssd_op)
     if desc.cross_attn:
@@ -135,7 +184,7 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: dict, x: torch.Tensor,
         if desc.moe:
             y, aux = L.moe(cfg, p, h, gmm_op=gmm_op)
         else:
-            y = L.mlp(cfg, p, h)
+            y = L.mlp(cfg, p, h, tp=tp)
         x = x + y
     return x, aux
 
@@ -146,9 +195,10 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
             causal: bool | None = None,
             attn_op: L.AttnOp | None = None,
             ssd_op: L.SsdOp | None = None,
-            gmm_op: L.GmmOp | None = None
+            gmm_op: L.GmmOp | None = None, tp=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the block stack on embedded inputs x (B, S, d).
+    """Run the block stack on embedded inputs x (B, S, d) (with ``tp``,
+    the residual's layout: (B, S / model, d) under sequence parallelism).
 
     Returns (hidden_states, moe_aux_loss): the f32 sum of every MoE block's
     aux loss (0 without MoE blocks).  When a gradient flows to the block
@@ -164,6 +214,8 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     MoE layer (see ``layers.moe``).
     """
     B, S, _ = x.shape
+    if tp is not None:
+        S = tp.seq
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     causal = cfg.causal if causal is None else causal
@@ -176,15 +228,17 @@ def forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
     aux = torch.zeros((), dtype=f32, device=x.device)
     for g in range(cfg.n_groups):
         for i, desc in enumerate(cfg.block_pattern):
-            p = _group(params["blocks"][f"pos{i}"], g)
-            args = (cfg, desc, p, x, positions, enc_out, causal, attn_op,
-                    ssd_op, gmm_op)
+            key = f"pos{i}"
+            args = (cfg, desc, key, params["blocks"][key], g, x, positions,
+                    enc_out, causal, attn_op, ssd_op, gmm_op, tp)
             if remat:
                 x, a = checkpoint(_apply_block, *args, use_reentrant=False)
             else:
                 x, a = _apply_block(*args)
             if a is not None:
                 aux = aux + a
+        if tp is not None:
+            tp.check_residual(x)
     x = L.rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return x, aux
 

@@ -71,14 +71,43 @@ def _sum_of_squares(leaf: torch.Tensor) -> torch.Tensor:
                for c in leaf.reshape(-1).split(NORM_CHUNK))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(_sum_of_squares(l) for l in tree_leaves(tree)))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.
+
+    With ``shardings`` (a tree of ``distributed.sharding.TensorSharding``
+    like ``tree``, whose leaves are this rank's blocks), each leaf's local
+    sum of squares is summed over exactly the mesh axes that split it: the
+    sums of the leaves split over the same axes go as one stacked tensor,
+    one all-reduce an axis, the groups in sorted order of their axes; the
+    leaves' sums are then added in tree order, as without ``shardings``
+    (on a mesh of one rank the norm's bits are the one-process norm's).
+    Every rank gets the same norm and a replicated leaf counts once."""
+    if shardings is None:
+        return torch.sqrt(sum(_sum_of_squares(l) for l in tree_leaves(tree)))
+    import torch.distributed as dist
+    groups: dict[tuple[str, ...], list[int]] = {}
+    sums, meshes = [], []
+    for i, (leaf, sh) in enumerate(zip(tree_leaves(tree),
+                                       tree_leaves(shardings), strict=True)):
+        groups.setdefault(sh.sharded_over(), []).append(i)
+        sums.append(_sum_of_squares(leaf))
+        meshes.append(sh.mesh)
+    for axes in sorted(groups):
+        index = groups[axes]
+        if not axes:
+            continue
+        stacked = torch.stack([sums[i] for i in index])
+        for a in axes:
+            dist.all_reduce(stacked, group=meshes[index[0]].get_group(a))
+        for i, x in zip(index, stacked.unbind()):
+            sums[i] = x
+    return torch.sqrt(sum(sums))
 
 
-def _clip_scale(tree, max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+def _clip_scale(tree, max_norm: float, shardings=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(min(1, max_norm / the tree's global norm), the norm)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -132,11 +161,13 @@ def _check_in_place(cfg: AdamWConfig, params, state: dict) -> None:
 
 @torch.no_grad()
 def adamw_update_(cfg: AdamWConfig, grads, state: dict, params,
-                  sr_gen: torch.Generator | None = None):
+                  sr_gen: torch.Generator | None = None, shardings=None):
     """One AdamW step written into ``params``' and ``state``'s own tensors
     (the step counter too).  Returns (params, state, metrics), the trees it
     was given: metrics holds ``lr`` and, when clipping, ``grad_norm``
-    (before the clip)."""
+    (before the clip).  ``shardings``: the leaves are this rank's blocks
+    of a sharded tree, the clip's norm is theirs (``global_norm``), and
+    the update of each block is the one-process update's."""
     _check_in_place(cfg, params, state)
     step = state["step"] + 1
     lr = cfg.lr(step) if callable(cfg.lr) else torch.full(
@@ -145,7 +176,8 @@ def adamw_update_(cfg: AdamWConfig, grads, state: dict, params,
     metrics = {}
     scale = None
     if cfg.clip_norm is not None:
-        scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm)
+        scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm,
+                                                  shardings)
 
     sf = step.to(f32)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=f32, device=sf.device),

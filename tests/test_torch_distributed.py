@@ -184,42 +184,70 @@ TP = AbstractMesh((1, 2), ("data", "model"))
 PIPE = AbstractMesh((2, 2), ("data", "pipe"))
 
 
-@pytest.mark.parametrize("mesh", [TP, PIPE], ids=["model", "pipe"])
-def test_unported_meshes_are_refused(mesh):
-    cfg = _smoke()
+@pytest.mark.parametrize("case", [
+    "moe", "mamba", "hybrid", "whisper", "internvl2", "pipe", "serving"])
+def test_unported_meshes_are_refused(case):
+    """What ROADMAP Queue A item 6.4 still has to port raises, naming its
+    sub-item: a "model" mesh for MoE, Mamba-2, jamba's hybrid, whisper and
+    internvl2 train steps, a "pipe" axis in a step, and serving on a
+    "model" mesh (``build_engine(mesh=)``).  Every refusal comes before a
+    collective (the meshes are abstract)."""
+    arch, mesh, item = {
+        "moe": ("qwen3-moe-235b-a22b", TP, "6.4.1"),
+        "mamba": ("mamba2-130m", TP, "6.4.2"),
+        "hybrid": ("jamba-1.5-large-398b", TP, "6.4.1"),
+        "whisper": ("whisper-medium", TP, "6.4.3"),
+        "internvl2": ("internvl2-76b", TP, "6.4.3"),
+        "pipe": ("llama3.2-1b", PIPE, "6.4.6"),
+        "serving": ("llama3.2-1b", TP, "6.4.4"),
+    }[case]
+    cfg = _smoke(arch)
     preset = ShapePreset("t", "train", S, B)
-    with pytest.raises(NotImplementedError, match="6.4"):
+    if case == "serving":
+        with pytest.raises(NotImplementedError, match=item):
+            build_engine(cfg, 1, 8, mesh=mesh, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match=item):
         TrainLoop(cfg, preset, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="6.4"):
+    with pytest.raises(NotImplementedError, match=item):
         make_train_step(Model(cfg, device="cpu"), AdamWConfig(),
                         build_sharder(cfg, preset, mesh))
-    with pytest.raises(NotImplementedError, match="6.4"):
-        build_engine(cfg, 1, 8, mesh=mesh, device="cpu")
-    sh = Sharder(mesh, train_rules(fsdp=False))
-    x = torch.zeros(2, 8, 64)
-    if "model" in mesh.mesh_dim_names:
-        with pytest.raises(NotImplementedError, match="6.4"):
-            sh.act(x, ("batch", "act_seq", "act_embed"))
 
 
 def test_act_passes_batch_splits_through():
-    sh = Sharder(AbstractMesh((2, 1), ("data", "model")),
+    """``Sharder.act`` checks a rank's block: the batch split over "data"
+    and the sequence over "model" pass it through; a tensor of another
+    local shape raises, naming item 6.4."""
+    sh = Sharder(AbstractMesh((2, 4), ("data", "model")),
                  train_rules(fsdp=False))
     x = torch.zeros(2, 8, 64)
-    assert sh.act(x, ("batch", "act_seq", "act_embed")) is x
+    axes = ("batch", "act_seq", "act_embed")
+    assert sh.act(x, axes, (4, 32, 64)) is x
+    assert sh.act(torch.zeros(2, 9, 64), axes, (4, 9, 64)) is not None
+    for bad in ((4, 8, 64), (2, 32, 64), (2, 8, 16)):
+        with pytest.raises(ValueError, match="6.4"):
+            sh.act(torch.zeros(bad), axes, (4, 32, 64))
+    with pytest.raises(ValueError, match="6.4"):
+        sh.act(x, axes)                  # held whole, but split over both
     assert Sharder(None).act(x, ("batch", None, None)) is x
+    assert not sh.dropped                # act records no drops
 
 
 def test_a_parameter_sharded_over_data_is_refused():
-    """FSDP: "embed" over "data" (the big archs' rule) would shard the
-    smoke llama's embeddings over 2 ranks."""
-    cfg = _smoke()
+    """FSDP: "embed" over "data" (the big archs' rule) runs for the dense
+    attention decoders and is refused, naming item 6.4's part, for the
+    models whose layers are not ported over a mesh."""
     mesh = AbstractMesh((2,), ("data",))
-    sh = Sharder(mesh, train_rules(fsdp=True))
-    with pytest.raises(NotImplementedError, match="sharded over"):
-        make_train_step(Model(cfg, device="cpu"), AdamWConfig(), sh)
-    big = cfg.replace(d_model=4096)          # build_sharder's FSDP rule
-    with pytest.raises(NotImplementedError, match="sharded over"):
+    make_train_step(Model(_smoke(), device="cpu"), AdamWConfig(),
+                    Sharder(mesh, train_rules(fsdp=True)))
+    for arch, item in (("mamba2-130m", "6.4.2"), ("whisper-medium", "6.4.3"),
+                       ("qwen3-moe-235b-a22b", "6.4.1")):
+        cfg = _smoke(arch)
+        with pytest.raises(NotImplementedError, match=item):
+            make_train_step(Model(cfg, device="cpu"), AdamWConfig(),
+                            Sharder(mesh, train_rules(fsdp=True)))
+    big = _smoke("mamba2-130m").replace(d_model=4096)  # build_sharder's FSDP
+    with pytest.raises(NotImplementedError, match="6.4.2"):
         TrainLoop(big, ShapePreset("t", "train", S, B), mesh=mesh,
                   device="cpu")
 
@@ -325,6 +353,32 @@ _WORKER = textwrap.dedent(r'''
                           ckpt_dir=f"{d}/ckpt")
         out["resume/step"] = again.restore_or_init()
         flat({"p": again.params, "mu": again.opt_state["mu"]}, "resume/")
+        # whisper and a vlm on ("data" 2, "model" 1): every leaf
+        # replicated, so the data-parallel step with their own layers
+        mm = make_mesh((2, 1), ("data", "model"), "cpu")
+        for arch in ("whisper-medium", "internvl2-76b"):
+            c = get_config(arch, smoke=True).replace(dtype=torch.float32)
+            m_ = Model(c, device="cpu")
+            rng = np.random.RandomState(5)
+            batch = {"tokens": rng.randint(0, c.vocab_size, (B, S + 1))}
+            if c.arch_kind == "vlm":
+                batch["patches"] = rng.randn(B, c.num_patches, c.d_model
+                                             ).astype(np.float32)
+            else:
+                batch["frames"] = rng.randn(B, c.encoder_seq, c.d_model
+                                            ).astype(np.float32)
+            init = m_.init(0)
+            for name, sh, rows in (
+                    ("one", None, batch),
+                    ("mesh", build_sharder(c, preset, mm),
+                     {k: v[rank * half:(rank + 1) * half]
+                      for k, v in batch.items()})):
+                p = tree_map(torch.clone, init)
+                p, _, m = make_train_step(m_, opt, sh)(
+                    p, adamw_init(opt, p), rows)
+                flat(p, f"mm/{arch}/{name}/")
+                out.update({f"mm/{arch}/{name}/metric/{k}": float(v)
+                            for k, v in m.items()})
         try:
             moe = get_config("qwen3-moe-235b-a22b", smoke=True)
             make_train_step(Model(moe, device="cpu"), opt,
@@ -495,6 +549,30 @@ def test_data_parallel_step_matches_the_ports_one_process_step(dp_world):
     for k, v in r0.items():                  # both ranks hold one model
         if k.startswith(("step/", "loop/", "metric/")):
             np.testing.assert_array_equal(v, r1[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"])
+def test_prefix_models_train_data_parallel_on_a_model_axis_of_size_one(
+        dp_world, arch):
+    """On ("data" 2, "model" 1) whisper's encoder and internvl2's patches
+    stay in the step: every leaf is replicated, the layers are the
+    one-process ones, and the step is the one-process step on the global
+    batch (loss, ce, grad_norm within 1e-5 relative, every parameter
+    within 1e-5 x max |leaf|), the same on both ranks."""
+    r0, r1 = dp_world["outs"]
+    pre = f"mm/{arch}/"
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        np.testing.assert_allclose(r0[f"{pre}mesh/metric/{k}"],
+                                   r0[f"{pre}one/metric/{k}"], rtol=1e-5,
+                                   err_msg=k)
+    leaves = [k[len(pre + "one/"):] for k in r0
+              if k.startswith(pre + "one/") and "/metric/" not in k]
+    assert any(k.startswith("['encoder']") for k in leaves) \
+        == (arch == "whisper-medium")
+    for path in leaves:
+        _close(r0[f"{pre}mesh/{path}"], r0[f"{pre}one/{path}"], 1e-5, path)
+        np.testing.assert_array_equal(r0[f"{pre}mesh/{path}"],
+                                      r1[f"{pre}mesh/{path}"], err_msg=path)
 
 
 def test_train_loop_on_a_mesh_matches_the_one_process_loop(dp_world):

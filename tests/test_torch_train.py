@@ -1159,10 +1159,10 @@ def test_trainloop_params_hook_and_mesh_refused(tmp_path):
     hist = loop.run(2, log_every=1)
     assert [m["step"] for m in hist] == [1, 2]
     assert all(np.isfinite(m["loss"]) for m in hist)
-    # a mesh trains data parallel; one the port cannot run
-    # (a "model" axis of 2: tensor parallelism) is refused
+    # a mesh trains data or tensor parallel; one the port cannot run
+    # (a "pipe" axis of 2: GPipe inside a step) is refused
     with pytest.raises(NotImplementedError, match="6.4"):
-        TrainLoop(cfg, preset, mesh=AbstractMesh((1, 2), ("data", "model")),
+        TrainLoop(cfg, preset, mesh=AbstractMesh((1, 2), ("data", "pipe")),
                   device="cpu")
 
 
